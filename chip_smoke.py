@@ -5,31 +5,61 @@
 
 Run from the root of a checkout on a machine with a CUDA GPU and nvcc.
 It builds the port's CUDA kernels from csrc/, then drives the port's main
-path — the batched 5-node Raft chaos sweep at B=100,000 lanes — and holds
-every kernel against its plain PyTorch version and the engine against the
-frozen golden digests. One JSON object per line, in phases:
+paths — the golden workloads and the batched 5-node Raft chaos sweep at
+B=100,000 lanes, through the eager chunked runner `Runtime.run` and the
+CUDA-graph runner `Runtime.run_fused` — and holds every kernel against
+its plain PyTorch version and the engine against the frozen golden
+digests. One JSON object per line, in phases:
 
   device       torch / CUDA versions, the card's name and power limit
   build        nvcc of every kernel source, in parallel, with ptxas stats
-  pingpong     the frozen golden pingpong workload (64 seeds, 4000 steps,
-               chunk 256) through Runtime.run: its 67 engine-leaf digests
+  golden       the frozen golden workloads (pingpong with the flight
+               recorder, trace_cap=64: 64 seeds, 4000 steps, chunk 256;
+               wal_kv: 32 seeds, 30,000 steps, chunk 512), each through
+               Runtime.run and Runtime.run_fused: all 342 leaf digests
                must equal tests/data/golden_r22_leaves.json
   flagship     bench.py's Raft chaos config at B=100,000 for 2048 steps
-               (chunk 512): no crash, no overflow, >90% of lanes live;
-               seed-events/s, ms/step, peak device memory
-  kernel       sched_pick against sched_pick_plain on edge-case tables and
-               on tables captured from the flagship at steps 0, 512, 2048:
-               exactly equal; kernel and plain times and the byte bound
+               (chunk 512) through Runtime.run: no crash, no overflow,
+               >90% of lanes live; seed-events/s, ms/step, peak memory
+  fused        the same config with the flight recorder on every lane
+               (trace_cap=64), B=100,000, 2048 steps, through run_fused:
+               no crash or overflow, >90% live, fingerprints equal to the
+               flagship phase's (the recorder changes no other leaf), lane
+               0's ring non-empty with increasing steps; ms/step beside
+               the eager runner's
+  fused_wal_kv the wal_kv golden config at B=100,000 through run_fused:
+               no crash, every lane halted, lanes 0..31 reproduce the 91
+               frozen run_fused digests; both kernels' operands are taken
+               at step 40 of this batch for the kernel phase
+  kernel       each kernel against its plain version, exactly equal
+               (the kernel's time is device time: launches captured in a
+               CUDA graph and replayed between events):
+               sched_pick on edge-case tables and on tables captured from
+               the flagship at steps 0, 512, 2048 and from wal_kv at
+               B=100,000, C=256, step 40; emit_write on edge-case
+               operands at C=96 and C=256 (full tables, masked
+               emissions, clogged links, loss 0 and 1, jitter, skew, disk
+               delay, a wrapping ring) and on operands captured from the
+               traced flagship at steps 0 and 512 and from wal_kv at
+               step 40 (32 golden lanes, and B=100,000); kernel and plain
+               times, the bound from the bytes the write needs, and
+               apart from it the bytes of the functional copy
   determinism  lanes 0..4095 alone, twice: fingerprints equal to each
                other and to lanes 0..4095 of the B=100,000 run
-  profile      torch.profiler over 16 flagship steps at B=100,000: device
-               kernels launched per step, device busy share, top kernels
+  profile      torch.profiler over 16 flagship steps at B=100,000, for
+               each runner: device kernels per step, device busy share,
+               top kernels; each kernel's device events in the trace
+               must number 16 (replays counted on the card)
   kernels      one line naming every kernel with its numbers
 
 Each main path runs with every kernel's launch count set to 0 just before
-and read just after; a kernel of the path that was not launched on every
-step fails the run. Any failed check raises: the script exits nonzero and
-prints no result. Its last line is
+and read just after; a kernel of the path that was not launched once per
+step fails the run. A CUDA-graph replay launches the kernels it captured
+without calling their wrappers, so run_fused's launches are the
+wrappers' own counts (the warm-up step before a capture) plus the
+launches captured per block times the replays; the profile phase counts
+the replayed launches on the card too. Any failed check raises:
+the script exits nonzero and prints no result. Its last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It needs no network and imports no JAX.
 """
@@ -46,6 +76,10 @@ FLAG_CHUNK = 512
 DET_B = 4096
 PROF_STEPS = 16
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
+# H100 SXM float32 peak outside the tensor cores (data sheet), taken as
+# the rate of the kernels' 32-bit integer operations: the card's int32
+# rate is no higher, so the bound it gives is a true lower bound
+INT32_OPS_PER_S = 67e12
 
 
 def emit(**obj):
@@ -69,6 +103,30 @@ def cuda_ms(fn, n):
         fn()
     t1.record()
     torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / n
+
+
+def graph_ms(fn, n):
+    """Device time of one `fn()` call: n calls captured as one CUDA graph
+    and replayed between CUDA events, so no host time falls between the
+    launches (a small kernel launched from Python is otherwise timed at
+    the host's issue rate)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    del graph
     return t0.elapsed_time(t1) / n
 
 
@@ -146,21 +204,224 @@ def edge_inputs(dev, B, C, N, seed=0):
         hashes))
 
 
-def profile_steps(workloads, dev, np):
-    """Trace PROF_STEPS flagship steps at full width with torch.profiler:
+def clone_tree(x):
+    """A deep copy of nested dicts / tuples / lists of tensors."""
+    import torch
+    if isinstance(x, dict):
+        return {k: clone_tree(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(clone_tree(v) for v in x)
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
+def flat_tree(x, prefix=""):
+    """{path: tensor} over nested dicts / tuples of tensors (None skipped)."""
+    out = {}
+    if isinstance(x, dict):
+        for k, v in x.items():
+            out.update(flat_tree(v, f"{prefix}.{k}"))
+    elif isinstance(x, (tuple, list)):
+        for i, v in enumerate(x):
+            out.update(flat_tree(v, f"{prefix}[{i}]"))
+    elif x is not None:
+        out[prefix] = x
+    return out
+
+
+def emit_operands(rt, state):
+    """The emit_write operands of the next step of `state`: the step runs
+    once with a recording proxy in place of the kernel's wrapper (its
+    launch is not on a counted path). Returns (tables, em, lane, ring,
+    n_sends, use_jitter), cloned."""
+    import madsim_tpu_torch.core.step as step_mod
+    seen = []
+    real = step_mod.emit_write
+
+    def spy(*args):
+        seen.append(clone_tree(args))
+        return real(*args)
+
+    step_mod.emit_write = spy
+    try:
+        rt._step(state)
+    finally:
+        step_mod.emit_write = real
+    check(len(seen) == 1, "emit_operands: the step did not call emit_write")
+    return seen[0]
+
+
+def emit_edge_operands(dev, B, C, N, P, E, n_sends, jitter, ring, prov,
+                       seed):
+    """Random emit_write operands with the lanes the kernel must get
+    right: full tables (overflow), a few free rows, masked-off emissions,
+    clogged nodes and links, loss 0 and 1, jitter, clock skew and disk
+    delay, unsampled and idle lanes, and a ring that wraps."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    i32 = np.int32
+
+    def ints(lo, hi, shape):
+        return rng.integers(lo, hi, shape).astype(i32)
+
+    kind = ints(0, 4, (B, C))
+    kind[rng.random((B, C)) < 0.5] = 0
+    kind[0::31] = 1                                   # full: overflow
+    kind[1::31] = 2
+    kind[1::31, :max(E // 2, 1)] = 0                  # too few free rows
+    tables = dict(
+        t_deadline=ints(0, 2 ** 31 - 1, (B, C)), t_kind=kind,
+        t_node=ints(-1, N + 1, (B, C)), t_src=ints(0, N, (B, C)),
+        t_tag=ints(-2 ** 31, 2 ** 31 - 1, (B, C)),
+        t_payload=ints(-2 ** 31, 2 ** 31 - 1, (B, C, P)),
+        ev_prov=ints(-1, 10 ** 6, (B, C if prov else 0, 2)))
+    m = rng.random((B, E)) < 0.7
+    m[2::31] = False                                  # nothing staged
+    a = np.concatenate([ints(-2, N + 2, (B, n_sends)),       # dst
+                        ints(0, 2 ** 24, (B, E - n_sends))], 1)  # delay
+    em = dict(m=m, a=a, tag=ints(-2 ** 31, 2 ** 31 - 1, (B, E)),
+              payload=ints(-2 ** 31, 2 ** 31 - 1, (B, E, P)))
+    loss = rng.random(B).astype(np.float32)
+    loss[3::31], loss[4::31] = 0.0, 1.0
+    lat_lo = ints(0, 5000, B)
+    lane = dict(
+        now=ints(0, 2 ** 30, B), h_node=ints(0, N, B),
+        sk_h=np.where(rng.random(B) < 0.5, ints(-512, 513, B), 0).astype(i32),
+        dlat_h=np.where(rng.random(B) < 0.5, ints(0, 10 ** 7, B),
+                        0).astype(i32),
+        loss=loss, lat_lo=lat_lo, lat_hi=lat_lo + ints(0, 5000, B),
+        jitter=ints(0, 300, B), k_net=ints(-2 ** 31, 2 ** 31 - 1, (B, 2)),
+        clog_node=rng.random((B, N)) < 0.1,
+        clog_link=rng.random((B, N, N)) < 0.2,
+        disp_idx=ints(0, 10 ** 6, B), ev_lamport=ints(1, 10 ** 6, B))
+    rg = None
+    if ring:
+        TC = 64
+        cap = ints(1, TC + 1, B)
+        cap[5::31] = TC
+        rg = dict(fired=rng.random(B) < 0.8, trace_on=rng.random(B) < 0.8,
+                  trace_pos=ints(0, 10 ** 5, B), trace_cap=cap,
+                  kind=ints(0, 4, B), node=ints(0, N, B), src=ints(0, N, B),
+                  tag=ints(-2 ** 31, 2 ** 31 - 1, B),
+                  parent=ints(-1, 10 ** 6, B),
+                  cols={k: ints(-2 ** 31, 2 ** 31 - 1, (B, TC)) for k in (
+                      "tr_now", "tr_step", "tr_kind", "tr_node", "tr_src",
+                      "tr_tag", "tr_parent", "tr_lamport")})
+
+    def dev_tree(x):
+        if isinstance(x, dict):
+            return {k: dev_tree(v) for k, v in x.items()}
+        return torch.as_tensor(x, device=dev)
+
+    return (dev_tree(tables), dev_tree(em), dev_tree(lane),
+            None if rg is None else dev_tree(rg), n_sends, jitter)
+
+
+def emit_bound(tables, em, lane, ring, n_sends, use_jitter):
+    """(bytes, operations, copy_bytes) of the emission write for these
+    operands. bytes: what the write itself needs, each input byte read
+    once and each byte it changes written once, counted for this data:
+    - with emissions: every lane's t_kind row (the free-row ranking and
+      high_water), its mask vector, its lane scalars (now, h_node, sk_h,
+      dlat_h, loss, lat_lo, lat_hi, jitter, k_net; disp_idx and
+      ev_lamport with the lineage plane) and its four statistics; each
+      masked emission's operand and tag, each masked send's three clog
+      flags; each written emission's payload read and its whole table
+      row written (five columns, P payload words, the provenance pair);
+    - with the ring: every lane's fired, trace_on, trace_pos, trace_cap
+      and new trace_pos; for each recording lane its record operands
+      (and now, disp_idx, ev_lamport where not counted above) and its
+      eight-word ring row.
+    copy_bytes: what the kernel moves on top because it returns new
+    tensors, not the caller's updated in place: every table row and ring
+    row the write leaves as it was, read and written once.
+    Operations: 80 integer operations per threefry block (20 rounds of
+    add, rotate, xor plus the key schedule) for the draws masked
+    emissions need: a send's loss (3 blocks) and latency (6), and each
+    emission's jitter (6) with jitter on."""
+    from madsim_tpu_torch.ops.emit_write import emit_write_plain
+    t_kind = tables["t_kind"]
+    B, C = t_kind.shape
+    P = tables["t_payload"].shape[2]
+    E = em["m"].shape[1]
+    prov = tables["ev_prov"].shape[1] > 0
+    row_bytes = 4 * 5 + 4 * P + (8 if prov else 0)
+    nbytes = ops = copy = 0
+    if E > 0:
+        _, stats, _ = emit_write_plain(tables, em, lane, None, n_sends,
+                                       use_jitter)
+        written = int(stats["high_water"].sum()
+                      - (t_kind != 0).sum())          # rows emissions took
+        masked = int(em["m"].sum())
+        masked_sends = int(em["m"][:, :n_sends].sum())
+        lane_words = 10 + (2 if prov else 0)
+        nbytes += B * C * 4                           # t_kind
+        nbytes += B * (E + 4 * lane_words + 13)       # masks, scalars, stats
+        nbytes += masked * 8 + masked_sends * 3
+        nbytes += written * (4 * P + row_bytes)       # payload in, row out
+        copy += (B * C - written) * row_bytes * 2
+        blocks = masked_sends * 9 + (masked * 6 if use_jitter else 0)
+        ops = 80 * blocks
+    if ring is not None:
+        TC = ring["cols"]["tr_now"].shape[1]
+        rec = int((ring["fired"] & ring["trace_on"]).sum())
+        extra = 0 if (E > 0 and prov) else 8 if E > 0 else 12
+        nbytes += B * (2 + 4 * 3) + rec * (4 * 5 + extra + 8 * 4)
+        copy += (B * TC - rec) * 8 * 4 * 2
+    return nbytes, ops, copy
+
+
+def check_equal(name, a, b):
+    """Exact equality of two result trees; returns the max |difference|."""
+    import torch
+    fa, fb = flat_tree(a), flat_tree(b)
+    check(sorted(fa) == sorted(fb), f"{name}: outputs differ in structure")
+    err = 0
+    for k in fa:
+        x, y = fa[k], fb[k]
+        check(x.shape == y.shape and x.dtype == y.dtype,
+              f"{name}: {k} {tuple(x.shape)} {x.dtype} vs "
+              f"{tuple(y.shape)} {y.dtype}")
+        if x.numel():
+            err = max(err, int((x.to(torch.int64) - y.to(torch.int64))
+                               .abs().max()))
+        check(torch.equal(x, y), f"{name}: {k} differs")
+    return err
+
+
+def slice_lanes(state, n):
+    from madsim_tpu_torch.core.state import map_state
+    return map_state(lambda t: t[:n], state)
+
+
+def fused_launches(rt, counts, names):
+    """A run_fused call's kernel launches: the wrappers' own counts plus
+    the launches captured per block times the replays."""
+    st = rt.fused_stats
+    return {k: counts[k] + st["captured"][k] * st["replays"] for k in names}
+
+
+def check_once_per_step(what, launches, steps, names):
+    for k in names:
+        check(launches[k] == steps,
+              f"{what}: {k} launched {launches[k]} times in {steps} steps")
+
+
+def profile_steps(run, state, batch, names):
+    """Trace PROF_STEPS steps of `run(state, n)` with torch.profiler:
     device kernels per step, their summed device time against the wall
-    time (the device's busy share), and the top kernels. Device numbers
-    are null when the profiler records no device activity."""
+    time (the device's busy share), the top kernels, and the device
+    events of each kernel in `names` (`kernel_launches`: what ran on the
+    card, graph replays included). Device numbers are null when the
+    profiler records no device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    rt = workloads.flagship_runtime(device=dev)
-    s = rt.init_batch(np.arange(FLAG_B, dtype=np.uint32))
-    s, _ = rt.run(s, 8, chunk=8)                  # warm
+    state = run(state, PROF_STEPS)                # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        s, _ = rt.run(s, PROF_STEPS, chunk=PROF_STEPS)
+        state = run(state, PROF_STEPS)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     dev_events = [e for e in prof.events()
@@ -169,25 +430,33 @@ def profile_steps(workloads, dev, np):
                 if e.device_type == torch.autograd.DeviceType.CPU
                 and "LaunchKernel" in e.name]
     if not dev_events:
-        return dict(steps=PROF_STEPS, wall_ms_per_step=wall_us / PROF_STEPS
-                    / 1e3, device_busy_share=None,
-                    device_kernels_per_step=None,
-                    host_launches_per_step=len(launches) / PROF_STEPS)
+        return dict(steps=PROF_STEPS, batch=batch,
+                    wall_ms_per_step=wall_us / PROF_STEPS / 1e3,
+                    device_busy_share=None, device_kernels_per_step=None,
+                    host_launches_per_step=len(launches) / PROF_STEPS,
+                    kernel_launches=None)
     by_name: dict = {}
     for e in dev_events:     # a device event's span is its kernel time
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+
+    def kernel_ms(tag):
+        return sum(t for n, t in by_name.items() if tag in n) \
+            / PROF_STEPS / 1e3
+
+    traced = {k: sum(k in e.name for e in dev_events) for k in names}
+
     return dict(
-        steps=PROF_STEPS, batch=FLAG_B,
+        steps=PROF_STEPS, batch=batch,
         wall_ms_per_step=wall_us / PROF_STEPS / 1e3,
         device_busy_ms_per_step=busy_us / PROF_STEPS / 1e3,
         device_busy_share=busy_us / wall_us,
         device_kernels_per_step=len(dev_events) / PROF_STEPS,
         host_launches_per_step=len(launches) / PROF_STEPS,
-        sched_pick_ms_per_step=sum(
-            t for n, t in by_name.items() if "sched_pick" in n)
-        / PROF_STEPS / 1e3,
+        sched_pick_ms_per_step=kernel_ms("sched_pick"),
+        emit_write_ms_per_step=kernel_ms("emit_write"),
+        kernel_launches=traced,
         top_kernels_ms_per_step=[[n[:80], t / PROF_STEPS / 1e3]
                                  for n, t in top])
 
@@ -201,7 +470,10 @@ def main() -> int:
     sys.path.insert(0, here)
     try:
         from madsim_tpu_torch import interop, workloads
+        from madsim_tpu_torch.obs.rings import ring_records
         from madsim_tpu_torch.ops import kernels
+        from madsim_tpu_torch.ops.emit_write import (emit_write,
+                                                     emit_write_plain)
         from madsim_tpu_torch.ops.sched_pick import (sched_pick,
                                                      sched_pick_plain)
     except ImportError as e:
@@ -211,11 +483,13 @@ def main() -> int:
     import numpy as np
 
     dev = torch.device("cuda")
-    wrappers = {"sched_pick": sched_pick}
+    wrappers = kernels.wrappers()
+    names = sorted(wrappers)
 
     def reset_counts():
         for w in wrappers.values():
             w.launches = 0
+            w.captured = 0
 
     def read_counts():
         return {k: w.launches for k, w in wrappers.items()}
@@ -238,34 +512,56 @@ def main() -> int:
              for k, r in report.items()}
     emit(phase="build", seconds=time.perf_counter() - t0,
          kernels=sorted(report), ptxas=ptxas)
+    check(sorted(report) == names, f"build: {sorted(report)} != {names}")
 
-    # ---- pingpong: the frozen golden digests --------------------------------
+    # ---- golden: the frozen digests through both runners --------------------
     with open(os.path.join(here, "tests", "data",
                            "golden_r22_leaves.json")) as f:
-        golden = json.load(f)["pingpong"]["run"]
-    p = workloads.PINGPONG_RUN
-    rt = workloads.pingpong_runtime(device=dev)
-    s = rt.init_batch(np.arange(p["seeds"], dtype=np.uint32))
-    reset_counts()
-    t0 = time.perf_counter()
-    s, _ = rt.run(s, p["max_steps"], p["chunk"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = read_counts()
-    check(counts["sched_pick"] == rt.steps_run > 0,
-          f"pingpong: sched_pick launches {counts} != steps {rt.steps_run}")
-    got = interop.leaf_digests(s)
-    engine = [k for k in golden if k not in workloads.RECORDER_LEAVES]
-    bad = [k for k in engine if got.get(k) != golden[k]]
-    emit(phase="pingpong", seeds=p["seeds"], steps_run=rt.steps_run,
-         wall_s=wall, launches=counts, engine_leaves=len(engine),
-         mismatched=bad, skipped_recorder_leaves=list(
-             workloads.RECORDER_LEAVES))
-    check(len(engine) == 67 and not bad,
-          f"pingpong golden digests differ: {bad}")
-    del s, rt
+        golden = json.load(f)
+    emit_cases = {}
+    n_leaves = 0
+    for wname, build in workloads.GOLDEN_WORKLOADS.items():
+        p = workloads.GOLDEN_RUNS[wname]
+        rt = build(device=dev)
+        seeds = np.arange(p["seeds"], dtype=np.uint32)
+        for runner in ("run", "run_fused"):
+            s = rt.init_batch(seeds)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            if runner == "run":
+                s, _ = rt.run(s, p["max_steps"], p["chunk"])
+            else:
+                s = rt.run_fused(s, p["max_steps"], p["chunk"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            if runner == "run":
+                launches, steps = counts, rt.steps_run
+            else:
+                launches = fused_launches(rt, counts, names)
+                steps = rt.steps_run + rt.fused_stats["warmup_steps"]
+            check(steps > 0, f"golden {wname} {runner}: no step ran")
+            check_once_per_step(f"golden {wname} {runner}", launches, steps,
+                                names)
+            want = golden[wname][runner]
+            got = interop.leaf_digests(s)
+            bad = [k for k in want if got.get(k) != want[k]]
+            n_leaves += len(want)
+            emit(phase="golden", workload=wname, runner=runner,
+                 seeds=p["seeds"], steps_run=rt.steps_run, wall_s=wall,
+                 launches=launches, fused=getattr(rt, "fused_stats", None)
+                 if runner == "run_fused" else None, leaves=len(want),
+                 mismatched=bad)
+            check(not bad, f"golden {wname} {runner}: digests differ: {bad}")
+        if wname == "wal_kv":          # operands from mid-run
+            s = rt.init_batch(seeds)
+            s, _ = rt.run(s, 40, chunk=40)
+            emit_cases["wal_kv_step_40"] = emit_operands(rt, s)
+        del s, rt
+    check(n_leaves == 342, f"golden: {n_leaves} leaves checked, not 342")
 
-    # ---- flagship: the main path at full width ------------------------------
+    # ---- flagship: the eager runner at full width ---------------------------
     rt = workloads.flagship_runtime(device=dev)
     s = rt.init_batch(np.arange(FLAG_B, dtype=np.uint32))
     captured = {0: select_inputs(s)}
@@ -288,19 +584,18 @@ def main() -> int:
     steps_run = first_steps + rt.steps_run
     captured[FLAG_CHUNK] = snap
     captured[FLAG_STEPS] = select_inputs(s)
-    check(counts["sched_pick"] == steps_run == FLAG_STEPS,
-          f"flagship: sched_pick launches {counts} != steps {steps_run}")
-    flag_launches = counts
+    check(steps_run == FLAG_STEPS, f"flagship: {steps_run} steps")
+    check_once_per_step("flagship", counts, steps_run, names)
     crashed = int(s.crashed.sum())
     oops = int((s.oops != 0).sum())
     live = float((~s.halted).float().mean())
     steady = t3 - t2
+    eager_ms = steady / (FLAG_STEPS - FLAG_CHUNK) * 1e3
     dispatched = int(s.steps.sum()) - steps_mid
-    emit(phase="flagship", batch=FLAG_B, steps=steps_run, chunk=FLAG_CHUNK,
-         launches=counts, first_chunk_s=t1 - t0, steady_s=steady,
-         whole_run_seed_events_per_s=FLAG_B * FLAG_STEPS
-         / (t1 - t0 + t3 - t2),
-         ms_per_step=steady / (FLAG_STEPS - FLAG_CHUNK) * 1e3,
+    emit(phase="flagship", runner="run", batch=FLAG_B, steps=steps_run,
+         chunk=FLAG_CHUNK, launches=counts, first_chunk_s=t1 - t0,
+         steady_s=steady, whole_run_seed_events_per_s=FLAG_B * FLAG_STEPS
+         / (t1 - t0 + t3 - t2), ms_per_step=eager_ms,
          seed_events_per_s=FLAG_B * (FLAG_STEPS - FLAG_CHUNK) / steady,
          dispatched_events_per_s=dispatched / steady,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
@@ -309,14 +604,109 @@ def main() -> int:
     check(crashed == 0, f"flagship: {crashed} lanes crashed")
     check(oops == 0, f"flagship: {oops} lanes overflowed the event table")
     check(live > 0.9, f"flagship: only {live:.3f} of lanes live")
-    flag_fp = rt.fingerprints(s)[:DET_B]
-    del s
+    flag_fp = rt.fingerprints(s)
+    del s, rt
+
+    # ---- fused: the traced flagship through the CUDA-graph runner -----------
+    rt = workloads.flagship_runtime(device=dev, trace_cap=64)
+    s = rt.init_batch(np.arange(FLAG_B, dtype=np.uint32))
+    emit_cases["flagship_step_0"] = emit_operands(rt, s)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    s = rt.run_fused(s, FLAG_CHUNK, chunk=FLAG_CHUNK)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = fused_launches(rt, read_counts(), names)
+    steps_run = rt.steps_run
+    warm = rt.fused_stats["warmup_steps"]
+    emit_cases[f"flagship_step_{FLAG_CHUNK}"] = emit_operands(rt, s)
+    torch.cuda.synchronize()
+    reset_counts()
+    t2 = time.perf_counter()
+    s = rt.run_fused(s, FLAG_STEPS - FLAG_CHUNK, chunk=FLAG_CHUNK)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    more = fused_launches(rt, read_counts(), names)
+    launches = {k: launches[k] + more[k] for k in names}
+    steps_run += rt.steps_run
+    check(steps_run == FLAG_STEPS, f"fused: {steps_run} steps")
+    check_once_per_step("fused", launches, steps_run + warm, names)
+    fused_launch = {k: launches[k] for k in names}
+    crashed = int(s.crashed.sum())
+    oops = int((s.oops != 0).sum())
+    live = float((~s.halted).float().mean())
+    steady = t3 - t2
+    fused_ms = steady / (FLAG_STEPS - FLAG_CHUNK) * 1e3
+    same_fp = bool((rt.fingerprints(s) == flag_fp).all())
+    ring = ring_records(s, 0)
+    steps_up = bool((np.diff(ring["step"]) > 0).all())
+    emit(phase="fused", runner="run_fused", batch=FLAG_B, steps=steps_run,
+         chunk=FLAG_CHUNK, trace_cap=64, fused=rt.fused_stats,
+         launches=fused_launch, warmup_steps=warm,
+         first_chunk_s=t1 - t0, steady_s=steady, ms_per_step=fused_ms,
+         seed_events_per_s=FLAG_B * (FLAG_STEPS - FLAG_CHUNK) / steady,
+         eager_ms_per_step=eager_ms,
+         eager_seed_events_per_s=FLAG_B / eager_ms * 1e3,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         crashed=crashed, oops_lanes=oops, live=live,
+         fingerprints_equal_eager=same_fp, ring_lane0_records=len(
+             ring["step"]), ring_lane0_total=ring["total"],
+         ring_lane0_steps_increase=steps_up)
+    check(crashed == 0, f"fused: {crashed} lanes crashed")
+    check(oops == 0, f"fused: {oops} lanes overflowed the event table")
+    check(live > 0.9, f"fused: only {live:.3f} of lanes live")
+    check(same_fp, "fused: fingerprints differ from the eager flagship's")
+    check(len(ring["step"]) > 0 and steps_up,
+          "fused: lane 0's ring is empty or its steps do not increase")
+    prof_fused = profile_steps(
+        lambda st, n: rt.run_fused(st, n, chunk=n), s, FLAG_B, names)
+    check(prof_fused["kernel_launches"] == {k: PROF_STEPS for k in names},
+          f"profile run_fused: traced launches "
+          f"{prof_fused['kernel_launches']} in {PROF_STEPS} steps")
+    del s, rt
+
+    # ---- fused_wal_kv: batch independence at full width ---------------------
+    p = workloads.GOLDEN_RUNS["wal_kv"]
+    rt = workloads.build_wal_kv(device=dev)
+    s = rt.init_batch(np.arange(FLAG_B, dtype=np.uint32))
+    # both kernels' operands at this path's shape (B=100,000, C=256),
+    # mid-run; held against the plain versions in the kernel phase
+    mid = rt.run_fused(s, 40, chunk=40)
+    wal_case = f"wal_kv_B{FLAG_B}_step_{rt.steps_run}"
+    emit_cases[wal_case] = emit_operands(rt, mid)
+    wal_select = select_inputs(mid)
+    del mid
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    s = rt.run_fused(s, p["max_steps"], p["chunk"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_launches(rt, read_counts(), names)
+    check_once_per_step("fused_wal_kv", launches,
+                        rt.steps_run + rt.fused_stats["warmup_steps"], names)
+    want = golden["wal_kv"]["run_fused"]
+    got = interop.leaf_digests(slice_lanes(s, p["seeds"]))
+    bad = [k for k in want if got.get(k) != want[k]]
+    halted = float(s.halted.float().mean())
+    crashed = int(s.crashed.sum())
+    emit(phase="fused_wal_kv", batch=FLAG_B, steps_run=rt.steps_run,
+         wall_s=wall, fused=rt.fused_stats, launches=launches,
+         halted=halted, crashed=crashed, leaves=len(want), mismatched=bad,
+         operands_taken_at=wal_case)
+    check(crashed == 0, f"fused_wal_kv: {crashed} lanes crashed")
+    check(halted == 1.0, f"fused_wal_kv: only {halted} of lanes halted")
+    check(not bad, f"fused_wal_kv: lanes 0..31 differ: {bad}")
+    del s, rt
 
     # ---- kernel: sched_pick against its plain version -----------------------
     B, C = captured[0][0].shape
     N = captured[0][5].shape[1]
     cases = {"edges": edge_inputs(dev, B, C, N)}
     cases.update({f"flagship_step_{k}": v for k, v in captured.items()})
+    cases[wal_case] = wal_select
     max_err = 0
     for name, args in cases.items():
         out_k = sched_pick(*args)
@@ -331,20 +721,74 @@ def main() -> int:
             check(torch.equal(a, b),
                   f"sched_pick != sched_pick_plain on {name}: {field}")
     main_args = captured[FLAG_CHUNK]
-    # timed in turns (kernel, plain, kernel, plain); the t_kind and
-    # t_deadline tables alone (~77 MB at B=100,000) exceed the 50 MB L2, so
-    # each launch reads device memory
-    k_ms = cuda_ms(lambda: sched_pick(*main_args), 50)
+    # timed in turns (kernel, plain, kernel, plain): the kernel as device
+    # time (graph_ms), the plain version's many small eager launches
+    # between events; the t_kind and t_deadline tables alone (~77 MB at
+    # B=100,000) exceed the 50 MB L2, so each launch reads device memory
+    k_ms = graph_ms(lambda: sched_pick(*main_args), 50)
     p_ms = cuda_ms(lambda: sched_pick_plain(*main_args), 5)
-    k_ms2 = cuda_ms(lambda: sched_pick(*main_args), 50)
+    k_ms2 = graph_ms(lambda: sched_pick(*main_args), 50)
     p_ms2 = cuda_ms(lambda: sched_pick_plain(*main_args), 5)
+    k_eager = cuda_ms(lambda: sched_pick(*main_args), 50)
     nbytes = bound_bytes(*main_args)
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    emit(phase="kernel", name="sched_pick", cases=sorted(cases), batch=B,
+    sp_bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    sp = dict(ms=min(k_ms, k_ms2), plain_ms=min(p_ms, p_ms2),
+              bound_ms=sp_bound_ms, max_abs_err=max_err)
+    emit(phase="kernel", name="sched_pick", cases={
+        k: list(v[0].shape) for k, v in sorted(cases.items())}, batch=B,
          C=C, N=N, exact=True, max_abs_err=max_err,
-         launches_on_main_path=flag_launches["sched_pick"],
-         ms=[k_ms, k_ms2], plain_ms=[p_ms, p_ms2], bound_bytes=nbytes,
-         bound_ms=bound_ms)
+         launches_on_main_path=fused_launch["sched_pick"],
+         launches_per_step=fused_launch["sched_pick"] / (FLAG_STEPS + warm),
+         ms=[k_ms, k_ms2], eager_launch_ms=k_eager,
+         plain_ms=[p_ms, p_ms2], bound_bytes=nbytes,
+         bound_ms=sp_bound_ms, library="none")
+    del cases, captured, main_args, wal_select
+
+    # ---- kernel: emit_write against its plain version -----------------------
+    for C_e, E_e, ns_e, jit_e, ring_e in ((96, 12, 7, True, True),
+                                          (96, 0, 0, False, True),
+                                          (256, 3, 1, False, True),
+                                          (256, 5, 0, True, False),
+                                          (256, 6, 6, False, False)):
+        emit_cases[f"edges_C{C_e}_E{E_e}_sends{ns_e}"
+                   f"{'_jitter' if jit_e else ''}"
+                   f"{'_ring' if ring_e else ''}"] = emit_edge_operands(
+            dev, 4096, C_e, 5, 8, E_e, ns_e, jit_e, ring_e, ring_e,
+            seed=C_e + E_e)
+    max_err_e = 0
+    for name, args in emit_cases.items():
+        out_k = emit_write(*args)
+        out_p = emit_write_plain(*args)
+        torch.cuda.synchronize()
+        max_err_e = max(max_err_e, check_equal(f"emit_write on {name}",
+                                               out_k, out_p))
+    main_e = emit_cases[f"flagship_step_{FLAG_CHUNK}"]
+    ek = graph_ms(lambda: emit_write(*main_e), 20)
+    ep = cuda_ms(lambda: emit_write_plain(*main_e), 5)
+    ek2 = graph_ms(lambda: emit_write(*main_e), 20)
+    ep2 = cuda_ms(lambda: emit_write_plain(*main_e), 5)
+    ek_eager = cuda_ms(lambda: emit_write(*main_e), 20)
+    e_bytes, e_ops, e_copy = emit_bound(*main_e)
+    e_bound_ms = max(e_bytes / HBM_BYTES_PER_S, e_ops / INT32_OPS_PER_S) \
+        * 1e3
+    e_bound_by = ("bytes" if e_bytes / HBM_BYTES_PER_S
+                  >= e_ops / INT32_OPS_PER_S else "operations")
+    ew = dict(ms=min(ek, ek2), plain_ms=min(ep, ep2), bound_ms=e_bound_ms,
+              max_abs_err=max_err_e, bound_by=e_bound_by)
+    emit(phase="kernel", name="emit_write", cases={
+        k: list(v[0]["t_kind"].shape) for k, v in sorted(emit_cases.items())},
+         batch=main_e[0]["t_kind"].shape[0],
+         C=main_e[0]["t_kind"].shape[1], E=main_e[1]["m"].shape[1],
+         n_sends=main_e[4], exact=True, max_abs_err=max_err_e,
+         launches_on_main_path=fused_launch["emit_write"],
+         launches_per_step=fused_launch["emit_write"] / (FLAG_STEPS + warm),
+         ms=[ek, ek2], eager_launch_ms=ek_eager, plain_ms=[ep, ep2],
+         bound_bytes=e_bytes,
+         bound_operations=e_ops, bound_ms=e_bound_ms, bound_by=e_bound_by,
+         copy_bytes=e_copy, copy_ms=e_copy / HBM_BYTES_PER_S * 1e3,
+         bound_with_copy_ms=(e_bytes + e_copy) / HBM_BYTES_PER_S * 1e3,
+         library="none")
+    del emit_cases, main_e
 
     # ---- determinism and batch independence ---------------------------------
     fps = []
@@ -356,14 +800,15 @@ def main() -> int:
         s, _ = rt4.run(s, FLAG_STEPS, chunk=FLAG_CHUNK)
         torch.cuda.synchronize()
         counts = read_counts()
-        check(counts["sched_pick"] == rt4.steps_run == FLAG_STEPS,
-              f"determinism: launches {counts} != steps {rt4.steps_run}")
+        check(rt4.steps_run == FLAG_STEPS,
+              f"determinism: {rt4.steps_run} steps")
+        check_once_per_step("determinism", counts, rt4.steps_run, names)
         fps.append(rt4.fingerprints(s))
         emit(phase="determinism", run=rep, batch=DET_B, steps=rt4.steps_run,
              launches=counts, wall_s=time.perf_counter() - t0)
         del s
     same_twice = bool((fps[0] == fps[1]).all())
-    same_as_big = bool((fps[0] == flag_fp).all())
+    same_as_big = bool((fps[0] == flag_fp[:DET_B]).all())
     emit(phase="determinism", lanes=DET_B, same_twice=same_twice,
          same_as_batch_100000=same_as_big,
          distinct_fingerprints=int(len(np.unique(fps[0]))))
@@ -371,17 +816,34 @@ def main() -> int:
     check(same_as_big, "batch independence: lanes 0..4095 alone differ "
           "from the same lanes inside the B=100,000 run")
 
-    # ---- profile: where a flagship step's time goes -------------------------
-    emit(phase="profile", **profile_steps(workloads, dev, np))
+    # ---- profile: where a flagship step's time goes, for each runner --------
+    rt = workloads.flagship_runtime(device=dev)
+    s = rt.init_batch(np.arange(FLAG_B, dtype=np.uint32))
+    prof_eager = profile_steps(
+        lambda st, n: rt.run(st, n, chunk=n)[0], s, FLAG_B, names)
+    emit(phase="profile", runner="run", **prof_eager)
+    del s, rt
+    emit(phase="profile", runner="run_fused", trace_cap=64, **prof_fused)
+    check(prof_eager["kernel_launches"] == {k: PROF_STEPS for k in names},
+          f"profile run: traced launches {prof_eager['kernel_launches']} "
+          f"in {PROF_STEPS} steps")
 
     # ---- kernels ------------------------------------------------------------
-    emit(kernels=[dict(
-        name="sched_pick", route="cuda",
-        source="madsim_tpu_torch/csrc/sched_pick.cu",
-        replaces="madsim_tpu/core/step.py:141",
-        launches=flag_launches["sched_pick"], max_abs_err=max_err,
-        ms=min(k_ms, k_ms2), plain_ms=min(p_ms, p_ms2), bound_ms=bound_ms,
-        bound_by="bytes", library_ms=None)])
+    emit(kernels=[
+        dict(name="sched_pick", route="cuda",
+             source="madsim_tpu_torch/csrc/sched_pick.cu",
+             replaces="madsim_tpu/core/step.py:141",
+             launches=fused_launch["sched_pick"],
+             max_abs_err=sp["max_abs_err"], ms=sp["ms"],
+             plain_ms=sp["plain_ms"], bound_ms=sp["bound_ms"],
+             bound_by="bytes", library_ms=None),
+        dict(name="emit_write", route="cuda",
+             source="madsim_tpu_torch/csrc/emit_write.cu",
+             replaces="madsim_tpu/core/step.py:476",
+             launches=fused_launch["emit_write"],
+             max_abs_err=ew["max_abs_err"], ms=ew["ms"],
+             plain_ms=ew["plain_ms"], bound_ms=ew["bound_ms"],
+             bound_by=ew["bound_by"], library_ms=None)])
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

@@ -9,14 +9,22 @@ explicit [B, ...] tensors. Every lane advances by one event per step:
   2. apply a supervisor op (kill, restart, partition, heal, ...);
   3. run the protocol handlers, merged per lane by one-hot program masks;
   4. write the handlers' emissions (sends with clog / loss / latency,
-     timers with skew and disk delay) into free event-table rows;
+     timers with skew and disk delay) into free event-table rows, and the
+     dispatched event into the flight-recorder ring, with the
+     `emit_write` kernel (ops/emit_write.py);
   5. check the end conditions: deadlock, time limit, invariant, halt.
 
 Every branch runs for every lane and masks decide what commits, as in the
 JAX package; the PRNG is split in the same static order, so a seed gives
-the same trajectory, leaf for leaf, in both packages. The observation
-planes (flight recorder, profiler, latency, spans, sketch, series) are
-not ported yet: `Runtime` refuses configs that enable them.
+the same trajectory, leaf for leaf, in both packages. With
+`cfg.trace_cap > 0` the flight recorder and causal lineage ride along
+(the ring, `ev_prov`, `lamport`); they consume no randomness and touch no
+other leaf. The other observation planes (profiler, latency, spans,
+sketch, series) are not ported yet: `Runtime` refuses configs that
+enable them.
+
+The step is functional: it writes no tensor of its input state in place
+(a CUDA-graph replay relies on it, runtime/runtime.py `run_fused`).
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import numpy as np
 import torch
 
 from ..ops import select as sel
+from ..ops.emit_write import RING_COLS, TABLE_COLS, drift, emit_write
 from ..ops.sched_pick import sched_pick
 from . import prng
 from . import types as T
@@ -44,12 +53,6 @@ def _lane(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 def _where_tree(mask, new, old):
     return tree_map(lambda a, b: torch.where(_lane(mask, b), a, b), new, old)
-
-
-def _drift(t, sk):
-    """(t * sk) >> 10 in exact int32-safe pieces — the clock-skew fold;
-    identically 0 at sk == 0."""
-    return (t >> 10) * sk + (((t & 1023) * sk) >> 10)
 
 
 def _slice_node(tree, node):
@@ -91,10 +94,10 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
     persist_mask = (tree_map(lambda a: False, spec_default)
                     if persist is None else persist)
     use_jitter = cfg.net.op_jitter_max > 0
+    trace = cfg.trace_cap > 0
     dup_fold = torch.tensor([0x44555031, 0x44555032], dtype=_I32,
                             device=device)
     per_million = torch.tensor(1e-6, dtype=torch.float32, device=device)
-    em_offsets = {}
 
     def live_step(s: SimState):
         B = s.now.shape[0]
@@ -113,6 +116,15 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
             s.paused, s.prio_nudge, s.halted, k_sched, s.sched_hash)
         ev_node = torch.clamp(ev_node_raw, 0, N - 1)
         ev_payload = sel.take_row(s.t_payload, idx)
+
+        # causal lineage (recorder plane): the dispatched row's provenance
+        # — the dispatch that enqueued it (-1: external) and the Lamport
+        # clock it carried; selects only, no randomness consumed
+        if trace:
+            disp_idx = s.steps
+            prov = sel.take_row(s.ev_prov, idx)                  # [B, 2]
+            ev_parent = torch.where(valid, prov[:, 0],
+                                    torch.full_like(prov[:, 0], -1))
 
         # ---- duplicate delivery: both draws ride keys folded off k_sched
         dup_keys = prng.fold_in(k_sched[:, None, :], dup_fold)   # [B, 2, 2]
@@ -150,6 +162,15 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
                                                reset_mask)
             s = s.replace(ext=new_ext)
 
+        # Lamport rule at the node the dispatch acted on (for supervisor
+        # ops the target _apply_super resolved): max(own, carried) + 1
+        if trace:
+            lam_node = torch.where(is_super, reset_target, ev_node)
+            ev_lamport = torch.maximum(sel.take1(s.lamport, lam_node),
+                                       prov[:, 1]) + 1
+            s = s.replace(lamport=sel.put_row(s.lamport, lam_node,
+                                              ev_lamport, valid))
+
         # ---- 3. protocol handler dispatch -------------------------------
         node_ok = (sel.take1(s.alive, ev_node)
                    & ~sel.take1(s.paused, ev_node))
@@ -163,7 +184,7 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
 
         # gray-failure reads: the acting node's clock skew and disk stall
         sk_h = sel.take1(s.skew, h_node)
-        h_now = s.now + _drift(s.now, sk_h)
+        h_now = s.now + drift(s.now, sk_h)
         dlat_h = sel.take1(s.disk_lat, h_node)
 
         combos = []  # (mask, ctx) pairs; masks are mutually exclusive
@@ -223,93 +244,47 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
                 t_deadline=torch.where(hit, torch.full_like(
                     s.t_deadline, int(T.T_INF)), s.t_deadline))
 
-        # ---- 4. write emissions into the event table --------------------
+        # ---- 4. write emissions into the event table (the emit_write
+        # kernel), with the flight-recorder ring row as its epilogue
         E = n_sends + n_timers
-        sent = delivered_drop = zi
-        overflow = zb
-        high_water = zi
-        if E > 0:
-            free = s.t_kind == T.EV_FREE
-            occupied_now = (~free).sum(-1, dtype=_I32)
-            slots, slot_ok = sel.first_k_free(free, E)
-            ns = max(n_sends, 1)
-            net_keys = prng.split(k_net, 2 * ns + (E if use_jitter else 0))
-            # per-emission micro-jitter (statically gated, as in the JAX
-            # package: a jitterless build draws nothing)
-            jit = (prng.randint(net_keys[:, 2 * ns:], 0, s.jitter[:, None])
-                   if use_jitter else None)
-            em_write, em_deadline, em_kind = [], [], []
-            em_node, em_tag, em_payload = [], [], []
-            if n_sends:
-                m_s = torch.stack([e["m"] for e in sends], -1)
-                dst = torch.clamp(torch.stack([e["dst"] for e in sends],
-                                              -1), 0, N - 1)
-                src_links = sel.take_row(s.clog_link, h_node)    # [B, N]
-                clogged = (sel.take1(s.clog_node, h_node)[:, None]
-                           | sel.take1(s.clog_node, dst)
-                           | sel.take1(src_links, dst))
-                lost = prng.bernoulli(net_keys[:, 0:2 * n_sends:2],
-                                      s.loss[:, None])
-                latency = prng.randint(net_keys[:, 1:2 * n_sends:2],
-                                       s.lat_lo[:, None], s.lat_hi[:, None])
-                if use_jitter:
-                    latency = latency + jit[:, :n_sends]
-                ok = m_s & ~clogged & ~lost
-                sent = m_s.sum(-1, dtype=_I32)
-                delivered_drop = (m_s & ~ok).sum(-1, dtype=_I32)
-                write = ok & slot_ok[:, :n_sends]
-                overflow = overflow | (ok & ~slot_ok[:, :n_sends]).any(-1)
-                em_write.append(write)
-                em_deadline.append(s.now[:, None] + latency
-                                   + dlat_h[:, None])
-                em_kind.append(torch.full_like(dst, T.EV_MSG))
-                em_node.append(dst)
-                em_tag.append(torch.stack([e["tag"] for e in sends], -1))
-                em_payload.append(torch.stack([e["payload"] for e in sends],
-                                              1))
-            if n_timers:
-                m_t = torch.stack([e["m"] for e in timers], -1)
-                ok_t = slot_ok[:, n_sends:]
-                overflow = overflow | (m_t & ~ok_t).any(-1)
-                em_write.append(m_t & ok_t)
-                delay = torch.stack([e["delay"] for e in timers], -1)
-                # clock-skew stretch, then the slow-disk delay
-                d_eff = torch.clamp(delay - _drift(delay, sk_h[:, None]),
-                                    min=0)
-                deadline = s.now[:, None] + d_eff + dlat_h[:, None]
-                em_deadline.append(deadline + jit[:, n_sends:] if use_jitter
-                                   else deadline)
-                em_kind.append(torch.full_like(delay, T.EV_TIMER))
-                em_node.append(h_node[:, None].expand(B, n_timers))
-                em_tag.append(torch.stack([e["tag"] for e in timers], -1))
-                em_payload.append(torch.stack(
-                    [e["payload"] for e in timers], 1))
-            w = torch.cat(em_write, -1)                     # [B, E]
-            high_water = occupied_now + w.sum(-1, dtype=_I32)
-            # one scatter per column: real slots are distinct; masked-off
-            # emissions go to distinct scratch columns C + j, dropped after
-            if E not in em_offsets:
-                em_offsets[E] = torch.arange(C, C + E, dtype=torch.int64,
-                                             device=dev)
-            slots_eff = torch.where(w, slots.to(torch.int64),
-                                    em_offsets[E])
-
-            def put(col, vals):
-                v = torch.cat(vals, 1).to(col.dtype)
-                pad = torch.zeros((B, E) + tuple(col.shape[2:]),
-                                  dtype=col.dtype, device=dev)
-                wide = torch.cat([col, pad], 1)
-                index = slots_eff.reshape((B, E) + (1,) * (col.ndim - 2))
-                wide.scatter_(1, index.expand(v.shape), v)
-                return wide[:, :C].contiguous()
-
-            s = s.replace(
-                t_deadline=put(s.t_deadline, em_deadline),
-                t_kind=put(s.t_kind, em_kind),
-                t_node=put(s.t_node, em_node),
-                t_src=put(s.t_src, [h_node[:, None].expand(B, E)]),
-                t_tag=put(s.t_tag, em_tag),
-                t_payload=put(s.t_payload, em_payload))
+        if E > 0 or trace:
+            if E > 0:
+                staged = sends + timers
+                em = dict(
+                    m=torch.stack([e["m"] for e in staged], -1),
+                    a=torch.stack([e["dst"] for e in sends]
+                                  + [e["delay"] for e in timers], -1),
+                    tag=torch.stack([e["tag"] for e in staged], -1),
+                    payload=torch.stack([e["payload"] for e in staged], 1))
+            else:
+                em = dict(m=zb.new_zeros((B, 0)), a=zi.new_zeros((B, 0)),
+                          tag=zi.new_zeros((B, 0)),
+                          payload=zi.new_zeros((B, 0, P)))
+            lane = dict(now=s.now, h_node=h_node, sk_h=sk_h, dlat_h=dlat_h,
+                        loss=s.loss, lat_lo=s.lat_lo, lat_hi=s.lat_hi,
+                        jitter=s.jitter, k_net=k_net.contiguous(),
+                        clog_node=s.clog_node, clog_link=s.clog_link,
+                        disp_idx=disp_idx if trace else zi,
+                        ev_lamport=ev_lamport if trace else zi)
+            ring = None
+            if trace:
+                ring = dict(fired=valid, trace_on=s.trace_on,
+                            trace_pos=s.trace_pos, trace_cap=s.trace_cap,
+                            kind=ev_kind.contiguous(), node=ev_node,
+                            src=ev_src.contiguous(),
+                            tag=ev_tag.contiguous(), parent=ev_parent,
+                            cols={k: getattr(s, k) for k in RING_COLS})
+            tables, st, ring = emit_write(
+                {k: getattr(s, k) for k in TABLE_COLS}, em, lane, ring,
+                n_sends, use_jitter)
+            s = s.replace(**tables)
+            if ring is not None:
+                s = s.replace(trace_pos=ring["trace_pos"], **ring["cols"])
+            sent, delivered_drop = st["sent"], st["delivered_drop"]
+            overflow, high_water = st["overflow"], st["high_water"]
+        else:
+            sent = delivered_drop = high_water = zi
+            overflow = zb
 
         if cfg.collect_stats:
             s = s.replace(

@@ -4,7 +4,7 @@
 // (madsim_tpu/core/step.py `live_step` section 1, lines 141-232:
 // ops/select.py `min_deadline` + `masked_choice`, the PCT priority nudge
 // and the two-lane FNV `sched_hash` fold), with jax's threefry2x32
-// `randint` (madsim_tpu/core/prng.py) inlined as a device function.
+// `randint` (madsim_tpu/core/prng.py) inlined from threefry.cuh.
 // Per lane b, over its event table of C rows:
 //
 //   eligible[c] = t_kind[c] != EV_FREE
@@ -40,6 +40,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "threefry.cuh"
+
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
@@ -48,48 +50,6 @@ constexpr int32_t kTInf = 0x7FFFFFFF;
 constexpr int32_t kEvFree = 0;
 constexpr int32_t kEvSuper = 3;
 constexpr unsigned kFull = 0xFFFFFFFFu;
-
-__device__ __forceinline__ uint32_t rotl32(uint32_t v, int r) {
-  return (v << r) | (v >> (32 - r));
-}
-
-// threefry2x32 block function, 20 rounds (jax _threefry2x32_lowering)
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
-                                             uint32_t& x0, uint32_t& x1) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  x0 += ks[0];
-  x1 += ks[1];
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x0 += x1;
-      x1 = rotl32(x1, rot[i & 1][j]);
-      x1 ^= x0;
-    }
-    x0 += ks[(i + 1) % 3];
-    x1 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
-  }
-}
-
-// jax.random.randint(key, (), 0, maxval, int32) on the non-partitionable
-// threefry stream, for maxval >= 1: split the key in two (counts iota(4):
-// blocks (0, 2) and (1, 3)), draw 32 bits from each half (block (0, 0),
-// first word), then jax's span / multiplier reduction in uint32.
-__device__ int32_t randint_below(uint32_t k0, uint32_t k1, int32_t maxval) {
-  uint32_t a0 = 0, a1 = 2, b0 = 1, b1 = 3;
-  threefry2x32(k0, k1, a0, a1);
-  threefry2x32(k0, k1, b0, b1);
-  uint32_t hi = 0, hi1 = 0, lo = 0, lo1 = 0;
-  threefry2x32(a0, b0, hi, hi1);   // first half key (a0, b0)
-  threefry2x32(a1, b1, lo, lo1);   // second half key (a1, b1)
-  const uint32_t span = maxval <= 0 ? 1u : static_cast<uint32_t>(maxval);
-  uint32_t mult = 65536u % span;
-  mult = (mult * mult) % span;
-  const uint32_t off = ((hi % span) * mult + (lo % span)) % span;
-  return static_cast<int32_t>(off);
-}
 
 __device__ __forceinline__ unsigned long long warp_max_u64(
     unsigned long long v) {
@@ -171,7 +131,8 @@ sched_pick_kernel(const int32_t* __restrict__ t_kind,
   int32_t idx = 0;
   if (nudge == 0) {
     const int32_t r = cnt > 1
-        ? randint_below(k_sched[2 * b], k_sched[2 * b + 1], cnt) : 0;
+        ? threefry::randint_raw(k_sched[2 * b], k_sched[2 * b + 1], 0, cnt)
+        : 0;
     // rank match: the at_min row whose inclusive prefix count is r + 1
     const uint32_t le = lane == 31 ? kFull : ((2u << lane) - 1u);
     int base = 0;

@@ -3,11 +3,13 @@
 Each kernel is one `csrc/<name>.cu` with a plain C entry point, compiled
 by `nvcc` for Hopper (`sm_90a`) into a shared library and loaded with
 ctypes — seconds to build, where an extension that includes PyTorch's
-headers takes minutes. Libraries go into `madsim_tpu_torch/_build/`
-(ignored by git), named by a hash of their source, so an edited source
-is rebuilt and an unchanged one is not. Nothing is built when this module
-is imported: `load(name)` builds at first use, `build_all()` starts one
-`nvcc` per source at once and waits for all of them.
+headers takes minutes. Sources include the shared device headers of
+`csrc/` (`threefry.cuh`). Libraries go into `madsim_tpu_torch/_build/`
+(ignored by git), named by a hash of their source and the headers, so
+an edited source or header is rebuilt and an unchanged one is not.
+Nothing is built when this module is imported: `load(name)` builds at
+first use, `build_all()` starts one `nvcc` per source at once and waits
+for all of them.
 """
 
 from __future__ import annotations
@@ -27,10 +29,12 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 # kernel name -> source file under csrc/
 SOURCES = {
     "sched_pick": "sched_pick.cu",
+    "emit_write": "emit_write.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", CSRC]
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -48,9 +52,12 @@ def nvcc_path() -> str:
 
 
 def lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [SOURCES[name], *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def _start(name: str, force: bool):
@@ -102,3 +109,11 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(lib_path(name))
         _LIBS[name] = lib
     return lib
+
+
+def wrappers() -> dict:
+    """{kernel name: its wrapper}; each wrapper counts its `launches` and
+    the launches it recorded into a CUDA graph (`captured`)."""
+    from .emit_write import emit_write
+    from .sched_pick import sched_pick
+    return {"sched_pick": sched_pick, "emit_write": emit_write}

@@ -11,7 +11,9 @@ integer, so kernel and plain version agree exactly.
 
 `sched_pick` takes the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises. `sched_pick.launches`
-counts kernel launches. Keys and hashes are int32 bit patterns, the
+counts kernel launches (a launch recorded into a CUDA graph under capture
+counts in `sched_pick.captured` instead: a replay launches it again
+without calling the wrapper). Keys and hashes are int32 bit patterns, the
 representation of uint32 words throughout the engine.
 """
 
@@ -105,10 +107,12 @@ def _check(name, t, dtype, shape, device):
 
 class _SchedPick:
     """Callable wrapper: CPU tensors -> `sched_pick_plain`; CUDA tensors ->
-    the kernel. `launches` counts kernel launches (and nothing else)."""
+    the kernel. `launches` counts kernel launches (and nothing else);
+    `captured` counts launches recorded into a CUDA graph."""
 
     def __init__(self):
         self.launches = 0
+        self.captured = 0
         self._fn = None
 
     def _kernel(self):
@@ -175,7 +179,10 @@ class _SchedPick:
         if err != 0:
             raise RuntimeError(f"sched_pick: kernel launch failed "
                                f"(cudaError {err})")
-        self.launches += 1
+        if torch.cuda.is_current_stream_capturing():
+            self.captured += 1
+        else:
+            self.launches += 1
         return (idx, dmin, valid, any_ev, new_hash) + ev.unbind(1)
 
 

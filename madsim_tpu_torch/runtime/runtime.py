@@ -1,15 +1,17 @@
 """Runtime: the batched supervisor (madsim::runtime::Runtime, vectorised).
 
 Builds the step for one configuration and drives a whole batch of seeds
-through it in chunks of `chunk` steps, syncing with the host once per
-chunk to test whether every lane has halted — the chunk contract of
-`madsim_tpu.runtime.runtime.Runtime.run`. State lives on one device:
+through it: `run` in chunks of `chunk` steps, syncing with the host once
+per chunk to test whether every lane has halted — the chunk contract of
+`madsim_tpu.runtime.runtime.Runtime.run` — and `run_fused` as a replayed
+CUDA graph with no host sync per block. State lives on one device:
 CUDA by default (the entry points raise when no GPU is present), or the
 CPU when the caller passes `device="cpu"`.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Sequence
 
 import numpy as np
@@ -21,6 +23,7 @@ from ..core.api import Program
 from ..core.extension import build_ext_state
 from ..core.state import SimState, init_state, map_state, tree_map
 from ..core.step import make_step
+from ..interop import state_leaves
 from ..ops.select import first_k_free
 from ..utils.hashing import fingerprint
 from .scenario import Scenario
@@ -42,8 +45,6 @@ def resolve_device(device=None) -> torch.device:
 # observation planes of the JAX package that this port does not have yet,
 # with the ROADMAP item that ports each
 _UNPORTED_PLANES = (
-    ("trace_cap", lambda c: c.trace_cap > 0,
-     "the flight recorder and lineage (ROADMAP P7/P11.1)"),
     ("profile", lambda c: c.profile, "the sim profiler (ROADMAP P11.2)"),
     ("latency_hist", lambda c: c.latency_hist > 0,
      "the latency plane (ROADMAP P11.3)"),
@@ -57,6 +58,96 @@ _UNPORTED_PLANES = (
 
 def _lanes_of(x, B):
     return x.unsqueeze(0).expand((B,) + tuple(x.shape)).clone()
+
+
+# steps per captured CUDA graph: a step is some thousands of graph nodes,
+# so a block of a few steps keeps capture and instantiation short
+FUSED_BLOCK = 8
+
+
+def _signature(state: SimState) -> tuple:
+    return tuple((p, tuple(t.shape), t.dtype, str(t.device))
+                 for p, t in state_leaves(state).items())
+
+
+class FusedGraph:
+    """`block` steps of a runtime's step function, captured as one CUDA
+    graph over static state buffers, with the copy of the block's final
+    state back into those buffers and `halted.all()` at its end.
+
+    Capture needs every lazily built constant (prng's constant cache,
+    the kernels' libraries, model tables) to exist first — building one
+    inside the capture would copy from the host and break it — so the
+    step runs WARMUP_STEPS times on a scratch copy of the state before.
+    Kernel wrappers count the launches recorded in the capture in their
+    `captured` counters; `captured` here holds the per-block numbers, so
+    a run's launches are those times the replays."""
+
+    WARMUP_STEPS = 1
+
+    def __init__(self, step, state: SimState, block: int):
+        from ..ops.kernels import wrappers
+        self.block = block
+        dev = state.now.device
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                scratch = map_state(torch.clone, state)
+                for _ in range(self.WARMUP_STEPS):
+                    scratch, _ = step(scratch)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            del scratch
+            self.static = map_state(torch.clone, state)
+            kernels = wrappers()
+            before = {k: w.captured for k, w in kernels.items()}
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                s = self.static
+                for _ in range(block):
+                    s, _ = step(s)
+                self._copy_back(s)
+                self.all_halted = self.static.halted.all()
+            self.captured = {k: w.captured - before[k]
+                             for k, w in kernels.items()}
+
+    def _copy_back(self, out: SimState) -> None:
+        static = state_leaves(self.static)
+        ptrs = {t.untyped_storage().data_ptr() for t in static.values()
+                if t.numel()}
+        for path, t in state_leaves(out).items():
+            dst = static[path]
+            if t is dst:
+                continue
+            if t.numel() and t.untyped_storage().data_ptr() in ptrs:
+                raise RuntimeError(
+                    f"run_fused: leaf {path} of the captured block's final "
+                    "state aliases an input buffer")
+            dst.copy_(t)
+
+    def run(self, state: SimState, n_steps: int):
+        """Replay from `state` for n_steps (a multiple of the block), or
+        until every lane has halted. Returns (a copy of the final state,
+        the number of replays)."""
+        static = state_leaves(self.static)
+        for path, t in state_leaves(state).items():
+            if t is not static[path]:
+                static[path].copy_(t)
+        flags = [torch.empty((), dtype=torch.bool).pin_memory()
+                 for _ in range(2)]
+        done = [torch.cuda.Event() for _ in range(2)]
+        replays = 0
+        for i in range(n_steps // self.block):
+            self.graph.replay()
+            flags[i % 2].copy_(self.all_halted, non_blocking=True)
+            done[i % 2].record()
+            replays += 1
+            # read the previous block's flag while this block runs
+            if i >= 1:
+                done[(i - 1) % 2].synchronize()
+                if bool(flags[(i - 1) % 2]):
+                    break
+        return map_state(torch.clone, self.static), replays
 
 
 class Runtime:
@@ -102,6 +193,7 @@ class Runtime:
                                halt_when=halt_when,
                                extensions=self.extensions,
                                device=self.device)
+        self._graphs: dict = {}     # run_fused's captured CUDA graph
         self.set_scenario(scenario)
 
     def set_scenario(self, scenario: Scenario | None) -> None:
@@ -174,15 +266,36 @@ class Runtime:
                          t_src=col(src, s.t_src), t_tag=col(tag, s.t_tag),
                          t_payload=col(payload, s.t_payload))
 
-    def init_batch(self, seeds) -> SimState:
+    def init_batch(self, seeds, trace_lanes=None) -> SimState:
         """Initial batched state for an array of seeds; seed i always
-        reproduces the same trajectory, whatever the batch around it."""
+        reproduces the same trajectory, whatever the batch around it.
+
+        trace_lanes: which LANES the flight-recorder ring records when
+        cfg.trace_cap > 0 (None = all; an int index array or a bool[B]
+        mask narrows it). Lanes, not seeds: obs/rings.py readers take
+        lane indices too."""
         seeds = np.atleast_1d(np.asarray(seeds)).astype(np.int64) \
             & 0xFFFFFFFF
         B = seeds.shape[0]
         keys = prng.seed_key(torch.as_tensor(seeds, device=self.device))
         s = map_state(lambda a: _lanes_of(a, B), self._template)
-        return s.replace(key=keys, hash_base=keys.clone())
+        s = s.replace(key=keys, hash_base=keys.clone())
+        if trace_lanes is not None:
+            if self.cfg.trace_cap == 0:
+                raise ValueError(
+                    "trace_lanes given but cfg.trace_cap == 0 — the ring "
+                    "is compiled out; set SimConfig(trace_cap=...) > 0")
+            lanes = np.asarray(trace_lanes)
+            if lanes.dtype == bool:
+                if lanes.shape != (B,):
+                    raise ValueError(f"bool trace_lanes mask shape "
+                                     f"{lanes.shape} != batch ({B},)")
+                mask = lanes
+            else:
+                mask = np.zeros(B, bool)
+                mask[lanes.astype(np.int64)] = True
+            s = s.replace(trace_on=torch.as_tensor(mask, device=self.device))
+        return s
 
     def init_single(self, seed: int) -> SimState:
         return self.init_batch([seed])
@@ -216,6 +329,50 @@ class Runtime:
                       for k in events[0]} if events else {}
         return state, events
 
+    def run_fused(self, state: SimState, max_steps: int, chunk: int = 512,
+                  ckpt_every=None, ckpt_log=None) -> SimState:
+        """`run()` without the per-chunk host sync: advance until every
+        lane halts or ~max_steps events each (rounded up to whole
+        chunks), and return the final state. Bit-equal to
+        `run(state, max_steps, chunk)`: halted lanes are a fixed point of
+        the step, so where this runner stops a little after the last lane
+        halted, no leaf differs.
+
+        On CUDA the steps run as a replayed CUDA graph (`FusedGraph`): a
+        block of steps captured once per runtime and batch shape, replayed
+        with no host sync per block; `halted.all()` comes back through
+        pinned memory and is read one block late. A failed capture or
+        kernel launch raises — there is no eager fallback. The number of
+        steps executed is left in `self.steps_run`, the graph's
+        launch accounting in `self.fused_stats`. On the CPU it is `run()`
+        itself.
+
+        ckpt_every / ckpt_log (checkpoint harvest at segment boundaries)
+        are not ported yet (ROADMAP P8 / P11.8)."""
+        if ckpt_every is not None or ckpt_log is not None:
+            raise NotImplementedError(
+                "run_fused(ckpt_every=..., ckpt_log=...): checkpoints are "
+                "not ported to madsim_tpu_torch yet (ROADMAP P8/P11.8)")
+        if state.now.device.type != "cuda":
+            state, _ = self.run(state, max_steps, chunk)
+            return state
+        total = -(-max_steps // chunk) * chunk
+        with torch.no_grad():
+            block = math.gcd(chunk, FUSED_BLOCK)
+            key = (block, _signature(state))
+            warmup = 0
+            if key not in self._graphs:
+                self._graphs.clear()    # one graph (and its pool) at a time
+                self._graphs[key] = FusedGraph(self._step, state, block)
+                warmup = FusedGraph.WARMUP_STEPS
+            graph = self._graphs[key]
+            state, replays = graph.run(state, total)
+        self.steps_run = replays * block
+        self.fused_stats = dict(block=block, replays=replays,
+                                steps=self.steps_run, warmup_steps=warmup,
+                                captured=dict(graph.captured))
+        return state
+
     def run_single(self, seed: int, max_steps: int, chunk: int = 512,
                    collect_events: bool = True):
         """One seed, optionally with its event trace (the repro path)."""
@@ -247,7 +404,14 @@ class Runtime:
                 return torch.where(hit[:, :, None], value, col)
             return torch.where(hit, value, col)
 
+        lineage = {}
+        if cfg.trace_cap > 0:
+            # host-injected ops are external causes (parent -1, carried
+            # clock 0): the reused row must not keep its previous
+            # occupant's provenance
+            lineage["ev_prov"] = put(state.ev_prov, [-1, 0])
         return state.replace(
+            **lineage,
             t_deadline=torch.where(hit, state.now[:, None], state.t_deadline),
             t_kind=put(state.t_kind, T.EV_SUPER),
             t_node=put(state.t_node, node), t_src=put(state.t_src, src),

@@ -4,11 +4,17 @@
                      headline metric (bench.py `_make_runtime`): 5 Raft
                      nodes, 96 event rows, 8 payload words, log capacity
                      32, 24 commands per leader stint, 5% packet loss and
-                     8 rolling kill / restart / partition / heal cycles.
-  pingpong_runtime   the frozen golden pingpong workload
-                     (tests/_grayfail_golden.py `build_pingpong`) with the
-                     flight recorder compiled out (trace_cap=0), whose
-                     engine leaves are recorded in
+                     8 rolling kill / restart / partition / heal cycles;
+                     optionally with the flight recorder (trace_cap).
+  pingpong_runtime   the golden pingpong workload with the flight
+                     recorder compiled out (trace_cap=0, the default) or
+                     in (trace_cap=64: the golden build itself)
+  build_pingpong     the frozen golden workloads of
+  build_wal_kv       tests/_grayfail_golden.py, built with no JAX: pingpong
+                     with the recorder (trace_cap=64), and the WAL-KV
+                     kill/restart chaos matrix on the simulated filesystem.
+                     Their leaf digests, through `run` and `run_fused`
+                     (run parameters in GOLDEN_RUNS), are frozen in
                      tests/data/golden_r22_leaves.json.
 """
 
@@ -17,8 +23,10 @@ from __future__ import annotations
 from .core.types import NetConfig, SimConfig, ms, sec
 from .runtime.scenario import Scenario
 
-# run parameters of the frozen pingpong golden (tests/_grayfail_golden.py)
+# run parameters of the frozen goldens (tests/_grayfail_golden.py RUNS)
 PINGPONG_RUN = dict(seeds=64, max_steps=4000, chunk=256)
+GOLDEN_RUNS = dict(pingpong=PINGPONG_RUN,
+                   wal_kv=dict(seeds=32, max_steps=30_000, chunk=512))
 
 # golden leaves that belong to the flight recorder and lineage planes: the
 # golden run had the recorder compiled in, this port's run has it out
@@ -28,11 +36,14 @@ RECORDER_LEAVES = (".ev_prov", ".lamport", ".trace_cap", ".trace_on",
                    ".tr_lamport")
 
 
-def flagship_runtime(device=None, n_nodes: int = 5):
+def flagship_runtime(device=None, n_nodes: int = 5, trace_cap: int = 0):
+    """bench.py's flagship; trace_cap > 0 compiles the flight recorder
+    and lineage in (they change no other leaf)."""
     from .models.raft import make_raft_runtime
     n = n_nodes
     cfg = SimConfig(n_nodes=n, event_capacity=max(96, 16 * n),
                     time_limit=sec(600), payload_words=8,
+                    trace_cap=trace_cap,
                     net=NetConfig(packet_loss_rate=0.05))
     sc = Scenario()
     for t in range(8):  # rolling chaos, one cycle per simulated second
@@ -44,14 +55,35 @@ def flagship_runtime(device=None, n_nodes: int = 5):
                              cfg=cfg, device=device)
 
 
-def pingpong_runtime(device=None):
+def pingpong_runtime(device=None, trace_cap: int = 0):
     from .models.pingpong import PingPong, state_spec
     from .runtime.runtime import Runtime
     sc = Scenario()
     sc.at(ms(40)).kill_random()
     sc.at(ms(400)).restart_random()
-    cfg = SimConfig(n_nodes=4, time_limit=sec(5), trace_cap=0,
+    cfg = SimConfig(n_nodes=4, time_limit=sec(5), trace_cap=trace_cap,
                     net=NetConfig(send_latency_min=ms(1),
                                   send_latency_max=ms(1)))
     return Runtime(cfg, [PingPong(4, target=6)], state_spec(), scenario=sc,
                    device=device)
+
+
+def build_pingpong(device=None):
+    """The saturating pingpong chaos workload with the recorder compiled
+    in, so ring columns are covered too."""
+    return pingpong_runtime(device, trace_cap=64)
+
+
+def build_wal_kv(device=None):
+    """The WAL-KV kill/restart chaos matrix: stable storage, persist
+    masks, recovery — the fs-layer workload."""
+    from .models.wal_kv import SERVER, make_wal_kv_runtime
+    sc = Scenario()
+    for t in range(4):
+        sc.at(ms(250) + ms(400) * t).kill(SERVER)
+        sc.at(ms(250) + ms(400) * t + ms(120)).restart(SERVER)
+    return make_wal_kv_runtime(n_clients=2, n_ops=12, wal_cap=8,
+                               sync_wal=True, scenario=sc, device=device)
+
+
+GOLDEN_WORKLOADS = dict(pingpong=build_pingpong, wal_kv=build_wal_kv)

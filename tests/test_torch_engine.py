@@ -617,12 +617,15 @@ def test_runtime_runs_on_cuda_unless_cpu_is_asked_for():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("trace_cap", 8), ("profile", True), ("latency_hist", 4),
-    ("sketch_slots", 2), ("series_windows", 2)])
+    ("profile", True), ("latency_hist", 4), ("sketch_slots", 2),
+    ("series_windows", 2), ("span_attr", True)])
 def test_unported_planes_are_refused(field, value):
     import madsim_tpu_torch as P
     from madsim_tpu_torch.models import pingpong as tpp
-    cfg = P.SimConfig(n_nodes=2, **{field: value})
+    # the span plane needs the latency plane and completion kinds with it
+    needs = (dict(latency_hist=4, complete_kinds=((P.EV_MSG, 1),))
+             if field == "span_attr" else {})
+    cfg = P.SimConfig(n_nodes=2, **{field: value}, **needs)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         P.Runtime(cfg, [tpp.PingPong(2)], tpp.state_spec(), device="cpu")
 
