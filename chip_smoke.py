@@ -7,9 +7,10 @@ Run from the root of a checkout on a machine with a CUDA GPU and nvcc.
 It builds the port's CUDA kernels from csrc/, then drives the port's main
 paths — the golden workloads and the batched 5-node Raft chaos sweep at
 B=100,000 lanes, through the eager chunked runner `Runtime.run` and the
-CUDA-graph runner `Runtime.run_fused` — and holds every kernel against
-its plain PyTorch version and the engine against the frozen golden
-digests. One JSON object per line, in phases:
+CUDA-graph runner `Runtime.run_fused`, and the schedule search entry
+points `fuzz`, `explore` and `pct_sweep` on the same sweep — and holds
+every kernel against its plain PyTorch version and the engine against
+the frozen golden digests. One JSON object per line, in phases:
 
   device       torch / CUDA versions, the card's name and power limit
   build        nvcc of every kernel source, in parallel, with ptxas stats
@@ -31,6 +32,25 @@ digests. One JSON object per line, in phases:
                no crash, every lane halted, lanes 0..31 reproduce the 91
                frozen run_fused digests; both kernels' operands are taken
                at step 40 of this batch for the kernel phase
+  fuzz_flagship  the coverage-guided fuzzer on the flagship at B=100,000:
+               3 rounds of 1024 steps, havoc 3, through run_fused; per
+               round its wall seconds, the host wall seconds of its
+               run_fused call (to a synchronise) and its host (corpus)
+               seconds; seed-events/s count no warm-up step;
+               apply_knobs launched once per round, mutate once per round
+               launched on a non-empty corpus (the reference's pipeline
+               launches round 1 before it reads round 0), the step kernels
+               once per step
+  explore_flagship  blind sweeps at B=100,000, 2 rounds of 1024 steps:
+               coverage_digest launched once per round, each digest equal
+               to np.unique of the round's schedule hashes
+  pct_flagship  seed 0 under 100,000 distinct nonzero PCT nudges, 512 steps
+               (the select kernel's nudged path at full width)
+  search_same_on_both  one fixed-seed campaign on the saturating runtime
+               (bench.py's search A/B shape: 6 rounds of 128 lanes, 1500
+               steps) on the card and on the CPU: equal results and equal
+               corpora; the fuzzer finds more schedules than blind explore
+               on the same budget
   kernel       each kernel against its plain version, exactly equal
                (the kernel's time is device time: launches captured in a
                CUDA graph and replayed between events):
@@ -43,9 +63,20 @@ digests. One JSON object per line, in phases:
                traced flagship at steps 0 and 512 and from wal_kv at
                step 40 (32 golden lanes, and B=100,000); kernel and plain
                times, the bound from the bytes the write needs, and
-               apart from it the bytes of the functional copy
-  determinism  lanes 0..4095 alone, twice: fingerprints equal to each
-               other and to lanes 0..4095 of the B=100,000 run
+               apart from it the bytes of the functional copy;
+               mutate, apply_knobs and coverage_digest on the flagship's
+               own operands at B=100,000 (the first mutated fuzz round's
+               parents and key, the last round's init state and knobs,
+               explore's first schedule hashes) and on edge cases (havoc 0,
+               1 and 6, masked; a plan with value, direction, torn, pool
+               and dup rows; foreign knobs out of every bound; hashes with
+               the top bit set, all equal, all distinct, one lane, a tile
+               edge), with kernel, plain and (coverage_digest:
+               torch.unique) library times and bounds
+  determinism  lanes 0..4095 alone, twice through run (512 steps) and
+               twice through run_fused (2048 steps): fingerprints equal
+               to each other and to lanes 0..4095 of the B=100,000 eager
+               run at the same step
   profile      torch.profiler over 16 flagship steps at B=100,000, for
                each runner: device kernels per step, device busy share,
                top kernels; each kernel's device events in the trace
@@ -73,7 +104,18 @@ import time
 FLAG_B = 100_000
 FLAG_STEPS = 2048
 FLAG_CHUNK = 512
+FUZZ_STEPS = 1024           # fuzz_flagship and explore_flagship rounds
+FUZZ_ROUNDS = 3
+FUZZ_HAVOC = 3
+EXPLORE_ROUNDS = 2
+PCT_STEPS = 512
+# the saturating campaign run on the card and on the CPU (bench.py's
+# search A/B shape); dry_rounds past max_rounds: every round runs
+SAT = dict(max_steps=1500, batch=128, max_rounds=6, chunk=256, rng_seed=7)
+EDGE_B = 4096
+STEP_KERNELS = ("emit_write", "sched_pick")
 DET_B = 4096
+DET_EAGER_STEPS = FLAG_CHUNK   # the eager determinism passes (host-bound)
 PROF_STEPS = 16
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 # H100 SXM float32 peak outside the tensor cores (data sheet), taken as
@@ -461,6 +503,195 @@ def profile_steps(run, state, batch, names):
                                  for n, t in top])
 
 
+def same_tree(a, b) -> bool:
+    """Exact equality of result trees: dicts, lists, tuples, numpy arrays
+    (dtype and shape too) and scalars (type too)."""
+    import numpy as np
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and sorted(a) == sorted(b)
+                and all(same_tree(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(same_tree(x, y) for x, y in zip(a, b)))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        return a.dtype == b.dtype and a.shape == b.shape and bool(
+            (a == b).all())
+    return type(a) is type(b) and a == b
+
+
+class Spy:
+    """Wrap `owner.name` (a module function, a class method or an instance
+    method) while the `with` block runs: each call's seconds (after a
+    device synchronise) go into `seconds`, and the cloned arguments of the
+    calls numbered in `keep` into `kept` (the call itself runs on the
+    caller's tensors)."""
+
+    def __init__(self, owner, name, keep=(), after=None):
+        self.owner, self.name, self.keep, self.after = owner, name, keep, after
+        self.seconds, self.kept = [], {}
+
+    def __enter__(self):
+        import torch
+        real = getattr(self.owner, self.name)
+        self.real = real
+        spy = self
+
+        def wrapper(*args, **kw):
+            i = len(spy.seconds)
+            if i in spy.keep:
+                spy.kept[i] = clone_tree((args, kw))
+            t0 = time.perf_counter()
+            out = real(*args, **kw)
+            torch.cuda.synchronize()
+            spy.seconds.append(time.perf_counter() - t0)
+            if spy.after is not None:
+                spy.after(out)
+            return out
+
+        setattr(self.owner, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        if isinstance(self.owner, type) or not hasattr(
+                type(self.owner), self.name):
+            setattr(self.owner, self.name, self.real)
+        else:
+            delattr(self.owner, self.name)     # the instance's own wrapper
+        return False
+
+
+def distinct_nudges(n):
+    """n distinct nonzero int32 nudges (odd multiples are a bijection of
+    the nonzero words mod 2^32)."""
+    import numpy as np
+    k = np.arange(1, n + 1, dtype=np.uint64) * np.uint64(2654435761)
+    return (k % (1 << 32)).astype(np.uint32).view(np.int32)
+
+
+def edge_knobs(plan, B, seed, dev):
+    """A knob batch of B lanes on `dev` for the search kernels' checks:
+    base lanes, lanes through six havoc steps of the plain mutator, and
+    foreign lanes at the bounds (row and dup times next to T_INF, targets
+    outside [-1, N-1] and outside their pools, out-of-range values and
+    flags, latency and jitter at and past their caps, losses outside
+    [0, 0.99] on the float32 grid of the loss drift, extreme nudges)."""
+    import numpy as np
+    import torch
+    from madsim_tpu_torch import interop
+    from madsim_tpu_torch.ops.mutate import mutate_batch_plain
+    rng = np.random.default_rng(seed)
+    T_INF = 2 ** 31 - 1
+    guards, _ = plan._device_tables(dev)
+    kb = plan.base_batch(B)
+    mut = interop.knobs_to_numpy(mutate_batch_plain(
+        interop.knobs_to_torch(kb, dev),
+        torch.tensor([seed, 1], dtype=torch.int32, device=dev), guards,
+        6)[0])
+    q = B // 4
+    for k in kb:
+        kb[k][q:2 * q] = mut[k][q:2 * q]
+    f = slice(2 * q, B)
+    n, R, D = B - 2 * q, plan.R, plan.D
+    kb["row_time"][f] = rng.choice([-5, 0, 1, T_INF - 2, T_INF - 1,
+                                    T_INF - 100], (n, R))
+    kb["row_node"][f] = rng.integers(-5, plan.N + 4, (n, R))
+    kb["row_val"][f] = rng.integers(-2 ** 31, 2 ** 31 - 1, (n, R))
+    kb["row_flag"][f] = rng.integers(-3, 4, (n, R))
+    kb["row_on"][f] = rng.random((n, R)) < 0.7
+    kb["dup_src"][f] = rng.integers(-2, R + 2, (n, D))
+    kb["dup_time"][f] = rng.choice([-3, 0, T_INF - 1, T_INF - 7], (n, D))
+    kb["dup_on"][f] = rng.random((n, D)) < 0.5
+    kb["lat_lo"][f] = rng.choice([-9, 0, 4_999, 30_000_000, 40_000_000], n)
+    kb["lat_hi"][f] = rng.choice([-9, 0, 19_999, 30_000_000], n)
+    kb["jitter"][f] = rng.choice([-1, 0, 1_000_000, 2_000_000, 4_999], n)
+    kb["prio_nudge"][f] = rng.choice([0, 2 ** 31 - 1, -(2 ** 31)], n)
+    kb["loss"][f] = rng.choice(np.float32([-0.5, 0.0, 0.05, 0.3, 0.9, 0.95,
+                                           0.99, 1.5, 2.0 ** -20]), n)
+    return interop.knobs_to_torch(kb, dev)
+
+
+def mutate_bound(knobs, key, guards, havoc, mask=None):
+    """(bytes, operations) of the havoc mutation for these operands. bytes:
+    every lane's knob vector read and written once, its last_op, and the
+    histogram. operations: 80 integer operations per threefry block, for
+    the blocks the drawn operators need at least — the lane key (2), each
+    step's key, operator subkey and operator draw (8), and per operator
+    its cheaper branch: time nudge 21 (6 without a mutable row), target 12
+    (6), toggle 6, dup 12 (0 without dup slots), latency 12, loss 3,
+    priority 6, fault 6."""
+    import torch
+    from madsim_tpu_torch.core import prng
+    B = knobs["row_time"].shape[0]
+    lane_bytes = sum(v[0].numel() * v.element_size()
+                     for v in knobs.values())
+    nbytes = 2 * B * lane_bytes + B * 4 + 8 * 4
+    if havoc == 0:
+        return nbytes, 0
+    D = knobs["dup_src"].shape[1]
+    per_op = torch.tensor([
+        21 if bool(guards["time_ok"].any()) else 6,
+        12 if bool(guards["node_ok"].any()) else 6, 6,
+        12 if D > 0 else 0, 12, 3, 6, 6], device=key.device)
+    steps = prng.split(prng.split(key, B), havoc)
+    blocks = 2 * B
+    for h in range(havoc):
+        op = prng.randint(prng.split(steps[:, h], 16)[:, 0], 0, 7)
+        live = mask if mask is not None else torch.ones_like(op, dtype=bool)
+        blocks += int(((8 + per_op[op.long()]) * live).sum())
+    if mask is not None:
+        blocks -= 2 * int((~mask).sum())
+    return nbytes, 80 * blocks
+
+
+def apply_bound(cols, tlimit, jitter, knobs, base, guards, n_init,
+                jitter_gate):
+    """(bytes, copy_bytes) of the knob write for these operands. bytes:
+    what the write needs — every lane's knob vector, tlimit and jitter
+    read once, its R + D written rows (five int32 columns and P payload
+    words each) and its five scalars written once, the plan's base rows
+    and guards once. copy_bytes: what the kernel moves on top because its
+    result is new columns — every other row read and written once."""
+    B, C = cols["t_kind"].shape
+    R, P = base["payload"].shape
+    D = knobs["dup_src"].shape[1]
+    row = 4 * 5 + 4 * P
+    lane_bytes = sum(v[0].numel() * v.element_size()
+                     for v in knobs.values())
+    plan_bytes = sum(v.numel() * v.element_size()
+                     for v in list(base.values()) + list(guards.values()))
+    nbytes = B * (lane_bytes + 8 + (R + D) * row + 5 * 4) + plan_bytes
+    return nbytes, 2 * B * (C - R - D) * row
+
+
+def coverage_edge_hashes(dev):
+    """Hash sets the coverage digest must get right: repeats with the top
+    bit of either word set, all equal, all distinct, one lane, a tile
+    edge, the extreme words."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(17)
+    top = np.uint32(1 << 31)
+    rep = rng.integers(0, 2 ** 32, (5000, 2), dtype=np.uint32)
+    rep = rep[rng.integers(0, 5000, 100_000)]
+    rep[::3, 0] |= top
+    rep[1::3, 1] |= top
+    distinct = np.stack([
+        np.arange(100_000, dtype=np.uint64) * 2654435761 % 2 ** 32,
+        np.arange(100_000, dtype=np.uint64) % 2 << 31], 1).astype(np.uint32)
+    sets = {
+        "repeats_top_bits": rep,
+        "all_equal": np.full((100_000, 2), [top | 5, top | 9], np.uint32),
+        "all_distinct": distinct,
+        "one_lane": np.array([[top, 1]], np.uint32),
+        "tile_edge_1025": rep[:1025],
+        "extremes": np.array([[0, 0], [2 ** 32 - 1, 2 ** 32 - 1], [top, 0],
+                              [top - 1, 2 ** 32 - 1], [0, top],
+                              [2 ** 32 - 1, 0], [0, 0]], np.uint32)}
+    return {k: torch.as_tensor(v.view(np.int32), device=dev)
+            for k, v in sets.items()}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -476,6 +707,12 @@ def main() -> int:
                                                      emit_write_plain)
         from madsim_tpu_torch.ops.sched_pick import (sched_pick,
                                                      sched_pick_plain)
+        from madsim_tpu_torch.parallel import stats
+        from madsim_tpu_torch.parallel.explore import explore
+        from madsim_tpu_torch.search import Corpus, KnobPlan, fuzz, pct_sweep
+        from madsim_tpu_torch.search import corpus as corpus_mod
+        from madsim_tpu_torch.search import mutate as mutate_mod
+        from madsim_tpu_torch.search.pct import with_prio_nudge
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repository "
               f"({e})", file=sys.stderr)
@@ -484,7 +721,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     wrappers = kernels.wrappers()
-    names = sorted(wrappers)
+    names = list(STEP_KERNELS)          # launched once per step
 
     def reset_counts():
         for w in wrappers.values():
@@ -512,7 +749,8 @@ def main() -> int:
              for k, r in report.items()}
     emit(phase="build", seconds=time.perf_counter() - t0,
          kernels=sorted(report), ptxas=ptxas)
-    check(sorted(report) == names, f"build: {sorted(report)} != {names}")
+    check(sorted(report) == sorted(wrappers),
+          f"build: {sorted(report)} != {sorted(wrappers)}")
 
     # ---- golden: the frozen digests through both runners --------------------
     with open(os.path.join(here, "tests", "data",
@@ -574,6 +812,7 @@ def main() -> int:
     t1 = time.perf_counter()
     first_steps = rt.steps_run
     snap = select_inputs(s)        # outside the timed steady window
+    flag_fp_chunk = rt.fingerprints(s)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     steps_mid = int(s.steps.sum())
@@ -701,12 +940,215 @@ def main() -> int:
     check(not bad, f"fused_wal_kv: lanes 0..31 differ: {bad}")
     del s, rt
 
+    # ---- fuzz_flagship: the coverage-guided fuzzer at full width ------------
+    search = ("mutate", "apply_knobs")
+    rt = workloads.flagship_runtime(device=dev)
+    runs = []            # per run_fused call: steps and step-kernel launches
+
+    def after_run(_):
+        st = rt.fused_stats
+        runs.append(dict(steps=st["steps"], warmup=st["warmup_steps"],
+                         replayed={k: st["captured"][k] * st["replays"]
+                                   for k in names}))
+
+    rounds_seen = []
+
+    class Rounds:
+        def on_round(self, rec):
+            rounds_seen.append(rec)
+
+        def on_done(self, rec):
+            pass
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with Spy(rt, "run_fused", after=after_run) as run_spy, \
+            Spy(corpus_mod.Corpus, "observe") as obs_spy, \
+            Spy(corpus_mod.Corpus, "schedule") as sched_spy, \
+            Spy(mutate_mod, "mutate_batch", keep=(0,)) as mut_spy, \
+            Spy(mutate_mod, "apply_knobs",
+                keep=(FUZZ_ROUNDS - 1,)) as app_spy:
+        res = fuzz(rt, max_steps=FUZZ_STEPS, batch=FLAG_B,
+                   max_rounds=FUZZ_ROUNDS, havoc=FUZZ_HAVOC, chunk=FLAG_CHUNK,
+                   fused=True, observer=Rounds())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    launched = len(run_spy.seconds)
+    steps = sum(r["steps"] for r in runs)        # warm-up steps left out
+    warm = sum(r["warmup"] for r in runs)
+    fuzz_launch = {k: counts[k] + sum(r["replayed"][k] for r in runs)
+                   for k in names}
+    fuzz_launch.update({k: counts[k] for k in search})
+    # the reference launches round r+1 before it reads round r, so round 1
+    # is launched on an empty corpus and mutation starts with round 2:
+    # one corpus draw (and one mutate) per round launched on a corpus
+    mutated = len(sched_spy.seconds)
+    first_mut = launched - mutated
+    prev = 0.0
+    for r, rec in enumerate(rounds_seen):
+        sched = sched_spy.seconds[r - first_mut] if r >= first_mut else 0.0
+        host = obs_spy.seconds[r] + sched
+        emit(phase="fuzz_flagship_round", round=r,
+             wall_s=rec["wall_s"] - prev,
+             run_fused_wall_s=run_spy.seconds[r],
+             host_s=host, corpus_observe_s=obs_spy.seconds[r],
+             corpus_schedule_s=sched, mutated=r >= first_mut,
+             host_longer_than_run_fused=host > run_spy.seconds[r],
+             new_schedules=rec["new_schedules"],
+             corpus_size=rec["corpus_size"])
+        prev = rec["wall_s"]
+    emit(phase="fuzz_flagship", batch=FLAG_B, max_steps=FUZZ_STEPS,
+         rounds=res["rounds"], launched_rounds=launched, havoc=FUZZ_HAVOC,
+         steps_run=steps, warmup_steps=warm, wall_s=wall,
+         seed_events_per_s=FLAG_B * steps / wall,
+         run_fused_wall_s=sum(run_spy.seconds),
+         host_s=sum(obs_spy.seconds) + sum(sched_spy.seconds),
+         launches=fuzz_launch, distinct_schedules=res["distinct_schedules"],
+         seeds_run=res["seeds_run"], crashes=res["crashes"],
+         crash_codes=sorted(res["crash_repros"]),
+         corpus_size=res["corpus_size"], mutation_ops=res["mutation_ops"],
+         mutation_yield=res["mutation_yield"])
+    check(res["rounds"] == FUZZ_ROUNDS == launched,
+          f"fuzz_flagship: {res['rounds']} rounds, {launched} launched")
+    check(fuzz_launch["apply_knobs"] == launched,
+          f"fuzz_flagship: apply_knobs launched "
+          f"{fuzz_launch['apply_knobs']} times in {launched} rounds")
+    check(fuzz_launch["mutate"] == mutated >= 1,
+          f"fuzz_flagship: mutate launched {fuzz_launch['mutate']} times "
+          f"in {mutated} mutated rounds")
+    check_once_per_step("fuzz_flagship", fuzz_launch, steps + warm, names)
+    check(res["distinct_schedules"] >= 0.99 * res["seeds_run"],
+          f"fuzz_flagship: {res['distinct_schedules']} distinct schedules "
+          f"in {res['seeds_run']} lanes")
+    check(sum(res["mutation_ops"].values()) > 0,
+          "fuzz_flagship: no operator applied")
+    mutate_cases = {f"flagship_round_{first_mut}": mut_spy.kept[0][0]}
+    apply_cases = {f"flagship_round_{FUZZ_ROUNDS - 1}":
+                   app_spy.kept[FUZZ_ROUNDS - 1][0]}
+    del mut_spy, app_spy
+
+    # ---- explore_flagship: blind sweeps with the on-device digest -----------
+    digests = []
+
+    def keep_digest(out):
+        digests.append(out)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with Spy(stats, "coverage_digest", keep=range(EXPLORE_ROUNDS),
+             after=keep_digest) as cov_spy:
+        res = explore(rt, max_steps=FUZZ_STEPS, batch=FLAG_B,
+                      max_rounds=EXPLORE_ROUNDS, chunk=FLAG_CHUNK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts["coverage_digest"] == res["rounds"] == EXPLORE_ROUNDS,
+          f"explore_flagship: coverage_digest launched "
+          f"{counts['coverage_digest']} times in {res['rounds']} rounds")
+    for i, (pairs, n) in enumerate(digests):
+        st = cov_spy.kept[i][0][0]
+        want = np.unique(stats.sched_hash_u64(st))
+        check(int(n) == len(want) and np.array_equal(
+            stats.digest_hashes(pairs, n), want),
+              f"explore_flagship: round {i} digest differs from np.unique")
+    emit(phase="explore_flagship", batch=FLAG_B, max_steps=FUZZ_STEPS,
+         rounds=res["rounds"], wall_s=wall,
+         seed_events_per_s=FLAG_B * FUZZ_STEPS * res["rounds"] / wall,
+         coverage_digest_launches=counts["coverage_digest"],
+         distinct_schedules=res["distinct_schedules"],
+         new_per_round=res["new_per_round"], crashes=res["crashes"])
+    explore_launches = counts["coverage_digest"]
+    coverage_cases = {"explore_round_0": (cov_spy.kept[0][0][0]
+                                          .sched_hash.clone(),)}
+    del cov_spy, digests
+
+    # ---- pct_flagship: one seed under 100,000 tie-break policies ------------
+    nudges = distinct_nudges(FLAG_B)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = pct_sweep(rt, 0, nudges, PCT_STEPS, chunk=FLAG_CHUNK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_launches(rt, read_counts(), names)
+    check_once_per_step("pct_flagship", launches,
+                        rt.steps_run + rt.fused_stats["warmup_steps"], names)
+    emit(phase="pct_flagship", batch=FLAG_B, steps=rt.steps_run,
+         wall_s=wall, seed_events_per_s=FLAG_B * rt.steps_run / wall,
+         launches=launches, distinct_schedules=res["distinct_schedules"],
+         crashed=len(res["crashed_by_nudge"]))
+    check(res["distinct_schedules"] > 1,
+          "pct_flagship: every nudge gave the same schedule")
+    s = with_prio_nudge(rt.init_batch(np.zeros(FLAG_B, np.uint32)), nudges)
+    s = rt.run_fused(s, PCT_STEPS // 2, chunk=PCT_STEPS // 2)
+    pct_select = select_inputs(s)      # nudged operands from mid-run
+    del s, rt
+
+    # ---- search_same_on_both: one campaign on the card and on the CPU -------
+    camp = {}
+    for where in ("cuda", "cpu"):
+        rt = workloads.saturating_runtime(device=where)
+        corpus = Corpus(KnobPlan.from_runtime(rt),
+                        rng=np.random.default_rng(SAT["rng_seed"]))
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with Spy(corpus_mod.Corpus, "schedule") as sched_spy:
+            r = fuzz(rt, corpus=corpus, dry_rounds=SAT["max_rounds"] + 1,
+                     **SAT)
+        torch.cuda.synchronize()
+        camp[where] = dict(result=r, entries=corpus.entries,
+                           wall_s=time.perf_counter() - t0,
+                           counts=read_counts(),
+                           mutated=len(sched_spy.seconds))
+    rt = workloads.saturating_runtime(device=dev)
+    reset_counts()
+    blind = explore(rt, dry_rounds=SAT["max_rounds"] + 1,
+                    **{k: SAT[k] for k in ("max_steps", "batch",
+                                           "max_rounds", "chunk")})
+    blind_counts = read_counts()
+    gpu, cpu = camp["cuda"], camp["cpu"]
+    same = same_tree(gpu["result"], cpu["result"])
+    same_corpus = same_tree(gpu["entries"], cpu["entries"])
+    emit(phase="search_same_on_both", **{k: v for k, v in SAT.items()},
+         wall_s_cuda=gpu["wall_s"], wall_s_cpu=cpu["wall_s"],
+         launches_cuda={k: gpu["counts"][k] for k in search},
+         launches_cpu={k: cpu["counts"][k] for k in search},
+         results_equal=same, corpora_equal=same_corpus,
+         corpus_entries=len(gpu["entries"]),
+         fuzz_distinct_schedules=gpu["result"]["distinct_schedules"],
+         explore_distinct_schedules=blind["distinct_schedules"],
+         fuzz_new_per_round=gpu["result"]["new_per_round"],
+         explore_new_per_round=blind["new_per_round"],
+         mutation_ops=gpu["result"]["mutation_ops"])
+    check(same, "search_same_on_both: fuzz results differ between the "
+          "card and the CPU")
+    check(same_corpus, "search_same_on_both: the corpora differ")
+    check(gpu["result"]["rounds"] == SAT["max_rounds"]
+          and gpu["counts"]["apply_knobs"] == SAT["max_rounds"]
+          and gpu["counts"]["mutate"] == gpu["mutated"] >= 1,
+          f"search_same_on_both: launches {gpu['counts']} in "
+          f"{gpu['result']['rounds']} rounds")
+    check(all(cpu["counts"][k] == 0 for k in search),
+          "search_same_on_both: a kernel launched on the CPU run")
+    check(blind_counts["coverage_digest"] == blind["rounds"],
+          "search_same_on_both: explore's digest launches")
+    check(gpu["result"]["distinct_schedules"]
+          > blind["distinct_schedules"],
+          "search_same_on_both: the fuzzer found no more schedules than "
+          "blind explore")
+    del camp, rt
+
     # ---- kernel: sched_pick against its plain version -----------------------
     B, C = captured[0][0].shape
     N = captured[0][5].shape[1]
     cases = {"edges": edge_inputs(dev, B, C, N)}
     cases.update({f"flagship_step_{k}": v for k, v in captured.items()})
     cases[wal_case] = wal_select
+    cases[f"pct_flagship_step_{PCT_STEPS // 2}"] = pct_select
     max_err = 0
     for name, args in cases.items():
         out_k = sched_pick(*args)
@@ -742,7 +1184,7 @@ def main() -> int:
          ms=[k_ms, k_ms2], eager_launch_ms=k_eager,
          plain_ms=[p_ms, p_ms2], bound_bytes=nbytes,
          bound_ms=sp_bound_ms, library="none")
-    del cases, captured, main_args, wal_select
+    del cases, captured, main_args, wal_select, pct_select
 
     # ---- kernel: emit_write against its plain version -----------------------
     for C_e, E_e, ns_e, jit_e, ring_e in ((96, 12, 7, True, True),
@@ -790,31 +1232,123 @@ def main() -> int:
          library="none")
     del emit_cases, main_e
 
+    # ---- kernel: the search kernels against their plain versions ----------
+    from madsim_tpu_torch.ops.apply_knobs import apply_knobs, \
+        apply_knobs_plain
+    from madsim_tpu_torch.ops.coverage import coverage_digest, \
+        coverage_digest_plain, sort_key
+    from madsim_tpu_torch.ops.mutate import mutate_batch, mutate_batch_plain
+    search_kernels = {}
+    edge_rts = {"all_knobs": workloads.all_knobs_runtime(device=dev),
+                "flagship": workloads.flagship_runtime(device=dev)}
+    for pname, ert in edge_rts.items():
+        plan = KnobPlan.from_runtime(ert)
+        guards, base = plan._device_tables(dev)
+        kb = edge_knobs(plan, EDGE_B, 3, dev)
+        mask = torch.as_tensor(np.random.default_rng(5).random(EDGE_B)
+                               < 0.6, device=dev)
+        for h, m in ((0, None), (1, None), (6, None), (6, mask)):
+            key = torch.tensor([h, 99], dtype=torch.int32, device=dev)
+            masked = "_masked" if m is not None else ""
+            mutate_cases[f"{pname}_havoc{h}{masked}"] = (kb, key, guards, h,
+                                                          m)
+        st = ert.init_batch(np.arange(EDGE_B, dtype=np.uint32))
+        apply_cases[f"{pname}_foreign"] = (
+            {n: getattr(st, n) for n in ("t_deadline", "t_kind", "t_node",
+                                         "t_src", "t_tag", "t_payload")},
+            st.tlimit, st.jitter, kb, base, guards, plan.n_init,
+            plan.jitter_gate)
+    coverage_cases.update({k: (h,) for k, h in
+                           coverage_edge_hashes(dev).items()})
+    for kname, kern, plain, cases_k, main_case in (
+            ("mutate", mutate_batch, mutate_batch_plain, mutate_cases,
+             f"flagship_round_{first_mut}"),
+            ("apply_knobs", apply_knobs, apply_knobs_plain, apply_cases,
+             f"flagship_round_{FUZZ_ROUNDS - 1}"),
+            ("coverage_digest", coverage_digest, coverage_digest_plain,
+             coverage_cases, "explore_round_0")):
+        err = 0
+        for cname, args in cases_k.items():
+            out_k = kern(*args)
+            out_p = plain(*args)
+            torch.cuda.synchronize()
+            err = max(err, check_equal(f"{kname} on {cname}", out_k, out_p))
+        margs = cases_k[main_case]
+        k_ms = graph_ms(lambda: kern(*margs), 20)
+        p_ms = cuda_ms(lambda: plain(*margs), 3)
+        k_ms2 = graph_ms(lambda: kern(*margs), 20)
+        p_ms2 = cuda_ms(lambda: plain(*margs), 3)
+        extra = {}
+        lib_ms = None
+        if kname == "mutate":
+            nbytes, ops = mutate_bound(*margs)
+        elif kname == "apply_knobs":
+            nbytes, copy = apply_bound(*margs)
+            ops = 0
+            extra = dict(copy_bytes=copy,
+                         copy_ms=copy / HBM_BYTES_PER_S * 1e3)
+        else:
+            B_c = margs[0].shape[0]
+            nbytes, ops = 16 * B_c + 4, 0
+            key64 = sort_key(margs[0])
+            lib_ms = min(cuda_ms(lambda: torch.unique(key64), 10),
+                         cuda_ms(lambda: torch.unique(key64), 10))
+            extra = dict(library="torch.unique over the 64-bit key")
+        b_ms, o_ms = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+        bound_ms = max(b_ms, o_ms) * 1e3
+        bound_by = "bytes" if b_ms >= o_ms else "operations"
+        search_kernels[kname] = dict(
+            ms=min(k_ms, k_ms2), plain_ms=min(p_ms, p_ms2),
+            bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+            library_ms=lib_ms)
+        emit(phase="kernel", name=kname, cases=sorted(cases_k),
+             main_case=main_case, exact=True, max_abs_err=err,
+             ms=[k_ms, k_ms2], plain_ms=[p_ms, p_ms2], bound_bytes=nbytes,
+             bound_operations=ops, bound_ms=bound_ms, bound_by=bound_by,
+             library_ms=lib_ms, **extra)
+    del mutate_cases, apply_cases, coverage_cases, edge_rts
+
     # ---- determinism and batch independence ---------------------------------
-    fps = []
-    for rep in range(2):
-        rt4 = workloads.flagship_runtime(device=dev)
-        s = rt4.init_batch(np.arange(DET_B, dtype=np.uint32))
-        reset_counts()
-        t0 = time.perf_counter()
-        s, _ = rt4.run(s, FLAG_STEPS, chunk=FLAG_CHUNK)
-        torch.cuda.synchronize()
-        counts = read_counts()
-        check(rt4.steps_run == FLAG_STEPS,
-              f"determinism: {rt4.steps_run} steps")
-        check_once_per_step("determinism", counts, rt4.steps_run, names)
-        fps.append(rt4.fingerprints(s))
-        emit(phase="determinism", run=rep, batch=DET_B, steps=rt4.steps_run,
-             launches=counts, wall_s=time.perf_counter() - t0)
-        del s
-    same_twice = bool((fps[0] == fps[1]).all())
-    same_as_big = bool((fps[0] == flag_fp[:DET_B]).all())
-    emit(phase="determinism", lanes=DET_B, same_twice=same_twice,
-         same_as_batch_100000=same_as_big,
-         distinct_fingerprints=int(len(np.unique(fps[0]))))
-    check(same_twice, "determinism: two runs of lanes 0..4095 differ")
-    check(same_as_big, "batch independence: lanes 0..4095 alone differ "
-          "from the same lanes inside the B=100,000 run")
+    # each runner twice on lanes 0..4095 alone, held against the same lanes
+    # of the B=100,000 eager run: the eager runner at its first chunk, the
+    # graph runner at the end
+    for runner, steps, want in (("run", DET_EAGER_STEPS, flag_fp_chunk),
+                                ("run_fused", FLAG_STEPS, flag_fp)):
+        fps = []
+        for rep in range(2):
+            rt4 = workloads.flagship_runtime(device=dev)
+            s = rt4.init_batch(np.arange(DET_B, dtype=np.uint32))
+            reset_counts()
+            t0 = time.perf_counter()
+            if runner == "run":
+                s, _ = rt4.run(s, steps, chunk=FLAG_CHUNK)
+                torch.cuda.synchronize()
+                counts = read_counts()
+                launched = rt4.steps_run
+            else:
+                s = rt4.run_fused(s, steps, chunk=FLAG_CHUNK)
+                torch.cuda.synchronize()
+                counts = fused_launches(rt4, read_counts(), names)
+                launched = rt4.steps_run + rt4.fused_stats["warmup_steps"]
+            check(rt4.steps_run == steps,
+                  f"determinism {runner}: {rt4.steps_run} steps")
+            check_once_per_step(f"determinism {runner}", counts, launched,
+                                names)
+            fps.append(rt4.fingerprints(s))
+            emit(phase="determinism", runner=runner, run=rep, batch=DET_B,
+                 steps=rt4.steps_run, launches=counts,
+                 wall_s=time.perf_counter() - t0)
+            del s
+        same_twice = bool((fps[0] == fps[1]).all())
+        same_as_big = bool((fps[0] == want[:DET_B]).all())
+        emit(phase="determinism", runner=runner, lanes=DET_B, steps=steps,
+             same_twice=same_twice, same_as_batch_100000=same_as_big,
+             distinct_fingerprints=int(len(np.unique(fps[0]))))
+        check(same_twice,
+              f"determinism {runner}: two runs of lanes 0..4095 differ")
+        check(same_as_big, f"batch independence {runner}: lanes 0..4095 "
+              f"alone differ from the same lanes inside the B=100,000 run "
+              f"at step {steps}")
 
     # ---- profile: where a flagship step's time goes, for each runner --------
     rt = workloads.flagship_runtime(device=dev)
@@ -843,7 +1377,16 @@ def main() -> int:
              launches=fused_launch["emit_write"],
              max_abs_err=ew["max_abs_err"], ms=ew["ms"],
              plain_ms=ew["plain_ms"], bound_ms=ew["bound_ms"],
-             bound_by=ew["bound_by"], library_ms=None)])
+             bound_by=ew["bound_by"], library_ms=None)] + [
+        dict(name=k, route="cuda", source=f"madsim_tpu_torch/csrc/{src}",
+             replaces=where, launches=n, **search_kernels[k])
+        for k, src, where, n in (
+            ("mutate", "mutate.cu", "madsim_tpu/search/mutate.py:470",
+             fuzz_launch["mutate"]),
+            ("apply_knobs", "apply_knobs.cu",
+             "madsim_tpu/search/mutate.py:499", fuzz_launch["apply_knobs"]),
+            ("coverage_digest", "coverage.cu",
+             "madsim_tpu/parallel/stats.py:23", explore_launches))])
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

@@ -7,6 +7,12 @@ the JAX dtypes (uint32 for keys and hashes) and a leading [B] lane axis.
 Nothing here imports JAX: a caller on the JAX side hands over
 `np.asarray` leaves, and gets numpy leaves back.
 
+Knob batches of the fuzzer (`search/mutate.py`) cross the same way: a
+dict of numpy arrays keyed by knob name (the JAX package's knob batches
+and corpus entries as they are) becomes a dict of tensors with
+`knobs_to_torch`, and back with `knobs_to_numpy`. Knobs carry no uint32
+field, so dtypes map one to one.
+
 `leaf_digests` reproduces the per-leaf sha256 encoding of the frozen
 golden files (`tests/_grayfail_golden.py`: f"{shape}|{dtype}|" followed
 by the array bytes), so a state of this package can be held against the
@@ -108,3 +114,21 @@ def digest(a: np.ndarray) -> str:
 def leaf_digests(state: SimState) -> dict:
     """{leaf path: sha256} over a batched state."""
     return {p: digest(a) for p, a in state_to_numpy(state).items()}
+
+
+def knobs_to_torch(knobs: dict, device) -> dict:
+    """{knob: tensor on `device`} from numpy arrays, scalars or tensors."""
+    out = {}
+    for k, v in knobs.items():
+        if isinstance(v, torch.Tensor):
+            out[k] = v.to(device).contiguous()
+        else:
+            out[k] = torch.as_tensor(np.ascontiguousarray(np.asarray(v)),
+                                     device=device)
+    return out
+
+
+def knobs_to_numpy(knobs: dict) -> dict:
+    """{knob: numpy array} from tensors (on any device) or arrays."""
+    return {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+            else np.asarray(v) for k, v in knobs.items()}

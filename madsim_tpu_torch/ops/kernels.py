@@ -30,6 +30,9 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = {
     "sched_pick": "sched_pick.cu",
     "emit_write": "emit_write.cu",
+    "mutate": "mutate.cu",
+    "apply_knobs": "apply_knobs.cu",
+    "coverage_digest": "coverage.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -114,6 +117,11 @@ def load(name: str) -> ctypes.CDLL:
 def wrappers() -> dict:
     """{kernel name: its wrapper}; each wrapper counts its `launches` and
     the launches it recorded into a CUDA graph (`captured`)."""
+    from .apply_knobs import apply_knobs
+    from .coverage import coverage_digest
     from .emit_write import emit_write
+    from .mutate import mutate_batch
     from .sched_pick import sched_pick
-    return {"sched_pick": sched_pick, "emit_write": emit_write}
+    return {"sched_pick": sched_pick, "emit_write": emit_write,
+            "mutate": mutate_batch, "apply_knobs": apply_knobs,
+            "coverage_digest": coverage_digest}

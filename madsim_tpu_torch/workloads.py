@@ -9,6 +9,14 @@
   pingpong_runtime   the golden pingpong workload with the flight
                      recorder compiled out (trace_cap=0, the default) or
                      in (trace_cap=64: the golden build itself)
+  saturating_runtime the search regime of bench.py
+                     `_make_saturating_runtime`: the same 4-node pingpong
+                     chaos (fixed latency, no loss, random kill/restart),
+                     whose schedule space seeds alone exhaust quickly
+  all_knobs_runtime  4-node pingpong whose scenario carries every kind of
+                     fuzzer knob (value, direction, torn and pool rows; the
+                     jitter gate on): the edge-case plan of the search
+                     kernels' checks
   build_pingpong     the frozen golden workloads of
   build_wal_kv       tests/_grayfail_golden.py, built with no JAX: pingpong
                      with the recorder (trace_cap=64), and the WAL-KV
@@ -64,6 +72,35 @@ def pingpong_runtime(device=None, trace_cap: int = 0):
     cfg = SimConfig(n_nodes=4, time_limit=sec(5), trace_cap=trace_cap,
                     net=NetConfig(send_latency_min=ms(1),
                                   send_latency_max=ms(1)))
+    return Runtime(cfg, [PingPong(4, target=6)], state_spec(), scenario=sc,
+                   device=device)
+
+
+def saturating_runtime(device=None):
+    """bench.py's saturating search regime, which is this pingpong build:
+    where blind seed sweeps go dry and the fuzzer's knob mutations keep
+    finding schedules."""
+    return pingpong_runtime(device)
+
+
+def all_knobs_runtime(device=None):
+    """Pingpong under skew, slow and torn disks, a one-way cut, duplicate
+    delivery and pool-restricted kill/restart, with jitter on: its knob
+    plan has value, direction and torn rows, pools and dup slots."""
+    from .models.pingpong import PingPong, state_spec
+    from .runtime.runtime import Runtime
+    sc = Scenario()
+    sc.at(ms(5)).set_skew(1, 300)
+    sc.at(ms(8)).set_disk(2, ms(2), torn=True)
+    sc.at(ms(10)).set_disk(3, ms(1))
+    sc.at(ms(12)).partition_oneway([0, 2], direction=1)
+    sc.at(ms(15)).set_dup(1, 0.3)
+    sc.at(ms(20)).kill_random(among=[0, 1])
+    sc.at(ms(40)).restart_random(among=[0, 1])
+    sc.at(ms(60)).heal()
+    cfg = SimConfig(n_nodes=4, time_limit=sec(2),
+                    net=NetConfig(send_latency_min=ms(1),
+                                  send_latency_max=ms(1), op_jitter_max=40))
     return Runtime(cfg, [PingPong(4, target=6)], state_spec(), scenario=sc,
                    device=device)
 

@@ -593,7 +593,10 @@ def test_apply_super_matches_reference_on_every_opcode():
 # --------------------------------------------------------------------------
 def test_import_pulls_in_no_jax_and_no_reference_package():
     code = ("import sys, madsim_tpu_torch, madsim_tpu_torch.workloads, "
-            "madsim_tpu_torch.interop, madsim_tpu_torch.harness.simtest\n"
+            "madsim_tpu_torch.interop, madsim_tpu_torch.harness.simtest, "
+            "madsim_tpu_torch.search, madsim_tpu_torch.parallel.explore, "
+            "madsim_tpu_torch.parallel.stats, madsim_tpu_torch.ops.kernels"
+            "\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'jaxlib', 'madsim_tpu.')) or m == 'madsim_tpu']\n"
             "assert not bad, bad\n")
