@@ -17,8 +17,11 @@ the frozen golden digests. One JSON object per line, in phases:
   golden       the frozen golden workloads (pingpong with the flight
                recorder, trace_cap=64: 64 seeds, 4000 steps, chunk 256;
                wal_kv: 32 seeds, 30,000 steps, chunk 512), each through
-               Runtime.run and Runtime.run_fused: all 342 leaf digests
-               must equal tests/data/golden_r22_leaves.json
+               Runtime.run and Runtime.run_fused from one initial state:
+               all 342 leaf digests must equal
+               tests/data/golden_r22_leaves.json, and the initial state's
+               digests must be the same after both runs as before (the
+               step writes its input in place; the runners step a copy)
   flagship     bench.py's Raft chaos config at B=100,000 for 2048 steps
                (chunk 512) through Runtime.run: no crash, no overflow,
                >90% of lanes live; seed-events/s, ms/step, peak memory
@@ -28,6 +31,10 @@ the frozen golden digests. One JSON object per line, in phases:
                flagship phase's (the recorder changes no other leaf), lane
                0's ring non-empty with increasing steps; ms/step beside
                the eager runner's
+  step_bound   the bytes one traced flagship step must move at step 512
+               (B=100,000): every state leaf the step reads, read once,
+               and every leaf it changes, written once; its bound at the
+               card's memory rate (the K7 row of PERF.md)
   fused_wal_kv the wal_kv golden config at B=100,000 through run_fused:
                no crash, every lane halted, lanes 0..31 reproduce the 91
                frozen run_fused digests; both kernels' operands are taken
@@ -61,18 +68,25 @@ the frozen golden digests. One JSON object per line, in phases:
                emissions, clogged links, loss 0 and 1, jitter, skew, disk
                delay, a wrapping ring) and on operands captured from the
                traced flagship at steps 0 and 512 and from wal_kv at
-               step 40 (32 golden lanes, and B=100,000); kernel and plain
-               times, the bound from the bytes the write needs, and
-               apart from it the bytes of the functional copy;
+               step 40 (32 golden lanes, and B=100,000), kernel and plain
+               version each writing a copy of the same operands in place:
+               every table and ring leaf equal, and no row written that
+               an emission did not take; kernel and plain times, each a
+               CUDA graph (plain: eager calls) of restore-then-write less
+               the restore alone, the kernel's own time inside the
+               profiled flagship graph, and the bound from the bytes the
+               write needs;
                mutate, apply_knobs and coverage_digest on the flagship's
                own operands at B=100,000 (the first mutated fuzz round's
                parents and key, the last round's init state and knobs,
                explore's first schedule hashes) and on edge cases (havoc 0,
                1 and 6, masked; a plan with value, direction, torn, pool
                and dup rows; foreign knobs out of every bound; hashes with
-               the top bit set, all equal, all distinct, one lane, a tile
-               edge), with kernel, plain and (coverage_digest:
-               torch.unique) library times and bounds
+               the top bit set, all equal, all distinct, one lane, B=1,
+               a tile and one key either side of it, random B=100,000),
+               with kernel, plain and (coverage_digest: torch.unique)
+               library times and bounds, and coverage_digest's kernel
+               launches and memsets per call
   determinism  lanes 0..4095 alone, twice through run (512 steps) and
                twice through run_fused (2048 steps): fingerprints equal
                to each other and to lanes 0..4095 of the B=100,000 eager
@@ -117,6 +131,7 @@ STEP_KERNELS = ("emit_write", "sched_pick")
 DET_B = 4096
 DET_EAGER_STEPS = FLAG_CHUNK   # the eager determinism passes (host-bound)
 PROF_STEPS = 16
+PROF_WINDOWS = 3     # traced windows at most, when records go missing
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 # H100 SXM float32 peak outside the tensor cores (data sheet), taken as
 # the rate of the kernels' 32-bit integer operations: the card's int32
@@ -272,10 +287,13 @@ def flat_tree(x, prefix=""):
 
 def emit_operands(rt, state):
     """The emit_write operands of the next step of `state`: the step runs
-    once with a recording proxy in place of the kernel's wrapper (its
-    launch is not on a counted path). Returns (tables, em, lane, ring,
-    n_sends, use_jitter), cloned."""
+    once, on a copy of `state` (it writes its input in place), with a
+    recording proxy in place of the kernel's wrapper (its launch is not on
+    a counted path). Returns (tables, em, lane, ring, n_sends,
+    use_jitter), cloned before the write."""
+    import torch
     import madsim_tpu_torch.core.step as step_mod
+    from madsim_tpu_torch.core.state import map_state
     seen = []
     real = step_mod.emit_write
 
@@ -285,11 +303,35 @@ def emit_operands(rt, state):
 
     step_mod.emit_write = spy
     try:
-        rt._step(state)
+        rt._step(map_state(torch.clone, state))
     finally:
         step_mod.emit_write = real
     check(len(seen) == 1, "emit_operands: the step did not call emit_write")
     return seen[0]
+
+
+def step_bytes(rt, state):
+    """(read, written, changed leaves) of one step of `state`, in bytes:
+    every state leaf the step reads — all but the eight ring columns,
+    which it only writes — read once, and every leaf whose value the step
+    changes written once, each at its full size. The step runs on a copy
+    of `state`."""
+    import torch
+    from madsim_tpu_torch import interop
+    from madsim_tpu_torch.core.state import map_state
+    from madsim_tpu_torch.ops.emit_write import RING_COLS
+    before = interop.state_leaves(state)
+    out, _ = rt._step(map_state(torch.clone, state))
+    after = interop.state_leaves(out)
+    ring = {"." + k for k in RING_COLS}
+
+    def size(t):
+        return t.numel() * t.element_size()
+
+    changed = [k for k, t in before.items()
+               if t.numel() and not torch.equal(t, after[k])]
+    read = sum(size(t) for k, t in before.items() if k not in ring)
+    return read, sum(size(after[k]) for k in changed), changed
 
 
 def emit_edge_operands(dev, B, C, N, P, E, n_sends, jitter, ring, prov,
@@ -360,9 +402,9 @@ def emit_edge_operands(dev, B, C, N, P, E, n_sends, jitter, ring, prov,
 
 
 def emit_bound(tables, em, lane, ring, n_sends, use_jitter):
-    """(bytes, operations, copy_bytes) of the emission write for these
-    operands. bytes: what the write itself needs, each input byte read
-    once and each byte it changes written once, counted for this data:
+    """(bytes, operations) of the emission write for these operands.
+    bytes: what the write needs, each input byte read once and each byte
+    it changes written once, counted for this data:
     - with emissions: every lane's t_kind row (the free-row ranking and
       high_water), its mask vector, its lane scalars (now, h_node, sk_h,
       dlat_h, loss, lat_lo, lat_hi, jitter, k_net; disp_idx and
@@ -374,9 +416,6 @@ def emit_bound(tables, em, lane, ring, n_sends, use_jitter):
       and new trace_pos; for each recording lane its record operands
       (and now, disp_idx, ev_lamport where not counted above) and its
       eight-word ring row.
-    copy_bytes: what the kernel moves on top because it returns new
-    tensors, not the caller's updated in place: every table row and ring
-    row the write leaves as it was, read and written once.
     Operations: 80 integer operations per threefry block (20 rounds of
     add, rotate, xor plus the key schedule) for the draws masked
     emissions need: a send's loss (3 blocks) and latency (6), and each
@@ -388,10 +427,10 @@ def emit_bound(tables, em, lane, ring, n_sends, use_jitter):
     E = em["m"].shape[1]
     prov = tables["ev_prov"].shape[1] > 0
     row_bytes = 4 * 5 + 4 * P + (8 if prov else 0)
-    nbytes = ops = copy = 0
+    nbytes = ops = 0
     if E > 0:
-        _, stats, _ = emit_write_plain(tables, em, lane, None, n_sends,
-                                       use_jitter)
+        _, stats, _ = emit_write_plain(clone_tree(tables), em, lane, None,
+                                       n_sends, use_jitter)
         written = int(stats["high_water"].sum()
                       - (t_kind != 0).sum())          # rows emissions took
         masked = int(em["m"].sum())
@@ -401,16 +440,34 @@ def emit_bound(tables, em, lane, ring, n_sends, use_jitter):
         nbytes += B * (E + 4 * lane_words + 13)       # masks, scalars, stats
         nbytes += masked * 8 + masked_sends * 3
         nbytes += written * (4 * P + row_bytes)       # payload in, row out
-        copy += (B * C - written) * row_bytes * 2
         blocks = masked_sends * 9 + (masked * 6 if use_jitter else 0)
         ops = 80 * blocks
     if ring is not None:
-        TC = ring["cols"]["tr_now"].shape[1]
         rec = int((ring["fired"] & ring["trace_on"]).sum())
         extra = 0 if (E > 0 and prov) else 8 if E > 0 else 12
         nbytes += B * (2 + 4 * 3) + rec * (4 * 5 + extra + 8 * 4)
-        copy += (B * TC - rec) * 8 * 4 * 2
-    return nbytes, ops, copy
+    return nbytes, ops
+
+
+def check_rows_written(name, before, after):
+    """The emission write changed no table row but those emissions took
+    (free before, occupied after), and no more than one row of each
+    lane's ring: `before` and `after` are its operands before and after
+    an in-place write."""
+    from madsim_tpu_torch.ops.emit_write import RING_COLS, TABLE_COLS
+    kind0 = before[0]["t_kind"]
+    taken = (kind0 == 0) & (after[0]["t_kind"] != 0)
+    for k in TABLE_COLS:
+        old, new = before[0][k], after[0][k]
+        if old.numel():
+            rows = (old != new).reshape(*kind0.shape, -1).any(-1)
+            check(not bool((rows & ~taken).any()),
+                  f"{name}: {k} changed in a row no emission took")
+    if before[3] is not None:
+        for k in RING_COLS:
+            moved = (before[3]["cols"][k] != after[3]["cols"][k]).sum(1)
+            check(bool((moved <= 1).all()),
+                  f"{name}: {k} changed in more than one row of a lane")
 
 
 def check_equal(name, a, b):
@@ -455,19 +512,34 @@ def profile_steps(run, state, batch, names):
     time (the device's busy share), the top kernels, and the device
     events of each kernel in `names` (`kernel_launches`: what ran on the
     card, graph replays included). Device numbers are null when the
-    profiler records no device activity."""
+    profiler records no device activity.
+
+    The profiler can lose a batch of device records in a window of some
+    55,000 (seen on the card: several kernels of one window one event
+    short, in no pattern). A window in which a kernel of `names` has
+    fewer events than steps is traced again, up to PROF_WINDOWS times;
+    `short_windows` keeps the counts of the windows set aside. More
+    events than steps is never set aside: it fails the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     state = run(state, PROF_STEPS)                # warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state = run(state, PROF_STEPS)
+    short = []
+    for _ in range(PROF_WINDOWS):
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state = run(state, PROF_STEPS)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        dev_events = [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+        traced = {k: sum(k in e.name for e in dev_events) for k in names}
+        check(all(v <= PROF_STEPS for v in traced.values()),
+              f"profile: traced launches {traced} in {PROF_STEPS} steps")
+        if not dev_events or all(v == PROF_STEPS for v in traced.values()):
+            break
+        short.append(traced)
     launches = [e for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CPU
                 and "LaunchKernel" in e.name]
@@ -487,10 +559,8 @@ def profile_steps(run, state, batch, names):
         return sum(t for n, t in by_name.items() if tag in n) \
             / PROF_STEPS / 1e3
 
-    traced = {k: sum(k in e.name for e in dev_events) for k in names}
-
     return dict(
-        steps=PROF_STEPS, batch=batch,
+        steps=PROF_STEPS, batch=batch, short_windows=short,
         wall_ms_per_step=wall_us / PROF_STEPS / 1e3,
         device_busy_ms_per_step=busy_us / PROF_STEPS / 1e3,
         device_busy_share=busy_us / wall_us,
@@ -666,10 +736,12 @@ def apply_bound(cols, tlimit, jitter, knobs, base, guards, n_init,
 
 def coverage_edge_hashes(dev):
     """Hash sets the coverage digest must get right: repeats with the top
-    bit of either word set, all equal, all distinct, one lane, a tile
-    edge, the extreme words."""
+    bit of either word set, all equal, all distinct, one lane, a tile and
+    one key either side of it, two tiles and one key, random words at
+    B=100,000, the extreme words."""
     import numpy as np
     import torch
+    from madsim_tpu_torch.ops.coverage import TILE
     rng = np.random.default_rng(17)
     top = np.uint32(1 << 31)
     rep = rng.integers(0, 2 ** 32, (5000, 2), dtype=np.uint32)
@@ -684,7 +756,13 @@ def coverage_edge_hashes(dev):
         "all_equal": np.full((100_000, 2), [top | 5, top | 9], np.uint32),
         "all_distinct": distinct,
         "one_lane": np.array([[top, 1]], np.uint32),
+        "B_1": rng.integers(0, 2 ** 32, (1, 2), dtype=np.uint32),
+        f"tile_minus_1_B{TILE - 1}": rep[:TILE - 1],
+        f"tile_B{TILE}": rep[:TILE],
+        f"tile_plus_1_B{TILE + 1}": rep[:TILE + 1],
         "tile_edge_1025": rep[:1025],
+        "random_B100000": rng.integers(0, 2 ** 32, (100_000, 2),
+                                       dtype=np.uint32),
         "extremes": np.array([[0, 0], [2 ** 32 - 1, 2 ** 32 - 1], [top, 0],
                               [top - 1, 2 ** 32 - 1], [0, top],
                               [2 ** 32 - 1, 0], [0, 0]], np.uint32)}
@@ -703,7 +781,8 @@ def main() -> int:
         from madsim_tpu_torch import interop, workloads
         from madsim_tpu_torch.obs.rings import ring_records
         from madsim_tpu_torch.ops import kernels
-        from madsim_tpu_torch.ops.emit_write import (emit_write,
+        from madsim_tpu_torch.ops.emit_write import (RING_COLS, TABLE_COLS,
+                                                     emit_write,
                                                      emit_write_plain)
         from madsim_tpu_torch.ops.sched_pick import (sched_pick,
                                                      sched_pick_plain)
@@ -762,15 +841,16 @@ def main() -> int:
         p = workloads.GOLDEN_RUNS[wname]
         rt = build(device=dev)
         seeds = np.arange(p["seeds"], dtype=np.uint32)
+        init = rt.init_batch(seeds)           # both runners start from it
+        init_digests = interop.leaf_digests(init)
         for runner in ("run", "run_fused"):
-            s = rt.init_batch(seeds)
             torch.cuda.synchronize()
             reset_counts()
             t0 = time.perf_counter()
             if runner == "run":
-                s, _ = rt.run(s, p["max_steps"], p["chunk"])
+                s, _ = rt.run(init, p["max_steps"], p["chunk"])
             else:
-                s = rt.run_fused(s, p["max_steps"], p["chunk"])
+                s = rt.run_fused(init, p["max_steps"], p["chunk"])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = read_counts()
@@ -786,17 +866,21 @@ def main() -> int:
             got = interop.leaf_digests(s)
             bad = [k for k in want if got.get(k) != want[k]]
             n_leaves += len(want)
+            after = interop.leaf_digests(init)
+            input_changed = [k for k in init_digests
+                             if after[k] != init_digests[k]]
             emit(phase="golden", workload=wname, runner=runner,
                  seeds=p["seeds"], steps_run=rt.steps_run, wall_s=wall,
                  launches=launches, fused=getattr(rt, "fused_stats", None)
                  if runner == "run_fused" else None, leaves=len(want),
-                 mismatched=bad)
+                 mismatched=bad, input_leaves_unchanged=not input_changed)
             check(not bad, f"golden {wname} {runner}: digests differ: {bad}")
+            check(not input_changed, f"golden {wname} {runner}: the run "
+                  f"changed its input state's leaves {input_changed}")
         if wname == "wal_kv":          # operands from mid-run
-            s = rt.init_batch(seeds)
-            s, _ = rt.run(s, 40, chunk=40)
+            s, _ = rt.run(init, 40, chunk=40)
             emit_cases["wal_kv_step_40"] = emit_operands(rt, s)
-        del s, rt
+        del s, init, rt
     check(n_leaves == 342, f"golden: {n_leaves} leaves checked, not 342")
 
     # ---- flagship: the eager runner at full width ---------------------------
@@ -861,6 +945,7 @@ def main() -> int:
     steps_run = rt.steps_run
     warm = rt.fused_stats["warmup_steps"]
     emit_cases[f"flagship_step_{FLAG_CHUNK}"] = emit_operands(rt, s)
+    step_read, step_written, step_changed = step_bytes(rt, s)
     torch.cuda.synchronize()
     reset_counts()
     t2 = time.perf_counter()
@@ -899,6 +984,13 @@ def main() -> int:
     check(same_fp, "fused: fingerprints differ from the eager flagship's")
     check(len(ring["step"]) > 0 and steps_up,
           "fused: lane 0's ring is empty or its steps do not increase")
+    step_bound_ms = (step_read + step_written) / HBM_BYTES_PER_S * 1e3
+    emit(phase="step_bound", batch=FLAG_B, trace_cap=64, at_step=FLAG_CHUNK,
+         read_bytes=step_read, written_bytes=step_written,
+         bytes=step_read + step_written, bound_ms=step_bound_ms,
+         bound_by="bytes", changed_leaves=step_changed,
+         run_fused_ms_per_step=fused_ms,
+         ms_over_bound=fused_ms / step_bound_ms)
     prof_fused = profile_steps(
         lambda st, n: rt.run_fused(st, n, chunk=n), s, FLAG_B, names)
     check(prof_fused["kernel_launches"] == {k: PROF_STEPS for k in names},
@@ -1199,18 +1291,48 @@ def main() -> int:
             seed=C_e + E_e)
     max_err_e = 0
     for name, args in emit_cases.items():
-        out_k = emit_write(*args)
-        out_p = emit_write_plain(*args)
+        # kernel and plain version each write a copy of the operands
+        a, b = clone_tree(args), clone_tree(args)
+        out_k = emit_write(*a)
+        out_p = emit_write_plain(*b)
         torch.cuda.synchronize()
-        max_err_e = max(max_err_e, check_equal(f"emit_write on {name}",
-                                               out_k, out_p))
+        check(all(out_k[0][k] is a[0][k] for k in TABLE_COLS)
+              and (a[3] is None or all(out_k[2]["cols"][k]
+                                       is a[3]["cols"][k]
+                                       for k in RING_COLS)),
+              f"emit_write on {name}: not written in place")
+        # every table and ring leaf, untouched rows included
+        max_err_e = max(max_err_e, check_equal(
+            f"emit_write on {name}", (a[0], a[3], out_k),
+            (b[0], b[3], out_p)))
+        check_rows_written(f"emit_write on {name}", args, a)
     main_e = emit_cases[f"flagship_step_{FLAG_CHUNK}"]
-    ek = graph_ms(lambda: emit_write(*main_e), 20)
-    ep = cuda_ms(lambda: emit_write_plain(*main_e), 5)
-    ek2 = graph_ms(lambda: emit_write(*main_e), 20)
-    ep2 = cuda_ms(lambda: emit_write_plain(*main_e), 5)
-    ek_eager = cuda_ms(lambda: emit_write(*main_e), 20)
-    e_bytes, e_ops, e_copy = emit_bound(*main_e)
+    # the write changes its operands, so each timed call restores the
+    # touched columns from main_e first; the restore alone is subtracted
+    live = clone_tree(main_e)
+    restores = [(live[0][k], main_e[0][k]) for k in TABLE_COLS]
+    if main_e[3] is not None:
+        restores += [(live[3]["cols"][k], main_e[3]["cols"][k])
+                     for k in RING_COLS]
+
+    def restore():
+        for dst, src in restores:
+            dst.copy_(src)
+
+    def kernel_ms():
+        return (graph_ms(lambda: (restore(), emit_write(*live)), 20)
+                - graph_ms(restore, 20))
+
+    def plain_ms():
+        return (cuda_ms(lambda: (restore(), emit_write_plain(*live)), 5)
+                - cuda_ms(restore, 5))
+
+    ek, ep, ek2, ep2 = kernel_ms(), plain_ms(), kernel_ms(), plain_ms()
+    restore_ms = graph_ms(restore, 20)
+    ek_eager = (cuda_ms(lambda: (restore(), emit_write(*live)), 20)
+                - cuda_ms(restore, 20))
+    ek_graph = prof_fused["emit_write_ms_per_step"]
+    e_bytes, e_ops = emit_bound(*main_e)
     e_bound_ms = max(e_bytes / HBM_BYTES_PER_S, e_ops / INT32_OPS_PER_S) \
         * 1e3
     e_bound_by = ("bytes" if e_bytes / HBM_BYTES_PER_S
@@ -1225,12 +1347,11 @@ def main() -> int:
          launches_on_main_path=fused_launch["emit_write"],
          launches_per_step=fused_launch["emit_write"] / (FLAG_STEPS + warm),
          ms=[ek, ek2], eager_launch_ms=ek_eager, plain_ms=[ep, ep2],
+         restore_ms=restore_ms, ms_in_flagship_graph=ek_graph,
          bound_bytes=e_bytes,
          bound_operations=e_ops, bound_ms=e_bound_ms, bound_by=e_bound_by,
-         copy_bytes=e_copy, copy_ms=e_copy / HBM_BYTES_PER_S * 1e3,
-         bound_with_copy_ms=(e_bytes + e_copy) / HBM_BYTES_PER_S * 1e3,
          library="none")
-    del emit_cases, main_e
+    del emit_cases, main_e, live, restores
 
     # ---- kernel: the search kernels against their plain versions ----------
     from madsim_tpu_torch.ops.apply_knobs import apply_knobs, \
@@ -1268,11 +1389,17 @@ def main() -> int:
             ("coverage_digest", coverage_digest, coverage_digest_plain,
              coverage_cases, "explore_round_0")):
         err = 0
+        issued = {}
         for cname, args in cases_k.items():
             out_k = kern(*args)
             out_p = plain(*args)
             torch.cuda.synchronize()
             err = max(err, check_equal(f"{kname} on {cname}", out_k, out_p))
+            if kname == "coverage_digest":
+                issued[cname] = dict(kern.issued)
+                check(issued[cname] == dict(kernels=10, memsets=1),
+                      f"coverage_digest on {cname}: issued "
+                      f"{issued[cname]}, not 10 kernels and 1 memset")
         margs = cases_k[main_case]
         k_ms = graph_ms(lambda: kern(*margs), 20)
         p_ms = cuda_ms(lambda: plain(*margs), 3)
@@ -1293,7 +1420,10 @@ def main() -> int:
             key64 = sort_key(margs[0])
             lib_ms = min(cuda_ms(lambda: torch.unique(key64), 10),
                          cuda_ms(lambda: torch.unique(key64), 10))
-            extra = dict(library="torch.unique over the 64-bit key")
+            extra = dict(library="torch.unique over the 64-bit key",
+                         launches_per_call=issued[main_case]["kernels"],
+                         memsets_per_call=issued[main_case]["memsets"],
+                         batch=B_c)
         b_ms, o_ms = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
         bound_ms = max(b_ms, o_ms) * 1e3
         bound_by = "bytes" if b_ms >= o_ms else "operations"

@@ -23,8 +23,13 @@ other leaf. The other observation planes (profiler, latency, spans,
 sketch, series) are not ported yet: `Runtime` refuses configs that
 enable them.
 
-The step is functional: it writes no tensor of its input state in place
-(a CUDA-graph replay relies on it, runtime/runtime.py `run_fused`).
+The step writes the event table and the ring of the state it is given in
+place (section 4, `emit_write`): the rows emissions take and the one ring
+row, and no other. Every other leaf of its result is a new tensor or one
+the step did not touch. So the step must own its input: the runners step
+a private copy of the caller's state (runtime/runtime.py `run`, and
+`run_fused`'s static buffers), and a direct call of the step function
+writes the caller's tensors.
 """
 
 from __future__ import annotations
@@ -83,6 +88,10 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
         stable storage and survive kill/restart.
       halt_when: optional `f(state) -> bool [B]` success condition.
       device: where the step's constant tables live.
+
+    The step function writes its input's event table and ring in place
+    (the rows its emissions take, the one ring row it records): hand it
+    a state it may overwrite.
     """
     node_prog = np.asarray(node_prog, np.int32)
     assert node_prog.shape == (cfg.n_nodes,)
@@ -274,12 +283,12 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
                             src=ev_src.contiguous(),
                             tag=ev_tag.contiguous(), parent=ev_parent,
                             cols={k: getattr(s, k) for k in RING_COLS})
-            tables, st, ring = emit_write(
+            # the tables and ring columns are written in place
+            _, st, ring = emit_write(
                 {k: getattr(s, k) for k in TABLE_COLS}, em, lane, ring,
                 n_sends, use_jitter)
-            s = s.replace(**tables)
             if ring is not None:
-                s = s.replace(trace_pos=ring["trace_pos"], **ring["cols"])
+                s = s.replace(trace_pos=ring["trace_pos"])
             sent, delivered_drop = st["sent"], st["delivered_drop"]
             overflow, high_water = st["overflow"], st["high_water"]
         else:

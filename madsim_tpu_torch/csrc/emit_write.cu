@@ -1,5 +1,5 @@
 // emit_write: the emission write of one simulation step, for every lane,
-// with the flight-recorder ring write as its epilogue.
+// with the flight-recorder ring write as its epilogue, IN PLACE.
 //
 // Replaces the XLA-lowered emission write of the JAX package's step
 // (madsim_tpu/core/step.py `live_step` section 4, lines 476-655:
@@ -23,29 +23,40 @@
 //                  (+ jitter); written where m & slot_ok
 //   writes         every written emission sets its row's deadline, kind,
 //                  node, src (the acting node), tag and payload, and with
-//                  the lineage plane ev_prov = (disp_idx, ev_lamport);
-//                  every other row is copied
+//                  the lineage plane ev_prov = (disp_idx, ev_lamport)
 //   outputs        sent, delivered_drop, overflow, high_water per lane
 //   ring (TC > 0)  where fired & trace_on, the row at trace_pos mod
 //                  trace_cap of the eight tr_* columns takes this step's
-//                  record; trace_pos counts it
+//                  record; trace_pos counts it (a new [B] output)
 //
-// Every value is an integer or the exact float32 compare of a Bernoulli
-// draw, so the kernel must equal its plain PyTorch version
-// (madsim_tpu_torch/ops/emit_write.py `emit_write_plain`) exactly.
+// The JAX function returns new tables. This kernel writes the rows that
+// emissions take, and the one ring row, straight into the tensors it is
+// given and touches no other row: the step owns those tensors (the
+// runners step a private copy of the caller's state). Every value is an
+// integer or the exact float32 compare of a Bernoulli draw, so the kernel
+// must equal its plain PyTorch version (madsim_tpu_torch/ops/emit_write.py
+// `emit_write_plain`, in place too) exactly.
 //
-// Bound: bytes. The outputs are new tables, so each lane reads and
-// writes its whole event table (five int32 columns, the payload rows and
-// the provenance pairs) and, with the ring, its eight ring columns; the
-// draws are a few dozen threefry blocks per masked send, far below the
-// card's integer rate. Design: one warp per lane, as sched_pick. Each
-// thread holds C/32 rows of t_kind in registers; the free rows are
-// ranked with a ballot + popc over each 32-row word, so row r's rank is
-// the popc of the free rows below it. Thread e computes emission e's
-// draws in registers (E <= 32), and a thread writing row r fetches the
-// values of the emission that takes r with a shuffle. The payload and
-// provenance copies stream the lane's rows coalesced, reading a per-warp
-// row -> emission map in shared memory.
+// Bound: bytes. The write needs each lane's t_kind row (to rank the free
+// rows), its staged masks, lane scalars and statistics, the operands of
+// its masked emissions, and for each written emission its payload read
+// and its table row written; with the ring, one ring row per recording
+// lane. At the flagship's step-512 operands (B = 100,000, C = 96, E = 8,
+// P = 8, ring of 64) that is 61,398,709 B, 0.0183 ms at 3.35 TB/s; the
+// draws (a few dozen threefry blocks per masked send) are far below the
+// card's integer rate. Design: a lane gets epad threads, the least power
+// of two >= E, so a warp serves 32 / epad lanes (4 at the flagship's
+// E = 8) and the draws keep every thread of the warp busy: with one warp
+// per lane, 24 of its 32 threads would idle through the 8 emissions'
+// threefry blocks, and the warp-instructions issued, not bytes, would set
+// the time. A lane's threads rank its free rows together, epad rows of
+// t_kind at a time with a ballot + popc (eight loads in flight before
+// the ballots), and the thread holding the e-th free row (e < E) records
+// it in a per-warp slot list in shared memory. Thread e of a lane computes emission e's draws and decision in
+// registers and writes its row's five int32 columns; the payload words
+// and provenance pairs of the taken rows are then written by the warp
+// together, consecutive words of a row on consecutive threads. Nothing
+// reads or copies a row the step leaves as it was.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -55,8 +66,9 @@
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
-constexpr int kMaxChunks = 8;            // C <= 32 * kMaxChunks = 256
+constexpr int kMaxC = 256;
 constexpr int kMaxE = 32;                // one emission per thread
+constexpr int kBatch = 8;                // t_kind reads issued together
 constexpr int kRingCols = 8;
 constexpr int32_t kEvFree = 0;
 constexpr int32_t kEvMsg = 1;
@@ -66,26 +78,20 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 }  // namespace
 
 // Operands of one launch (host struct, passed by value to the kernel).
-// Tables are [B, C] (payload [B, C, P], provenance [B, C, 2]); staged
-// emissions [B, E] (payload [B, E, P]); lane scalars [B] (k_net [B, 2],
-// clog_node [B, N], clog_link [B, N, N]); ring columns [B, TC], in the
-// order tr_now, tr_step, tr_kind, tr_node, tr_src, tr_tag, tr_parent,
-// tr_lamport. All contiguous, int32 unless noted.
+// Tables are [B, C] (payload [B, C, P], provenance [B, C, 2]), written in
+// place; staged emissions [B, E] (payload [B, E, P]); lane scalars [B]
+// (k_net [B, 2], clog_node [B, N], clog_link [B, N, N]); ring columns
+// [B, TC], written in place, in the order tr_now, tr_step, tr_kind,
+// tr_node, tr_src, tr_tag, tr_parent, tr_lamport. All contiguous, int32
+// unless noted.
 struct EmitParams {
-  const int32_t* t_deadline;
-  const int32_t* t_kind;
-  const int32_t* t_node;
-  const int32_t* t_src;
-  const int32_t* t_tag;
-  const int32_t* t_payload;
-  const int32_t* ev_prov;
-  int32_t* o_deadline;
-  int32_t* o_kind;
-  int32_t* o_node;
-  int32_t* o_src;
-  int32_t* o_tag;
-  int32_t* o_payload;
-  int32_t* o_prov;
+  int32_t* t_deadline;
+  int32_t* t_kind;
+  int32_t* t_node;
+  int32_t* t_src;
+  int32_t* t_tag;
+  int32_t* t_payload;
+  int32_t* ev_prov;
   const uint8_t* em_m;        // bool
   const int32_t* em_a;        // send: dst, timer: delay
   const int32_t* em_tag;
@@ -116,8 +122,7 @@ struct EmitParams {
   const int32_t* rec_src;
   const int32_t* rec_tag;
   const int32_t* rec_parent;
-  const int32_t* tr_in[kRingCols];
-  int32_t* tr_out[kRingCols];
+  int32_t* tr[kRingCols];
   int32_t* o_trace_pos;
   int B, C, P, N, E, n_sends, use_jitter, has_prov, TC;
 };
@@ -149,46 +154,81 @@ __device__ __forceinline__ int clip(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+// The value of ring column c (tr_now, tr_step, tr_kind, tr_node, tr_src,
+// tr_tag, tr_parent, tr_lamport) for lane b.
+__device__ __forceinline__ int32_t ring_value(const EmitParams& p, int c,
+                                              int64_t b, int32_t now) {
+  switch (c) {
+    case 0: return now;
+    case 1: return p.disp_idx[b];
+    case 2: return p.rec_kind[b];
+    case 3: return p.rec_node[b];
+    case 4: return p.rec_src[b];
+    case 5: return p.rec_tag[b];
+    case 6: return p.rec_parent[b];
+    default: return p.ev_lamport[b];
+  }
+}
+
+// A warp serves G = 32 >> log_epad lanes; each lane has epad = 1 <<
+// log_epad threads (epad >= E), thread e of a lane handling emission e.
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-emit_write_kernel(const EmitParams p) {
-  __shared__ int8_t row_em[kWarpsPerBlock][32 * kMaxChunks];
+emit_write_kernel(const EmitParams p, const int log_epad) {
+  // slot[w][g * epad + e]: the table row of lane g's e-th free row
+  __shared__ int slot[kWarpsPerBlock][32];
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
-  const int b = blockIdx.x * kWarpsPerBlock + w;
-  if (b >= p.B) return;  // warp-uniform: a warp owns one lane
+  const int epad = 1 << log_epad;
+  const int G = 32 >> log_epad;
+  const int g = lane >> log_epad;
+  const int e = lane & (epad - 1);
+  const int64_t b0 =
+      (static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + w) * G;
+  if (b0 >= p.B) return;  // warp-uniform
+  const int64_t b = b0 + g;
+  const bool lane_ok = b < p.B;
   const int C = p.C, E = p.E, N = p.N;
-  const int32_t now = p.now[b];
+  const int32_t now = lane_ok ? p.now[b] : 0;
 
   if (E > 0) {
-    const size_t row0 = static_cast<size_t>(b) * C;
-    const int32_t h = p.h_node[b];
-    const int hc = clip(h, 0, N - 1);
-
-    // ---- rank the free rows: rank[k] = free ? #free rows below : -1
-    int32_t kind[kMaxChunks];
-    int rank[kMaxChunks];
-    const uint32_t below = (1u << lane) - 1u;
+    // ---- rank the free rows: the lane's epad threads read its row epad
+    // entries at a time, kBatch reads issued before their ballots; the
+    // lane's bits of each ballot are its rows in order
+    const int gshift = g * epad;
+    const uint32_t glow = epad == 32 ? kFull : (1u << epad) - 1u;
+    const uint32_t below = (1u << e) - 1u;
+    const int32_t* kind = p.t_kind + (lane_ok ? b : 0) * C;
     int n_free = 0;
+    for (int r0 = 0; r0 < C; r0 += kBatch * epad) {   // warp-uniform
+      int32_t kv[kBatch];
 #pragma unroll
-    for (int k = 0; k < kMaxChunks; ++k) {
-      const int r = (k << 5) + lane;
-      kind[k] = r < C ? p.t_kind[row0 + r] : -1;
-      const bool free = r < C && kind[k] == kEvFree;
-      const uint32_t word = __ballot_sync(kFull, free);
-      rank[k] = free ? n_free + __popc(word & below) : -1;
-      n_free += __popc(word);
+      for (int j = 0; j < kBatch; ++j) {
+        const int r = r0 + j * epad + e;
+        kv[j] = lane_ok && r < C ? kind[r] : -1;
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const bool free = kv[j] == kEvFree;
+        const uint32_t word = (__ballot_sync(kFull, free) >> gshift) & glow;
+        const int rank = n_free + __popc(word & below);
+        if (free && rank < E) slot[w][gshift + rank] = r0 + j * epad + e;
+        n_free += __popc(word);
+      }
     }
+    __syncwarp();
 
-    // ---- emission `lane`: its draws and decision, in registers
+    // ---- emission e of lane b: its draws and decision, in registers
     bool m = false, write = false, ovf = false, bad_send = false;
-    int32_t dl = 0, ekind = 0, enode = 0, etag = 0;
-    const bool is_send = lane < p.n_sends;
-    if (lane < E) {
-      const size_t ei = static_cast<size_t>(b) * E + lane;
+    int32_t dl = 0, ekind = 0, enode = 0, etag = 0, h = 0;
+    const bool is_send = e < p.n_sends;
+    if (lane_ok && e < E) {
+      const int64_t ei = b * E + e;
+      h = p.h_node[b];
+      const int hc = clip(h, 0, N - 1);
       m = p.em_m[ei] != 0;
       const int32_t a = p.em_a[ei];
       etag = p.em_tag[ei];
-      const bool slot_ok = lane < n_free;
+      const bool slot_ok = e < n_free;
       const int32_t dlat = p.dlat_h[b];
       const int ns = p.n_sends > 1 ? p.n_sends : 1;
       const int n_keys = 2 * ns + (p.use_jitter ? E : 0);
@@ -196,7 +236,7 @@ emit_write_kernel(const EmitParams p) {
       int32_t jit = 0;
       if (m && p.use_jitter) {
         uint32_t j0, j1;
-        threefry::split_key(k0, k1, n_keys, 2 * ns + lane, j0, j1);
+        threefry::split_key(k0, k1, n_keys, 2 * ns + e, j0, j1);
         jit = threefry::randint(j0, j1, 0, p.jitter[b]);
       }
       if (is_send) {
@@ -204,14 +244,14 @@ emit_write_kernel(const EmitParams p) {
         ekind = kEvMsg;
         enode = dst;
         if (m) {
-          const size_t nb = static_cast<size_t>(b) * N;
+          const int64_t nb = b * N;
           const bool clogged = p.clog_node[nb + hc] != 0
               || p.clog_node[nb + dst] != 0
               || p.clog_link[(nb + hc) * N + dst] != 0;
           uint32_t l0, l1, t0, t1;
-          threefry::split_key(k0, k1, n_keys, 2 * lane, l0, l1);
+          threefry::split_key(k0, k1, n_keys, 2 * e, l0, l1);
           const bool lost = threefry::bernoulli(l0, l1, p.loss[b]);
-          threefry::split_key(k0, k1, n_keys, 2 * lane + 1, t0, t1);
+          threefry::split_key(k0, k1, n_keys, 2 * e + 1, t0, t1);
           const int32_t lat = add32(
               threefry::randint(t0, t1, p.lat_lo[b], p.lat_hi[b]), jit);
           const bool ok = !clogged && !lost;
@@ -232,88 +272,73 @@ emit_write_kernel(const EmitParams p) {
         }
       }
     }
-    const uint32_t sends = __ballot_sync(kFull, lane < E && is_send && m);
+    const uint32_t sends = __ballot_sync(kFull, lane_ok && e < E && is_send
+                                                && m);
     const uint32_t drops = __ballot_sync(kFull, bad_send);
     const uint32_t wrote = __ballot_sync(kFull, write);
-    const bool any_ovf = __ballot_sync(kFull, ovf) != 0;
-    if (lane == 0) {
-      p.sent[b] = __popc(sends);
-      p.delivered_drop[b] = __popc(drops);
-      p.overflow[b] = any_ovf ? 1 : 0;
-      p.high_water[b] = (C - n_free) + __popc(wrote);
+    const uint32_t ovfs = __ballot_sync(kFull, ovf);
+    const uint32_t mine = epad == 32 ? kFull
+        : ((1u << epad) - 1u) << (g * epad);
+    if (lane_ok && e == 0) {
+      p.sent[b] = __popc(sends & mine);
+      p.delivered_drop[b] = __popc(drops & mine);
+      p.overflow[b] = (ovfs & mine) != 0 ? 1 : 0;
+      p.high_water[b] = (C - n_free) + __popc(wrote & mine);
     }
 
-    // ---- the five int32 columns: row r takes emission rank[k]'s values
-    // when that emission is written, else keeps its own
-#pragma unroll
-    for (int k = 0; k < kMaxChunks; ++k) {
-      const int r = (k << 5) + lane;
-      const int e = rank[k];
-      const bool mine = e >= 0 && e < E;
-      const int from = mine ? e : 0;
-      // every thread shuffles (no short circuit: a shuffle is collective)
-      const int write_e = __shfl_sync(kFull, static_cast<int>(write), from);
-      const bool hit = mine && write_e != 0;
-      const int32_t dl_e = __shfl_sync(kFull, dl, from);
-      const int32_t kind_e = __shfl_sync(kFull, ekind, from);
-      const int32_t node_e = __shfl_sync(kFull, enode, from);
-      const int32_t tag_e = __shfl_sync(kFull, etag, from);
-      if (r < C) {
-        const size_t i = row0 + r;
-        p.o_deadline[i] = hit ? dl_e : p.t_deadline[i];
-        p.o_kind[i] = hit ? kind_e : kind[k];
-        p.o_node[i] = hit ? node_e : p.t_node[i];
-        p.o_src[i] = hit ? h : p.t_src[i];
-        p.o_tag[i] = hit ? tag_e : p.t_tag[i];
-        row_em[w][r] = static_cast<int8_t>(hit ? e : -1);
+    // ---- the five int32 columns of the row this emission takes
+    if (write) {
+      const int64_t i = b * C + slot[w][lane];
+      p.t_deadline[i] = dl;
+      p.t_kind[i] = ekind;
+      p.t_node[i] = enode;
+      p.t_src[i] = h;
+      p.t_tag[i] = etag;
+    }
+
+    // ---- payload words and provenance pairs of the taken rows, the warp
+    // writing each row's words on consecutive threads (s = g * epad + e
+    // numbers the warp's 32 emission slots)
+    const int P = p.P;
+    for (int i = lane; i < 32 * P; i += 32) {
+      const int s = i / P;
+      if ((wrote >> s) & 1u) {
+        const int64_t bs = b0 + (s >> log_epad);
+        const int word = i - s * P;
+        p.t_payload[(bs * C + slot[w][s]) * P + word] =
+            p.em_payload[(bs * E + (s & (epad - 1))) * P + word];
       }
     }
-    __syncwarp();
-
-    // ---- payload rows and provenance pairs, streamed coalesced
-    const int P = p.P;
-    const size_t pay0 = row0 * P;
-    const size_t em_pay0 = static_cast<size_t>(b) * E * P;
-    for (int i = lane; i < C * P; i += 32) {
-      const int r = i / P;
-      const int e = row_em[w][r];
-      p.o_payload[pay0 + i] = e >= 0
-          ? p.em_payload[em_pay0 + static_cast<size_t>(e) * P + (i - r * P)]
-          : p.t_payload[pay0 + i];
-    }
     if (p.has_prov) {
-      const int32_t disp = p.disp_idx[b];
-      const int32_t lam = p.ev_lamport[b];
-      for (int i = lane; i < 2 * C; i += 32) {
-        const int e = row_em[w][i >> 1];
-        p.o_prov[2 * row0 + i] = e >= 0 ? ((i & 1) ? lam : disp)
-                                        : p.ev_prov[2 * row0 + i];
+      for (int i = lane; i < 64; i += 32) {
+        const int s = i >> 1;
+        if ((wrote >> s) & 1u) {
+          const int64_t bs = b0 + (s >> log_epad);
+          p.ev_prov[2 * (bs * C + slot[w][s]) + (i & 1)] =
+              (i & 1) ? p.ev_lamport[bs] : p.disp_idx[bs];
+        }
       }
     }
   }
 
-  // ---- epilogue: the flight-recorder ring row
-  if (p.TC > 0) {
-    const int TC = p.TC;
+  // ---- epilogue: the flight-recorder ring row, a lane's threads taking
+  // its eight columns in turn
+  if (p.TC > 0 && lane_ok) {
     const bool rec = p.fired[b] != 0 && p.trace_on[b] != 0;
     const int32_t pos = p.trace_pos[b];
     const int32_t cap = p.trace_cap[b];
-    int slot = -1;
+    int slot_r = -1;
     if (rec && cap != 0) {
-      int32_t s = pos % cap;        // floor mod, as torch.remainder
-      if (s != 0 && ((s < 0) != (cap < 0))) s += cap;
-      slot = s;
+      int32_t r = pos % cap;        // floor mod, as torch.remainder
+      if (r != 0 && ((r < 0) != (cap < 0))) r += cap;
+      slot_r = r;
     }
-    const int32_t vals[kRingCols] = {
-        now, p.disp_idx[b], p.rec_kind[b], p.rec_node[b], p.rec_src[b],
-        p.rec_tag[b], p.rec_parent[b], p.ev_lamport[b]};
-    const size_t c0 = static_cast<size_t>(b) * TC;
-#pragma unroll
-    for (int c = 0; c < kRingCols; ++c) {
-      for (int i = lane; i < TC; i += 32)
-        p.tr_out[c][c0 + i] = i == slot ? vals[c] : p.tr_in[c][c0 + i];
+    if (slot_r >= 0 && slot_r < p.TC) {
+      const int64_t i = b * p.TC + slot_r;
+      for (int c = e; c < kRingCols; c += epad)
+        p.tr[c][i] = ring_value(p, c, b, now);
     }
-    if (lane == 0) p.o_trace_pos[b] = add32(pos, rec ? 1 : 0);
+    if (e == 0) p.o_trace_pos[b] = add32(pos, rec ? 1 : 0);
   }
 }
 
@@ -325,13 +350,17 @@ emit_write_kernel(const EmitParams p) {
 extern "C" int emit_write_launch(const EmitParams* params, void* stream) {
   const EmitParams& p = *params;
   if (p.B <= 0 || (p.E == 0 && p.TC == 0)) return 0;
-  if (p.C < 1 || p.C > 32 * kMaxChunks || p.N < 1 || p.N > 32 || p.E < 0
+  if (p.C < 1 || p.C > kMaxC || p.N < 1 || p.N > 32 || p.E < 0
       || p.E > kMaxE || p.n_sends < 0 || p.n_sends > p.E || p.P < 0
       || p.TC < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  int log_epad = 0;                      // lanes of 2^log_epad >= E threads
+  while ((1 << log_epad) < p.E) ++log_epad;
+  const int64_t lanes_per_block = kWarpsPerBlock * (32 >> log_epad);
   const dim3 block(kWarpsPerBlock * 32);
-  const dim3 grid((p.B + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  const dim3 grid(static_cast<unsigned>(
+      (p.B + lanes_per_block - 1) / lanes_per_block));
   emit_write_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      p);
+      p, log_epad);
   return static_cast<int>(cudaGetLastError());
 }

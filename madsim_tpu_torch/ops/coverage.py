@@ -17,9 +17,12 @@ as unsigned, the plain one through a 64-bit key whose signed order is the
 unsigned order of (h0, h1).
 
 `coverage_digest` takes the plain version only for tensors on the CPU;
-for CUDA tensors it launches the kernel or raises. `launches` counts
-kernel launches; a launch recorded into a CUDA graph under capture counts
-in `captured` instead.
+for CUDA tensors it launches the kernel or raises. One call enqueues a
+memset of its scratch and ten kernels (csrc/coverage.cu: a histogram,
+eight radix passes, a compaction); `launches` counts calls that launched
+them (and nothing else), `issued` holds the last call's kernel launches
+and memsets. A call recorded into a CUDA graph under capture counts in
+`captured` instead of `launches`.
 """
 
 from __future__ import annotations
@@ -30,8 +33,7 @@ import torch
 
 from ..core.prng import to_u64
 
-TILE = 1024        # keys per block of the kernel's sort and compaction
-RADIX = 256        # digit values per sort pass (8 passes of 8 bits)
+TILE = 512         # keys per tile of the kernel's sort and compaction
 
 
 def sort_key(sched_hash: torch.Tensor) -> torch.Tensor:
@@ -55,23 +57,29 @@ def coverage_digest_plain(sched_hash: torch.Tensor):
 
 class _CoverageDigest:
     """Callable wrapper: CPU tensors -> `coverage_digest_plain`; CUDA
-    tensors -> the kernel. `launches` counts kernel launches (and nothing
-    else); `captured` counts launches recorded into a CUDA graph."""
+    tensors -> the kernel. `launches` counts the calls that launched the
+    kernels (and nothing else), `captured` those recorded into a CUDA
+    graph; `issued` is the last call's count of kernel launches and
+    memsets."""
 
     def __init__(self):
         self.launches = 0
         self.captured = 0
-        self._fn = None
+        self.issued = dict(kernels=0, memsets=0)
+        self._lib = None
 
     def _kernel(self):
-        if self._fn is None:
+        if self._lib is None:
             from .kernels import load
-            fn = load("coverage_digest").coverage_digest_launch
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_int] \
-                + [ctypes.c_void_p] * 6 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+            lib = load("coverage_digest")
+            lib.coverage_digest_launch.argtypes = (
+                [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+                + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+            lib.coverage_digest_launch.restype = ctypes.c_int
+            lib.coverage_digest_scratch_words.argtypes = [ctypes.c_int]
+            lib.coverage_digest_scratch_words.restype = ctypes.c_int64
+            self._lib = lib
+        return self._lib
 
     def __call__(self, sched_hash: torch.Tensor):
         dev = sched_hash.device
@@ -89,21 +97,23 @@ class _CoverageDigest:
             raise ValueError("coverage_digest: sched_hash must be "
                              "contiguous")
         B = sched_hash.shape[0]
-        tiles = max(1, -(-B // TILE))
+        lib = self._kernel()
         pairs = torch.empty((B, 2), dtype=torch.int32, device=dev)
         n = torch.zeros((), dtype=torch.int32, device=dev)
         keys = torch.empty((2, max(B, 1)), dtype=torch.int64, device=dev)
-        counts = torch.empty((RADIX * tiles,), dtype=torch.int32, device=dev)
-        tile_sums = torch.empty((tiles,), dtype=torch.int32, device=dev)
-        fn = self._kernel()
+        scratch = torch.empty((lib.coverage_digest_scratch_words(B),),
+                              dtype=torch.int32, device=dev)
+        issued = (ctypes.c_int * 2)()
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
-            err = fn(sched_hash.data_ptr(), B, pairs.data_ptr(),
-                     n.data_ptr(), keys[0].data_ptr(), keys[1].data_ptr(),
-                     counts.data_ptr(), tile_sums.data_ptr(), stream)
+            err = lib.coverage_digest_launch(
+                sched_hash.data_ptr(), B, pairs.data_ptr(), n.data_ptr(),
+                keys[0].data_ptr(), keys[1].data_ptr(), scratch.data_ptr(),
+                issued, stream)
         if err != 0:
             raise RuntimeError(f"coverage_digest: kernel launch failed "
                                f"(cudaError {err})")
+        self.issued = dict(kernels=issued[0], memsets=issued[1])
         if torch.cuda.is_current_stream_capturing():
             self.captured += 1
         else:

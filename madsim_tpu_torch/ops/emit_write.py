@@ -14,6 +14,15 @@ where the step dispatched an event in a sampled lane, the ring row at
 integer or the exact float32 compare of a Bernoulli draw, so kernel and
 plain version agree exactly.
 
+Unlike the JAX function, which returns new tables, both versions write IN
+PLACE: the rows emissions take (every table column, the payload words,
+the provenance pairs) and the one ring row go straight into the tensors
+they are given, and every other row is left untouched. That saves the
+copy of every unchanged row (about 1.5 GB a step at the flagship's
+B=100,000). The caller must own what it hands in: the step writes the
+state it is given, and the runners step a private copy of the caller's
+state (runtime/runtime.py).
+
 Operands, all with a leading [B] lane axis (int32 unless noted):
 
   tables  t_deadline, t_kind, t_node, t_src, t_tag [B, C], t_payload
@@ -32,10 +41,10 @@ Operands, all with a leading [B] lane axis (int32 unless noted):
           columns tr_now, tr_step, tr_kind, tr_node, tr_src, tr_tag,
           tr_parent, tr_lamport [B, TC]
 
-Returns (tables, stats, ring): new tables (the inputs themselves when
-E == 0), stats = sent, delivered_drop int32, overflow bool, high_water
-int32 [B], and the ring's new trace_pos and columns (None without a
-ring). No input is written in place.
+Returns (tables, stats, ring): a dict of the very table tensors it was
+given, written in place; stats = sent, delivered_drop int32, overflow
+bool, high_water int32 [B]; and the ring (None without one): a new
+trace_pos [B] and the very column tensors it was given, written in place.
 
 `emit_write` takes the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises. `emit_write.launches`
@@ -76,22 +85,23 @@ def _ring_plain(lane, ring):
     cols = ring["cols"]
     TC = cols["tr_now"].shape[1]
     slot = torch.remainder(ring["trace_pos"], ring["trace_cap"])
-    oh = sel.row_onehot(TC, slot) & rec_w[:, None]
+    lanes = torch.nonzero(rec_w & (slot >= 0) & (slot < TC))[:, 0]
+    rows = slot[lanes].to(torch.int64)
     vals = dict(tr_now=lane["now"], tr_step=lane["disp_idx"],
                 tr_kind=ring["kind"], tr_node=ring["node"],
                 tr_src=ring["src"], tr_tag=ring["tag"],
                 tr_parent=ring["parent"], tr_lamport=lane["ev_lamport"])
-    new = {k: torch.where(oh, vals[k][:, None].to(cols[k].dtype), cols[k])
-           for k in RING_COLS}
-    return dict(trace_pos=ring["trace_pos"] + rec_w.to(_I32), cols=new)
+    for k in RING_COLS:
+        cols[k].index_put_((lanes, rows), vals[k][lanes].to(cols[k].dtype))
+    return dict(trace_pos=ring["trace_pos"] + rec_w.to(_I32), cols=cols)
 
 
 def emit_write_plain(tables, em, lane, ring, n_sends: int,
                      use_jitter: bool):
-    """Plain PyTorch form of the emission write (operands and results in
-    the module doc)."""
+    """Plain PyTorch form of the emission write, in place (operands and
+    results in the module doc)."""
     t_kind = tables["t_kind"]
-    B, C = t_kind.shape
+    B = t_kind.shape[0]
     dev = t_kind.device
     E = em["m"].shape[1]
     zi = torch.zeros(B, dtype=_I32, device=dev)
@@ -156,34 +166,24 @@ def emit_write_plain(tables, em, lane, ring, n_sends: int,
         w = torch.cat(writes, -1)                            # [B, E]
         stats["overflow"] = overflow
         stats["high_water"] = occupied_now + w.sum(-1, dtype=_I32)
-        # one scatter per column: real slots are distinct; masked-off
-        # emissions go to distinct scratch columns C + j, dropped after
-        slots_eff = torch.where(
-            w, slots.to(torch.int64),
-            torch.arange(C, C + E, dtype=torch.int64, device=dev))
+        # written (lane, emission) pairs only: their rows are distinct
+        lanes, es = torch.nonzero(w, as_tuple=True)
+        rows = slots[lanes, es].to(torch.int64)
 
         def put(col, v):
-            v = v.to(col.dtype)
-            pad = torch.zeros((B, E) + tuple(col.shape[2:]),
-                              dtype=col.dtype, device=dev)
-            wide = torch.cat([col, pad], 1)
-            index = slots_eff.reshape((B, E) + (1,) * (col.ndim - 2))
-            wide.scatter_(1, index.expand(v.shape), v)
-            return wide[:, :C].contiguous()
+            col.index_put_((lanes, rows), v[lanes, es].to(col.dtype))
 
-        out.update(
-            t_deadline=put(tables["t_deadline"], torch.cat(deadlines, 1)),
-            t_kind=put(t_kind, torch.cat(kinds, 1)),
-            t_node=put(tables["t_node"], torch.cat(nodes, 1)),
-            t_src=put(tables["t_src"], h_node[:, None].expand(B, E)),
-            t_tag=put(tables["t_tag"], em["tag"]),
-            t_payload=put(tables["t_payload"], em["payload"]))
+        put(tables["t_deadline"], torch.cat(deadlines, 1))
+        put(t_kind, torch.cat(kinds, 1))
+        put(tables["t_node"], torch.cat(nodes, 1))
+        put(tables["t_src"], h_node[:, None].expand(B, E))
+        put(tables["t_tag"], em["tag"])
+        put(tables["t_payload"], em["payload"])
         if tables["ev_prov"].shape[1] > 0:
             # every emission of a dispatch carries the same provenance:
             # enqueued by this dispatch, at the acting node's clock
             prov = torch.stack([lane["disp_idx"], lane["ev_lamport"]], -1)
-            out["ev_prov"] = put(tables["ev_prov"],
-                                 prov[:, None, :].expand(B, E, 2))
+            put(tables["ev_prov"], prov[:, None, :].expand(B, E, 2))
     return out, stats, (None if ring is None else _ring_plain(lane, ring))
 
 
@@ -191,7 +191,6 @@ class _Params(ctypes.Structure):
     """csrc/emit_write.cu `EmitParams`, field for field."""
     _fields_ = (
         [(n, ctypes.c_void_p) for n in TABLE_COLS]
-        + [("o_" + n, ctypes.c_void_p) for n in TABLE_COLS]
         + [(n, ctypes.c_void_p) for n in (
             "em_m", "em_a", "em_tag", "em_payload", "now", "h_node", "sk_h",
             "dlat_h", "loss", "lat_lo", "lat_hi", "jitter", "k_net",
@@ -199,8 +198,7 @@ class _Params(ctypes.Structure):
             "delivered_drop", "overflow", "high_water", "fired", "trace_on",
             "trace_pos", "trace_cap", "rec_kind", "rec_node", "rec_src",
             "rec_tag", "rec_parent")]
-        + [("tr_in", ctypes.c_void_p * len(RING_COLS)),
-           ("tr_out", ctypes.c_void_p * len(RING_COLS)),
+        + [("tr", ctypes.c_void_p * len(RING_COLS)),
            ("o_trace_pos", ctypes.c_void_p)]
         + [(n, ctypes.c_int) for n in (
             "B", "C", "P", "N", "E", "n_sends", "use_jitter", "has_prov",
@@ -295,9 +293,6 @@ class _EmitWrite:
             return emit_write_plain(tables, em, lane, ring, n_sends,
                                     use_jitter)
 
-        def empty(shape, dtype=i32):
-            return torch.empty(shape, dtype=dtype, device=dev)
-
         # with no emission the kernel writes no statistic: they are 0
         alloc = torch.empty if E > 0 else torch.zeros
         stats = {n: alloc((B,), dtype=b8 if n == "overflow" else i32,
@@ -307,14 +302,8 @@ class _EmitWrite:
         if E == 0 and ring is None:       # nothing to write: the identity
             return dict(tables), stats, None
         p = _Params()
-        out = dict(tables)
-        if E > 0:
-            out = {n: torch.empty_like(tables[n]) for n in TABLE_COLS}
-            if prov_rows == 0:
-                out["ev_prov"] = tables["ev_prov"]
         for n in TABLE_COLS:
             setattr(p, n, tables[n].data_ptr())
-            setattr(p, "o_" + n, out[n].data_ptr())
         for n in ("m", "a", "tag", "payload"):
             setattr(p, "em_" + n, em[n].data_ptr())
         for n in ("now", "h_node", "sk_h", "dlat_h", "loss", "lat_lo",
@@ -325,15 +314,15 @@ class _EmitWrite:
             setattr(p, n, t.data_ptr())
         ring_out = None
         if ring is not None:
-            ring_out = dict(trace_pos=empty((B,)),
-                            cols={n: empty((B, TC)) for n in RING_COLS})
+            ring_out = dict(trace_pos=torch.empty((B,), dtype=i32,
+                                                  device=dev),
+                            cols=ring["cols"])
             for n in ("fired", "trace_on", "trace_pos", "trace_cap"):
                 setattr(p, n, ring[n].data_ptr())
             for n in ("kind", "node", "src", "tag", "parent"):
                 setattr(p, "rec_" + n, ring[n].data_ptr())
             for i, n in enumerate(RING_COLS):
-                p.tr_in[i] = ring["cols"][n].data_ptr()
-                p.tr_out[i] = ring_out["cols"][n].data_ptr()
+                p.tr[i] = ring["cols"][n].data_ptr()
             p.o_trace_pos = ring_out["trace_pos"].data_ptr()
         p.B, p.C, p.P, p.N, p.E = B, C, P, N, E
         p.n_sends, p.use_jitter = n_sends, int(bool(use_jitter))
@@ -349,7 +338,7 @@ class _EmitWrite:
             self.captured += 1
         else:
             self.launches += 1
-        return out, stats, ring_out
+        return dict(tables), stats, ring_out
 
 
 emit_write = _EmitWrite()

@@ -75,6 +75,9 @@ class FusedGraph:
     graph over static state buffers, with the copy of the block's final
     state back into those buffers and `halted.all()` at its end.
 
+    The step writes its input's event table and ring in place, so the
+    graph's steps write the static buffers themselves: the caller's state
+    is copied into them before a run, and a copy of them is returned.
     Capture needs every lazily built constant (prng's constant cache,
     the kernels' libraries, model tables) to exist first — building one
     inside the capture would copy from the host and break it — so the
@@ -112,6 +115,10 @@ class FusedGraph:
                              for k, w in kernels.items()}
 
     def _copy_back(self, out: SimState) -> None:
+        """Copy the block's final state into the static buffers. A leaf
+        the step wrote in place IS its static buffer and is skipped; a
+        leaf sharing storage with any other static buffer raises (the
+        copy would read a buffer it has already overwritten)."""
         static = state_leaves(self.static)
         ptrs = {t.untyped_storage().data_ptr() for t in static.values()
                 if t.numel()}
@@ -310,9 +317,14 @@ class Runtime:
         `halted.all()` once (the only sync). With collect_events, the
         per-step records come back as numpy arrays stacked [steps, B, ...];
         lanes that halted keep emitting records with fired=False. The
-        number of steps executed is left in `self.steps_run`."""
+        number of steps executed is left in `self.steps_run`.
+
+        The step writes its input in place, so the run steps a private
+        copy of `state` (one clone per call): the caller's state is left
+        as it was."""
         events = [] if collect_events else None
         done = 0
+        state = map_state(torch.clone, state)
         with torch.no_grad():
             while done < max_steps:
                 for _ in range(chunk):
@@ -345,7 +357,7 @@ class Runtime:
         kernel launch raises — there is no eager fallback. The number of
         steps executed is left in `self.steps_run`, the graph's
         launch accounting in `self.fused_stats`. On the CPU it is `run()`
-        itself.
+        itself. Either way the caller's state is left as it was.
 
         ckpt_every / ckpt_log (checkpoint harvest at segment boundaries)
         are not ported yet (ROADMAP P8 / P11.8)."""

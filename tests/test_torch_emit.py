@@ -7,9 +7,12 @@ per-emission micro-jitter, a full event table (OOPS_EVENT_OVERFLOW),
 clock skew and disk delay, clogged nodes and links, loss 0 and 1, with
 the flight recorder and lineage on. The wrapper's own contract — it
 checks what it is handed, counts only kernel launches, and is the
-identity with nothing to write — is tested directly. The CUDA kernel is
-held against the plain version on the card by chip_smoke.py. The JAX
-side runs on the non-partitionable threefry stream (see _torch_parity).
+identity with nothing to write — is tested directly, and so is the
+in-place write: the tensors it is handed come back, written only in the
+rows emissions take and the one ring row a recording lane writes. The
+CUDA kernel is held against the plain version on the card by
+chip_smoke.py. The JAX side runs on the non-partitionable threefry
+stream (see _torch_parity).
 """
 
 import numpy as np
@@ -17,6 +20,7 @@ import pytest
 import torch
 
 from _torch_parity import assert_same, jax_leaves, reference_stream
+from chip_smoke import clone_tree as _clone
 from madsim_tpu_torch import interop
 
 
@@ -117,17 +121,20 @@ def test_emission_corners_match_reference_leaf_for_leaf(case):
 # The wrapper's contract on the CPU
 # --------------------------------------------------------------------------
 def _operands(rt, state):
+    """The emit_write operands of the next step of `state`, copied before
+    the write (which is in place), from a step of a copy of `state`."""
     import madsim_tpu_torch.core.step as step_mod
+    from madsim_tpu_torch.core.state import map_state
     seen = []
     real = step_mod.emit_write
 
     def spy(*args):
-        seen.append(args)
+        seen.append(_clone(args))
         return real(*args)
 
     step_mod.emit_write = spy
     try:
-        rt._step(state)
+        rt._step(map_state(torch.clone, state))
     finally:
         step_mod.emit_write = real
     return seen[0]
@@ -145,13 +152,17 @@ def flagship_operands():
 def test_wrapper_takes_the_plain_version_on_the_cpu(flagship_operands):
     from madsim_tpu_torch.ops.emit_write import emit_write, emit_write_plain
     before = (emit_write.launches, emit_write.captured)
-    out = emit_write(*flagship_operands)
-    want = emit_write_plain(*flagship_operands)
+    ops_a, ops_b = _clone(flagship_operands), _clone(flagship_operands)
+    out = emit_write(*ops_a)
+    want = emit_write_plain(*ops_b)
     assert (emit_write.launches, emit_write.captured) == before
     for a, b in zip(out[:2], want[:2]):
         for k in b:
             assert torch.equal(a[k], b[k]), k
+    assert all(out[0][k] is ops_a[0][k] for k in ops_a[0])
     assert torch.equal(out[2]["trace_pos"], want[2]["trace_pos"])
+    for k in want[2]["cols"]:
+        assert torch.equal(out[2]["cols"][k], want[2]["cols"][k]), k
     tables, em, lane, ring, n_sends, _ = flagship_operands
     assert em["m"].shape[1] == 8 and n_sends == 5
     assert ring is not None and tables["ev_prov"].shape[1] == 96
@@ -182,15 +193,17 @@ def test_ring_only_writes_the_dispatched_record(flagship_operands):
     """E = 0 with the recorder on: the tables pass through, one ring row
     per sampled, dispatching lane is written at trace_pos mod trace_cap."""
     from madsim_tpu_torch.ops.emit_write import RING_COLS, emit_write
-    tables, em, lane, ring, _, jit = flagship_operands
+    tables, em, lane, ring, _, jit = _clone(flagship_operands)
+    old = _clone(ring["cols"])
     empty = {k: v[:, :0] for k, v in em.items()}
     out, _, new = emit_write(tables, empty, lane, ring, 0, jit)
     assert all(out[k] is tables[k] for k in tables)
+    assert all(new["cols"][k] is ring["cols"][k] for k in RING_COLS)
     rec = ring["fired"] & ring["trace_on"]
     assert torch.equal(new["trace_pos"], ring["trace_pos"] + rec.int())
     slot = torch.remainder(ring["trace_pos"], ring["trace_cap"])
     for k in RING_COLS:
-        changed = (new["cols"][k] != ring["cols"][k]).sum(1)
+        changed = (new["cols"][k] != old[k]).sum(1)
         assert (changed <= rec.int()).all()
     b = int(torch.nonzero(rec)[0, 0])
     assert int(new["cols"]["tr_now"][b, slot[b]]) == int(lane["now"][b])

@@ -33,16 +33,22 @@ _RUNS: dict = {}
 
 
 def _golden_run(name: str) -> dict:
-    """{runner: leaf digests} of the port's run of one golden workload
-    (memoized: each runner's test reads the same run)."""
+    """{runner: leaf digests} of the port's run of one golden workload,
+    both runners from ONE initial state, with that state's digests before
+    ("input") and after ("input_after") the two runs (memoized: each
+    test reads the same runs)."""
     if name not in _RUNS:
         p = workloads.GOLDEN_RUNS[name]
         rt = workloads.GOLDEN_WORKLOADS[name](device="cpu")
         seeds = np.arange(p["seeds"], dtype=np.uint32)
-        s, _ = rt.run(rt.init_batch(seeds), p["max_steps"], p["chunk"])
-        f = rt.run_fused(rt.init_batch(seeds), p["max_steps"], p["chunk"])
+        init = rt.init_batch(seeds)
+        before = interop.leaf_digests(init)
+        s, _ = rt.run(init, p["max_steps"], p["chunk"])
+        f = rt.run_fused(init, p["max_steps"], p["chunk"])
         _RUNS[name] = {"run": interop.leaf_digests(s),
-                       "run_fused": interop.leaf_digests(f)}
+                       "run_fused": interop.leaf_digests(f),
+                       "input": before,
+                       "input_after": interop.leaf_digests(init)}
     return _RUNS[name]
 
 
@@ -56,6 +62,22 @@ def test_golden_workload_reproduces_frozen_digests(name, runner):
     assert len(want) == {"pingpong": 80, "wal_kv": 91}[name]
     bad = [k for k in want if got.get(k) != want[k]]
     assert not bad, f"{name} {runner}: digests differ for {bad}"
+
+
+@pytest.mark.parametrize("name", ["pingpong", "wal_kv"])
+def test_runners_leave_the_callers_state_unchanged(name):
+    """The step writes its input's event table and ring in place, so each
+    runner steps a private copy: `run` then `run_fused` from one state
+    leave it bit-identical, and the two runs agree leaf for leaf with each
+    other and with the JAX reference's frozen digests."""
+    with open(GOLDEN) as f:
+        want = json.load(f)[name]
+    runs = _golden_run(name)
+    assert runs["input_after"] == runs["input"]
+    assert runs["run"] == runs["run_fused"]
+    assert all(runs["run"][k] == want["run"][k] for k in want["run"])
+    moved = [k for k in runs["input"] if runs["input"][k] != runs["run"][k]]
+    assert ".t_payload" in moved and ".t_node" in moved
 
 
 @pytest.mark.parametrize("name", ["pingpong", "wal_kv"])

@@ -176,6 +176,12 @@ def test_run_fused_refuses_checkpoints():
 
 @pytest.mark.parametrize("name", ["flagship", "wal_kv"])
 def test_step_leaves_its_input_state_unchanged(name):
+    """The step leaves every leaf of its input unchanged but the event
+    table and ring columns the emission write fills in place: those are
+    the result's very tensors, changed only in the rows the result holds
+    occupied (the rows emissions took) and in at most one ring row a
+    lane."""
+    from madsim_tpu_torch.ops.emit_write import RING_COLS, TABLE_COLS
     if name == "flagship":
         rt = workloads.flagship_runtime(device="cpu", trace_cap=64)
     else:
@@ -183,14 +189,25 @@ def test_step_leaves_its_input_state_unchanged(name):
     s = rt.init_batch(np.arange(4, dtype=np.uint32))
     s, _ = rt.run(s, 24, chunk=24)
     before = {k: v.clone() for k, v in interop.state_leaves(s).items()}
-    for _ in range(3):
-        out, _ = rt._step(s)
-    after = interop.state_leaves(s)
+    out, _ = rt._step(s)
+    after, result = interop.state_leaves(s), interop.state_leaves(out)
+    in_place = {"." + k for k in TABLE_COLS[2:] + RING_COLS}
     for k, v in before.items():
-        assert torch.equal(after[k], v), f"the step wrote input leaf {k}"
-    moved = [k for k, v in interop.state_leaves(out).items()
-             if not torch.equal(v, before[k])]
-    assert ".now" in moved and ".t_kind" in moved
+        if k in in_place and v.numel():
+            assert after[k] is result[k], k
+        else:
+            assert torch.equal(after[k], v), f"the step wrote input leaf {k}"
+    occupied = out.t_kind != 0
+    written = torch.zeros_like(occupied)
+    for k in ("." + c for c in TABLE_COLS[2:]):
+        if before[k].numel():
+            rows = (after[k] != before[k]).reshape(*occupied.shape, -1)
+            assert not (rows.any(-1) & ~occupied).any(), k
+            written |= rows.any(-1)
+    for k in ("." + c for c in RING_COLS):
+        assert ((after[k] != before[k]).sum(1) <= 1).all(), k
+    moved = [k for k, v in result.items() if not torch.equal(v, before[k])]
+    assert ".now" in moved and ".t_kind" in moved and written.any()
 
 
 def test_new_modules_pull_in_no_jax_and_no_reference_package():
