@@ -61,9 +61,16 @@ the frozen golden digests. One JSON object per line, in phases:
   kernel       each kernel against its plain version, exactly equal
                (the kernel's time is device time: launches captured in a
                CUDA graph and replayed between events):
-               sched_pick on edge-case tables and on tables captured from
-               the flagship at steps 0, 512, 2048 and from wal_kv at
-               B=100,000, C=256, step 40; emit_write on edge-case
+               sched_pick on edge-case tables (B=100,000; B=1;
+               B=100,003; C=33 and C=256 with N=32; warp tiles that mix
+               nudged, halted, tied, one-candidate, empty and parked
+               lanes; every lane halted; tables not 16-byte aligned, which
+               the kernel copies 4 bytes at a time) and on tables captured
+               from the flagship at steps 0, 512, 2048, from wal_kv at
+               B=100,000, C=256, step 40 and from PCT's nudged run, with
+               its registers a thread and resident blocks an SM (the
+               occupancy API) beside its time as a graph replay and inside
+               the profiled flagship graph; emit_write on edge-case
                operands at C=96 and C=256 (full tables, masked
                emissions, clogged links, loss 0 and 1, jitter, skew, disk
                delay, a wrapping ring) and on operands captured from the
@@ -86,7 +93,14 @@ the frozen golden digests. One JSON object per line, in phases:
                a tile and one key either side of it, random B=100,000),
                with kernel, plain and (coverage_digest: torch.unique)
                library times and bounds, and coverage_digest's kernel
-               launches and memsets per call
+               launches and memsets per call; apply_knobs writes in
+               place, so kernel and plain version each write a copy of a
+               case's columns (one case per plan with random garbage in
+               every row, one with a payload not 16-byte aligned, which
+               the kernel writes a word at a time): every column equal,
+               the returned columns the ones handed in, no row outside
+               [n_init, n_init + R + D) changed; being idempotent, it is
+               timed by replaying it on the same operands
   determinism  lanes 0..4095 alone, twice through run (512 steps) and
                twice through run_fused (2048 steps): fingerprints equal
                to each other and to lanes 0..4095 of the B=100,000 eager
@@ -259,6 +273,46 @@ def edge_inputs(dev, B, C, N, seed=0):
     return tuple(torch.as_tensor(a, device=dev) for a in (
         kind, node, dl, tag, src, alive, paused, nudge, halted, keys,
         hashes))
+
+
+def mixed_tile_inputs(dev, B, C, N, seed):
+    """edge_inputs whose lanes take seven kinds in turn, so that every
+    warp tile of the kernel mixes them: nudged, halted, all C rows tied,
+    one candidate, nothing eligible, every node alive and paused (only
+    supervisor rows eligible), tied and nudged."""
+    import torch
+    (kind, node, dl, tag, src, alive, paused, nudge, halted, keys,
+     hashes) = edge_inputs(dev, B, C, N, seed)
+    turn = torch.arange(B, device=dev) % 7
+    nudge = torch.where((turn == 0) | (turn == 6),
+                        torch.where(nudge != 0, nudge, 12345), 0)
+    halted = turn == 1
+    tied = (turn == 2) | (turn == 6)
+    kind[tied], dl[tied] = 2, 11
+    alive[tied], paused[tied] = True, False
+    kind[(turn == 3) | (turn == 4)] = 0
+    kind[turn == 3, C // 2], dl[turn == 3, C // 2] = 1, 5
+    paused[turn == 3] = False
+    alive[turn == 5], paused[turn == 5] = True, True
+    return (kind, node, dl, tag, src, alive, paused, nudge.to(torch.int32),
+            halted, keys, hashes)
+
+
+def unaligned(t):
+    """A contiguous copy of `t` whose data starts one element past an
+    allocation's start (4 bytes past a 16-byte boundary for int32): the
+    kernels' fallback paths for tables they cannot copy 16 bytes at a
+    time."""
+    import torch
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def lanes_of(args, lanes):
+    """The select operands of the given lanes only (contiguous copies)."""
+    return tuple(a[lanes].contiguous() for a in args)
 
 
 def clone_tree(x):
@@ -716,13 +770,12 @@ def mutate_bound(knobs, key, guards, havoc, mask=None):
 
 def apply_bound(cols, tlimit, jitter, knobs, base, guards, n_init,
                 jitter_gate):
-    """(bytes, copy_bytes) of the knob write for these operands. bytes:
-    what the write needs — every lane's knob vector, tlimit and jitter
-    read once, its R + D written rows (five int32 columns and P payload
-    words each) and its five scalars written once, the plan's base rows
-    and guards once. copy_bytes: what the kernel moves on top because its
-    result is new columns — every other row read and written once."""
-    B, C = cols["t_kind"].shape
+    """The bytes of the knob write for these operands: every lane's knob
+    vector, tlimit and jitter read once, its R + D written rows (five
+    int32 columns and P payload words each) and its five scalars written
+    once, the plan's base rows and guards once. The write is in place, so
+    no other row moves."""
+    B = cols["t_kind"].shape[0]
     R, P = base["payload"].shape
     D = knobs["dup_src"].shape[1]
     row = 4 * 5 + 4 * P
@@ -730,8 +783,20 @@ def apply_bound(cols, tlimit, jitter, knobs, base, guards, n_init,
                      for v in knobs.values())
     plan_bytes = sum(v.numel() * v.element_size()
                      for v in list(base.values()) + list(guards.values()))
-    nbytes = B * (lane_bytes + 8 + (R + D) * row + 5 * 4) + plan_bytes
-    return nbytes, 2 * B * (C - R - D) * row
+    return B * (lane_bytes + 8 + (R + D) * row + 5 * 4) + plan_bytes
+
+
+def check_knob_rows_written(name, before, after):
+    """The knob write changed no table row outside [n_init, n_init + R +
+    D): `before` is its operands before an in-place write, `after` the
+    columns it wrote."""
+    cols0, _, _, knobs, base, _, n_init, _ = before
+    lo = n_init + base["op"].shape[0] + knobs["dup_src"].shape[1]
+    for k, old in cols0.items():
+        rows = (old != after[k]).reshape(*old.shape[:2], -1).any(-1)
+        rows[:, n_init:lo] = False
+        check(not bool(rows.any()),
+              f"{name}: {k} changed outside rows [{n_init}, {lo})")
 
 
 def coverage_edge_hashes(dev):
@@ -1237,7 +1302,23 @@ def main() -> int:
     # ---- kernel: sched_pick against its plain version -----------------------
     B, C = captured[0][0].shape
     N = captured[0][5].shape[1]
-    cases = {"edges": edge_inputs(dev, B, C, N)}
+    edges = edge_inputs(dev, B, C, N)
+    every_halted = list(edge_inputs(dev, B, C, N, seed=4))
+    every_halted[8] = torch.ones_like(every_halted[8])
+    cases = {"edges": edges,
+             "B_1_one_candidate": lanes_of(edges, [1]),
+             "B_1_all_tied": lanes_of(edges, [2]),
+             "B_1_tied_nudged": lanes_of(edges, [3]),
+             "B_1_random": lanes_of(edges, [10]),
+             "B_100003": edge_inputs(dev, FLAG_B + 3, C, N, seed=1),
+             "C_33_N_32": edge_inputs(dev, B, 33, 32, seed=2),
+             "C_256_N_32": edge_inputs(dev, B, 256, 32, seed=3),
+             "mixed_tiles": mixed_tile_inputs(dev, B, C, N, seed=5),
+             "mixed_tiles_C_256_N_32": mixed_tile_inputs(dev, B, 256, 32,
+                                                         seed=6),
+             "every_lane_halted": tuple(every_halted),
+             "unaligned_tables": tuple(unaligned(a) if i < 5 else a
+                                       for i, a in enumerate(edges))}
     cases.update({f"flagship_step_{k}": v for k, v in captured.items()})
     cases[wal_case] = wal_select
     cases[f"pct_flagship_step_{PCT_STEPS // 2}"] = pct_select
@@ -1268,15 +1349,21 @@ def main() -> int:
     sp_bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     sp = dict(ms=min(k_ms, k_ms2), plain_ms=min(p_ms, p_ms2),
               bound_ms=sp_bound_ms, max_abs_err=max_err)
+    # registers a thread and resident blocks an SM, at the flagship's C
+    # and at wal_kv's
+    occupancy = {f"C_{c}": sched_pick.occupancy(c)
+                 for c in sorted({C, wal_select[0].shape[1]})}
     emit(phase="kernel", name="sched_pick", cases={
         k: list(v[0].shape) for k, v in sorted(cases.items())}, batch=B,
          C=C, N=N, exact=True, max_abs_err=max_err,
          launches_on_main_path=fused_launch["sched_pick"],
          launches_per_step=fused_launch["sched_pick"] / (FLAG_STEPS + warm),
          ms=[k_ms, k_ms2], eager_launch_ms=k_eager,
-         plain_ms=[p_ms, p_ms2], bound_bytes=nbytes,
+         ms_in_flagship_graph=prof_fused["sched_pick_ms_per_step"],
+         occupancy=occupancy, plain_ms=[p_ms, p_ms2], bound_bytes=nbytes,
          bound_ms=sp_bound_ms, library="none")
-    del cases, captured, main_args, wal_select, pct_select
+    del cases, captured, main_args, wal_select, pct_select, edges, \
+        every_halted
 
     # ---- kernel: emit_write against its plain version -----------------------
     for C_e, E_e, ns_e, jit_e, ring_e in ((96, 12, 7, True, True),
@@ -1354,6 +1441,7 @@ def main() -> int:
     del emit_cases, main_e, live, restores
 
     # ---- kernel: the search kernels against their plain versions ----------
+    from madsim_tpu_torch.ops.apply_knobs import TABLE_COLS as APPLY_COLS
     from madsim_tpu_torch.ops.apply_knobs import apply_knobs, \
         apply_knobs_plain
     from madsim_tpu_torch.ops.coverage import coverage_digest, \
@@ -1374,11 +1462,23 @@ def main() -> int:
             mutate_cases[f"{pname}_havoc{h}{masked}"] = (kb, key, guards, h,
                                                           m)
         st = ert.init_batch(np.arange(EDGE_B, dtype=np.uint32))
+        cols = {n: getattr(st, n) for n in APPLY_COLS}
         apply_cases[f"{pname}_foreign"] = (
-            {n: getattr(st, n) for n in ("t_deadline", "t_kind", "t_node",
-                                         "t_src", "t_tag", "t_payload")},
-            st.tlimit, st.jitter, kb, base, guards, plan.n_init,
+            cols, st.tlimit, st.jitter, kb, base, guards, plan.n_init,
             plan.jitter_gate)
+        # every row garbage: the write must not read what its rows held,
+        # and must leave the other rows as they were
+        gen = torch.Generator(device=dev).manual_seed(11)
+        junk = {n: torch.randint(-2 ** 31, 2 ** 31 - 1, c.shape,
+                                 generator=gen, device=dev,
+                                 dtype=torch.int32)
+                for n, c in cols.items()}
+        apply_cases[f"{pname}_foreign_garbage_rows"] = (
+            junk, st.tlimit, st.jitter, kb, base, guards, plan.n_init,
+            plan.jitter_gate)
+        apply_cases[f"{pname}_foreign_unaligned_payload"] = (
+            dict(junk, t_payload=unaligned(junk["t_payload"])), st.tlimit,
+            st.jitter, kb, base, guards, plan.n_init, plan.jitter_gate)
     coverage_cases.update({k: (h,) for k, h in
                            coverage_edge_hashes(dev).items()})
     for kname, kern, plain, cases_k, main_case in (
@@ -1391,6 +1491,19 @@ def main() -> int:
         err = 0
         issued = {}
         for cname, args in cases_k.items():
+            if kname == "apply_knobs":
+                # in place: kernel and plain version each write a copy
+                a, b = clone_tree(args), clone_tree(args)
+                out_k = kern(*a)
+                out_p = plain(*b)
+                torch.cuda.synchronize()
+                check(all(out_k[n] is a[0][n] and out_p[n] is b[0][n]
+                          for n in APPLY_COLS),
+                      f"apply_knobs on {cname}: not written in place")
+                err = max(err, check_equal(f"{kname} on {cname}",
+                                           (a[0], out_k), (b[0], out_p)))
+                check_knob_rows_written(f"{kname} on {cname}", args, a[0])
+                continue
             out_k = kern(*args)
             out_p = plain(*args)
             torch.cuda.synchronize()
@@ -1401,6 +1514,8 @@ def main() -> int:
                       f"coverage_digest on {cname}: issued "
                       f"{issued[cname]}, not 10 kernels and 1 memset")
         margs = cases_k[main_case]
+        # apply_knobs writes margs' columns in place; its rows depend on
+        # the knobs alone, so every replay repeats the same work
         k_ms = graph_ms(lambda: kern(*margs), 20)
         p_ms = cuda_ms(lambda: plain(*margs), 3)
         k_ms2 = graph_ms(lambda: kern(*margs), 20)
@@ -1410,10 +1525,21 @@ def main() -> int:
         if kname == "mutate":
             nbytes, ops = mutate_bound(*margs)
         elif kname == "apply_knobs":
-            nbytes, copy = apply_bound(*margs)
-            ops = 0
-            extra = dict(copy_bytes=copy,
-                         copy_ms=copy / HBM_BYTES_PER_S * 1e3)
+            nbytes, ops = apply_bound(*margs), 0
+            # the write's own layout, for scale: torch's fill_ of the
+            # slices it writes (35 of 96 rows of five int32 columns and of
+            # the payload, at the flagship's plan), which also moves only
+            # the bytes written
+            lo = margs[6]
+            hi = lo + margs[4]["op"].shape[0] + margs[3]["dup_src"].shape[1]
+            mcols = margs[0]
+
+            def fill():
+                for n in APPLY_COLS:
+                    mcols[n][:, lo:hi].fill_(7)
+
+            extra = dict(written_slices_fill_ms=min(graph_ms(fill, 20),
+                                                    graph_ms(fill, 20)))
         else:
             B_c = margs[0].shape[0]
             nbytes, ops = 16 * B_c + 4, 0

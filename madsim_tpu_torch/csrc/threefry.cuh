@@ -9,7 +9,9 @@
 //   split_key      key i of `split(key, n)`
 //   bits           `random_bits(key, ())`: 32 bits
 //   randint_raw    `randint(key, (), minval, maxval)`, jax's two-draw
-//                  span / multiplier reduction, uint32 wrap throughout
+//                  span / multiplier reduction, uint32 wrap throughout;
+//                  its halves randint_bits (the draws, from the key
+//                  alone) and randint_reduce (the span)
 //   randint        the same over [lo, hi] INCLUSIVE (prng.randint)
 //   bernoulli      `uniform(key) < p` in float32
 //
@@ -75,24 +77,39 @@ __device__ __forceinline__ uint32_t bits(uint32_t k0, uint32_t k1) {
   return x0;
 }
 
-// jax.random.randint(key, (), minval, maxval, int32): minval when
-// maxval <= minval. The key splits in two (blocks (0, 2) and (1, 3));
-// 32 bits are drawn from each half, then reduced modulo the span with
-// jax's multiplier, all in uint32.
-__device__ __forceinline__ int32_t randint_raw(uint32_t k0, uint32_t k1,
-                                               int32_t minval,
-                                               int32_t maxval) {
+// The two 32-bit draws of jax.random.randint(key, ...): the key splits in
+// two (blocks (0, 2) and (1, 3)) and 32 bits are drawn from each half.
+// They depend on the key alone, so a kernel can draw them before it
+// knows the span.
+__device__ __forceinline__ void randint_bits(uint32_t k0, uint32_t k1,
+                                             uint32_t& hi, uint32_t& lo) {
   uint32_t a0 = 0, a1 = 2, b0 = 1, b1 = 3;
   block(k0, k1, a0, a1);
   block(k0, k1, b0, b1);
-  const uint32_t hi = bits(a0, b0);   // first half key (a0, b0)
-  const uint32_t lo = bits(a1, b1);   // second half key (a1, b1)
+  hi = bits(a0, b0);   // first half key (a0, b0)
+  lo = bits(a1, b1);   // second half key (a1, b1)
+}
+
+// The draws reduced modulo the span [minval, maxval) with jax's
+// multiplier, all in uint32: minval when maxval <= minval.
+__device__ __forceinline__ int32_t randint_reduce(uint32_t hi, uint32_t lo,
+                                                  int32_t minval,
+                                                  int32_t maxval) {
   const uint32_t span = maxval <= minval
       ? 1u : static_cast<uint32_t>(maxval) - static_cast<uint32_t>(minval);
   uint32_t mult = 65536u % span;
   mult = (mult * mult) % span;
   const uint32_t off = ((hi % span) * mult + (lo % span)) % span;
   return static_cast<int32_t>(static_cast<uint32_t>(minval) + off);
+}
+
+// jax.random.randint(key, (), minval, maxval, int32).
+__device__ __forceinline__ int32_t randint_raw(uint32_t k0, uint32_t k1,
+                                               int32_t minval,
+                                               int32_t maxval) {
+  uint32_t hi, lo;
+  randint_bits(k0, k1, hi, lo);
+  return randint_reduce(hi, lo, minval, maxval);
 }
 
 // prng.randint: uniform int32 in [lo, hi] INCLUSIVE (hi + 1 wraps in

@@ -25,10 +25,16 @@ here, not trusted from the mutator:
                   jitter = clip(jitter, 0, JIT_CAP) only with the build's
                   jitter gate (else the state's own), prio_nudge as given
 
-Every other row is copied. Nothing is written in place: the result is new
-columns (t_deadline, t_kind, t_node, t_src, t_tag, t_payload, loss,
-lat_lo, lat_hi, jitter, prio_nudge) for `SimState.replace`. Every value is
-an integer or a float32 clip, so kernel and plain version agree exactly.
+The write works IN PLACE: rows [n_init, n_init + R + D) of the six table
+columns in `cols` (t_deadline, t_kind, t_node, t_src, t_tag, t_payload)
+are written into those tensors, which are returned as they were handed
+in; every other row is left untouched. The five lane scalars (loss,
+lat_lo, lat_hi, jitter, prio_nudge) are new [B] tensors. The written rows
+depend only on the knobs, the plan and the lane's tlimit and jitter, not
+on what the rows held, so writing twice is writing once. A caller that
+goes on reading the columns it handed over must hand a copy. Every value
+is an integer or a float32 clip, so kernel and plain version agree
+exactly.
 
 `apply_knobs` takes the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises. `launches` counts kernel
@@ -55,8 +61,9 @@ SCALARS = ("loss", "lat_lo", "lat_hi", "jitter", "prio_nudge")
 def apply_knobs_plain(cols: dict, tlimit, jitter, knobs: dict, base: dict,
                       guards: dict, n_init: int, jitter_gate: bool) -> dict:
     """Plain PyTorch form; see the module doc. `cols` holds the state's
-    TABLE_COLS, `tlimit` and `jitter` its [B] scalars, `base` the plan's
-    scenario rows (time, op, node, src [R], payload [R, P])."""
+    TABLE_COLS, written in place and returned; `tlimit` and `jitter` its
+    [B] scalars; `base` the plan's scenario rows (time, op, node, src
+    [R], payload [R, P])."""
     R = base["op"].shape[0]
     P = base["payload"].shape[1]
     N = guards["pool_ok"].shape[1] - 1
@@ -106,7 +113,7 @@ def apply_knobs_plain(cols: dict, tlimit, jitter, knobs: dict, base: dict,
     lo, hi = n_init, n_init + R + D
     out = {}
     for name in TABLE_COLS:
-        col = cols[name].clone()
+        col = cols[name]
         col[:, lo:hi] = torch.cat(seg[name], 1).to(col.dtype)
         out[name] = col
     lat_lo = torch.clamp(knobs["lat_lo"], 0, LAT_CAP)
@@ -125,7 +132,6 @@ class _Params(ctypes.Structure):
     """csrc/apply_knobs.cu `ApplyParams`, field for field."""
     _fields_ = (
         [(n, ctypes.c_void_p) for n in TABLE_COLS]
-        + [("o_" + n, ctypes.c_void_p) for n in TABLE_COLS]
         + [(n, ctypes.c_void_p) for n in ("tlimit", "jitter_in")]
         + [("k_" + n, ctypes.c_void_p) for n in KNOB_KEYS]
         + [("base_" + n, ctypes.c_void_p) for n in BASE_KEYS]
@@ -204,13 +210,12 @@ class _ApplyKnobs:
                                      guards, n_init, jitter_gate)
         if not cuda:
             raise ValueError(f"apply_knobs: unsupported device {dev}")
-        out = {n: torch.empty_like(cols[n]) for n in TABLE_COLS}
+        out = {n: cols[n] for n in TABLE_COLS}
         out.update(loss=torch.empty_like(knobs["loss"]),
                    **{n: torch.empty_like(tlimit) for n in SCALARS[1:]})
         p = _Params()
         for n in TABLE_COLS:
             setattr(p, n, cols[n].data_ptr())
-            setattr(p, "o_" + n, out[n].data_ptr())
         p.tlimit, p.jitter_in = tlimit.data_ptr(), jitter.data_ptr()
         for n in KNOB_KEYS:
             setattr(p, "k_" + n, knobs[n].data_ptr())

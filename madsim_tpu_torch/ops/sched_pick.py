@@ -27,8 +27,8 @@ from ..core import types as T
 from ..core.prng import shr, to_u64, u32
 from . import select as sel
 
-MAX_C = 256   # the kernel keeps C / 32 rows per thread in registers
-MAX_N = 32    # one warp ballot over the nodes
+MAX_C = 256   # a thread of the kernel reduces C / 16 rows of a lane
+MAX_N = 32    # the parked nodes of a lane are one 32-bit mask
 
 
 def _mix(a, b, c, d, ma, mb, mc, md):
@@ -124,6 +124,24 @@ class _SchedPick:
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
+
+    def occupancy(self, C: int) -> dict:
+        """The kernel's launch shape for tables of C rows on the current
+        CUDA device: registers a thread, dynamic shared memory and
+        threads a block, and resident blocks an SM."""
+        if not 1 <= C <= MAX_C:
+            raise ValueError(f"sched_pick: C={C} outside 1..{MAX_C}")
+        from .kernels import load
+        fn = load("sched_pick").sched_pick_occupancy
+        fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4
+        fn.restype = ctypes.c_int
+        vals = [ctypes.c_int(0) for _ in range(4)]
+        err = fn(C, *(ctypes.byref(v) for v in vals))
+        if err != 0:
+            raise RuntimeError(f"sched_pick: occupancy query failed "
+                               f"(cudaError {err})")
+        return dict(zip(("registers", "smem_bytes", "threads",
+                         "blocks_per_sm"), (v.value for v in vals)))
 
     def __call__(self, t_kind, t_node, t_deadline, t_tag, t_src, alive,
                  paused, prio_nudge, halted, k_sched, sched_hash):

@@ -7,8 +7,8 @@ jitter and the PCT nudge are SimState scalars), so a mutant is nothing
 but a different initial state: `KnobPlan.mutate` derives a batch of
 mutants in one launch of the havoc kernel (ops/mutate.py,
 csrc/mutate.cu) and `KnobPlan.apply` writes a batch into a batched init
-state in one launch of the knob-write kernel (ops/apply_knobs.py,
-csrc/apply_knobs.cu).
+state, in place, in one launch of the knob-write kernel
+(ops/apply_knobs.py, csrc/apply_knobs.cu).
 
 The knob vector (one lane) — everything the fuzzer may perturb:
 
@@ -45,7 +45,7 @@ import torch
 
 from ..core import types as T
 from ..interop import knobs_to_numpy, knobs_to_torch
-from ..ops.apply_knobs import apply_knobs
+from ..ops.apply_knobs import TABLE_COLS, apply_knobs
 from ..ops.mutate import GUARD_KEYS, N_MUT_OPS, mutate_batch
 from ..runtime.runtime import resolve_device
 
@@ -238,14 +238,15 @@ class KnobPlan:
     def apply(self, state, knobs_batch):
         """Write a knob batch into a batched init state: scenario slots
         [n_init, n_init+R+D) plus the network/priority scalars, bounds
-        enforced (see the module doc). Returns a new state; the input is
-        not written."""
+        enforced (see the module doc). The slots are written IN PLACE,
+        into the state's own event-table columns (ops/apply_knobs.py):
+        hand it a state nothing else reads, as `fuzz` does with a fresh
+        `init_batch`. Returns the state with the new scalars; its table
+        columns are the input's tensors."""
         dev = state.now.device
         kb = knobs_to_torch(knobs_batch, dev)
         guards, base = self._device_tables(dev)
-        cols = {n: getattr(state, n) for n in (
-            "t_deadline", "t_kind", "t_node", "t_src", "t_tag",
-            "t_payload")}
+        cols = {n: getattr(state, n) for n in TABLE_COLS}
         out = apply_knobs(cols, state.tlimit, state.jitter, kb, base,
                           guards, self.n_init, self.jitter_gate)
         return state.replace(**out)
@@ -312,11 +313,13 @@ def apply_repro_knobs(rt, state, knobs: dict, plan: "KnobPlan" = None):
     """Re-apply ONE repro handle's knob vector to every lane of a batched
     init state — the `(seed, knobs[, nudge])` replay idiom of `pct_sweep`.
     Infers the plan's dup-slot count from the vector itself when no plan
-    is given. Returns (state, plan)."""
+    is given. Returns (state, plan); the caller's state is not written
+    (the write goes to a copy of its table columns)."""
     if plan is None:
         plan = KnobPlan.from_runtime(
             rt, dup_slots=len(np.atleast_1d(knobs_to_numpy(knobs)[
                 "dup_src"])))
     B = int(state.halted.shape[0])
-    return plan.apply(state, KnobPlan.stack([knobs_to_numpy(knobs)] * B)), \
+    own = state.replace(**{n: getattr(state, n).clone() for n in TABLE_COLS})
+    return plan.apply(own, KnobPlan.stack([knobs_to_numpy(knobs)] * B)), \
         plan

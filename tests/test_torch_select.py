@@ -124,6 +124,7 @@ def _jax_select(kind, node, dl, tag, src, alive, paused, nudge, halted,
     """`live_step` section 1 of the JAX package (step.py:141-232) for one
     lane, composed from its own select primitives."""
     u32 = jnp.uint32
+    C, N = kind.shape[-1], alive.shape[-1]
     occupied = kind != JT.EV_FREE
     tnode = jnp.clip(node, 0, N - 1)
     parked = jsel.take1(alive & paused, tnode) & (kind != JT.EV_SUPER)
@@ -158,7 +159,7 @@ def _jax_select(kind, node, dl, tag, src, alive, paused, nudge, halted,
             jsel.take1(node, idx), ev_src, ev_tag)
 
 
-def select_inputs(seed, b=B):
+def select_inputs(seed, b=B, C=C, N=N):
     """Random event tables with the edge lanes the select must handle:
     nothing eligible, one candidate, all rows tied, nudged lanes, halted
     lanes, paused nodes and T_INF rows."""
@@ -178,7 +179,7 @@ def select_inputs(seed, b=B):
     halted = rng.random(b) < 0.1
     kind[0] = JT.EV_FREE                      # nothing eligible
     kind[1] = JT.EV_FREE
-    kind[1, 50] = JT.EV_MSG                   # one candidate
+    kind[1, min(50, C - 1)] = JT.EV_MSG       # one candidate
     kind[2:4] = JT.EV_TIMER                   # all rows tied
     dl[2:4] = 11
     alive[2:4] = True
@@ -188,9 +189,19 @@ def select_inputs(seed, b=B):
             _keys(rng, b), _keys(rng, b))
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_sched_pick_plain_matches_reference_select(seed):
-    args = select_inputs(seed)
+# (C, N): the flagship's table (the cases named by their seed alone); one
+# row over a warp's 32 with a node per bit of the parked mask; the
+# kernel's largest table; a single row
+_SHAPES = [(seed, c, n) for c, n in ((96, 5), (33, 32), (256, 5), (1, 1))
+           for seed in (0, 1)]
+
+
+@pytest.mark.parametrize(
+    "seed,C_,N_", _SHAPES,
+    ids=[f"{s}" if (c, n) == (C, N) else f"{s}-C{c}-N{n}"
+         for s, c, n in _SHAPES])
+def test_sched_pick_plain_matches_reference_select(seed, C_, N_):
+    args = select_inputs(seed, C=C_, N=N_)
     j_args = list(args)
     j_args[9] = args[9].view(np.uint32)
     j_args[10] = args[10].view(np.uint32)
@@ -251,3 +262,29 @@ def test_fingerprint_of_reference_state_matches():
     with reference_stream():
         want = leaf_digests(s)
     assert interop.leaf_digests(port) == want
+
+
+def test_chip_smoke_mixed_tiles_hold_every_lane_kind():
+    """The select operands chip_smoke.py holds the kernel to, where every
+    warp tile mixes lane kinds in turns of seven: each kind does what its
+    name says under the plain select (which equals the JAX select above)."""
+    from chip_smoke import lanes_of, mixed_tile_inputs
+    B, C, N = 70, 33, 32
+    args = mixed_tile_inputs("cpu", B, C, N, seed=5)
+    idx, dmin, valid, any_ev, _, ev_kind = sched_pick_plain(*args)[:6]
+    turn = torch.arange(B) % 7
+    nudge, halted = args[7], args[8]
+    assert ((nudge != 0) == ((turn == 0) | (turn == 6))).all()
+    assert torch.equal(halted, turn == 1)
+    assert not valid[turn == 1].any()
+    tied = (turn == 2) | (turn == 6)
+    assert (dmin[tied] == 11).all() and valid[tied].all()
+    assert (idx[turn == 3] == C // 2).all() and valid[turn == 3].all()
+    assert not any_ev[turn == 4].any() and (ev_kind[turn == 4] == 0).all()
+    parked = turn == 5
+    assert (args[5][parked] & args[6][parked]).all()
+    assert (ev_kind[parked & valid] == JT.EV_SUPER).all()
+    # a tile of one lane is a copy of that lane
+    one = lanes_of(args, [3])
+    assert one[0].shape == (1, C) and one[0].is_contiguous()
+    assert torch.equal(sched_pick_plain(*one)[0], idx[3:4])
