@@ -34,11 +34,12 @@ the frozen golden digests. One JSON object per line, in phases:
   step_bound   the bytes one traced flagship step must move at step 512
                (B=100,000): every state leaf the step reads, read once,
                and every leaf it changes, written once; its bound at the
-               card's memory rate (the K7 row of PERF.md)
+               card's memory rate (the K7 row of PERF.md); and K4's (the
+               node-state row slice and scatter and the payload row)
   fused_wal_kv the wal_kv golden config at B=100,000 through run_fused:
                no crash, every lane halted, lanes 0..31 reproduce the 91
-               frozen run_fused digests; both kernels' operands are taken
-               at step 40 of this batch for the kernel phase
+               frozen run_fused digests; the step kernels' operands are
+               taken at step 40 of this batch for the kernel phase
   fuzz_flagship  the coverage-guided fuzzer on the flagship at B=100,000:
                3 rounds of 1024 steps, havoc 3, through run_fused; per
                round its wall seconds, the host wall seconds of its
@@ -100,20 +101,49 @@ the frozen golden digests. One JSON object per line, in phases:
                the kernel writes a word at a time): every column equal,
                the returned columns the ones handed in, no row outside
                [n_init, n_init + R + D) changed; being idempotent, it is
-               timed by replaying it on the same operands
+               timed by replaying it on the same operands;
+               raft_invariant on the flagship's operands at steps 0, 512
+               and 2048 (B=100,000) in both static forms and on edge
+               cases (words over the whole int32 range, equal logs, ties
+               in the effective commit, one entry that differs at the
+               common commit point, a commit past the log, two leaders
+               of one term, window points that wrap, snapshots, a peer
+               mask; L=8 and 32, N=3 and 5, one and two field columns,
+               B=1, 4096 and 100,003);
+               apply_super on the flagship's operands at steps 0 and 512,
+               wal_kv's at step 40 (B=100,000: its fs flush runs beside
+               the kernel) and edge cases (every opcode 0-19 and an
+               unknown one, NODE_RANDOM with and without a pool and with
+               an empty one, src out of range, RESTARTs of torn, live
+               nodes; the Raft schema at B=4096 and B=1, the fs +
+               conn/stream schema at B=100,000), kernel and plain version
+               each on a copy: every leaf and return value equal, the
+               state written in place, no node row but the target's and no
+               table row but the target's written; timed as restore-then-
+               apply less the restore;
+               fingerprint on the flagship's state at step 2048, the
+               golden pingpong (traced) and wal_kv states and wal_kv's
+               with zero-size leaves added
   determinism  lanes 0..4095 alone, twice through run (512 steps) and
                twice through run_fused (2048 steps): fingerprints equal
                to each other and to lanes 0..4095 of the B=100,000 eager
-               run at the same step
+               run at the same step (each Runtime.fingerprints call
+               launches the fingerprint kernel once)
   profile      torch.profiler over 16 flagship steps at B=100,000, for
                each runner: device kernels per step, device busy share,
-               top kernels; each kernel's device events in the trace
-               must number 16 (replays counted on the card)
+               top kernels, each step kernel's ms a step; each kernel's
+               device events in the trace must number 16 (replays counted
+               on the card); no int32 scan kernel left in the step; for
+               the eager runner, the device time of each section of the
+               step, which must add up to the device busy time within 2%,
+               also with the supervisor op and the Raft check as their
+               plain versions (the parent's paths)
   kernels      one line naming every kernel with its numbers
 
 Each main path runs with every kernel's launch count set to 0 just before
 and read just after; a kernel of the path that was not launched once per
-step fails the run. A CUDA-graph replay launches the kernels it captured
+step fails the run (raft_invariant runs on the Raft paths only: on the
+pingpong and wal_kv paths it must not launch at all). A CUDA-graph replay launches the kernels it captured
 without calling their wrappers, so run_fused's launches are the
 wrappers' own counts (the warm-up step before a capture) plus the
 launches captured per block times the replays; the profile phase counts
@@ -141,7 +171,7 @@ PCT_STEPS = 512
 # search A/B shape); dry_rounds past max_rounds: every round runs
 SAT = dict(max_steps=1500, batch=128, max_rounds=6, chunk=256, rng_seed=7)
 EDGE_B = 4096
-STEP_KERNELS = ("emit_write", "sched_pick")
+STEP_KERNELS = ("emit_write", "sched_pick", "raft_invariant", "apply_super")
 DET_B = 4096
 DET_EAGER_STEPS = FLAG_CHUNK   # the eager determinism passes (host-bound)
 PROF_STEPS = 16
@@ -316,8 +346,12 @@ def lanes_of(args, lanes):
 
 
 def clone_tree(x):
-    """A deep copy of nested dicts / tuples / lists of tensors."""
+    """A deep copy of nested dicts / tuples / lists of tensors and
+    SimStates."""
     import torch
+    from madsim_tpu_torch.core.state import SimState, map_state
+    if isinstance(x, SimState):
+        return map_state(torch.clone, x)
     if isinstance(x, dict):
         return {k: clone_tree(v) for k, v in x.items()}
     if isinstance(x, (tuple, list)):
@@ -339,29 +373,48 @@ def flat_tree(x, prefix=""):
     return out
 
 
-def emit_operands(rt, state):
-    """The emit_write operands of the next step of `state`: the step runs
-    once, on a copy of `state` (it writes its input in place), with a
-    recording proxy in place of the kernel's wrapper (its launch is not on
-    a counted path). Returns (tables, em, lane, ring, n_sends,
-    use_jitter), cloned before the write."""
+def step_operands(rt, state, owner, name):
+    """The operands the next step of `state` hands the kernel wrapper
+    `owner.name`: the step runs once, on a copy of `state` (it writes its
+    input in place), with a recording proxy in place of the wrapper (its
+    launch is not on a counted path). Returns the arguments, cloned
+    before the call."""
     import torch
-    import madsim_tpu_torch.core.step as step_mod
     from madsim_tpu_torch.core.state import map_state
     seen = []
-    real = step_mod.emit_write
+    real = getattr(owner, name)
 
     def spy(*args):
         seen.append(clone_tree(args))
         return real(*args)
 
-    step_mod.emit_write = spy
+    setattr(owner, name, spy)
     try:
         rt._step(map_state(torch.clone, state))
     finally:
-        step_mod.emit_write = real
-    check(len(seen) == 1, "emit_operands: the step did not call emit_write")
+        setattr(owner, name, real)
+    check(len(seen) == 1, f"step_operands: the step did not call {name}")
     return seen[0]
+
+
+def emit_operands(rt, state):
+    """The emit_write operands of the next step of `state`: (tables, em,
+    lane, ring, n_sends, use_jitter)."""
+    import madsim_tpu_torch.core.step as step_mod
+    return step_operands(rt, state, step_mod, "emit_write")
+
+
+def raft_operands(rt, state):
+    """The raft_invariant_check operands of the next step of `state`."""
+    import madsim_tpu_torch.models.raft as raft_mod
+    return step_operands(rt, state, raft_mod, "raft_invariant_check")
+
+
+def super_operands(rt, state):
+    """The apply_super operands of the next step of `state`: (plan, the
+    state as the op finds it, op, node, src, payload, key)."""
+    import madsim_tpu_torch.core.step as step_mod
+    return step_operands(rt, state, step_mod, "apply_super")
 
 
 def step_bytes(rt, state):
@@ -555,18 +608,35 @@ def fused_launches(rt, counts, names):
 
 
 def check_once_per_step(what, launches, steps, names):
-    for k in names:
-        check(launches[k] == steps,
+    """Each step kernel of `names` launched once a step, every other step
+    kernel (the Raft check, on a workload with no Raft) never."""
+    for k in STEP_KERNELS:
+        want = steps if k in names else 0
+        check(launches[k] == want,
               f"{what}: {k} launched {launches[k]} times in {steps} steps")
+
+
+def fingerprints_once(rt, state, what):
+    """rt.fingerprints(state), which must launch the fingerprint kernel
+    exactly once."""
+    from madsim_tpu_torch.utils.hashing import fingerprint
+    before = fingerprint.launches
+    out = rt.fingerprints(state)
+    check(fingerprint.launches == before + 1,
+          f"{what}: fingerprints launched the kernel "
+          f"{fingerprint.launches - before} times")
+    return out
 
 
 def profile_steps(run, state, batch, names):
     """Trace PROF_STEPS steps of `run(state, n)` with torch.profiler:
     device kernels per step, their summed device time against the wall
-    time (the device's busy share), the top kernels, and the device
-    events of each kernel in `names` (`kernel_launches`: what ran on the
-    card, graph replays included). Device numbers are null when the
-    profiler records no device activity.
+    time (the device's busy share), the top kernels, the device events of
+    each kernel in `names` (`kernel_launches`: what ran on the card, graph
+    replays included), and for the eager step the device time of each of
+    its sections (`section_ms_per_step`; a graph replay runs no host code,
+    so it has none). Device numbers are null when the profiler records no
+    device activity.
 
     The profiler can lose a batch of device records in a window of some
     55,000 (seen on the card: several kernels of one window one event
@@ -587,7 +657,8 @@ def profile_steps(run, state, batch, names):
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         dev_events = [e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA]
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not is_range(e.name)]
         traced = {k: sum(k in e.name for e in dev_events) for k in names}
         check(all(v <= PROF_STEPS for v in traced.values()),
               f"profile: traced launches {traced} in {PROF_STEPS} steps")
@@ -613,6 +684,9 @@ def profile_steps(run, state, batch, names):
         return sum(t for n, t in by_name.items() if tag in n) \
             / PROF_STEPS / 1e3
 
+    # the eager step's ranges (a graph replay has none: the ranges are
+    # host-side and a replay runs no host code)
+    sections = section_split(prof, PROF_STEPS)
     return dict(
         steps=PROF_STEPS, batch=batch, short_windows=short,
         wall_ms_per_step=wall_us / PROF_STEPS / 1e3,
@@ -622,6 +696,11 @@ def profile_steps(run, state, batch, names):
         host_launches_per_step=len(launches) / PROF_STEPS,
         sched_pick_ms_per_step=kernel_ms("sched_pick"),
         emit_write_ms_per_step=kernel_ms("emit_write"),
+        raft_invariant_ms_per_step=kernel_ms("raft_invariant"),
+        apply_super_ms_per_step=kernel_ms("apply_super"),
+        int32_scan_ms_per_step=kernel_ms("tensor_kernel_scan"),
+        section_ms_per_step=sections,
+        sections_ms_per_step=sum(sections.values()) if sections else None,
         kernel_launches=traced,
         top_kernels_ms_per_step=[[n[:80], t / PROF_STEPS / 1e3]
                                  for n, t in top])
@@ -835,6 +914,297 @@ def coverage_edge_hashes(dev):
             for k, v in sets.items()}
 
 
+SECTIONS = ("select", "dup", "super", "handlers", "scatter", "emit",
+            "stats", "invariant", "end")
+
+
+def is_range(name):
+    """A step section's profiler range (core/step.py `_section`). The
+    profiler also records each range as an annotation on the device's
+    timeline, spanning its kernels and the gaps between them: such an
+    event is no kernel."""
+    return name.startswith("live_step.")
+
+
+# the step's hand-written kernels and the section that launches each: the
+# profiler links a kernel launched through ctypes to no host op, so no
+# range's device time holds it
+KERNEL_SECTION = {"sched_pick": "select", "apply_super": "super",
+                  "emit_write": "emit", "raft_invariant": "invariant"}
+
+
+def section_split(prof, steps):
+    """Device ms a step of each section of the step (`live_step.<name>`
+    profiler ranges, core/step.py): the summed device time of the kernels
+    the ops inside each range launched (the ranges' `device_time_total`),
+    and of each hand-written kernel in the section that launches it.
+    None where the trace holds no range (a graph replay)."""
+    import torch
+    out = {k: 0.0 for k in SECTIONS}
+    ranges = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and is_range(
+                e.name):
+            ranges += 1
+            own = sum(k.duration for k in e.kernels if not is_range(k.name))
+            out[e.name[len("live_step."):]] += own + sum(
+                ch.device_time_total for ch in e.cpu_children)
+        elif (e.device_type == torch.autograd.DeviceType.CUDA
+              and not is_range(e.name)):
+            for k, section in KERNEL_SECTION.items():
+                if k in e.name:
+                    out[section] += e.time_range.elapsed_us()
+    if not ranges:
+        return None
+    return {k: v / steps / 1e3 for k, v in out.items()}
+
+
+def raft_edge_operands(dev, B, N, L, F, seed, peer=None, snap=False):
+    """raft_invariant_check operands (without window_slides) whose lanes
+    take eight kinds in turn: random words over the whole int32 range;
+    every log, digest and snapshot equal; equal logs with ties in the
+    effective commit; equal logs but one entry that differs at the
+    common commit point; a commit past the log; two leaders of one term;
+    commits and snapshot lengths at the int32 extremes (the window point
+    wraps); and equal logs behind a nonzero snapshot (with `snap`, every
+    kind may carry one). `peer` is the peer mask (None: every node)."""
+    import numpy as np
+    import torch
+    from madsim_tpu_torch.ops.raft_invariant import DIGEST_P_INV, _pow_table
+    rng = np.random.default_rng(seed)
+
+    def full(*shape):
+        return rng.integers(-2 ** 31, 2 ** 31, shape).astype(np.int32)
+
+    role = rng.integers(0, 3, (B, N)).astype(np.int32)
+    term = rng.integers(0, 3, (B, N)).astype(np.int32)
+    sl = np.where(snap & (rng.random((B, N)) < 0.5),
+                  rng.integers(0, 6, (B, N)), 0).astype(np.int32)
+    log_len = (sl + rng.integers(0, L + 1, (B, N))).astype(np.int32)
+    commit = rng.integers(0, L + 6, (B, N)).astype(np.int32)
+    dig = full(B, N)
+    cols = [full(B, N, L) for _ in range(1 + F)]
+    kind = np.arange(B) % 8
+    same = np.isin(kind, (1, 2, 3, 7))
+    for c in cols:
+        c[same] = c[same][:, :1]
+    dig[same] = dig[same][:, :1]
+    sl[np.isin(kind, (1, 2, 3))] = 0
+    sl[kind == 7] = rng.integers(1, 4, ((kind == 7).sum(), 1))
+    dig[kind == 7] = dig[kind == 7][:, :1]
+    log_len[same] = (sl[same] + rng.integers(L // 2, L + 1,
+                                             (same.sum(), N))).astype(
+                                                 np.int32)
+    commit[same] = np.minimum(log_len[same],
+                              rng.integers(0, L + 1, (same.sum(), N)))
+    commit[kind == 2] = commit[kind == 2][:, :1]          # ties in ec
+    commit[kind == 2] = np.minimum(commit[kind == 2], log_len[kind == 2])
+    for b in np.nonzero(kind == 3)[0]:     # differ at the common point
+        a = int(max(commit[b].min(), 1))
+        n = rng.integers(0, N)
+        cols[0][b, n, a - 1] ^= 1 << int(rng.integers(0, 31))
+    over = kind == 4
+    commit[over, 0] = log_len[over, 0] + rng.integers(1, 4, over.sum())
+    two = np.nonzero(kind == 5)[0]
+    role[two, 0], role[two, N - 1] = 2, 2
+    term[two, N - 1] = term[two, 0]
+    ext = kind == 6
+    commit[ext] = rng.choice([2 ** 31 - 1, -2 ** 31, 0, L],
+                             (ext.sum(), N))
+    sl[ext] = rng.choice([-2 ** 31, 2 ** 31 - 1, 0, 1], (ext.sum(), N))
+    peer = np.ones(N, bool) if peer is None else np.asarray(peer, bool)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    return (t(role), t(term), t(sl), t(log_len), t(commit), t(dig),
+            t(cols[0]), tuple(t(c) for c in cols[1:]), t(peer),
+            _pow_table(L).to(dev), _pow_table(L, DIGEST_P_INV).to(dev))
+
+
+def raft_bound(role, term, snap_len, log_len, commit, snap_digest, log_term,
+               log_fields, peer, powP, ipowP, window_slides):
+    """(bytes, operations) of the safety check for these operands: every
+    lane's six [N] vectors and (1 + F) [N, L] log columns read once, its
+    verdict (a bool and a code) written once, the tables once. Operations:
+    each log entry's hash (2 per field column), weight (1) and prefix sum
+    (1), and the chain evaluations (3 each): N*N with window_slides, 2N
+    without."""
+    B, N = role.shape
+    L = log_term.shape[-1]
+    F = len(log_fields)
+    nbytes = (B * (6 * N * 4 + (1 + F) * N * L * 4 + 5)
+              + N + 2 * (L + 1) * 4)
+    evals = N * N if window_slides else 2 * N
+    return nbytes, B * (N * L * (2 * F + 2) + 3 * evals)
+
+
+def fs_conn_runtime(dev):
+    """A 5-node runtime (C=16, P=4) whose node state carries the fs and
+    conn/stream leaves of tier-1 test_apply_super_matches_reference_on_
+    every_opcode, with its SuperPlan: the schema in which the torn-write
+    flush and the reset-peer tear run beside the kernel. Its programs
+    never run (the state is made, not stepped)."""
+    import numpy as np
+    import torch
+    from madsim_tpu_torch import Runtime, SimConfig
+    from madsim_tpu_torch.models.pingpong import PingPong
+    from madsim_tpu_torch.ops.apply_super import SuperPlan
+    N, F, S, W = 5, 2, 6, 3
+    shapes = dict(fs_mem=(F, S), fs_mlen=(F,), fs_disk=(F, S), fs_dlen=(F,),
+                  cn_state=(N,), cn_epoch=(N,), sx_seq=(N,), sx_base=(N,),
+                  sx_val=(N, W), sr_next=(N,), sr_val=(N, W),
+                  sr_have=(N, W), st_epoch=(N,), x=())
+    rng = np.random.default_rng(11)
+    spec = {k: torch.as_tensor(
+        rng.integers(0, 2, v).astype(bool) if k == "sr_have"
+        else rng.integers(0, 9, v).astype(np.int32))
+        for k, v in shapes.items()}
+    persist = {k: k in ("fs_disk", "fs_dlen", "x") for k in shapes}
+    cfg = SimConfig(n_nodes=N, event_capacity=16, payload_words=4)
+    rt = Runtime(cfg, [PingPong(N)], spec, persist=persist, device=dev)
+    plan = SuperPlan(cfg, {k: v.to(dev) for k, v in spec.items()}, persist)
+    return rt, plan
+
+
+def super_edge_operands(rt, B, seed, plan=None):
+    """apply_super operands on a random state of runtime `rt`'s schema:
+    every opcode 0-19 and an unknown one (20); NODE_RANDOM targets with
+    and without a payload pool, and with a pool of no node (an empty
+    pool); src out of range; random event tables, node vectors, links and
+    node-state values; every seventh lane the RESTART of a live node in
+    torn mode with an unsynced tail (where the schema has fs leaves);
+    payload words over [0, 2^24), so loss values hit the
+    quotients a multiply by the reciprocal of 1e6 would round
+    differently. Returns (plan, state, op, node, src, payload, key)."""
+    import torch
+    from madsim_tpu_torch.core import types as T
+    dev = rt.device
+    s = rt.init_batch(list(range(B)))
+    if plan is None:
+        plan = super_operands(rt, s)[0]    # the runtime's own plan
+    N, P = rt.cfg.n_nodes, rt.cfg.payload_words
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def ri(lo, hi, shape, dtype=torch.int32):
+        return torch.randint(lo, hi, tuple(shape), generator=gen,
+                             device=dev, dtype=dtype)
+
+    def rb(p, shape):
+        return torch.rand(tuple(shape), generator=gen, device=dev) < p
+
+    ns = {}
+    for k, v in s.node_state.items():
+        if v.dtype == torch.bool:
+            ns[k] = rb(0.5, v.shape)
+        elif "len" in k:
+            ns[k] = ri(0, (s.node_state.get("fs_mem", v).shape[-1]) + 1,
+                       v.shape)
+        else:
+            ns[k] = ri(-50, 50, v.shape)
+    if "fs_mlen" in ns:
+        ns["fs_mlen"] = torch.maximum(ns["fs_mlen"], ns["fs_dlen"])
+    lanes = torch.arange(B, device=dev)
+    op = ri(0, 21, (B,))
+    node = ri(-1, N, (B,))
+    src = ri(-1, N + 1, (B,))
+    payload = ri(0, 2 ** 24, (B, P))
+    payload[0::3, 0] = 0                       # no pool: every node
+    payload[1::11, 0] = 1 << 30                # a pool of no node
+    key = ri(-2 ** 31, 2 ** 31 - 1, (B, 2))
+    alive, torn = rb(0.5, (B, N)), rb(0.5, (B, N))
+    r = lanes[0::7]                            # RESTART a torn, live node
+    op[r] = T.OP_RESTART
+    node[r] = (r % N).to(torch.int32)
+    alive[r, r % N] = True
+    torn[r, r % N] = True
+    if "fs_mlen" in ns:
+        ns["fs_dlen"][r, r % N] = 0
+        ns["fs_mlen"][r, r % N] = ns["fs_mem"].shape[-1]
+    s = s.replace(
+        t_kind=ri(0, 4, s.t_kind.shape), t_node=ri(0, N, s.t_node.shape),
+        t_deadline=ri(0, 2 ** 31 - 1, s.t_deadline.shape), alive=alive,
+        paused=rb(0.5, (B, N)), clog_node=rb(0.5, (B, N)), torn=torn,
+        clog_link=rb(0.3, (B, N, N)), skew=ri(-600, 600, (B, N)),
+        disk_lat=ri(0, 10 ** 6, (B, N)), dup_rate=ri(0, 10 ** 6, (B, N)),
+        node_state=ns)
+    return plan, s, op, node, src, payload, key
+
+
+def check_super_rows(name, before, after, op, target):
+    """The supervisor op wrote no node row but its target's (HEAL's
+    clog_node and the reset-peer tear's conn/stream leaves aside) and no
+    event-table row but the target's: `before` is the state it was handed,
+    `after` the state it returned."""
+    import torch
+    from madsim_tpu_torch.core import types as T
+    from madsim_tpu_torch.ops.apply_super import CONN_LEAVES, STREAM_LEAVES
+    B, N = before.alive.shape
+    other = torch.arange(N, device=op.device) != target[:, None]
+    for k in ("alive", "paused", "clog_node", "skew", "disk_lat", "torn",
+              "dup_rate"):
+        moved = getattr(before, k) != getattr(after, k)
+        if k == "clog_node":
+            moved &= (op != T.OP_HEAL)[:, None]
+        check(not bool((moved & other).any()),
+              f"{name}: {k} changed in a node other than the target")
+    for k, v in before.node_state.items():
+        moved = (v != after.node_state[k]).reshape(B, N, -1).any(-1)
+        if k in CONN_LEAVES + STREAM_LEAVES:
+            moved &= (op != T.OP_RESET_PEER)[:, None]
+        check(not bool((moved & other).any()),
+              f"{name}: node_state.{k} changed in a node other than the "
+              f"target")
+    moved = ((before.t_kind != after.t_kind)
+             | (before.t_deadline != after.t_deadline))
+    check(not bool((moved & (before.t_node != target[:, None])).any()),
+          f"{name}: an event-table row of another node changed")
+
+
+def super_bound(plan, s, op, node, src, payload, key):
+    """(bytes, operations) of the supervisor op for these operands, each
+    input byte read once and each changed byte written once, counted for
+    this data: every lane's op, node and src and its four outputs; a
+    NODE_RANDOM lane's key, pool vector and pool words; an effective op's
+    own reads and writes (a kill's t_node and t_kind rows and the rows it
+    clears, a boot's reset rows, a link op's matrix, a knob's payload
+    word and target entry). Operations: 80 integer operations per
+    threefry block, 6 blocks for each NODE_RANDOM lane's draw."""
+    import torch
+    from madsim_tpu_torch.core import types as T
+    from madsim_tpu_torch.ops.apply_super import apply_super_plain
+    B, C = s.t_kind.shape
+    N = s.alive.shape[1]
+    out, _, target, reset = apply_super_plain(
+        plan.cfg, plan.spec_default, plan.persist_mask, clone_tree(s), op,
+        node, src, payload, key)
+    rnd = node == T.NODE_RANDOM
+    n_rnd = int(rnd.sum())
+    nbytes = B * (12 + 10) + n_rnd * (8 + N + 4)
+    kill = reset & (op != T.OP_INIT)
+    boot = reset & (op != T.OP_KILL)
+    cleared = int(((s.t_kind != out.t_kind) & kill[:, None]).sum())
+    nbytes += int(kill.sum()) * 8 * C + cleared * 8 + int(reset.sum()) * 2
+    row = sum(d.numel() * d.element_size() for _, d in plan.leaves)
+    nbytes += int(boot.sum()) * row
+    link = ((op >= T.OP_CLOG_LINK) & (op <= T.OP_UNCLOG_LINK)) | (
+        (op >= T.OP_HEAL) & (op <= T.OP_PARTITION_ONEWAY))
+    nbytes += int(link.sum()) * N * N
+    knob = (op == T.OP_SET_LOSS) | (op == T.OP_SET_LATENCY) | (
+        (op >= T.OP_SET_SKEW) & (op <= T.OP_SET_DUP))
+    nbytes += int(knob.sum()) * 16
+    return nbytes, 80 * 6 * n_rnd
+
+
+def fp_bound(state):
+    """The bytes of the fingerprint: every fingerprinted leaf read once,
+    one word written a lane."""
+    from madsim_tpu_torch.utils.hashing import _leaves
+    return (sum(t.numel() * t.element_size() for t in _leaves(state))
+            + 8 * state.now.shape[0])
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -865,7 +1235,8 @@ def main() -> int:
 
     dev = torch.device("cuda")
     wrappers = kernels.wrappers()
-    names = list(STEP_KERNELS)          # launched once per step
+    names = list(STEP_KERNELS)          # launched once per Raft step
+    no_raft = [k for k in names if k != "raft_invariant"]
 
     def reset_counts():
         for w in wrappers.values():
@@ -901,6 +1272,7 @@ def main() -> int:
                            "golden_r22_leaves.json")) as f:
         golden = json.load(f)
     emit_cases = {}
+    fp_cases = {}        # fingerprint operands: whole states
     n_leaves = 0
     for wname, build in workloads.GOLDEN_WORKLOADS.items():
         p = workloads.GOLDEN_RUNS[wname]
@@ -922,11 +1294,11 @@ def main() -> int:
             if runner == "run":
                 launches, steps = counts, rt.steps_run
             else:
-                launches = fused_launches(rt, counts, names)
+                launches = fused_launches(rt, counts, STEP_KERNELS)
                 steps = rt.steps_run + rt.fused_stats["warmup_steps"]
             check(steps > 0, f"golden {wname} {runner}: no step ran")
             check_once_per_step(f"golden {wname} {runner}", launches, steps,
-                                names)
+                                no_raft)
             want = golden[wname][runner]
             got = interop.leaf_digests(s)
             bad = [k for k in want if got.get(k) != want[k]]
@@ -942,9 +1314,17 @@ def main() -> int:
             check(not bad, f"golden {wname} {runner}: digests differ: {bad}")
             check(not input_changed, f"golden {wname} {runner}: the run "
                   f"changed its input state's leaves {input_changed}")
+        fp_cases[f"golden_{wname}"] = s       # pingpong: the traced build
         if wname == "wal_kv":          # operands from mid-run
             s, _ = rt.run(init, 40, chunk=40)
             emit_cases["wal_kv_step_40"] = emit_operands(rt, s)
+            # zero-size leaves: a node-state leaf and an extension leaf
+            z = fp_cases["golden_wal_kv"]
+            fp_cases["golden_wal_kv_zero_size_leaves"] = z.replace(
+                node_state=dict(z.node_state, zz=torch.zeros(
+                    z.alive.shape + (0,), dtype=torch.int32, device=dev)),
+                ext={"z": torch.zeros((z.now.shape[0], 0), dtype=torch.bool,
+                                      device=dev)})
         del s, init, rt
     check(n_leaves == 342, f"golden: {n_leaves} leaves checked, not 342")
 
@@ -952,6 +1332,8 @@ def main() -> int:
     rt = workloads.flagship_runtime(device=dev)
     s = rt.init_batch(np.arange(FLAG_B, dtype=np.uint32))
     captured = {0: select_inputs(s)}
+    raft_cases = {"flagship_step_0": raft_operands(rt, s)}
+    super_cases = {"flagship_step_0": super_operands(rt, s)}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -960,18 +1342,25 @@ def main() -> int:
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     first_steps = rt.steps_run
-    snap = select_inputs(s)        # outside the timed steady window
-    flag_fp_chunk = rt.fingerprints(s)
+    first_counts = read_counts()
+    # outside the timed steady window and the counted runs (the captures
+    # step a copy of the state)
+    snap = select_inputs(s)
+    raft_cases[f"flagship_step_{FLAG_CHUNK}"] = raft_operands(rt, s)
+    super_cases[f"flagship_step_{FLAG_CHUNK}"] = super_operands(rt, s)
+    flag_fp_chunk = fingerprints_once(rt, s, "flagship")
     torch.cuda.synchronize()
+    reset_counts()
     t2 = time.perf_counter()
     steps_mid = int(s.steps.sum())
     s, _ = rt.run(s, FLAG_STEPS - FLAG_CHUNK, chunk=FLAG_CHUNK)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    counts = read_counts()
+    counts = {k: v + first_counts[k] for k, v in read_counts().items()}
     steps_run = first_steps + rt.steps_run
     captured[FLAG_CHUNK] = snap
     captured[FLAG_STEPS] = select_inputs(s)
+    raft_cases[f"flagship_step_{FLAG_STEPS}"] = raft_operands(rt, s)
     check(steps_run == FLAG_STEPS, f"flagship: {steps_run} steps")
     check_once_per_step("flagship", counts, steps_run, names)
     crashed = int(s.crashed.sum())
@@ -992,7 +1381,8 @@ def main() -> int:
     check(crashed == 0, f"flagship: {crashed} lanes crashed")
     check(oops == 0, f"flagship: {oops} lanes overflowed the event table")
     check(live > 0.9, f"flagship: only {live:.3f} of lanes live")
-    flag_fp = rt.fingerprints(s)
+    flag_fp = fingerprints_once(rt, s, "flagship")
+    fp_cases[f"flagship_step_{FLAG_STEPS}"] = s
     del s, rt
 
     # ---- fused: the traced flagship through the CUDA-graph runner -----------
@@ -1028,7 +1418,9 @@ def main() -> int:
     live = float((~s.halted).float().mean())
     steady = t3 - t2
     fused_ms = steady / (FLAG_STEPS - FLAG_CHUNK) * 1e3
-    same_fp = bool((rt.fingerprints(s) == flag_fp).all())
+    fp_launches = wrappers["fingerprint"].launches
+    same_fp = bool((fingerprints_once(rt, s, "fused") == flag_fp).all())
+    fp_launches = wrappers["fingerprint"].launches - fp_launches
     ring = ring_records(s, 0)
     steps_up = bool((np.diff(ring["step"]) > 0).all())
     emit(phase="fused", runner="run_fused", batch=FLAG_B, steps=steps_run,
@@ -1050,12 +1442,21 @@ def main() -> int:
     check(len(ring["step"]) > 0 and steps_up,
           "fused: lane 0's ring is empty or its steps do not increase")
     step_bound_ms = (step_read + step_written) / HBM_BYTES_PER_S * 1e3
+    # K4 (the per-lane row gather and scatter, still plain PyTorch): the
+    # acting node's row of every node-state leaf read (the slice), the
+    # handlers' new row read and written back (the scatter), and the
+    # dispatched event's payload row read
+    node_row = sum(t[0, 0].numel() * t.element_size()
+                   for t in s.node_state.values())
+    k4_bytes = FLAG_B * (3 * node_row + s.t_payload[0, 0].numel() * 4)
     emit(phase="step_bound", batch=FLAG_B, trace_cap=64, at_step=FLAG_CHUNK,
          read_bytes=step_read, written_bytes=step_written,
          bytes=step_read + step_written, bound_ms=step_bound_ms,
          bound_by="bytes", changed_leaves=step_changed,
          run_fused_ms_per_step=fused_ms,
-         ms_over_bound=fused_ms / step_bound_ms)
+         ms_over_bound=fused_ms / step_bound_ms, k4_node_row_bytes=node_row,
+         k4_bound_bytes=k4_bytes,
+         k4_bound_ms=k4_bytes / HBM_BYTES_PER_S * 1e3)
     prof_fused = profile_steps(
         lambda st, n: rt.run_fused(st, n, chunk=n), s, FLAG_B, names)
     check(prof_fused["kernel_launches"] == {k: PROF_STEPS for k in names},
@@ -1072,6 +1473,7 @@ def main() -> int:
     mid = rt.run_fused(s, 40, chunk=40)
     wal_case = f"wal_kv_B{FLAG_B}_step_{rt.steps_run}"
     emit_cases[wal_case] = emit_operands(rt, mid)
+    super_cases[wal_case] = super_operands(rt, mid)
     wal_select = select_inputs(mid)
     del mid
     torch.cuda.synchronize()
@@ -1080,9 +1482,10 @@ def main() -> int:
     s = rt.run_fused(s, p["max_steps"], p["chunk"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fused_launches(rt, read_counts(), names)
+    launches = fused_launches(rt, read_counts(), STEP_KERNELS)
     check_once_per_step("fused_wal_kv", launches,
-                        rt.steps_run + rt.fused_stats["warmup_steps"], names)
+                        rt.steps_run + rt.fused_stats["warmup_steps"],
+                        no_raft)
     want = golden["wal_kv"]["run_fused"]
     got = interop.leaf_digests(slice_lanes(s, p["seeds"]))
     bad = [k for k in want if got.get(k) != want[k]]
@@ -1564,6 +1967,145 @@ def main() -> int:
              library_ms=lib_ms, **extra)
     del mutate_cases, apply_cases, coverage_cases, edge_rts
 
+    # ---- kernel: the Raft safety check against its plain version -----------
+    from madsim_tpu_torch.ops.raft_invariant import (raft_invariant_check,
+                                                     raft_invariant_plain)
+    for k in list(raft_cases):     # the captured operands in both forms
+        raft_cases[k + "_pairwise"] = raft_cases[k][:-1] + (True,)
+    for B_r, N_r, L_r, F_r, snap, peer in (
+            (EDGE_B, 5, 32, 1, False, None), (EDGE_B, 5, 32, 1, True, None),
+            (EDGE_B, 3, 8, 2, True, (1, 0, 1)),
+            (EDGE_B, 5, 8, 1, True, (1, 1, 0, 1, 1)),
+            (1, 5, 32, 1, False, None), (1, 3, 8, 1, True, None),
+            (FLAG_B + 3, 5, 32, 1, True, None)):
+        ops = raft_edge_operands(dev, B_r, N_r, L_r, F_r, B_r + L_r, peer,
+                                 snap)
+        for ws in (False, True):
+            raft_cases[f"edges_B{B_r}_N{N_r}_L{L_r}_F{F_r}"
+                       f"{'_snap' if snap else ''}"
+                       f"{'_peers' if peer else ''}"
+                       f"_{'pairwise' if ws else 'adjacent'}"] = ops + (ws,)
+    err = 0
+    for name, args in raft_cases.items():
+        out_k = raft_invariant_check(*args)
+        out_p = raft_invariant_plain(*args)
+        torch.cuda.synchronize()
+        err = max(err, check_equal(f"raft_invariant on {name}", out_k, out_p))
+    main_r = raft_cases[f"flagship_step_{FLAG_CHUNK}"]
+    k_ms = graph_ms(lambda: raft_invariant_check(*main_r), 50)
+    p_ms = cuda_ms(lambda: raft_invariant_plain(*main_r), 5)
+    k_ms2 = graph_ms(lambda: raft_invariant_check(*main_r), 50)
+    p_ms2 = cuda_ms(lambda: raft_invariant_plain(*main_r), 5)
+    nbytes, ops_n = raft_bound(*main_r)
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S, ops_n / INT32_OPS_PER_S
+    ri = dict(ms=min(k_ms, k_ms2), plain_ms=min(p_ms, p_ms2),
+              bound_ms=max(b_ms, o_ms) * 1e3,
+              bound_by="bytes" if b_ms >= o_ms else "operations",
+              max_abs_err=err, library_ms=None)
+    emit(phase="kernel", name="raft_invariant", cases={
+        k: list(v[0].shape) for k, v in sorted(raft_cases.items())},
+         main_case=f"flagship_step_{FLAG_CHUNK}", exact=True,
+         max_abs_err=err, launches_on_main_path=fused_launch[
+             "raft_invariant"], ms=[k_ms, k_ms2], plain_ms=[p_ms, p_ms2],
+         ms_in_flagship_graph=prof_fused["raft_invariant_ms_per_step"],
+         bound_bytes=nbytes, bound_operations=ops_n, bound_ms=ri["bound_ms"],
+         bound_by=ri["bound_by"], library="none")
+    del raft_cases, main_r
+
+    # ---- kernel: the supervisor op against its plain version ----------------
+    from madsim_tpu_torch.ops.apply_super import apply_super, apply_super_plain
+    flag_rt = workloads.flagship_runtime(device=dev)
+    super_cases["edges_raft"] = super_edge_operands(flag_rt, EDGE_B, 7)
+    super_cases["edges_raft_B1"] = super_edge_operands(flag_rt, 1, 9)
+    fc_rt, fc_plan = fs_conn_runtime(dev)
+    super_cases[f"edges_fs_conn_B{FLAG_B}"] = super_edge_operands(
+        fc_rt, FLAG_B, 8, fc_plan)
+    err = 0
+    for name, args in super_cases.items():
+        # in place: kernel and plain version each take a copy
+        a, b = clone_tree(args), clone_tree(args)
+        out_k = apply_super(*a)
+        out_p = apply_super_plain(b[0].cfg, b[0].spec_default,
+                                  b[0].persist_mask, *b[1:])
+        torch.cuda.synchronize()
+        check(out_k[0].alive is a[1].alive and out_k[0].t_kind is a[1].t_kind
+              and out_k[0].clog_link is a[1].clog_link,
+              f"apply_super on {name}: not written in place")
+        err = max(err, check_equal(
+            f"apply_super on {name}",
+            (interop.state_leaves(out_k[0]), out_k[1:]),
+            (interop.state_leaves(out_p[0]), out_p[1:])))
+        check_super_rows(f"apply_super on {name}", args[1], out_k[0],
+                         args[2], out_k[2])
+    main_s = super_cases[f"flagship_step_{FLAG_CHUNK}"]
+    # the op writes its operands, so each timed call restores the leaves it
+    # may write from main_s first; the restore alone is subtracted
+    live = clone_tree(main_s)
+    restores = [(getattr(live[1], k), getattr(main_s[1], k)) for k in (
+        "t_kind", "t_deadline", "alive", "paused", "clog_node", "clog_link",
+        "loss", "lat_lo", "lat_hi", "skew", "disk_lat", "torn", "dup_rate")]
+    restores += [(live[1].node_state[p[0]], main_s[1].node_state[p[0]])
+                 for p, _ in main_s[0].leaves]
+
+    def restore():
+        for dst, src in restores:
+            dst.copy_(src)
+
+    def super_kernel_ms():
+        return (graph_ms(lambda: (restore(), apply_super(*live)), 20)
+                - graph_ms(restore, 20))
+
+    def super_plain_ms():
+        return cuda_ms(lambda: apply_super_plain(
+            main_s[0].cfg, main_s[0].spec_default, main_s[0].persist_mask,
+            *main_s[1:]), 5)
+
+    sk, spl, sk2, spl2 = (super_kernel_ms(), super_plain_ms(),
+                          super_kernel_ms(), super_plain_ms())
+    nbytes, ops_n = super_bound(*main_s)
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S, ops_n / INT32_OPS_PER_S
+    asup = dict(ms=min(sk, sk2), plain_ms=min(spl, spl2),
+                bound_ms=max(b_ms, o_ms) * 1e3,
+                bound_by="bytes" if b_ms >= o_ms else "operations",
+                max_abs_err=err, library_ms=None)
+    emit(phase="kernel", name="apply_super", cases={
+        k: list(v[2].shape) for k, v in sorted(super_cases.items())},
+         main_case=f"flagship_step_{FLAG_CHUNK}", exact=True,
+         max_abs_err=err, launches_on_main_path=fused_launch["apply_super"],
+         ms=[sk, sk2], plain_ms=[spl, spl2],
+         restore_ms=graph_ms(restore, 20),
+         ms_in_flagship_graph=prof_fused["apply_super_ms_per_step"],
+         ops_in_main_case=int((main_s[2] != 0).sum()),
+         bound_bytes=nbytes, bound_operations=ops_n,
+         bound_ms=asup["bound_ms"], bound_by=asup["bound_by"],
+         library="none")
+    del super_cases, main_s, live, restores, flag_rt, fc_rt
+
+    # ---- kernel: the state fingerprint against its plain version ------------
+    from madsim_tpu_torch.utils.hashing import fingerprint, fingerprint_plain
+    err = 0
+    for name, st in fp_cases.items():
+        out_k = fingerprint(st)
+        out_p = fingerprint_plain(st)
+        torch.cuda.synchronize()
+        err = max(err, check_equal(f"fingerprint on {name}", out_k, out_p))
+    main_f = fp_cases[f"flagship_step_{FLAG_STEPS}"]
+    fk, fpl, fk2, fpl2 = (graph_ms(lambda: fingerprint(main_f), 20),
+                          cuda_ms(lambda: fingerprint_plain(main_f), 3),
+                          graph_ms(lambda: fingerprint(main_f), 20),
+                          cuda_ms(lambda: fingerprint_plain(main_f), 3))
+    nbytes = fp_bound(main_f)
+    fpk = dict(ms=min(fk, fk2), plain_ms=min(fpl, fpl2),
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               max_abs_err=err, library_ms=None)
+    emit(phase="kernel", name="fingerprint", cases={
+        k: int(v.now.shape[0]) for k, v in sorted(fp_cases.items())},
+         main_case=f"flagship_step_{FLAG_STEPS}", exact=True,
+         max_abs_err=err, launches_on_main_path=fp_launches,
+         ms=[fk, fk2], plain_ms=[fpl, fpl2], bound_bytes=nbytes,
+         bound_ms=fpk["bound_ms"], bound_by="bytes", library="none")
+    del fp_cases, main_f
+
     # ---- determinism and batch independence ---------------------------------
     # each runner twice on lanes 0..4095 alone, held against the same lanes
     # of the B=100,000 eager run: the eager runner at its first chunk, the
@@ -1590,7 +2132,7 @@ def main() -> int:
                   f"determinism {runner}: {rt4.steps_run} steps")
             check_once_per_step(f"determinism {runner}", counts, launched,
                                 names)
-            fps.append(rt4.fingerprints(s))
+            fps.append(fingerprints_once(rt4, s, f"determinism {runner}"))
             emit(phase="determinism", runner=runner, run=rep, batch=DET_B,
                  steps=rt4.steps_run, launches=counts,
                  wall_s=time.perf_counter() - t0)
@@ -1611,12 +2153,43 @@ def main() -> int:
     s = rt.init_batch(np.arange(FLAG_B, dtype=np.uint32))
     prof_eager = profile_steps(
         lambda st, n: rt.run(st, n, chunk=n)[0], s, FLAG_B, names)
-    emit(phase="profile", runner="run", **prof_eager)
+    emit(phase="profile", runner="run", paths="kernels", **prof_eager)
+    # the same steps on the parent's paths, for the split beside this one:
+    # the supervisor op and the Raft check as plain PyTorch on the card
+    import madsim_tpu_torch.core.step as step_mod
+    import madsim_tpu_torch.models.raft as raft_mod
+    real = step_mod.apply_super, raft_mod.raft_invariant_check
+    step_mod.apply_super = lambda plan, *a: apply_super_plain(
+        plan.cfg, plan.spec_default, plan.persist_mask, *a)
+    raft_mod.raft_invariant_check = raft_invariant_plain
+    try:
+        prof_plain = profile_steps(
+            lambda st, n: rt.run(st, n, chunk=n)[0], s, FLAG_B,
+            ["emit_write", "sched_pick"])
+    finally:
+        step_mod.apply_super, raft_mod.raft_invariant_check = real
+    emit(phase="profile", runner="run",
+         paths="plain apply_super and raft_invariant (the parent's)",
+         **prof_plain)
     del s, rt
     emit(phase="profile", runner="run_fused", trace_cap=64, **prof_fused)
     check(prof_eager["kernel_launches"] == {k: PROF_STEPS for k in names},
           f"profile run: traced launches {prof_eager['kernel_launches']} "
           f"in {PROF_STEPS} steps")
+    check(prof_plain["kernel_launches"] == {"emit_write": PROF_STEPS,
+                                            "sched_pick": PROF_STEPS},
+          f"profile run (plain paths): traced launches "
+          f"{prof_plain['kernel_launches']} in {PROF_STEPS} steps")
+    for what, prof in (("kernels", prof_eager), ("plain paths", prof_plain)):
+        busy = prof["device_busy_ms_per_step"]
+        check(prof["section_ms_per_step"] is not None,
+              f"profile run ({what}): no section range in the trace")
+        check(abs(prof["sections_ms_per_step"] - busy) <= 0.02 * busy,
+              f"profile run ({what}): the sections hold "
+              f"{prof['sections_ms_per_step']} of {busy} device ms a step")
+    for what, prof in (("run", prof_eager), ("run_fused", prof_fused)):
+        check(prof["int32_scan_ms_per_step"] == 0,
+              f"profile {what}: an int32 scan is left in the step")
 
     # ---- kernels ------------------------------------------------------------
     emit(kernels=[
@@ -1642,7 +2215,16 @@ def main() -> int:
             ("apply_knobs", "apply_knobs.cu",
              "madsim_tpu/search/mutate.py:499", fuzz_launch["apply_knobs"]),
             ("coverage_digest", "coverage.cu",
-             "madsim_tpu/parallel/stats.py:23", explore_launches))])
+             "madsim_tpu/parallel/stats.py:23", explore_launches))] + [
+        dict(name=k, route="cuda", source=f"madsim_tpu_torch/csrc/{k}.cu",
+             replaces=where, launches=n, **numbers)
+        for k, where, n, numbers in (
+            ("raft_invariant", "madsim_tpu/models/raft.py:586",
+             fused_launch["raft_invariant"], ri),
+            ("apply_super", "madsim_tpu/core/step.py:1007",
+             fused_launch["apply_super"], asup),
+            ("fingerprint", "madsim_tpu/utils/hashing.py:43", fp_launches,
+             fpk))])
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

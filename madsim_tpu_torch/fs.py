@@ -11,7 +11,7 @@ and only `fs_disk`/`fs_dlen` go in the persist mask. A kill drops the
 memory view (the engine resets volatile leaves), and `mount()` in the
 program's init restores it from disk, so a write that was not synced
 before the kill is gone. The engine's torn-write kill flush
-(`core/step.py` `_apply_super`) acts on these four leaves.
+(`ops/apply_super.py` `_torn_flush`) acts on these four leaves.
 
 Inside a handler every leaf carries the lane axis: files are
 [B, n_files, file_words] int32, lengths [B, n_files]. A file id is a

@@ -30,6 +30,10 @@ import torch
 
 from ..core.api import Ctx, Program
 from ..core.types import ms
+from ..ops.raft_invariant import (  # noqa: F401 - the model's names
+    CRASH_COMMIT_GT_LOG, CRASH_LOG_MISMATCH, CRASH_TWO_LEADERS, DIGEST_MIX,
+    DIGEST_P, DIGEST_P_INV, _pow_table, _wrap32, entry_hash,
+    raft_invariant_check)
 from ..ops.select import put_row, row_onehot, take1
 
 FOLLOWER, CANDIDATE, LEADER = 0, 1, 2
@@ -39,39 +43,7 @@ RV, RVR, AE, AER, IS = 1, 2, 3, 4, 9
 # timer tags
 T_ELECTION, T_HEARTBEAT, T_PROPOSE = 1, 2, 3
 
-DIGEST_P = 1000003     # chain multiplier (odd: invertible mod 2^32)
-DIGEST_MIX = 920419823  # column-fold multiplier
-DIGEST_P_INV = pow(DIGEST_P, -1, 2 ** 32)
-
-CRASH_TWO_LEADERS = 101
-CRASH_LOG_MISMATCH = 102
-CRASH_COMMIT_GT_LOG = 103
-
 _I32 = torch.int32
-
-
-def _wrap32(x: torch.Tensor) -> torch.Tensor:
-    """An int64 sum or cumsum of int32 values, cut back to int32 mod 2^32
-    (the value jax's wrapping int32 reduction gives)."""
-    return (x & 0xFFFFFFFF).to(_I32)
-
-
-def _pow_table(L: int, base: int = DIGEST_P) -> torch.Tensor:
-    """[L+1] table of base**k mod 2^32, as two's-complement int32."""
-    out = np.empty(L + 1, np.int64)
-    v = 1
-    for k in range(L + 1):
-        out[k] = v if v < 2 ** 31 else v - 2 ** 32
-        v = (v * base) % 2 ** 32
-    return torch.as_tensor(out.astype(np.int32))
-
-
-def entry_hash(term_col, field_cols):
-    """Mix one log entry's columns into a single int32 word (per slot)."""
-    h = term_col
-    for c in field_cols:
-        h = h * DIGEST_MIX + c
-    return h
 
 
 def state_spec(n_nodes: int, log_capacity: int = 32, fields=("cmd",),
@@ -516,9 +488,11 @@ def raft_invariant(n_nodes: int, log_capacity: int = 32, fields=("cmd",),
                    raft_nodes=None, window_slides: bool = True):
     """Global safety checks on a batched state, after every event:
     Election Safety and State Machine Safety (via prefix digest chains),
-    in the JAX package's two static forms (`window_slides`)."""
+    in the JAX package's two static forms (`window_slides`). The check
+    itself is `ops.raft_invariant.raft_invariant_check` (the CUDA kernel
+    on the card, its plain version on the CPU); its constant tables are
+    built once per device, outside the step."""
     N, L = n_nodes, log_capacity
-    eye = torch.eye(N, dtype=torch.bool)
     peer = (torch.ones((N,), dtype=torch.bool) if raft_nodes is None
             else torch.as_tensor(np.asarray(raft_nodes, bool)))
     powP = _pow_table(L)
@@ -527,79 +501,17 @@ def raft_invariant(n_nodes: int, log_capacity: int = 32, fields=("cmd",),
 
     def on(dev):
         if dev not in consts:
-            consts[dev] = tuple(t.to(dev) for t in (eye, peer, powP, ipowP))
+            consts[dev] = tuple(t.to(dev) for t in (peer, powP, ipowP))
         return consts[dev]
 
     def invariant(state):
         ns = state.node_state
-        eye_d, peer_d, powP_d, ipowP_d = on(state.now.device)
-        role, term = ns["role"], ns["term"]                     # [B, N]
-        B = role.shape[0]
-        dev = role.device
-        leader = (role == LEADER) & peer_d
-        same_term = term[:, :, None] == term[:, None, :]
-        two_leaders = (leader[:, :, None] & leader[:, None, :] & same_term
-                       & ~eye_d).flatten(1).any(-1)
-
-        zero = torch.zeros_like(ns["snap_len"])
-        sl = torch.where(peer_d, ns["snap_len"], zero)
-        loglen = torch.where(peer_d, ns["log_len"], zero)
-        ec = torch.maximum(torch.where(peer_d, ns["commit"], zero), sl)
-        dig = ns["snap_digest"]
-        h = entry_hash(ns["log_term"],
-                       [ns[f"log_{f}"] for f in fields])        # [B, N, L]
-
-        # chain(t) = P^t * (snap_digest + sum_{k<t} h[k] * P^{-(k+1)}):
-        # the digest of the absolute prefix [0, snap_len + t)
-        # an int32 scan keeps the low 32 bits of every prefix sum, which is
-        # the wrapped value whatever width the scan accumulates in
-        S = torch.cumsum(h * ipowP_d[1:L + 1], -1, dtype=_I32)
-        S = torch.cat([torch.zeros((B, N, 1), dtype=_I32, device=dev), S],
-                      -1)
-        chain = powP_d * (dig[:, :, None] + S)                  # [B, N, L+1]
-        ts = torch.arange(L + 1, dtype=_I32, device=dev)
-
-        def pick(oh):   # the one chain value a one-hot selects (or 0)
-            return _wrap32(torch.where(oh, chain[:, :, None, :] if
-                                       oh.ndim == 4 else chain,
-                                       0).sum(-1))
-
-        if window_slides:
-            pair = peer_d[:, None] & peer_d[None, :] & ~eye_d
-            a = torch.minimum(ec[:, :, None], ec[:, None, :])   # [B, N, N]
-            t_i = a - sl[:, :, None]
-            ok_i = (t_i >= 0) & (t_i <= L)
-            oh = torch.clamp(t_i, 0, L)[..., None] == ts        # [B,N,N,L+1]
-            ci = pick(oh)
-            cj = ci.transpose(1, 2)
-            mismatch = (pair & ok_i & ok_i.transpose(1, 2)
-                        & (ci != cj)).flatten(1).any(-1)
-        else:
-            X = pick((ec - sl)[:, :, None] == ts)               # [B, N]
-            imax = torch.full_like(ec, 2 ** 31 - 1)
-            order = torch.argsort(torch.where(peer_d, ec, imax), dim=-1,
-                                  stable=True).to(_I32)         # [B, N]
-            ids = torch.arange(N, dtype=_I32, device=dev)
-            rank = torch.where(ids[None, None, :] == order[:, :, None],
-                               ids[None, :, None], 0).sum(1).to(_I32)
-            ec_sorted = take1(ec, order)
-            prev_ec = take1(ec_sorted, torch.clamp(rank - 1, 0, N - 1))
-            prev_node = take1(order, torch.clamp(rank - 1, 0, N - 1))
-            tY = prev_ec - sl
-            okY = (tY >= 0) & (tY <= L)
-            Y = pick(torch.clamp(tY, 0, L)[:, :, None] == ts)
-            X_prev = take1(X, torch.clamp(prev_node, 0, N - 1))
-            link = (peer_d & take1(peer_d, torch.clamp(prev_node, 0, N - 1))
-                    & (rank > 0) & okY)
-            mismatch = (link & (Y != X_prev)).any(-1)
-
-        commit_gt = (ec > loglen).any(-1)
-        bad = two_leaders | mismatch | commit_gt
-        code = torch.where(
-            two_leaders, CRASH_TWO_LEADERS,
-            torch.where(mismatch, CRASH_LOG_MISMATCH,
-                        CRASH_COMMIT_GT_LOG)).to(_I32)
-        return bad, code
+        peer_d, powP_d, ipowP_d = on(state.now.device)
+        return raft_invariant_check(
+            ns["role"], ns["term"], ns["snap_len"], ns["log_len"],
+            ns["commit"], ns["snap_digest"], ns["log_term"],
+            tuple(ns[f"log_{f}"] for f in fields), peer_d, powP_d, ipowP_d,
+            window_slides)
 
     return invariant
 

@@ -33,6 +33,9 @@ SOURCES = {
     "mutate": "mutate.cu",
     "apply_knobs": "apply_knobs.cu",
     "coverage_digest": "coverage.cu",
+    "raft_invariant": "raft_invariant.cu",
+    "apply_super": "apply_super.cu",
+    "fingerprint": "fingerprint.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -117,11 +120,16 @@ def load(name: str) -> ctypes.CDLL:
 def wrappers() -> dict:
     """{kernel name: its wrapper}; each wrapper counts its `launches` and
     the launches it recorded into a CUDA graph (`captured`)."""
+    from ..utils.hashing import fingerprint
     from .apply_knobs import apply_knobs
+    from .apply_super import apply_super
     from .coverage import coverage_digest
     from .emit_write import emit_write
     from .mutate import mutate_batch
+    from .raft_invariant import raft_invariant_check
     from .sched_pick import sched_pick
     return {"sched_pick": sched_pick, "emit_write": emit_write,
             "mutate": mutate_batch, "apply_knobs": apply_knobs,
-            "coverage_digest": coverage_digest}
+            "coverage_digest": coverage_digest,
+            "raft_invariant": raft_invariant_check,
+            "apply_super": apply_super, "fingerprint": fingerprint}

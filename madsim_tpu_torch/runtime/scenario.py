@@ -344,7 +344,7 @@ class Scenario:
             for j, w in enumerate(r.payload):
                 out["payload"][i, j] = w
             # value words land right-aligned (tail[-1] at P-1), where
-            # step.py _apply_super reads them past any pool segment
+            # ops/apply_super.py reads them past any pool segment
             for j, w in enumerate(r.payload_tail):
                 out["payload"][i, P - len(r.payload_tail) + j] = w
         return out

@@ -505,14 +505,15 @@ def test_raft_invariant_matches_reference_at_wrap_boundaries():
 
 
 def test_apply_super_matches_reference_on_every_opcode():
-    """`_apply_super` (ROADMAP K3) on random batched states, with every
+    """The supervisor op (ROADMAP K3; on CPU tensors `apply_super` takes
+    its plain version) on random batched states, with every
     opcode, NODE_RANDOM pools, and a node-state schema that carries the
     fs and conn/stream leaves, so the torn-write flush and the reset-peer
     tear run too."""
     from madsim_tpu.core import state as jst
     from madsim_tpu.core import step as jstep
     from madsim_tpu.core import types as JT
-    from madsim_tpu_torch.core import step as tstep
+    from madsim_tpu_torch.ops.apply_super import SuperPlan, apply_super
     N, F, S, W, Bn = 5, 2, 6, 3, 96
     cfg = JT.SimConfig(n_nodes=N, event_capacity=16, payload_words=4)
     shapes = dict(fs_mem=(F, S), fs_mlen=(F,), fs_disk=(F, S), fs_dlen=(F,),
@@ -572,8 +573,8 @@ def test_apply_super_matches_reference_on_every_opcode():
         ref_rest = [np.asarray(x) for x in out[1:]]
     port = interop.state_from_numpy(leaves, "cpu")
     spec_t = {k: torch.as_tensor(v) for k, v in spec.items()}
-    t_out = tstep._apply_super(
-        cfg, spec_t, persist, port, torch.as_tensor(op),
+    t_out = apply_super(
+        SuperPlan(cfg, spec_t, persist), port, torch.as_tensor(op),
         torch.as_tensor(node), torch.as_tensor(src),
         torch.as_tensor(payload), torch.as_tensor(keys))
     assert_same(ref_state, interop.state_to_numpy(t_out[0]),

@@ -1,0 +1,311 @@
+"""The step's kernels of the sixth slice against the JAX package
+(tolerance: zero — every value is an integer or a correctly rounded
+float32 quotient): the Raft safety check (ROADMAP K11,
+`ops/raft_invariant.py`), the supervisor op (K3, `ops/apply_super.py`)
+and the state fingerprint (K6, `utils/hashing.py`).
+
+On CPU tensors each wrapper takes its plain version, which is what these
+tests hold to the JAX package; chip_smoke.py holds the CUDA kernels to
+the plain versions on the card. Inputs are made with numpy (or a seeded
+torch generator, then exported to numpy) and handed to both sides; the
+JAX side is vmapped over the lane axis and runs on the non-partitionable
+threefry stream (see _torch_parity).
+
+    JAX_PLATFORMS=cpu python -m pytest tests/test_torch_step_kernels.py -q
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from _torch_parity import assert_same, jax_leaves, reference_stream
+from madsim_tpu_torch import interop, workloads
+from madsim_tpu_torch.core import types as T
+from madsim_tpu_torch.ops.apply_super import (FS_LEAVES, _remainder,
+                                              apply_super, apply_super_plain)
+from madsim_tpu_torch.ops.raft_invariant import (raft_invariant_check,
+                                                 raft_invariant_plain)
+from madsim_tpu_torch.utils.hashing import fingerprint, fingerprint_plain
+
+
+class _St:
+    """The one attribute the JAX invariant reads of a state."""
+
+    def __init__(self, node_state):
+        self.node_state = node_state
+
+
+# --------------------------------------------------------------------------
+# K11: the Raft safety check
+# --------------------------------------------------------------------------
+RAFT_CASES = {
+    # id: (B, N, L, fields, snapshots, peer mask)
+    "N5_L32_one_field": (4099, 5, 32, ("cmd",), False, None),
+    "N5_L32_snapshots": (1024, 5, 32, ("cmd",), True, None),
+    "N3_L8_two_fields_raft_nodes": (1024, 3, 8, ("cmd", "x"), True,
+                                    (True, False, True)),
+    "N5_L8_B1_raft_nodes": (1, 5, 8, ("cmd",), False,
+                            (True, True, False, True, True)),
+}
+
+
+@pytest.mark.parametrize("window_slides", [False, True])
+@pytest.mark.parametrize("case", sorted(RAFT_CASES))
+def test_raft_invariant_matches_reference(case, window_slides):
+    """Both static forms on chip_smoke's edge operands: words over the
+    whole int32 range, equal logs, ties in the effective commit, one
+    entry that differs at the common commit point, a commit past the log,
+    two leaders of one term, commits and snapshot lengths at the int32
+    extremes (the window point wraps), snapshots, a raft_nodes mask."""
+    from madsim_tpu.models import raft as jraft
+    B, N, L, fields, snap, peer = RAFT_CASES[case]
+    ops = chip_smoke.raft_edge_operands("cpu", B, N, L, len(fields),
+                                        seed=B + N, peer=peer, snap=snap)
+    names = ("role", "term", "snap_len", "log_len", "commit", "snap_digest",
+             "log_term")
+    ns = {k: ops[i].numpy() for i, k in enumerate(names)}
+    ns.update({f"log_{f}": c.numpy() for f, c in zip(fields, ops[7])})
+    jinv = jraft.raft_invariant(N, L, fields=fields, raft_nodes=peer,
+                                window_slides=window_slides)
+    jbad, jcode = jax.vmap(lambda d: jinv(_St(d)))(
+        {k: jnp.asarray(v) for k, v in ns.items()})
+    before = raft_invariant_check.launches
+    bad, code = raft_invariant_check(*ops, window_slides)
+    assert raft_invariant_check.launches == before
+    np.testing.assert_array_equal(bad.numpy(), np.asarray(jbad))
+    np.testing.assert_array_equal(code.numpy(), np.asarray(jcode))
+    if B > 1:   # the operands reach every verdict
+        assert 0 < int(bad.sum()) < B
+        assert set(code[bad].tolist()) == {
+            jraft.CRASH_TWO_LEADERS, jraft.CRASH_LOG_MISMATCH,
+            jraft.CRASH_COMMIT_GT_LOG}
+
+
+# --------------------------------------------------------------------------
+# K3: the supervisor op
+# --------------------------------------------------------------------------
+def _jax_apply_super(cfg, spec, persist, template, leaves, op, node, src,
+                     payload, key):
+    """The JAX package's `_apply_super`, vmapped over the lanes of a state
+    given as numpy leaves in the layout of the JAX state `template`."""
+    from madsim_tpu.core import step as jstep
+    with reference_stream():
+        treedef = jax.tree.structure(template)
+        batched = jax.tree.unflatten(
+            treedef, [jnp.asarray(leaves[k]) for k in jax_leaves(template)])
+        out = jax.vmap(lambda s, o, n, c, p, k: jstep._apply_super(
+            cfg, spec, persist, s, o, n, c, p, k))(
+                batched, op.numpy(), node.numpy(), src.numpy(),
+                payload.numpy(), key.numpy().view(np.uint32))
+        return jax_leaves(out[0]), [np.asarray(x) for x in out[1:]]
+
+
+def test_apply_super_matches_reference_on_the_raft_schema():
+    """Every opcode 0-19 and an unknown one on random flagship (Raft)
+    states: NODE_RANDOM targets with and without a payload pool and with
+    an empty one, src out of range, boot resets of every non-persistent
+    Raft leaf, RESTARTs of live nodes, loss quotients a reciprocal
+    multiply would round differently."""
+    import bench
+    from madsim_tpu.models import raft as jraft
+    B = 1024
+    rt = workloads.flagship_runtime(device="cpu")
+    plan, s, op, node, src, payload, key = chip_smoke.super_edge_operands(
+        rt, B, seed=3)
+    with reference_stream():
+        jrt = bench._make_runtime()
+        template = jrt.init_batch(np.arange(B, dtype=np.uint32))
+        spec = {k: jnp.asarray(v)
+                for k, v in jraft.state_spec(5, 32).items()}
+    ref, ref_rest = _jax_apply_super(
+        jrt.cfg, spec, jraft.persist_spec(), template,
+        interop.state_to_numpy(s), op, node, src, payload, key)
+    before = apply_super.launches
+    out = apply_super(plan, s, op, node, src, payload, key)
+    assert apply_super.launches == before
+    assert_same(ref, interop.state_to_numpy(out[0]), what="apply_super")
+    for name, r, t in zip(("init_node", "target", "reset_mask"), ref_rest,
+                          out[1:]):
+        np.testing.assert_array_equal(t.numpy(), r, err_msg=name)
+    # the operands reach what the test names
+    assert set(op.tolist()) == set(range(21))
+    booted = out[1] >= 0
+    reset = ref[".node_state['role']"] != interop.state_to_numpy(s)[
+        ".node_state['role']"]
+    assert booted.any() and reset.any()
+    void = ((node == T.NODE_RANDOM) & (payload[:, 0] == 1 << 30)
+            & (op == T.OP_KILL))
+    assert void.any() and not out[3][void].any()
+    loss_set = ref[".loss"] != interop.state_to_numpy(s)[".loss"]
+    assert loss_set.sum() > 10
+
+
+def test_the_kernel_paths_plain_remainder_reads_the_state_before_the_op():
+    """On the kernel's path the torn-write flush and the reset-peer tear
+    run in plain PyTorch after the kernel, from the pre-op `alive & torn`,
+    with the fs leaves out of the kernel's reset table. Composed so — the
+    kernel's edits stood in for by the plain op on the state without its
+    node-state leaves, then the boot reset of the kernel's table — the
+    result equals the reference order on the fs + conn/stream schema,
+    RESTARTs of torn, live nodes included; resetting first and flushing
+    from the post-op state does not."""
+    from madsim_tpu_torch.ops import select as sel
+    rt, plan = chip_smoke.fs_conn_runtime("cpu")
+    B, N = 1024, rt.cfg.n_nodes
+    _, s, op, node, src, payload, key = chip_smoke.super_edge_operands(
+        rt, B, seed=5, plan=plan)
+    # fixed targets: every op takes effect, as the stand-in assumes
+    node = torch.where(node == T.NODE_RANDOM,
+                       torch.arange(B, dtype=torch.int32) % N, node)
+    want = apply_super_plain(plan.cfg, plan.spec_default, plan.persist_mask,
+                             s, op, node, src, payload, key)[0]
+    bare, init_node, target, reset = apply_super_plain(
+        plan.cfg, {}, {}, s.replace(node_state={}), op, node, src, payload,
+        key)
+    boot = init_node >= 0
+
+    def kernel_reset(ns, names):
+        ns = dict(ns)
+        for k in names:
+            ns[k] = sel.put_row(ns[k], target,
+                                plan.spec_default[k].unsqueeze(0), boot)
+        return ns
+
+    ones = torch.ones(B, dtype=torch.bool)
+    got = _remainder(
+        plan, bare.replace(node_state=kernel_reset(
+            s.node_state, [p[0] for p, _ in plan.leaves])),
+        op, key, init_node, target, reset, ones, s.torn & s.alive)
+    assert_same(interop.state_to_numpy(want), interop.state_to_numpy(got),
+                what="kernel path")
+    naive = _remainder(
+        plan, bare.replace(node_state=kernel_reset(
+            s.node_state, [p[0] for p, _ in plan.leaves] + plan.fs_reset)),
+        op, key, init_node, target, reset, ones, bare.torn & bare.alive)
+    assert (interop.state_to_numpy(naive)[".node_state['fs_disk']"]
+            != interop.state_to_numpy(want)[".node_state['fs_disk']"]).any()
+    assert set(FS_LEAVES) - {p[0] for p, _ in plan.leaves} == set(FS_LEAVES)
+
+
+@pytest.mark.cuda
+def test_the_plain_loss_quotient_is_correctly_rounded_on_the_card():
+    """CUDA torch divides a float32 tensor by a host scalar as a multiply
+    by the scalar's reciprocal; the supervisor op's loss must be the
+    correctly rounded quotient payload / 1e6 that the JAX package takes
+    (59 / 1e6 is one of the values where the two differ)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rt = workloads.flagship_runtime(device="cuda")
+    plan, s, op, node, src, payload, key = chip_smoke.super_edge_operands(
+        rt, 4096, seed=3)
+    op[:] = T.OP_SET_LOSS
+    node[:] = 0
+    payload[:, 0] = torch.arange(4096, device="cuda", dtype=torch.int32)
+    out = apply_super_plain(plan.cfg, plan.spec_default, plan.persist_mask,
+                            s, op, node, src, payload, key)[0]
+    want = np.arange(4096).astype(np.float32) / np.float32(1e6)
+    np.testing.assert_array_equal(out.loss.cpu().numpy(), want)
+
+
+# --------------------------------------------------------------------------
+# K6: the state fingerprint
+# --------------------------------------------------------------------------
+def test_fingerprint_matches_reference_on_the_flagship():
+    """A flagship state after 64 steps, carried over by interop, has the
+    JAX package's fingerprints; with zero-size leaves added on both sides
+    (each folds lh = 0) too."""
+    import bench
+    from madsim_tpu.utils.hashing import batch_fingerprints
+    B = 8
+    with reference_stream():
+        jrt = bench._make_runtime()
+        js, _ = jrt.run(jrt.init_batch(np.arange(B, dtype=np.uint32)), 64,
+                        chunk=64)
+        want = jrt.fingerprints(js)
+        leaves = jax_leaves(js)
+        js0 = js.replace(ext={"z": jnp.zeros((B, 0), jnp.int32)},
+                         node_state=dict(js.node_state,
+                                         zz=jnp.zeros((B, 5, 0), bool)))
+        want0 = np.asarray(batch_fingerprints(js0))
+    port = interop.state_from_numpy(leaves, "cpu")
+    before = fingerprint.launches
+    got = fingerprint(port).numpy().astype(np.uint32)
+    assert fingerprint.launches == before
+    np.testing.assert_array_equal(got, want)
+    assert len(set(want.tolist())) == B
+    port0 = port.replace(ext={"z": torch.zeros((B, 0), dtype=torch.int32)},
+                         node_state=dict(port.node_state, zz=torch.zeros(
+                             (B, 5, 0), dtype=torch.bool)))
+    got0 = fingerprint(port0).numpy().astype(np.uint32)
+    np.testing.assert_array_equal(got0, want0)
+    assert (got0 != got).all()
+
+
+# --------------------------------------------------------------------------
+# The wrappers and the step's sections
+# --------------------------------------------------------------------------
+def _wrapper_case(name):
+    """(wrapper, plain version, operands, operands -> meta) of a kernel."""
+    from madsim_tpu_torch.core.state import map_state
+    rt = workloads.flagship_runtime(device="cpu")
+    if name == "raft_invariant":
+        ops = chip_smoke.raft_edge_operands("cpu", 64, 5, 32, 1, seed=2)
+        return (raft_invariant_check, raft_invariant_plain, ops + (False,),
+                lambda a: tuple(x.to("meta") if isinstance(x, torch.Tensor)
+                                else tuple(c.to("meta") for c in x)
+                                if isinstance(x, tuple) else x for x in a))
+    if name == "apply_super":
+        plan, *rest = chip_smoke.super_edge_operands(rt, 64, seed=2)
+
+        def plain(plan, *a):
+            return apply_super_plain(plan.cfg, plan.spec_default,
+                                     plan.persist_mask, *a)
+        return (apply_super, plain, (plan, *rest),
+                lambda a: (a[0], map_state(lambda t: t.to("meta"), a[1]))
+                + tuple(t.to("meta") for t in a[2:]))
+    s, _ = rt.run(rt.init_batch(np.arange(64)), 16, chunk=16)
+    return (fingerprint, fingerprint_plain, (s,),
+            lambda a: (map_state(lambda t: t.to("meta"), a[0]),))
+
+
+@pytest.mark.parametrize("name", ["raft_invariant", "apply_super",
+                                  "fingerprint"])
+def test_wrapper_takes_the_plain_version_on_the_cpu_and_refuses_meta(name):
+    """On CPU tensors a wrapper returns its plain version's result and
+    launches nothing; on any device but the CPU and CUDA it raises."""
+    def flat(out):      # apply_super returns (state, *tensors)
+        if name != "apply_super":
+            return chip_smoke.flat_tree(out)
+        return dict(chip_smoke.flat_tree(out[1:]),
+                    **interop.state_leaves(out[0]))
+
+    wrapper, plain, args, to_meta = _wrapper_case(name)
+    before = wrapper.launches
+    got = flat(wrapper(*args))
+    want = flat(plain(*args))
+    assert wrapper.launches == before
+    assert sorted(got) == sorted(want)
+    for k in got:
+        assert torch.equal(got[k], want[k]), k
+    with pytest.raises(ValueError, match="unsupported device"):
+        wrapper(*to_meta(args))
+
+
+@pytest.mark.parametrize("build,sections", [
+    ("flagship", chip_smoke.SECTIONS),
+    ("pingpong", tuple(k for k in chip_smoke.SECTIONS if k != "invariant"))])
+def test_every_section_of_the_step_is_a_profiler_range(build, sections):
+    """One step under torch.profiler opens the `live_step.<section>`
+    ranges chip_smoke splits the device time by (pingpong has no
+    invariant), and their host ops hold the step's ops."""
+    from torch.profiler import ProfilerActivity, profile
+    rt = (workloads.flagship_runtime(device="cpu") if build == "flagship"
+          else workloads.pingpong_runtime(device="cpu"))
+    s = rt.init_batch(np.arange(4))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        rt._step(s)
+    names = {e.name for e in prof.events() if e.name.startswith("live_step.")}
+    assert names == {"live_step." + k for k in sections}
