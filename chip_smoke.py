@@ -25,12 +25,18 @@ the frozen golden digests. One JSON object per line, in phases:
   flagship     bench.py's Raft chaos config at B=100,000 for 2048 steps
                (chunk 512) through Runtime.run: no crash, no overflow,
                >90% of lanes live; seed-events/s, ms/step, peak memory
+  no_plain_draws  one eager flagship step on the card at step 512 with
+               every function of core/prng.py (wherever the port binds
+               it) and select.put_row wrapped: no plain threefry call and
+               no one-hot put_row on node_state, t_kind or t_deadline (the
+               fused phase checks the same on the traced step)
   fused        the same config with the flight recorder on every lane
                (trace_cap=64), B=100,000, 2048 steps, through run_fused:
                no crash or overflow, >90% live, fingerprints equal to the
                flagship phase's (the recorder changes no other leaf), lane
                0's ring non-empty with increasing steps; ms/step beside
-               the eager runner's
+               the eager runner's; the K1/K4 launches a step the graph
+               captured, equal to the eager step's
   step_bound   the bytes one traced flagship step must move at step 512
                (B=100,000): every state leaf the step reads, read once,
                and every leaf it changes, written once; its bound at the
@@ -123,7 +129,20 @@ the frozen golden digests. One JSON object per line, in phases:
                apply less the restore;
                fingerprint on the flagship's state at step 2048, the
                golden pingpong (traced) and wal_kv states and wal_kv's
-               with zero-size leaves added
+               with zero-size leaves added;
+               threefry_keys, threefry_draw, node_gather and put_rows_ on
+               every call of the flagship's step 512 and on edge operands
+               (keys (0, 0) and all ones; split into 1, 2, 5 and 16, one
+               key, B=100,003, a strided slice; fold_in words 0, 2^32-1,
+               two a key, one a key; randint bounds with maxval <= minval,
+               the whole int32 range, per key, broadcast, inclusive
+               INT32_MAX, a vector draw; bernoulli p 0, 1, subnormal, per
+               key; every row index and out of range, masked-off lanes,
+               fifty leaves of five element types, twenty writes), the
+               in-place put_rows_ on its own copy against the plain
+               version's: equal, and no row touched it must not touch;
+               timed on the step's own calls (the 5-way split, the dup
+               latency draw, the node slice, the node scatter)
   determinism  lanes 0..4095 alone, twice through run (512 steps) and
                twice through run_fused (2048 steps): fingerprints equal
                to each other and to lanes 0..4095 of the B=100,000 eager
@@ -132,23 +151,32 @@ the frozen golden digests. One JSON object per line, in phases:
   profile      torch.profiler over 16 flagship steps at B=100,000, for
                each runner: device kernels per step, device busy share,
                top kernels, each step kernel's ms a step; each kernel's
-               device events in the trace must number 16 (replays counted
-               on the card); no int32 scan kernel left in the step; for
-               the eager runner, the device time of each section of the
-               step, which must add up to the device busy time within 2%,
-               also with the supervisor op and the Raft check as their
-               plain versions (the parent's paths)
+               device events in the trace must number its launches
+               (replays counted on the card); no int32 scan kernel left
+               in the step; for the eager runner, the device time of each
+               section of the step, which must add up to the device busy
+               time within 2% (a hand-written kernel counted in the
+               section whose device-side annotation spans its start),
+               also with the threefry draws and the node rows as plain
+               PyTorch, and with the supervisor op and the Raft check as
+               plain PyTorch (the paths before each pair of kernels)
+  handler_split  the handlers section's ranges (the slice, each program's
+               init / on_message / on_timer, the merge), kernels and
+               plain K1/K4 paths, outside the 2% sum
   kernels      one line naming every kernel with its numbers
 
 Each main path runs with every kernel's launch count set to 0 just before
 and read just after; a kernel of the path that was not launched once per
 step fails the run (raft_invariant runs on the Raft paths only: on the
-pingpong and wal_kv paths it must not launch at all). A CUDA-graph replay launches the kernels it captured
-without calling their wrappers, so run_fused's launches are the
-wrappers' own counts (the warm-up step before a capture) plus the
-launches captured per block times the replays; the profile phase counts
-the replayed launches on the card too. Any failed check raises:
-the script exits nonzero and prints no result. Its last line is
+pingpong and wal_kv paths it must not launch at all), and so does a
+K1/K4 kernel not launched exactly its count a step (one eager step of the
+path's runtime, counted beforehand), at least once. A CUDA-graph replay
+launches the kernels it captured without calling their wrappers, so
+run_fused's launches are the wrappers' own counts (the warm-up step
+before a capture) plus the launches captured per block times the
+replays; the profile phase counts the replayed launches on the card too.
+Any failed check raises: the script exits nonzero and prints no result.
+Its last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It needs no network and imports no JAX.
 """
@@ -607,13 +635,20 @@ def fused_launches(rt, counts, names):
     return {k: counts[k] + st["captured"][k] * st["replays"] for k in names}
 
 
-def check_once_per_step(what, launches, steps, names):
+def check_once_per_step(what, launches, steps, names, per_step):
     """Each step kernel of `names` launched once a step, every other step
-    kernel (the Raft check, on a workload with no Raft) never."""
+    kernel (the Raft check, on a workload with no Raft) never; each K1/K4
+    kernel `per_step[k]` times a step (`step_launches`), and at least
+    once."""
     for k in STEP_KERNELS:
         want = steps if k in names else 0
         check(launches[k] == want,
               f"{what}: {k} launched {launches[k]} times in {steps} steps")
+    for k in K1K4:
+        check(per_step[k] >= 1, f"{what}: {k} is not on the step's path")
+        check(launches[k] == steps * per_step[k],
+              f"{what}: {k} launched {launches[k]} times in {steps} steps "
+              f"({per_step[k]} a step)")
 
 
 def fingerprints_once(rt, state, what):
@@ -628,22 +663,24 @@ def fingerprints_once(rt, state, what):
     return out
 
 
-def profile_steps(run, state, batch, names):
+def profile_steps(run, state, batch, expect):
     """Trace PROF_STEPS steps of `run(state, n)` with torch.profiler:
     device kernels per step, their summed device time against the wall
     time (the device's busy share), the top kernels, the device events of
-    each kernel in `names` (`kernel_launches`: what ran on the card, graph
-    replays included), and for the eager step the device time of each of
-    its sections (`section_ms_per_step`; a graph replay runs no host code,
-    so it has none). Device numbers are null when the profiler records no
-    device activity.
+    each kernel of `expect` ({kernel: launches a step};
+    `kernel_launches`: what ran on the card, graph replays included) and
+    its device ms a step, and for the eager step the device time of each
+    of its sections (`section_ms_per_step`) and of the handler ranges
+    inside the handlers section (`handler_split`; a graph replay runs no
+    host code, so it has neither). Device numbers are null when the
+    profiler records no device activity.
 
     The profiler can lose a batch of device records in a window of some
     55,000 (seen on the card: several kernels of one window one event
-    short, in no pattern). A window in which a kernel of `names` has
-    fewer events than steps is traced again, up to PROF_WINDOWS times;
-    `short_windows` keeps the counts of the windows set aside. More
-    events than steps is never set aside: it fails the run."""
+    short, in no pattern). A window in which a kernel of `expect` has
+    fewer events than it launched is traced again, up to PROF_WINDOWS
+    times; `short_windows` keeps the counts of the windows set aside.
+    More events than launches is never set aside: it fails the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     state = run(state, PROF_STEPS)                # warm
@@ -659,10 +696,11 @@ def profile_steps(run, state, batch, names):
         dev_events = [e for e in prof.events()
                       if e.device_type == torch.autograd.DeviceType.CUDA
                       and not is_range(e.name)]
-        traced = {k: sum(k in e.name for e in dev_events) for k in names}
-        check(all(v <= PROF_STEPS for v in traced.values()),
+        traced = {k: sum(k in e.name for e in dev_events) for k in expect}
+        want = {k: PROF_STEPS * n for k, n in expect.items()}
+        check(all(traced[k] <= want[k] for k in expect),
               f"profile: traced launches {traced} in {PROF_STEPS} steps")
-        if not dev_events or all(v == PROF_STEPS for v in traced.values()):
+        if not dev_events or traced == want:
             break
         short.append(traced)
     launches = [e for e in prof.events()
@@ -686,7 +724,7 @@ def profile_steps(run, state, batch, names):
 
     # the eager step's ranges (a graph replay has none: the ranges are
     # host-side and a replay runs no host code)
-    sections = section_split(prof, PROF_STEPS)
+    sections, handler_split, outside = section_split(prof, PROF_STEPS)
     return dict(
         steps=PROF_STEPS, batch=batch, short_windows=short,
         wall_ms_per_step=wall_us / PROF_STEPS / 1e3,
@@ -699,8 +737,13 @@ def profile_steps(run, state, batch, names):
         raft_invariant_ms_per_step=kernel_ms("raft_invariant"),
         apply_super_ms_per_step=kernel_ms("apply_super"),
         int32_scan_ms_per_step=kernel_ms("tensor_kernel_scan"),
+        kernel_ms_per_step={k: kernel_ms(k) for k in expect},
         section_ms_per_step=sections,
         sections_ms_per_step=sum(sections.values()) if sections else None,
+        handler_split=handler_split,
+        handler_split_ms_per_step=(sum(handler_split.values())
+                                   if handler_split else None),
+        own_kernels_outside_annotations=outside,
         kernel_launches=traced,
         top_kernels_ms_per_step=[[n[:80], t / PROF_STEPS / 1e3]
                                  for n, t in top])
@@ -918,45 +961,79 @@ SECTIONS = ("select", "dup", "super", "handlers", "scatter", "emit",
             "stats", "invariant", "end")
 
 
+STEP_RANGE, HANDLER_RANGE = "live_step.", "live_handler."
+
+
 def is_range(name):
-    """A step section's profiler range (core/step.py `_section`). The
-    profiler also records each range as an annotation on the device's
+    """A step section's profiler range (core/step.py `_section`), or one
+    of the handler ranges inside the handlers section (`_handler_range`).
+    The profiler also records each range as an annotation on the device's
     timeline, spanning its kernels and the gaps between them: such an
     event is no kernel."""
-    return name.startswith("live_step.")
+    return name.startswith((STEP_RANGE, HANDLER_RANGE))
 
 
-# the step's hand-written kernels and the section that launches each: the
-# profiler links a kernel launched through ctypes to no host op, so no
-# range's device time holds it
-KERNEL_SECTION = {"sched_pick": "select", "apply_super": "super",
-                  "emit_write": "emit", "raft_invariant": "invariant"}
+# the port's hand-written kernels, by a tag of their device names. The
+# profiler links a kernel launched through ctypes to no host op (F16), so
+# no range's device time holds it: each is counted in the range whose
+# device-side annotation spans its start
+OWN_KERNELS = ("sched_pick", "apply_super", "emit_write", "raft_invariant",
+               "threefry_keys", "threefry_draw", "node_gather", "put_rows")
 
 
 def section_split(prof, steps):
-    """Device ms a step of each section of the step (`live_step.<name>`
-    profiler ranges, core/step.py): the summed device time of the kernels
-    the ops inside each range launched (the ranges' `device_time_total`),
-    and of each hand-written kernel in the section that launches it.
-    None where the trace holds no range (a graph replay)."""
+    """(sections, handler split, outside): device ms a step of each
+    section of the step (`live_step.<name>` profiler ranges, core/step.py)
+    and of each handler range inside the handlers section
+    (`live_handler.<name>`): the summed device time of the kernels the ops
+    inside each range launched (the ranges' `device_time_total`), and of
+    each hand-written kernel in the range whose device-side annotation,
+    the innermost one, spans the kernel's start. A hand-written kernel
+    that no annotation spans goes to the last annotation begun before it;
+    `outside` counts those. None where the trace holds no range (a graph
+    replay)."""
     import torch
     out = {k: 0.0 for k in SECTIONS}
+    sub: dict = {}
+    notes, own = [], []
     ranges = 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CPU and is_range(
                 e.name):
-            ranges += 1
-            own = sum(k.duration for k in e.kernels if not is_range(k.name))
-            out[e.name[len("live_step."):]] += own + sum(
+            dev_us = sum(k.duration for k in e.kernels
+                         if not is_range(k.name)) + sum(
                 ch.device_time_total for ch in e.cpu_children)
-        elif (e.device_type == torch.autograd.DeviceType.CUDA
-              and not is_range(e.name)):
-            for k, section in KERNEL_SECTION.items():
-                if k in e.name:
-                    out[section] += e.time_range.elapsed_us()
+            if e.name.startswith(STEP_RANGE):
+                ranges += 1
+                out[e.name[len(STEP_RANGE):]] += dev_us
+            else:
+                name = e.name[len(HANDLER_RANGE):]
+                sub[name] = sub.get(name, 0.0) + dev_us
+        elif e.device_type == torch.autograd.DeviceType.CUDA:
+            if is_range(e.name):
+                notes.append((e.time_range.start, e.time_range.end, e.name))
+            elif any(t in e.name for t in OWN_KERNELS):
+                own.append((e.time_range.start, e.time_range.elapsed_us()))
     if not ranges:
-        return None
-    return {k: v / steps / 1e3 for k, v in out.items()}
+        return None, None, None
+    outside = 0
+    for start, us in own:
+        spans = [n for n in notes if n[0] <= start < n[1]]
+        if spans:
+            name = min(spans, key=lambda n: n[1] - n[0])[2]
+        else:
+            begun = [n for n in notes if n[0] <= start]
+            check(begun, "section_split: a kernel before every annotation")
+            name = max(begun)[2]
+            outside += 1
+        if name.startswith(HANDLER_RANGE):
+            name = name[len(HANDLER_RANGE):]
+            sub[name] = sub.get(name, 0.0) + us
+            out["handlers"] += us
+        else:
+            out[name[len(STEP_RANGE):]] += us
+    return ({k: v / steps / 1e3 for k, v in out.items()},
+            {k: v / steps / 1e3 for k, v in sorted(sub.items())}, outside)
 
 
 def raft_edge_operands(dev, B, N, L, F, seed, peer=None, snap=False):
@@ -1204,6 +1281,395 @@ def fp_bound(state):
             + 8 * state.now.shape[0])
 
 
+# ---- K1 (threefry draws) and K4 (node rows) ---------------------------------
+K1K4 = ("threefry_keys", "threefry_draw", "node_gather", "put_rows_")
+# the wrapper methods that launch them (ops/threefry.py, ops/node_rows.py)
+K1K4_METHODS = (("threefry_keys", "split"), ("threefry_keys", "fold_in"),
+                ("threefry_draw", "randint"), ("threefry_draw", "uniform"),
+                ("threefry_draw", "bernoulli"), ("node_gather", "run"),
+                ("put_rows_", "run"))
+# integer operations of one 20-round threefry2x32 block (mutate_bound's)
+THREEFRY_BLOCK_OPS = 80
+
+
+def step_launches(wrappers, rt, state):
+    """Each K1/K4 kernel's launches in one eager step of `state` (on a
+    copy). A step runs the same Python path whatever the data, so these
+    are the runtime's launches a step."""
+    import torch
+    from madsim_tpu_torch.core.state import map_state
+    before = {k: wrappers[k].launches for k in K1K4}
+    rt._step(map_state(torch.clone, state))
+    return {k: wrappers[k].launches - before[k] for k in K1K4}
+
+
+def k1k4_operands(wrappers, rt, state):
+    """{kernel: [(method, args, kwargs), ...]}: every K1/K4 launch of the
+    next step of `state` (on a copy), its operands cloned before the call;
+    the calls run as the step makes them."""
+    import torch
+    from madsim_tpu_torch.core.state import map_state
+    seen = {k: [] for k in K1K4}
+    for k, meth in K1K4_METHODS:
+        real = getattr(wrappers[k], meth)
+
+        def spy(*args, _real=real, _k=k, _m=meth, **kw):
+            seen[_k].append((_m, clone_tree(args), clone_tree(kw)))
+            return _real(*args, **kw)
+        setattr(wrappers[k], meth, spy)     # shadows the method
+    try:
+        rt._step(map_state(torch.clone, state))
+    finally:
+        for k, meth in K1K4_METHODS:
+            delattr(wrappers[k], meth)
+    return seen
+
+
+def k1_plain(method, args, kw):
+    """The plain version (core/prng.py) of one threefry kernel call."""
+    from madsim_tpu_torch.core import prng
+    key = args[0]
+    if method == "split":
+        return prng.split(key, *args[1:])
+    if method == "fold_in":
+        data = args[1]
+        if hasattr(data, "dtype"):
+            data = data.to(key.dtype)
+        return prng.fold_in(key, data)
+    if method == "randint":
+        lo, hi = args[1], args[2]
+        shape = args[3] if len(args) > 3 else kw.get("shape", ())
+        if kw.get("inclusive", False):
+            return prng.randint(key, lo, hi)
+        return prng.randint_raw(key, lo, hi, shape)
+    if method == "uniform":
+        return prng.uniform(key)
+    return prng.bernoulli(key, args[1])
+
+
+def k1_edge_cases(dev, B, seed=21):
+    """[(case, kernel, method, args, kwargs)] of edge operands: keys (0, 0)
+    and all ones among random ones; split into 1, 2, 5 and 16 at B keys,
+    one key, B=100,003 keys and a strided key slice; fold_in words 0 and
+    2^32-1, the dup section's two words a key, a word a key; randint_raw
+    with maxval <= minval, maxval = minval and the whole int32 range, per
+    key and broadcast scalar bounds, an inclusive INT32_MAX, a vector
+    draw and bounds wider than the keys; uniform; bernoulli with p 0, 1,
+    subnormal, per key and a 0-d tensor."""
+    import numpy as np
+    import torch
+    from madsim_tpu_torch.core import prng
+    rng = np.random.default_rng(seed)
+    i32 = torch.int32
+
+    def keys(n):
+        k = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, (n, 2))
+                            .astype(np.int32), device=dev)
+        k[0] = 0
+        if n > 1:
+            k[1] = -1
+        return k
+
+    def words(n):       # int32 words, the extremes first
+        w = rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32)
+        w[:4] = [-2 ** 31, 2 ** 31 - 1, 0, -1]
+        return torch.as_tensor(w, device=dev)
+
+    K = keys(B)
+    lo, hi = words(B), words(B)
+    hi[4:8] = lo[4:8]                    # maxval == minval
+    p = torch.as_tensor(rng.random(B).astype(np.float32), device=dev)
+    p[:3] = torch.tensor([0.0, 1.0, float(np.float32(1e-40))])
+    cases = [(f"split_n{n}", "threefry_keys", "split", (K, n), {})
+             for n in (1, 2, 5, 16)]
+    cases += [
+        ("split_B1", "threefry_keys", "split", (keys(1), 5), {}),
+        ("split_B100003", "threefry_keys", "split", (keys(100_003), 5), {}),
+        ("split_strided", "threefry_keys", "split",
+         (prng.split(K, 5)[:, 3], 2), {}),
+        ("fold_word_0", "threefry_keys", "fold_in", (K, 0), {}),
+        ("fold_word_max", "threefry_keys", "fold_in", (K, 2 ** 32 - 1), {}),
+        ("fold_dup_words", "threefry_keys", "fold_in",
+         (K[:, None, :], torch.tensor([0x44555031, 0x44555032], dtype=i32,
+                                      device=dev)), {}),
+        ("fold_word_per_key", "threefry_keys", "fold_in", (K, words(B)),
+         {}),
+        ("randint_empty_span", "threefry_draw", "randint", (K, 9, -4), {}),
+        ("randint_equal_bounds", "threefry_draw", "randint", (K, 7, 7), {}),
+        ("randint_whole_range", "threefry_draw", "randint",
+         (K, -2 ** 31, 2 ** 31 - 1), {}),
+        ("randint_inclusive_int32_max", "threefry_draw", "randint",
+         (K, 0, 2 ** 31 - 1), dict(inclusive=True)),
+        ("randint_per_key", "threefry_draw", "randint", (K, lo, hi), {}),
+        ("randint_per_key_inclusive", "threefry_draw", "randint",
+         (K, lo, hi), dict(inclusive=True)),
+        ("randint_scalar_lo_per_key_hi", "threefry_draw", "randint",
+         (K, 0, hi), {}),
+        ("randint_vector_5", "threefry_draw", "randint",
+         (K, 0, 2 ** 30, (5,)), {}),
+        ("randint_wider_than_keys", "threefry_draw", "randint",
+         (K[:, None, :], 0, torch.tensor([1, 50, 2 ** 20], dtype=i32,
+                                         device=dev)), {}),
+        ("uniform", "threefry_draw", "uniform", (K,), {}),
+        ("bernoulli_p0", "threefry_draw", "bernoulli", (K, 0.0), {}),
+        ("bernoulli_p1", "threefry_draw", "bernoulli", (K, 1.0), {}),
+        ("bernoulli_subnormal", "threefry_draw", "bernoulli",
+         (K, float(np.float32(1e-40))), {}),
+        ("bernoulli_per_key", "threefry_draw", "bernoulli", (K, p), {}),
+        ("bernoulli_0d", "threefry_draw", "bernoulli",
+         (K, torch.tensor(0.3, device=dev)), {})]
+    return cases
+
+
+def k4_edge_cases(dev, node_state, seed=31):
+    """[(case, kernel, args)] of edge operands: the node state at every
+    row index and out of range (clamped by the gather, written nowhere by
+    put_rows_); fifty leaves of five element types and a zero-size one
+    (two gather launches); row, broadcast-row and scalar writes of every
+    element size, under masks with masked-off lanes and without, twenty
+    tensors (two put_rows launches); the dup pop's table columns."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    B, N = next(iter(node_state.values())).shape[:2]
+    every = torch.as_tensor(np.arange(B) % (N + 2) - 1, dtype=torch.int32,
+                            device=dev)          # -1 .. N: out of range too
+    types = (torch.int32, torch.bool, torch.int16, torch.int64,
+             torch.float32)
+
+    def leaf(i, R):
+        shape = (B, R) + ((i % 3 + 1,) if i % 4 else ())
+        if i == 3:
+            shape = (B, R, 0)
+        x = torch.as_tensor(rng.integers(-99, 99, shape), device=dev)
+        return (x > 0) if types[i % 5] == torch.bool else x.to(types[i % 5])
+
+    mixed = {f"l{i}": leaf(i, N) for i in range(50)}
+    mask = torch.as_tensor(rng.random(B) < 0.6, device=dev)
+    cases = [("gather_node_state_every_row", "node_gather",
+              (node_state, every)),
+             ("gather_50_mixed_leaves", "node_gather", (mixed, every))]
+    rows = [(t, every, t[:, 0].clone() if t.dtype == torch.bool
+             else (t[:, 0] + 1).to(t.dtype), mask)
+            for t in node_state.values()]
+    cases.append(("put_node_state_every_row_masked", "put_rows_", (rows,)))
+    writes = []
+    for i in range(20):
+        R = N + i % 4
+        t = leaf(i if i % 5 != 3 else 2, R)
+        idx = torch.as_tensor(rng.integers(-2, R + 2, B), device=dev)
+        if i % 3 == 0:
+            val = ~t[:, 0] if t.dtype == torch.bool else t[:, 0] + 1
+        elif i % 3 == 1:
+            val = t[:1, 1].clone()
+        else:
+            val = True if t.dtype == torch.bool else -3
+        writes.append((t, idx, val, mask if i % 2 else True))
+    cases.append(("put_20_mixed_writes", "put_rows_", (writes,)))
+    C = 96
+    t_kind = torch.as_tensor(rng.integers(0, 4, (B, C)), dtype=torch.int32,
+                             device=dev)
+    t_dead = torch.as_tensor(rng.integers(0, 2 ** 31 - 1, (B, C)),
+                             dtype=torch.int32, device=dev)
+    pop = torch.as_tensor(rng.integers(-1, C + 1, B), dtype=torch.int32,
+                          device=dev)
+    cases.append(("put_dup_pop_columns", "put_rows_", ([
+        (t_kind, pop, 0, mask),
+        (t_dead, pop, t_dead[:, 0] + 7, ~mask)],)))
+    return cases
+
+
+def check_put_rows(name, writes, written):
+    """put_rows_ changed no row of a tensor but (lane, idx) where the lane
+    is written: `writes` are its operands before, `written` the tensors
+    after an in-place write."""
+    import torch
+    for i, ((mat, idx, _, mask), new) in enumerate(zip(writes, written)):
+        if not mat.numel():
+            continue
+        B, R = mat.shape[:2]
+        moved = (mat != new).reshape(B, R, -1).any(-1)
+        ok = (idx >= 0) & (idx < R)
+        if mask is False:
+            ok = torch.zeros_like(ok)
+        elif mask is not True:
+            ok = ok & mask
+        rows = torch.arange(R, device=mat.device) == idx[:, None]
+        check(not bool((moved & ~(rows & ok[:, None])).any()),
+              f"{name}: write {i} changed a row it must not touch")
+
+
+def k1_bound(method, args, kw, out):
+    """(bytes, operations) of one threefry kernel call: each operand
+    tensor read once and the output written once; THREEFRY_BLOCK_OPS a
+    block, for the blocks the draws need (split: one a key it makes;
+    fold_in, uniform, bernoulli: one a value; randint: the key's split
+    into two, then F words from each half, two words a block)."""
+    import math
+    nbytes = out.numel() * out.element_size()
+    for a in args:
+        if hasattr(a, "element_size"):
+            nbytes += a.numel() * a.element_size()
+    if method in ("split", "fold_in"):
+        blocks = out.numel() // 2
+    elif method == "randint":
+        F = math.prod(args[3] if len(args) > 3 else kw.get("shape", ()))
+        blocks = out.numel() // F * (2 + 2 * -(-F // 2))
+    else:
+        blocks = out.numel()
+    return nbytes, blocks * THREEFRY_BLOCK_OPS
+
+
+def k4_bound(kernel, args):
+    """The bytes of one node-row call: node_gather reads each leaf's rows
+    it gathers and the index once and writes the rows; put_rows_ reads
+    each index and mask once, and for each lane it writes (in range, mask
+    set: what this data needs) reads the source row and writes the row."""
+    import torch
+    if kernel == "node_gather":
+        tree, idx = args
+        leaves = flat_tree(tree).values()
+        B = idx.shape[0]
+        return idx.numel() * 4 + 2 * B * sum(
+            t[0, 0].numel() * t.element_size() for t in leaves if t.numel())
+    nbytes = 0
+    for mat, idx, val, mask in args[0]:
+        if mask is False or not mat.numel():
+            continue
+        B, R = mat.shape[:2]
+        ok = (idx >= 0) & (idx < R)
+        if mask is not True:
+            ok = ok & mask
+            nbytes += mask.numel()
+        row = mat[0, 0].numel() * mat.element_size()
+        src = row if isinstance(val, torch.Tensor) and val.shape[:1] == (
+            B,) else 0
+        nbytes += idx.numel() * idx.element_size() + int(ok.sum()) * (
+            row + src)
+    return nbytes
+
+
+def plain_draws_in_step(rt, state):
+    """({core/prng.py function: calls}, [shapes of the one-hot put_row
+    writes of node_state, t_kind or t_deadline]) in one eager step of
+    `state` (on a copy): every function of core/prng.py, wherever the
+    port's modules bind it, and select.put_row are wrapped for the step."""
+    import inspect
+    import torch
+    from madsim_tpu_torch.core import prng
+    from madsim_tpu_torch.core.state import map_state
+    from madsim_tpu_torch.ops import select as sel
+    own = map_state(torch.clone, state)
+    targets = {t.data_ptr() for t in [own.t_kind, own.t_deadline]
+               + list(own.node_state.values()) if t.numel()}
+    calls, onehot = {}, []
+
+    def counted(name, fn):
+        def wrapper(*a, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **kw)
+        return wrapper
+
+    def put_spy(mat, *a, **kw):
+        if mat.numel() and mat.data_ptr() in targets:
+            onehot.append(list(mat.shape))
+        return real_put(*((mat,) + a), **kw)
+
+    real_put = sel.put_row
+    spies = {id(f): counted(n, f) for n, f in vars(prng).items()
+             if inspect.isfunction(f) and f.__module__ == prng.__name__}
+    spies[id(real_put)] = put_spy
+    patched = []
+    for mod in [m for n, m in sys.modules.items()
+                if n.startswith("madsim_tpu_torch") and m is not None]:
+        for attr, val in list(vars(mod).items()):
+            if inspect.isfunction(val) and id(val) in spies:
+                patched.append((mod, attr, val))
+                setattr(mod, attr, spies[id(val)])
+    try:
+        rt._step(own)
+    finally:
+        for mod, attr, val in patched:
+            setattr(mod, attr, val)
+    return calls, onehot
+
+
+def k1k4_kernel_phase(wrappers, cases, main, launches):
+    """Each K1/K4 kernel against its plain version on `cases` ([(case,
+    kernel, method, args, kwargs)]), exactly; then its time on `main`
+    ({kernel: (method, args, kwargs)}, the flagship's step-512 operands)
+    as a CUDA-graph replay against the plain version's eager calls, in
+    turns, beside its bound. Returns {kernel: kernels-line numbers}."""
+    import torch
+    from madsim_tpu_torch.ops.node_rows import node_gather_plain, \
+        put_rows_plain
+    err = {k: 0 for k in K1K4}
+    names = {k: [] for k in K1K4}
+    for case, k, method, args, kw in cases:
+        w = wrappers[k]
+        if k in ("threefry_keys", "threefry_draw"):
+            out_k = getattr(w, method)(*args, **kw)
+            out_p = k1_plain(method, args, kw)
+        elif k == "node_gather":
+            out_k = w(*args)
+            out_p = node_gather_plain(*args)
+        else:     # in place: kernel and plain version each write a copy
+            a, b = clone_tree(args[0]), clone_tree(args[0])
+            out_k = w(a)
+            out_p = put_rows_plain(b)
+            check(all(o is x[0] for o, x in zip(out_k, a)),
+                  f"put_rows_ on {case}: not written in place")
+            check_put_rows(f"put_rows_ on {case}", args[0], out_k)
+        torch.cuda.synchronize()
+        err[k] = max(err[k], check_equal(f"{k} on {case}", out_k, out_p))
+        names[k].append(case)
+    out = {}
+    for k in K1K4:
+        method, args, kw = main[k]
+        w = wrappers[k]
+        if k in ("threefry_keys", "threefry_draw"):
+            def kern():
+                return getattr(w, method)(*args, **kw)
+
+            def plain():
+                return k1_plain(method, args, kw)
+            res = kern()
+            nbytes, ops = k1_bound(method, args, kw, res)
+        elif k == "node_gather":
+            def kern():
+                return w(*args)
+
+            def plain():
+                return node_gather_plain(*args)
+            nbytes, ops = k4_bound(k, args), 0
+        else:
+            # the scatter rewrites the rows it wrote with the same values:
+            # replays repeat the same work on the same operands
+            live = clone_tree(args[0])
+            nbytes, ops = k4_bound(k, (live,)), 0
+
+            def kern():
+                return w(live)
+
+            def plain():
+                return put_rows_plain(live)
+        k_ms = graph_ms(kern, 50)
+        p_ms = cuda_ms(plain, 5)
+        k_ms2 = graph_ms(kern, 50)
+        p_ms2 = cuda_ms(plain, 5)
+        b_ms, o_ms = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+        out[k] = dict(ms=min(k_ms, k_ms2), plain_ms=min(p_ms, p_ms2),
+                      bound_ms=max(b_ms, o_ms) * 1e3,
+                      bound_by="bytes" if b_ms >= o_ms else "operations",
+                      max_abs_err=err[k], library_ms=None)
+        emit(phase="kernel", name=k, cases=names[k],
+             main_case=f"flagship_step_{FLAG_CHUNK}:{method}", exact=True,
+             max_abs_err=err[k], launches_on_main_path=launches[k],
+             ms=[k_ms, k_ms2], plain_ms=[p_ms, p_ms2], bound_bytes=nbytes,
+             bound_operations=ops, bound_ms=out[k]["bound_ms"],
+             bound_by=out[k]["bound_by"], library="none")
+    return out
+
 
 def main() -> int:
     import torch
@@ -1237,6 +1703,7 @@ def main() -> int:
     wrappers = kernels.wrappers()
     names = list(STEP_KERNELS)          # launched once per Raft step
     no_raft = [k for k in names if k != "raft_invariant"]
+    every = names + list(K1K4)          # every kernel of the step
 
     def reset_counts():
         for w in wrappers.values():
@@ -1264,8 +1731,8 @@ def main() -> int:
              for k, r in report.items()}
     emit(phase="build", seconds=time.perf_counter() - t0,
          kernels=sorted(report), ptxas=ptxas)
-    check(sorted(report) == sorted(wrappers),
-          f"build: {sorted(report)} != {sorted(wrappers)}")
+    libs = sorted({kernels.library(k) for k in wrappers})
+    check(sorted(report) == libs, f"build: {sorted(report)} != {libs}")
 
     # ---- golden: the frozen digests through both runners --------------------
     with open(os.path.join(here, "tests", "data",
@@ -1280,6 +1747,7 @@ def main() -> int:
         seeds = np.arange(p["seeds"], dtype=np.uint32)
         init = rt.init_batch(seeds)           # both runners start from it
         init_digests = interop.leaf_digests(init)
+        per = step_launches(wrappers, rt, init)
         for runner in ("run", "run_fused"):
             torch.cuda.synchronize()
             reset_counts()
@@ -1294,11 +1762,11 @@ def main() -> int:
             if runner == "run":
                 launches, steps = counts, rt.steps_run
             else:
-                launches = fused_launches(rt, counts, STEP_KERNELS)
+                launches = fused_launches(rt, counts, every)
                 steps = rt.steps_run + rt.fused_stats["warmup_steps"]
             check(steps > 0, f"golden {wname} {runner}: no step ran")
             check_once_per_step(f"golden {wname} {runner}", launches, steps,
-                                no_raft)
+                                no_raft, per)
             want = golden[wname][runner]
             got = interop.leaf_digests(s)
             bad = [k for k in want if got.get(k) != want[k]]
@@ -1308,7 +1776,8 @@ def main() -> int:
                              if after[k] != init_digests[k]]
             emit(phase="golden", workload=wname, runner=runner,
                  seeds=p["seeds"], steps_run=rt.steps_run, wall_s=wall,
-                 launches=launches, fused=getattr(rt, "fused_stats", None)
+                 launches=launches, k1k4_per_step=per,
+                 fused=getattr(rt, "fused_stats", None)
                  if runner == "run_fused" else None, leaves=len(want),
                  mismatched=bad, input_leaves_unchanged=not input_changed)
             check(not bad, f"golden {wname} {runner}: digests differ: {bad}")
@@ -1334,6 +1803,7 @@ def main() -> int:
     captured = {0: select_inputs(s)}
     raft_cases = {"flagship_step_0": raft_operands(rt, s)}
     super_cases = {"flagship_step_0": super_operands(rt, s)}
+    per_flag = step_launches(wrappers, rt, s)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1348,6 +1818,16 @@ def main() -> int:
     snap = select_inputs(s)
     raft_cases[f"flagship_step_{FLAG_CHUNK}"] = raft_operands(rt, s)
     super_cases[f"flagship_step_{FLAG_CHUNK}"] = super_operands(rt, s)
+    k1k4_cases = k1k4_operands(wrappers, rt, s)
+    draws, onehot = plain_draws_in_step(rt, s)
+    emit(phase="no_plain_draws", runner="run", batch=FLAG_B,
+         at_step=FLAG_CHUNK, prng_calls=draws, onehot_put_rows=onehot,
+         k1k4_per_step=per_flag)
+    check(not draws, f"no_plain_draws: an eager flagship step on the card "
+          f"called core/prng.py: {draws}")
+    check(not onehot, f"no_plain_draws: an eager flagship step on the "
+          f"card wrote node_state, t_kind or t_deadline with a one-hot "
+          f"put_row: {onehot}")
     flag_fp_chunk = fingerprints_once(rt, s, "flagship")
     torch.cuda.synchronize()
     reset_counts()
@@ -1362,7 +1842,7 @@ def main() -> int:
     captured[FLAG_STEPS] = select_inputs(s)
     raft_cases[f"flagship_step_{FLAG_STEPS}"] = raft_operands(rt, s)
     check(steps_run == FLAG_STEPS, f"flagship: {steps_run} steps")
-    check_once_per_step("flagship", counts, steps_run, names)
+    check_once_per_step("flagship", counts, steps_run, names, per_flag)
     crashed = int(s.crashed.sum())
     oops = int((s.oops != 0).sum())
     live = float((~s.halted).float().mean())
@@ -1370,7 +1850,8 @@ def main() -> int:
     eager_ms = steady / (FLAG_STEPS - FLAG_CHUNK) * 1e3
     dispatched = int(s.steps.sum()) - steps_mid
     emit(phase="flagship", runner="run", batch=FLAG_B, steps=steps_run,
-         chunk=FLAG_CHUNK, launches=counts, first_chunk_s=t1 - t0,
+         chunk=FLAG_CHUNK, launches=counts, k1k4_per_step=per_flag,
+         first_chunk_s=t1 - t0,
          steady_s=steady, whole_run_seed_events_per_s=FLAG_B * FLAG_STEPS
          / (t1 - t0 + t3 - t2), ms_per_step=eager_ms,
          seed_events_per_s=FLAG_B * (FLAG_STEPS - FLAG_CHUNK) / steady,
@@ -1389,6 +1870,7 @@ def main() -> int:
     rt = workloads.flagship_runtime(device=dev, trace_cap=64)
     s = rt.init_batch(np.arange(FLAG_B, dtype=np.uint32))
     emit_cases["flagship_step_0"] = emit_operands(rt, s)
+    per_tr = step_launches(wrappers, rt, s)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1396,10 +1878,11 @@ def main() -> int:
     s = rt.run_fused(s, FLAG_CHUNK, chunk=FLAG_CHUNK)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    launches = fused_launches(rt, read_counts(), names)
+    launches = fused_launches(rt, read_counts(), every)
     steps_run = rt.steps_run
     warm = rt.fused_stats["warmup_steps"]
     emit_cases[f"flagship_step_{FLAG_CHUNK}"] = emit_operands(rt, s)
+    draws_tr, onehot_tr = plain_draws_in_step(rt, s)
     step_read, step_written, step_changed = step_bytes(rt, s)
     torch.cuda.synchronize()
     reset_counts()
@@ -1407,12 +1890,21 @@ def main() -> int:
     s = rt.run_fused(s, FLAG_STEPS - FLAG_CHUNK, chunk=FLAG_CHUNK)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    more = fused_launches(rt, read_counts(), names)
-    launches = {k: launches[k] + more[k] for k in names}
+    more = fused_launches(rt, read_counts(), every)
+    launches = {k: launches[k] + more[k] for k in every}
     steps_run += rt.steps_run
     check(steps_run == FLAG_STEPS, f"fused: {steps_run} steps")
-    check_once_per_step("fused", launches, steps_run + warm, names)
-    fused_launch = {k: launches[k] for k in names}
+    check_once_per_step("fused", launches, steps_run + warm, names, per_tr)
+    fused_launch = {k: launches[k] for k in every}
+    block = rt.fused_stats["block"]
+    graph_per_step = {k: rt.fused_stats["captured"][k] / block
+                      for k in every}
+    check(all(graph_per_step[k] == per_tr[k] for k in K1K4),
+          f"fused: the graph captured {graph_per_step} a step, the eager "
+          f"step launches {per_tr}")
+    check(not draws_tr and not onehot_tr,
+          f"fused: a traced eager step on the card called core/prng.py "
+          f"{draws_tr} or wrote a one-hot put_row {onehot_tr}")
     crashed = int(s.crashed.sum())
     oops = int((s.oops != 0).sum())
     live = float((~s.halted).float().mean())
@@ -1426,6 +1918,8 @@ def main() -> int:
     emit(phase="fused", runner="run_fused", batch=FLAG_B, steps=steps_run,
          chunk=FLAG_CHUNK, trace_cap=64, fused=rt.fused_stats,
          launches=fused_launch, warmup_steps=warm,
+         launches_per_step_graph=graph_per_step,
+         k1k4_per_step_eager=per_tr,
          first_chunk_s=t1 - t0, steady_s=steady, ms_per_step=fused_ms,
          seed_events_per_s=FLAG_B * (FLAG_STEPS - FLAG_CHUNK) / steady,
          eager_ms_per_step=eager_ms,
@@ -1457,9 +1951,11 @@ def main() -> int:
          ms_over_bound=fused_ms / step_bound_ms, k4_node_row_bytes=node_row,
          k4_bound_bytes=k4_bytes,
          k4_bound_ms=k4_bytes / HBM_BYTES_PER_S * 1e3)
+    expect_tr = dict({k: 1 for k in names}, **per_tr)
     prof_fused = profile_steps(
-        lambda st, n: rt.run_fused(st, n, chunk=n), s, FLAG_B, names)
-    check(prof_fused["kernel_launches"] == {k: PROF_STEPS for k in names},
+        lambda st, n: rt.run_fused(st, n, chunk=n), s, FLAG_B, expect_tr)
+    check(prof_fused["kernel_launches"]
+          == {k: PROF_STEPS * n for k, n in expect_tr.items()},
           f"profile run_fused: traced launches "
           f"{prof_fused['kernel_launches']} in {PROF_STEPS} steps")
     del s, rt
@@ -1475,6 +1971,7 @@ def main() -> int:
     emit_cases[wal_case] = emit_operands(rt, mid)
     super_cases[wal_case] = super_operands(rt, mid)
     wal_select = select_inputs(mid)
+    per_wal = step_launches(wrappers, rt, mid)
     del mid
     torch.cuda.synchronize()
     reset_counts()
@@ -1482,10 +1979,10 @@ def main() -> int:
     s = rt.run_fused(s, p["max_steps"], p["chunk"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fused_launches(rt, read_counts(), STEP_KERNELS)
+    launches = fused_launches(rt, read_counts(), every)
     check_once_per_step("fused_wal_kv", launches,
                         rt.steps_run + rt.fused_stats["warmup_steps"],
-                        no_raft)
+                        no_raft, per_wal)
     want = golden["wal_kv"]["run_fused"]
     got = interop.leaf_digests(slice_lanes(s, p["seeds"]))
     bad = [k for k in want if got.get(k) != want[k]]
@@ -1503,13 +2000,15 @@ def main() -> int:
     # ---- fuzz_flagship: the coverage-guided fuzzer at full width ------------
     search = ("mutate", "apply_knobs")
     rt = workloads.flagship_runtime(device=dev)
+    per_fz = step_launches(wrappers, rt, rt.init_batch(np.arange(
+        64, dtype=np.uint32)))
     runs = []            # per run_fused call: steps and step-kernel launches
 
     def after_run(_):
         st = rt.fused_stats
         runs.append(dict(steps=st["steps"], warmup=st["warmup_steps"],
                          replayed={k: st["captured"][k] * st["replays"]
-                                   for k in names}))
+                                   for k in every}))
 
     rounds_seen = []
 
@@ -1539,7 +2038,7 @@ def main() -> int:
     steps = sum(r["steps"] for r in runs)        # warm-up steps left out
     warm = sum(r["warmup"] for r in runs)
     fuzz_launch = {k: counts[k] + sum(r["replayed"][k] for r in runs)
-                   for k in names}
+                   for k in every}
     fuzz_launch.update({k: counts[k] for k in search})
     # the reference launches round r+1 before it reads round r, so round 1
     # is launched on an empty corpus and mutation starts with round 2:
@@ -1578,7 +2077,8 @@ def main() -> int:
     check(fuzz_launch["mutate"] == mutated >= 1,
           f"fuzz_flagship: mutate launched {fuzz_launch['mutate']} times "
           f"in {mutated} mutated rounds")
-    check_once_per_step("fuzz_flagship", fuzz_launch, steps + warm, names)
+    check_once_per_step("fuzz_flagship", fuzz_launch, steps + warm, names,
+                        per_fz)
     check(res["distinct_schedules"] >= 0.99 * res["seeds_run"],
           f"fuzz_flagship: {res['distinct_schedules']} distinct schedules "
           f"in {res['seeds_run']} lanes")
@@ -1633,9 +2133,10 @@ def main() -> int:
     res = pct_sweep(rt, 0, nudges, PCT_STEPS, chunk=FLAG_CHUNK)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fused_launches(rt, read_counts(), names)
+    launches = fused_launches(rt, read_counts(), every)
     check_once_per_step("pct_flagship", launches,
-                        rt.steps_run + rt.fused_stats["warmup_steps"], names)
+                        rt.steps_run + rt.fused_stats["warmup_steps"], names,
+                        per_fz)
     emit(phase="pct_flagship", batch=FLAG_B, steps=rt.steps_run,
          wall_s=wall, seed_events_per_s=FLAG_B * rt.steps_run / wall,
          launches=launches, distinct_schedules=res["distinct_schedules"],
@@ -1692,7 +2193,7 @@ def main() -> int:
           and gpu["counts"]["mutate"] == gpu["mutated"] >= 1,
           f"search_same_on_both: launches {gpu['counts']} in "
           f"{gpu['result']['rounds']} rounds")
-    check(all(cpu["counts"][k] == 0 for k in search),
+    check(all(v == 0 for v in cpu["counts"].values()),
           "search_same_on_both: a kernel launched on the CPU run")
     check(blind_counts["coverage_digest"] == blind["rounds"],
           "search_same_on_both: explore's digest launches")
@@ -2106,6 +2607,29 @@ def main() -> int:
          bound_ms=fpk["bound_ms"], bound_by="bytes", library="none")
     del fp_cases, main_f
 
+    # ---- kernel: the threefry draws (K1) and the node rows (K4) -------------
+    # edge operands, and every K1/K4 launch of the flagship's step 512
+    k_cases = k1_edge_cases(dev, EDGE_B)
+    node_tree = k1k4_cases["node_gather"][0][1][0]
+    k_cases += [(case, k, "run", args, {}) for case, k, args in
+                k4_edge_cases(dev, node_tree)]
+    for k, calls in k1k4_cases.items():
+        k_cases += [(f"flagship_step_{FLAG_CHUNK}_{i}_{m}", k, m, a, kw)
+                    for i, (m, a, kw) in enumerate(calls)]
+    # timed on the step's own calls: the select's 5-way split, the dup
+    # section's latency draw, the node slice, the node scatter
+    k1k4_main = {
+        "threefry_keys": next(c for c in k1k4_cases["threefry_keys"]
+                              if c[0] == "split" and c[1][1] == 5),
+        "threefry_draw": next(c for c in k1k4_cases["threefry_draw"]
+                              if c[0] == "randint"
+                              and isinstance(c[1][2], torch.Tensor)),
+        "node_gather": k1k4_cases["node_gather"][0],
+        "put_rows_": max(k1k4_cases["put_rows_"],
+                         key=lambda c: len(c[1][0]))}
+    k1k4 = k1k4_kernel_phase(wrappers, k_cases, k1k4_main, fused_launch)
+    del k_cases, k1k4_cases, k1k4_main, node_tree
+
     # ---- determinism and batch independence ---------------------------------
     # each runner twice on lanes 0..4095 alone, held against the same lanes
     # of the B=100,000 eager run: the eager runner at its first chunk, the
@@ -2116,6 +2640,7 @@ def main() -> int:
         for rep in range(2):
             rt4 = workloads.flagship_runtime(device=dev)
             s = rt4.init_batch(np.arange(DET_B, dtype=np.uint32))
+            per_det = step_launches(wrappers, rt4, s)
             reset_counts()
             t0 = time.perf_counter()
             if runner == "run":
@@ -2126,12 +2651,12 @@ def main() -> int:
             else:
                 s = rt4.run_fused(s, steps, chunk=FLAG_CHUNK)
                 torch.cuda.synchronize()
-                counts = fused_launches(rt4, read_counts(), names)
+                counts = fused_launches(rt4, read_counts(), every)
                 launched = rt4.steps_run + rt4.fused_stats["warmup_steps"]
             check(rt4.steps_run == steps,
                   f"determinism {runner}: {rt4.steps_run} steps")
             check_once_per_step(f"determinism {runner}", counts, launched,
-                                names)
+                                names, per_det)
             fps.append(fingerprints_once(rt4, s, f"determinism {runner}"))
             emit(phase="determinism", runner=runner, run=rep, batch=DET_B,
                  steps=rt4.steps_run, launches=counts,
@@ -2151,36 +2676,73 @@ def main() -> int:
     # ---- profile: where a flagship step's time goes, for each runner --------
     rt = workloads.flagship_runtime(device=dev)
     s = rt.init_batch(np.arange(FLAG_B, dtype=np.uint32))
+    expect = dict({k: 1 for k in names}, **per_flag)
     prof_eager = profile_steps(
-        lambda st, n: rt.run(st, n, chunk=n)[0], s, FLAG_B, names)
+        lambda st, n: rt.run(st, n, chunk=n)[0], s, FLAG_B, expect)
     emit(phase="profile", runner="run", paths="kernels", **prof_eager)
-    # the same steps on the parent's paths, for the split beside this one:
-    # the supervisor op and the Raft check as plain PyTorch on the card
+    # the same steps with the threefry draws and the node rows as plain
+    # PyTorch, in the same call (core/prng.py, the tree of
+    # select.take_row, the functional select.put_row: the step before
+    # those kernels)
     import madsim_tpu_torch.core.step as step_mod
     import madsim_tpu_torch.models.raft as raft_mod
+    from madsim_tpu_torch.core import prng
+    from madsim_tpu_torch.ops import node_rows as nr_mod
+    from madsim_tpu_torch.ops import select as sel_mod
+    from madsim_tpu_torch.ops import threefry as tf_mod
+    draws = ("split", "fold_in", "randint", "randint_raw", "uniform",
+             "bernoulli", "node_hash_key")
+    real_k = ({n: getattr(tf_mod, n) for n in draws},
+              nr_mod.node_gather, nr_mod.put_rows_)
+    for n in draws:
+        setattr(tf_mod, n, getattr(prng, n))
+    nr_mod.node_gather = nr_mod.node_gather_plain
+    nr_mod.put_rows_ = lambda writes: [sel_mod.put_row(*w) for w in writes]
+    try:
+        prof_plain_k = profile_steps(
+            lambda st, n: rt.run(st, n, chunk=n)[0], s, FLAG_B,
+            dict({k: 1 for k in names}, **{k: 0 for k in K1K4}))
+    finally:
+        for n, f in real_k[0].items():
+            setattr(tf_mod, n, f)
+        nr_mod.node_gather, nr_mod.put_rows_ = real_k[1:]
+    emit(phase="profile", runner="run",
+         paths="plain threefry draws and node rows",
+         **prof_plain_k)
+    # and with the supervisor op and the Raft check as plain PyTorch on
+    # the card (the step before those kernels)
     real = step_mod.apply_super, raft_mod.raft_invariant_check
     step_mod.apply_super = lambda plan, *a: apply_super_plain(
         plan.cfg, plan.spec_default, plan.persist_mask, *a)
     raft_mod.raft_invariant_check = raft_invariant_plain
+    expect_plain = dict({"emit_write": 1, "sched_pick": 1}, **per_flag)
     try:
         prof_plain = profile_steps(
             lambda st, n: rt.run(st, n, chunk=n)[0], s, FLAG_B,
-            ["emit_write", "sched_pick"])
+            expect_plain)
     finally:
         step_mod.apply_super, raft_mod.raft_invariant_check = real
     emit(phase="profile", runner="run",
-         paths="plain apply_super and raft_invariant (the parent's)",
+         paths="plain apply_super and raft_invariant",
          **prof_plain)
     del s, rt
     emit(phase="profile", runner="run_fused", trace_cap=64, **prof_fused)
-    check(prof_eager["kernel_launches"] == {k: PROF_STEPS for k in names},
-          f"profile run: traced launches {prof_eager['kernel_launches']} "
-          f"in {PROF_STEPS} steps")
-    check(prof_plain["kernel_launches"] == {"emit_write": PROF_STEPS,
-                                            "sched_pick": PROF_STEPS},
-          f"profile run (plain paths): traced launches "
-          f"{prof_plain['kernel_launches']} in {PROF_STEPS} steps")
-    for what, prof in (("kernels", prof_eager), ("plain paths", prof_plain)):
+    for what, prof in (("kernels", prof_eager),
+                       ("plain K1/K4", prof_plain_k)):
+        emit(phase="handler_split", runner="run", paths=what,
+             ms_per_step=prof["handler_split"],
+             sum_ms_per_step=prof["handler_split_ms_per_step"],
+             handlers_section_ms_per_step=prof["section_ms_per_step"][
+                 "handlers"] if prof["section_ms_per_step"] else None)
+    for what, prof, want in (
+            ("kernels", prof_eager, expect),
+            ("plain K1/K4", prof_plain_k,
+             dict({k: 1 for k in names}, **{k: 0 for k in K1K4})),
+            ("plain K3/K11", prof_plain, expect_plain)):
+        check(prof["kernel_launches"]
+              == {k: PROF_STEPS * n for k, n in want.items()},
+              f"profile run ({what}): traced launches "
+              f"{prof['kernel_launches']} in {PROF_STEPS} steps")
         busy = prof["device_busy_ms_per_step"]
         check(prof["section_ms_per_step"] is not None,
               f"profile run ({what}): no section range in the trace")
@@ -2224,7 +2786,14 @@ def main() -> int:
             ("apply_super", "madsim_tpu/core/step.py:1007",
              fused_launch["apply_super"], asup),
             ("fingerprint", "madsim_tpu/utils/hashing.py:43", fp_launches,
-             fpk))])
+             fpk))] + [
+        dict(name=k, route="cuda", source=f"madsim_tpu_torch/csrc/{src}",
+             replaces=where, launches=fused_launch[k], **k1k4[k])
+        for k, src, where in (
+            ("threefry_keys", "prng.cu", "madsim_tpu/core/prng.py:24"),
+            ("threefry_draw", "prng.cu", "madsim_tpu/core/prng.py:28"),
+            ("node_gather", "node_rows.cu", "madsim_tpu/ops/select.py:66"),
+            ("put_rows_", "node_rows.cu", "madsim_tpu/ops/select.py:76"))])
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

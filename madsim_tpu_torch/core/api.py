@@ -17,7 +17,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from . import prng
+from ..ops import threefry as tf
 from . import types as T
 
 
@@ -112,7 +112,7 @@ class Ctx:
         memo = ("split", id(self._key))
         hit = self._draws.get(memo)
         if hit is None:
-            ks = prng.split(self._key)
+            ks = tf.split(self._key)
             # the source key rides along so its id stays unique while cached
             hit = self._draws[memo] = (self._key, ks[:, 0], ks[:, 1])
         _, self._key, k = hit
@@ -122,18 +122,18 @@ class Ctx:
         """Uniform int32 in [lo, hi] inclusive, per lane."""
         k = self.rand_key()
         if not (isinstance(lo, int) and isinstance(hi, int)):
-            return prng.randint(k, lo, hi)
+            return tf.randint(k, lo, hi)
         memo = ("randint", id(k), lo, hi)
         hit = self._draws.get(memo)
         if hit is None:
-            hit = self._draws[memo] = (k, prng.randint(k, lo, hi))
+            hit = self._draws[memo] = (k, tf.randint(k, lo, hi))
         return hit[1]
 
     def uniform(self) -> torch.Tensor:
-        return prng.uniform(self.rand_key())
+        return tf.uniform(self.rand_key())
 
     def bernoulli(self, p) -> torch.Tensor:
-        return prng.bernoulli(self.rand_key(), p)
+        return tf.bernoulli(self.rand_key(), p)
 
     # -- per-node deterministic hash streams -------------------------------
     def hash_key(self, stream=0) -> torch.Tensor:
@@ -144,10 +144,10 @@ class Ctx:
                 "hash_key() needs the runtime's seed-derived hash base — "
                 "this Ctx was built without one; pass "
                 "hash_base=SimState.hash_base")
-        return prng.node_hash_key(self._hash_base, self.node, stream)
+        return tf.node_hash_key(self._hash_base, self.node, stream)
 
     def hash_randint(self, lo, hi, stream=0) -> torch.Tensor:
-        return prng.randint(self.hash_key(stream), lo, hi)
+        return tf.randint(self.hash_key(stream), lo, hi)
 
     # -- effects -----------------------------------------------------------
     def send(self, dst, tag, payload=None, *, when=True) -> None:

@@ -22,6 +22,7 @@ from typing import Any
 import torch
 
 from . import types as T
+from .device import resolve_device
 from .prng import u32
 
 # Observation-only fields: excluded from fingerprints (the JAX package's
@@ -176,12 +177,13 @@ def map_state(fn, state: SimState) -> SimState:
 
 
 def init_state(cfg: T.SimConfig, node_state: Any, ext_state: Any = None,
-               device="cpu") -> SimState:
+               device=None) -> SimState:
     """One lane's fresh state WITHOUT the lane axis (Runtime broadcasts it
     into a batch). `node_state` leaves already carry the leading [N] axis.
-    The key is the all-zero placeholder; init_batch writes each lane's."""
+    The key is the all-zero placeholder; init_batch writes each lane's.
+    `device`: CUDA unless another is named (core/device.py)."""
     C, P, N = cfg.event_capacity, cfg.payload_words, cfg.n_nodes
-    i32, b8, dev = torch.int32, torch.bool, device
+    i32, b8, dev = torch.int32, torch.bool, resolve_device(device)
     ti = torch.int16 if cfg.table_dtype == "int16" else i32
     tc = cfg.trace_cap_bucket
     lh = cfg.latency_hist

@@ -26,19 +26,29 @@ other leaf. The other observation planes (profiler, latency, spans,
 sketch, series) are not ported yet: `Runtime` refuses configs that
 enable them.
 
-The step writes the state it is given in place: the event table and the
-ring (section 4, `emit_write`: the rows emissions take and the one ring
-row) and, on CUDA, the supervisor op's edits (section 2, `apply_super`:
-the table rows a kill clears, the target's node vectors, the link
-matrix, the lane's network scalars and a booted node's protocol-state
-rows). Every other leaf of its result is a new tensor or one the step
-did not touch. So the step must own its input: the runners step a
-private copy of the caller's state (runtime/runtime.py `run`, and
-`run_fused`'s static buffers), and a direct call of the step function
-writes the caller's tensors.
+The step's threefry draws outside those kernels (the select's key
+split, the duplicate-delivery draws, the supervisor section's extension
+split, every handler draw) go through `ops/threefry.py` (the
+`threefry_keys` and `threefry_draw` kernels on CUDA), and its node-row
+slice and writes through `ops/node_rows.py` (`node_gather`, `put_rows_`).
+
+The step writes the state it is given in place: the popped event row's
+kind and deadline (`put_rows_`), the supervisor op's edits (section 2,
+on CUDA: `apply_super` writes the table rows a kill clears, the target's
+node vectors, the link matrix, the lane's network scalars and a booted
+node's protocol-state rows), with the recorder the acting node's Lamport
+clock, the acting node's protocol-state rows (the scatter, `put_rows_`),
+and the event table and ring (section 4, `emit_write`: the rows
+emissions take and the one ring row). Every other leaf of its result is
+a new tensor or one the step did not touch. So the step must own its
+input: the runners step a private copy of the caller's state
+(runtime/runtime.py `run`, and `run_fused`'s static buffers), and a
+direct call of the step function writes the caller's tensors. Handlers
+never write in place: every handler context reads the same slice.
 
 Each section runs inside a profiler range (`_section`), so a profile of
-the eager step splits its device time by section.
+the eager step splits its device time by section; the handlers section
+holds finer ranges (`_handler_range`).
 """
 
 from __future__ import annotations
@@ -50,13 +60,15 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from ..ops import node_rows as nr
 from ..ops import select as sel
+from ..ops import threefry as tf
 from ..ops.apply_super import SuperPlan, apply_super
 from ..ops.emit_write import RING_COLS, TABLE_COLS, drift, emit_write
 from ..ops.sched_pick import sched_pick
-from . import prng
 from . import types as T
 from .api import Ctx, Program
+from .device import resolve_device
 from .state import SimState, tree_map
 
 _I32 = torch.int32
@@ -72,12 +84,19 @@ def _where_tree(mask, new, old):
 
 
 def _slice_node(tree, node):
-    return tree_map(lambda a: sel.take_row(a, node), tree)
+    """Every node-state leaf at each lane's `node` (the node_gather
+    kernel): new tensors."""
+    return nr.node_gather(tree, node)
 
 
 def _scatter_node(tree, node, new, mask):
-    return tree_map(lambda full, val: sel.put_row(full, node, val, mask),
-                    tree, new)
+    """`new`'s rows into `tree` at each lane's `node` where `mask` holds,
+    IN PLACE (the put_rows_ kernel): the step owns its node state."""
+    pairs = []
+    tree_map(lambda full, val: pairs.append((full, node, val, mask)), tree,
+             new)
+    written = iter(nr.put_rows_(pairs))
+    return tree_map(lambda _: next(written), tree)
 
 
 # the step's sections, as profiler ranges "live_step.<name>": select, dup,
@@ -88,11 +107,18 @@ def _section(name: str):
     return record_function("live_step." + name)
 
 
+# ranges inside the handlers section, "live_handler.<name>": slice (the
+# acting node's slice and reads), p<i>.<kind> (program i's init,
+# on_message or on_timer), merge (the per-lane merge of their effects)
+def _handler_range(name: str):
+    return record_function("live_handler." + name)
+
+
 def make_step(cfg: T.SimConfig, programs: Sequence[Program],
               node_prog: np.ndarray, state_spec: Any,
               invariant: Callable | None = None, persist: Any = None,
               halt_when: Callable | None = None, extensions: Sequence = (),
-              device="cpu") -> Callable[[SimState], tuple]:
+              device=None) -> Callable[[SimState], tuple]:
     """Build the batched step function.
 
     Args:
@@ -106,11 +132,13 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
       persist: optional dict of bools matching state_spec; True leaves are
         stable storage and survive kill/restart.
       halt_when: optional `f(state) -> bool [B]` success condition.
-      device: where the step's constant tables live.
+      device: where the step's constant tables live: CUDA unless another
+        is named (core/device.py; with no GPU and no device, it raises).
 
     The step function writes its input in place (see the module
     docstring): hand it a state it may overwrite.
     """
+    device = resolve_device(device)
     node_prog = np.asarray(node_prog, np.int32)
     assert node_prog.shape == (cfg.n_nodes,)
     assert node_prog.min() >= 0 and node_prog.max() < len(programs)
@@ -133,7 +161,7 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
         # ---- 1. pick the next event (the sched_pick kernel) ------------
         with _section("select"):
             live = ~s.halted
-            keys = prng.split(s.key, 5)
+            keys = tf.split(s.key, 5)
             key = torch.where(live[:, None], keys[:, 0], s.key)
             k_sched = keys[:, 1].contiguous()
             k_super, k_handler, k_net = keys[:, 2], keys[:, 3], keys[:, 4]
@@ -157,31 +185,30 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
 
         # ---- duplicate delivery: both draws ride keys folded off k_sched
         with _section("dup"):
-            dup_keys = prng.fold_in(k_sched[:, None, :], dup_fold)
+            dup_keys = tf.fold_in(k_sched[:, None, :], dup_fold)
             dup_p = (sel.take1(s.dup_rate, ev_node).to(torch.float32)
                      * per_million)
             dup_fire = (valid & (ev_kind == T.EV_MSG)
-                        & prng.bernoulli(dup_keys[:, 0], dup_p))
+                        & tf.bernoulli(dup_keys[:, 0], dup_p))
 
             # pop the slot; the clock never runs backward
             now = torch.where(valid, torch.maximum(s.now, dmin), s.now)
             time_over = now > s.tlimit
             redeliver = now + torch.clamp(
-                prng.randint(dup_keys[:, 1], s.lat_lo, s.lat_hi), min=1)
+                tf.randint(dup_keys[:, 1], s.lat_lo, s.lat_hi), min=1)
             inf = torch.full_like(now, int(T.T_INF))
-            s = s.replace(
-                key=key, now=now, sched_hash=sched_hash,
-                t_kind=sel.put_row(s.t_kind, idx, T.EV_FREE,
-                                   valid & ~dup_fire),
-                t_deadline=sel.put_row(s.t_deadline, idx,
-                                       torch.where(dup_fire, redeliver, inf),
-                                       valid))
+            t_kind, t_deadline = nr.put_rows_([
+                (s.t_kind, idx, T.EV_FREE, valid & ~dup_fire),
+                (s.t_deadline, idx, torch.where(dup_fire, redeliver, inf),
+                 valid)])
+            s = s.replace(key=key, now=now, sched_hash=sched_hash,
+                          t_kind=t_kind, t_deadline=t_deadline)
 
         # ---- 2. supervisor op (the apply_super kernel) -------------------
         with _section("super"):
             is_super = valid & (ev_kind == T.EV_SUPER)
             op = torch.where(is_super, ev_tag, torch.zeros_like(ev_tag))
-            ext_keys = prng.split(k_super, 1 + max(len(extensions), 1))
+            ext_keys = tf.split(k_super, 1 + max(len(extensions), 1))
             s, init_node, reset_target, reset_mask = apply_super(
                 super_plan, s, op, ev_node_raw.contiguous(),
                 ev_src.contiguous(), ev_payload,
@@ -202,69 +229,77 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
                 lam_node = torch.where(is_super, reset_target, ev_node)
                 ev_lamport = torch.maximum(sel.take1(s.lamport, lam_node),
                                            prov[:, 1]) + 1
-                s = s.replace(lamport=sel.put_row(s.lamport, lam_node,
-                                                  ev_lamport, valid))
+                (lamport,) = nr.put_rows_([(s.lamport, lam_node, ev_lamport,
+                                            valid)])
+                s = s.replace(lamport=lamport)
 
         # ---- 3. protocol handler dispatch -------------------------------
         with _section("handlers"):
-            node_ok = (sel.take1(s.alive, ev_node)
-                       & ~sel.take1(s.paused, ev_node))
-            is_msg = valid & (ev_kind == T.EV_MSG) & node_ok
-            is_timer = valid & (ev_kind == T.EV_TIMER) & node_ok
-            is_init = init_node >= 0
-            dropped = valid & (ev_kind == T.EV_MSG) & ~node_ok
-            h_node = torch.where(is_init, torch.clamp(init_node, 0, N - 1),
-                                 ev_node)
-            base_slice = _slice_node(s.node_state, h_node)
+            with _handler_range("slice"):
+                node_ok = (sel.take1(s.alive, ev_node)
+                           & ~sel.take1(s.paused, ev_node))
+                is_msg = valid & (ev_kind == T.EV_MSG) & node_ok
+                is_timer = valid & (ev_kind == T.EV_TIMER) & node_ok
+                is_init = init_node >= 0
+                dropped = valid & (ev_kind == T.EV_MSG) & ~node_ok
+                h_node = torch.where(is_init,
+                                     torch.clamp(init_node, 0, N - 1),
+                                     ev_node)
+                base_slice = _slice_node(s.node_state, h_node)
 
-            # gray-failure reads: the acting node's clock skew, disk stall
-            sk_h = sel.take1(s.skew, h_node)
-            h_now = s.now + drift(s.now, sk_h)
-            dlat_h = sel.take1(s.disk_lat, h_node)
+                # gray-failure reads: the acting node's clock skew, disk
+                # stall
+                sk_h = sel.take1(s.skew, h_node)
+                h_now = s.now + drift(s.now, sk_h)
+                dlat_h = sel.take1(s.disk_lat, h_node)
+                h_prog = sel.take1(node_prog_t, h_node)
+                pmasks = [h_prog == p for p in range(len(programs))]
 
             combos = []  # (mask, ctx) pairs; masks are mutually exclusive
             draws: dict = {}   # handler draw memo (see Ctx)
-            h_prog = sel.take1(node_prog_t, h_node)
             for p_idx, prog in enumerate(programs):
-                pmask = h_prog == p_idx
-                for hkind, run in (
-                        (is_init, lambda c: prog.init(c)),
-                        (is_msg, lambda c: prog.on_message(
+                for kind, hkind, run in (
+                        ("init", is_init, lambda c: prog.init(c)),
+                        ("on_message", is_msg, lambda c: prog.on_message(
                             c, ev_src, ev_tag, ev_payload)),
-                        (is_timer, lambda c: prog.on_timer(c, ev_tag,
-                                                           ev_payload))):
-                    ctx = Ctx(cfg, h_node, h_now, k_handler, base_slice,
-                              hash_base=s.hash_base, draws=draws)
-                    run(ctx)
-                    combos.append((hkind & pmask, ctx))
+                        ("on_timer", is_timer, lambda c: prog.on_timer(
+                            c, ev_tag, ev_payload))):
+                    with _handler_range(f"p{p_idx}.{kind}"):
+                        ctx = Ctx(cfg, h_node, h_now, k_handler, base_slice,
+                                  hash_base=s.hash_base, draws=draws)
+                        run(ctx)
+                        combos.append((hkind & pmasks[p_idx], ctx))
 
-            any_h = functools.reduce(torch.logical_or,
-                                     [m for m, _ in combos])
-            new_slice = base_slice
-            zb = torch.zeros(B, dtype=torch.bool, device=dev)
-            zi = torch.zeros(B, dtype=_I32, device=dev)
-            crash, crash_code, halt_req = zb, zi, zb
-            n_sends = max((len(c._sends) for _, c in combos), default=0)
-            n_timers = max((len(c._timers) for _, c in combos), default=0)
-            n_cancels = max((len(c._cancels) for _, c in combos), default=0)
-            zp = torch.zeros((B, P), dtype=_I32, device=dev)
-            sends = [dict(m=zb, dst=zi, tag=zi, payload=zp)
-                     for _ in range(n_sends)]
-            timers = [dict(m=zb, delay=zi, tag=zi, payload=zp)
-                      for _ in range(n_timers)]
-            cancels = [dict(m=zb, tag=zi) for _ in range(n_cancels)]
-            for m, ctx in combos:
-                new_slice = _where_tree(m, ctx.state, new_slice)
-                crash = crash | (m & ctx._crash)
-                crash_code = torch.where(m & ctx._crash, ctx._crash_code,
-                                         crash_code)
-                halt_req = halt_req | (m & ctx._halt)
-                for staged, effects in ((sends, ctx._sends),
-                                        (timers, ctx._timers),
-                                        (cancels, ctx._cancels)):
-                    for j, e in enumerate(effects):
-                        e = dict(e, m=e["m"] & m)
-                        staged[j] = _where_tree(m, e, staged[j])
+            with _handler_range("merge"):
+                any_h = functools.reduce(torch.logical_or,
+                                         [m for m, _ in combos])
+                new_slice = base_slice
+                zb = torch.zeros(B, dtype=torch.bool, device=dev)
+                zi = torch.zeros(B, dtype=_I32, device=dev)
+                crash, crash_code, halt_req = zb, zi, zb
+                n_sends = max((len(c._sends) for _, c in combos), default=0)
+                n_timers = max((len(c._timers) for _, c in combos),
+                               default=0)
+                n_cancels = max((len(c._cancels) for _, c in combos),
+                                default=0)
+                zp = torch.zeros((B, P), dtype=_I32, device=dev)
+                sends = [dict(m=zb, dst=zi, tag=zi, payload=zp)
+                         for _ in range(n_sends)]
+                timers = [dict(m=zb, delay=zi, tag=zi, payload=zp)
+                          for _ in range(n_timers)]
+                cancels = [dict(m=zb, tag=zi) for _ in range(n_cancels)]
+                for m, ctx in combos:
+                    new_slice = _where_tree(m, ctx.state, new_slice)
+                    crash = crash | (m & ctx._crash)
+                    crash_code = torch.where(m & ctx._crash, ctx._crash_code,
+                                             crash_code)
+                    halt_req = halt_req | (m & ctx._halt)
+                    for staged, effects in ((sends, ctx._sends),
+                                            (timers, ctx._timers),
+                                            (cancels, ctx._cancels)):
+                        for j, e in enumerate(effects):
+                            e = dict(e, m=e["m"] & m)
+                            staged[j] = _where_tree(m, e, staged[j])
 
         with _section("scatter"):
             s = s.replace(node_state=_scatter_node(s.node_state, h_node,

@@ -50,6 +50,7 @@ from ..core import prng
 from ..core import types as T
 from ..core.state import tree_map
 from . import select as sel
+from . import threefry as tf
 
 _I32 = torch.int32
 MAX_N = 32        # a lane's node pool is one 32-bit mask
@@ -61,9 +62,11 @@ STREAM_LEAVES = ("sx_seq", "sx_base", "sx_val", "sr_next", "sr_val",
                  "sr_have", "st_epoch")
 
 
-def _torn_flush(ns, target, tearing, k_tear):
+def _torn_flush(ns, target, tearing, k_tear, rng=prng):
     """A KILL of a live torn-mode node flushes a random prefix of each
-    file's unsynced tail into the durable view (`tearing` [B] lanes)."""
+    file's unsynced tail into the durable view (`tearing` [B] lanes).
+    `rng` draws: core/prng.py for the plain version, ops/threefry.py (the
+    K1 kernels on CUDA) on the kernel's path."""
     dev = target.device
     mem_t = sel.take_row(ns["fs_mem"], target)      # [B, F, S]
     mlen_t = sel.take_row(ns["fs_mlen"], target)    # [B, F]
@@ -71,7 +74,7 @@ def _torn_flush(ns, target, tearing, k_tear):
     dlen_t = sel.take_row(ns["fs_dlen"], target)
     F, S = mem_t.shape[1:]
     gap = torch.clamp(mlen_t - dlen_t, min=0)
-    draw = prng.randint_raw(k_tear, 0, 2 ** 30, (F,))
+    draw = rng.randint_raw(k_tear, 0, 2 ** 30, (F,))
     cut = dlen_t + torch.remainder(draw, gap + 1)
     ws = torch.arange(S, dtype=_I32, device=dev)
     flushed = ((ws >= dlen_t[..., None]) & (ws < cut[..., None]))
@@ -308,12 +311,13 @@ def _remainder(plan, s, op, key, init_node, target, reset_mask, effective,
                pre_tear):
     """The kernel path's plain edits: the torn-write flush from the
     pre-op `alive & torn` (then the reset of the fs leaves the kernel left
-    alone), and the reset-peer tear."""
+    alone), and the reset-peer tear. The flush draws through
+    ops/threefry.py, so on CUDA its draws are the K1 kernels."""
     ns = dict(s.node_state)
     if plan.fs:
         kill = reset_mask & (op != T.OP_INIT)
         tearing = kill & sel.take1(pre_tear, target)
-        ns = _torn_flush(ns, target, tearing, prng.split(key, 2)[:, 1])
+        ns = _torn_flush(ns, target, tearing, tf.split(key, 2)[:, 1], tf)
         boot = init_node >= 0
         for k in plan.fs_reset:
             ns[k] = sel.put_row(ns[k], target,

@@ -1,6 +1,6 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one `csrc/<name>.cu` with a plain C entry point, compiled
+Each library is one `csrc/<name>.cu` with plain C entry points, compiled
 by `nvcc` for Hopper (`sm_90a`) into a shared library and loaded with
 ctypes — seconds to build, where an extension that includes PyTorch's
 headers takes minutes. Sources include the shared device headers of
@@ -22,11 +22,13 @@ import subprocess
 import tempfile
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-# kernel name -> source file under csrc/
+# library name -> source file under csrc/
 SOURCES = {
     "sched_pick": "sched_pick.cu",
     "emit_write": "emit_write.cu",
@@ -36,7 +38,13 @@ SOURCES = {
     "raft_invariant": "raft_invariant.cu",
     "apply_super": "apply_super.cu",
     "fingerprint": "fingerprint.cu",
+    "prng": "prng.cu",
+    "node_rows": "node_rows.cu",
 }
+
+# kernel (wrapper) name -> its library, where the two names differ
+LIBRARY = {"threefry_keys": "prng", "threefry_draw": "prng",
+           "node_gather": "node_rows", "put_rows_": "node_rows"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -107,14 +115,69 @@ def build_all(names=None, force: bool = False) -> dict:
     return report
 
 
+def library(kernel: str) -> str:
+    """The library (a key of SOURCES) that holds kernel `kernel`."""
+    return LIBRARY.get(kernel, kernel)
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, built first if needed."""
+    """The loaded library `name`, built first if needed."""
     lib = _LIBS.get(name)
     if lib is None:
         build_all([name])
         lib = ctypes.CDLL(lib_path(name))
         _LIBS[name] = lib
     return lib
+
+
+def on_cpu(t, what: str) -> bool:
+    """True for a tensor on the CPU (a wrapper's plain version), False
+    for CUDA (its kernel); any other device raises."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return False
+
+
+class CKernel:
+    """One kernel of a csrc library behind ctypes: its C entry point
+    `<symbol>_launch(const Params*, stream)` and its launch counts.
+    `launches` counts kernel launches (and nothing else); `captured`
+    counts launches recorded into a CUDA graph."""
+
+    def __init__(self, lib: str, symbol: str, params):
+        self.lib, self.symbol, self.params = lib, symbol, params
+        self.launches = 0
+        self.captured = 0
+        self._fn = None
+
+    def _kernel(self):
+        if self._fn is None:
+            fn = getattr(load(self.lib), self.symbol + "_launch")
+            fn.argtypes = [ctypes.POINTER(self.params), ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def _launch(self, p, dev: torch.device) -> None:
+        """Launch on `dev`'s current stream; raise if the launch fails.
+        A non-CUDA device reaches here only with a stand-in launcher in
+        `_fn` (the CPU tests' host-memory emulation of the kernel)."""
+        fn = self._kernel()
+        if dev.type == "cuda":
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            with torch.cuda.device(dev):
+                err = fn(ctypes.byref(p), stream)
+        else:
+            err = fn(ctypes.byref(p), None)
+        if err != 0:
+            raise RuntimeError(f"{self.symbol}: kernel launch failed "
+                               f"(cudaError {err})")
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            self.captured += 1
+        else:
+            self.launches += 1
 
 
 def wrappers() -> dict:
@@ -126,10 +189,14 @@ def wrappers() -> dict:
     from .coverage import coverage_digest
     from .emit_write import emit_write
     from .mutate import mutate_batch
+    from .node_rows import node_gather, put_rows_
     from .raft_invariant import raft_invariant_check
     from .sched_pick import sched_pick
+    from .threefry import threefry_draw, threefry_keys
     return {"sched_pick": sched_pick, "emit_write": emit_write,
             "mutate": mutate_batch, "apply_knobs": apply_knobs,
             "coverage_digest": coverage_digest,
             "raft_invariant": raft_invariant_check,
-            "apply_super": apply_super, "fingerprint": fingerprint}
+            "apply_super": apply_super, "fingerprint": fingerprint,
+            "threefry_keys": threefry_keys, "threefry_draw": threefry_draw,
+            "node_gather": node_gather, "put_rows_": put_rows_}

@@ -1,0 +1,270 @@
+"""The step's per-lane row gather and in-place row write (K4):
+`node_gather` and `put_rows_`, hand-written CUDA kernels
+(csrc/node_rows.cu), and their plain PyTorch versions.
+
+They replace the JAX package's one-hot row slice and scatter
+(madsim_tpu/ops/select.py:66 `take_row`, :76 `put_row`;
+madsim_tpu/core/step.py:69 `_slice_node`, :73 `_scatter_node`) where the
+step applies them to state it owns:
+
+    node_gather(tree, idx)   every leaf [B, R, ...] of `tree` at row
+                             idx [B] (clamped into range) -> [B, ...],
+                             in one launch (the acting node's slice)
+    put_rows_(writes)        for each (mat, idx, val, mask) of `writes`,
+                             mat[b, idx[b]] = val's row b (or the scalar
+                             val) where mask[b] holds, IN PLACE, up to 16
+                             tensors a launch (the node scatter, the dup
+                             pop's two table columns, the Lamport write);
+                             an out-of-range idx writes nothing, as
+                             `select.put_row` does. Returns the tensors
+                             it wrote, in order.
+
+`node_gather_plain` is the tree of `select.take_row`; `put_rows_plain`
+is `mat[b, idx] = where(mask, val, mat[b, idx])`, held equal to the
+functional `select.put_row`. Handlers keep `select.put_row`: they edit
+slices that every handler context of a step shares, where an in-place
+write would leak one handler's edits into another's.
+
+The wrappers take the plain versions only for tensors on the CPU; for
+CUDA tensors they launch the kernels or raise. Their tables (pointers,
+row sizes, element sizes, a scalar's bits) ride in the parameter block,
+so a CUDA-graph capture holds the step's own buffers. `launches` counts
+kernel launches; a launch recorded into a CUDA graph counts in
+`captured` instead.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..core.state import tree_map
+from . import select as sel
+from .kernels import CKernel, on_cpu
+
+_I32 = torch.int32
+MAX_GATHER = 48    # leaves a node_gather launch (csrc kMaxGather)
+MAX_PUT = 16       # entries a put_rows launch (csrc kMaxPut)
+
+
+def _leaves(tree) -> list:
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def _rebuild(tree, values):
+    it = iter(values)
+    return tree_map(lambda _: next(it), tree)
+
+
+def node_gather_plain(tree, idx: torch.Tensor):
+    """Every leaf [B, R, ...] at its row idx [B] (clamped) -> [B, ...]."""
+    return tree_map(lambda a: sel.take_row(a, idx), tree)
+
+
+def _put_row_plain(mat, idx, val, mask):
+    B, R = mat.shape[:2]
+    i = idx.to(torch.int64)
+    ok = (i >= 0) & (i < R)
+    if mask is not True:
+        ok = ok & mask
+    lanes = torch.arange(B, device=mat.device)
+    safe = i.clamp(0, R - 1)
+    old = mat[lanes, safe]
+    if isinstance(val, torch.Tensor):
+        val = val.to(mat.dtype)
+    ok = ok.reshape((B,) + (1,) * (old.ndim - 1))
+    mat[lanes, safe] = torch.where(ok, val, old)
+    return mat
+
+
+def put_rows_plain(writes) -> list:
+    """The writes of `put_rows_`, in place, in plain PyTorch."""
+    return [mat if mask is False else _put_row_plain(mat, idx, val, mask)
+            for mat, idx, val, mask in writes]
+
+
+class _GatherLeaf(ctypes.Structure):
+    """csrc/node_rows.cu `GatherLeaf`, field for field."""
+    _fields_ = [("src", ctypes.c_void_p), ("dst", ctypes.c_void_p),
+                ("row", ctypes.c_int64), ("esize", ctypes.c_int32),
+                ("first_block", ctypes.c_int32)]
+
+
+class _GatherParams(ctypes.Structure):
+    """csrc/node_rows.cu `GatherParams`, field for field."""
+    _fields_ = [("idx", ctypes.c_void_p),
+                ("leaves", _GatherLeaf * MAX_GATHER),
+                ("B", ctypes.c_int64), ("R", ctypes.c_int32),
+                ("n_leaves", ctypes.c_int32), ("n_blocks", ctypes.c_int32),
+                ("pad", ctypes.c_int32)]
+
+
+class _PutRow(ctypes.Structure):
+    """csrc/node_rows.cu `PutRow`, field for field."""
+    _fields_ = [("dst", ctypes.c_void_p), ("src", ctypes.c_void_p),
+                ("idx", ctypes.c_void_p), ("mask", ctypes.c_void_p),
+                ("row", ctypes.c_int64), ("src_sb", ctypes.c_int64),
+                ("value", ctypes.c_uint64), ("R", ctypes.c_int32),
+                ("esize", ctypes.c_int32), ("first_block", ctypes.c_int32),
+                ("pad", ctypes.c_int32)]
+
+
+class _PutParams(ctypes.Structure):
+    """csrc/node_rows.cu `PutParams`, field for field."""
+    _fields_ = [("rows", _PutRow * MAX_PUT), ("B", ctypes.c_int64),
+                ("n", ctypes.c_int32), ("n_blocks", ctypes.c_int32)]
+
+
+_NP_DTYPES = {torch.bool: np.bool_, torch.uint8: np.uint8,
+              torch.int8: np.int8, torch.int16: np.int16,
+              torch.int32: np.int32, torch.int64: np.int64,
+              torch.float16: np.float16, torch.float32: np.float32,
+              torch.float64: np.float64}
+
+
+def _scalar_bits(value, dtype: torch.dtype) -> int:
+    """The bits of a Python scalar stored as `dtype`, as an unsigned int
+    (what `torch.where(mask, value, mat)` would store)."""
+    if dtype not in _NP_DTYPES:
+        raise NotImplementedError(f"put_rows_: no scalar write into "
+                                  f"{dtype}")
+    a = np.array(value).astype(_NP_DTYPES[dtype])
+    return int(a.view(f"u{a.itemsize}"))
+
+
+def _index(idx, B, dev, what):
+    if not isinstance(idx, torch.Tensor) or idx.device != dev \
+            or tuple(idx.shape) != (B,):
+        raise ValueError(f"{what}: the row index must be a [B] tensor on "
+                         f"{dev}")
+    return idx.to(_I32).contiguous()
+
+
+def _check_table(name, t, dev, what):
+    if t.device != dev:
+        raise ValueError(f"{what}: {name} is on {t.device}, expected {dev}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: {name} must be contiguous")
+    if t.element_size() not in (1, 2, 4, 8):
+        raise NotImplementedError(f"{what}: {name} has {t.dtype}")
+
+
+class _NodeGather(CKernel):
+    """Callable wrapper: CPU tensors -> `node_gather_plain`; CUDA tensors
+    -> the kernel."""
+
+    def __init__(self):
+        super().__init__("node_rows", "node_gather", _GatherParams)
+
+    def __call__(self, tree, idx: torch.Tensor):
+        if on_cpu(idx, "node_gather"):
+            return node_gather_plain(tree, idx)
+        return self.run(tree, idx)
+
+    def run(self, tree, idx: torch.Tensor):
+        """The kernel's path, on any device (the CPU tests hand it a
+        stand-in launcher)."""
+        dev = idx.device
+        leaves = _leaves(tree)
+        if not leaves:
+            return tree
+        B, R = leaves[0].shape[:2]
+        idx = _index(idx, B, dev, "node_gather")
+        outs, todo = [], []
+        for i, t in enumerate(leaves):
+            _check_table(f"leaf {i}", t, dev, "node_gather")
+            if tuple(t.shape[:2]) != (B, R):
+                raise ValueError(f"node_gather: leaf {i} is "
+                                 f"{tuple(t.shape)}, not [{B}, {R}, ...]")
+            out = torch.empty((B,) + tuple(t.shape[2:]), dtype=t.dtype,
+                              device=dev)
+            outs.append(out)
+            if out.numel():
+                todo.append((t, out))
+        for at in range(0, len(todo), MAX_GATHER):
+            p = _GatherParams(idx=idx.data_ptr(), B=B, R=R)
+            for i, (t, out) in enumerate(todo[at:at + MAX_GATHER]):
+                p.leaves[i] = _GatherLeaf(t.data_ptr(), out.data_ptr(),
+                                          out.numel() // B,
+                                          t.element_size())
+            p.n_leaves = min(MAX_GATHER, len(todo) - at)
+            self._launch(p, dev)
+        return _rebuild(tree, outs)
+
+
+class _PutRows(CKernel):
+    """Callable wrapper: CPU tensors -> `put_rows_plain`; CUDA tensors ->
+    the kernel (in place either way)."""
+
+    def __init__(self):
+        super().__init__("node_rows", "put_rows", _PutParams)
+
+    def __call__(self, writes) -> list:
+        writes = list(writes)
+        if not writes or on_cpu(writes[0][0], "put_rows_"):
+            return put_rows_plain(writes)
+        return self.run(writes)
+
+    def _entry(self, mat, idx, val, mask):
+        dev = mat.device
+        B, R = mat.shape[:2]
+        _check_table("a written tensor", mat, dev, "put_rows_")
+        row = mat[0, 0].numel() if B and R else 0
+        ix = _index(idx, B, dev, "put_rows_")
+        w = _PutRow(dst=mat.data_ptr(), idx=ix.data_ptr(), row=row, R=R,
+                    esize=mat.element_size())
+        keep = [ix]      # operands made here live until the launch
+        if mask is not True:
+            if mask.dtype != torch.bool or tuple(mask.shape) != (B,) \
+                    or mask.device != dev:
+                raise ValueError("put_rows_: a mask is a [B] bool tensor "
+                                 f"on {dev}")
+            mask = mask.contiguous()
+            keep.append(mask)
+            w.mask = mask.data_ptr()
+        if isinstance(val, torch.Tensor):
+            if val.device != dev:
+                raise ValueError(f"put_rows_: a row source is on "
+                                 f"{val.device}, expected {dev}")
+            v = val if val.dtype == mat.dtype else val.to(mat.dtype)
+            v = v.expand((B,) + tuple(mat.shape[2:])).reshape(B, row)
+            if row > 1 and v.stride(1) != 1:
+                v = v.contiguous()
+            keep.append(v)
+            w.src, w.src_sb = v.data_ptr(), v.stride(0)
+        else:
+            w.value = _scalar_bits(val, mat.dtype)
+        return w, keep
+
+    def run(self, writes) -> list:
+        """The kernel's path, on any device (the CPU tests hand it a
+        stand-in launcher)."""
+        dev = writes[0][0].device
+        B = writes[0][0].shape[0]
+        todo = []
+        for mat, idx, val, mask in writes:
+            if mask is False or mat.numel() == 0:
+                continue
+            if mat.device != dev or mat.shape[0] != B:
+                raise ValueError("put_rows_: every written tensor is "
+                                 f"[{B}, R, ...] on {dev}")
+            todo.append(self._entry(mat, idx, val, mask))
+        dsts = [w.dst for w, _ in todo]
+        if len(set(dsts)) != len(dsts):
+            raise ValueError("put_rows_: one tensor written twice in one "
+                             "call (the kernel's writes are unordered)")
+        for at in range(0, len(todo), MAX_PUT):
+            p = _PutParams(B=B)
+            for i, (w, _) in enumerate(todo[at:at + MAX_PUT]):
+                p.rows[i] = w
+            p.n = min(MAX_PUT, len(todo) - at)
+            self._launch(p, dev)
+        return [mat for mat, _, _, _ in writes]
+
+
+node_gather = _NodeGather()
+put_rows_ = _PutRows()

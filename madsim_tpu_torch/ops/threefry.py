@@ -1,0 +1,307 @@
+"""The threefry draws of the step and the handlers (K1): `threefry_keys`
+and `threefry_draw`, hand-written CUDA kernels (csrc/prng.cu), behind the
+functions of `core/prng.py`'s signatures and broadcasting.
+
+They replace the JAX package's threefry draws (madsim_tpu/core/prng.py
+:24 `split`, :28 `randint`, :35 `uniform`, :39 `bernoulli`, :49
+`node_hash_key`, and `jax.random.fold_in`) where the step draws outside
+a kernel: the select's 5-way split, the duplicate-delivery `fold_in`,
+`bernoulli` and `randint`, the supervisor section's extension split, and
+every `Ctx` draw of the handlers (core/api.py).
+
+    split(key, n)                  [..., 2] -> [..., n, 2]
+    fold_in(key, data)             one word (an int, or a tensor
+                                   broadcastable against the key batch)
+    randint_raw(key, lo, hi, shape)  int32 in [lo, hi), shape () or more
+    randint(key, lo, hi)           int32 in [lo, hi] inclusive
+    uniform(key)                   float32 in [0, 1)
+    bernoulli(key, p)              uniform(key) < p, in float32
+    node_hash_key(seed_or_key, node, stream)
+
+On CPU tensors each function is `core/prng.py`'s own, which stays the
+plain version: the kernels' plain references (the plain supervisor op,
+emission write, mutator and `masked_choice`) call it directly and never
+come here. On CUDA tensors they launch the kernels; on any other device,
+and on a kernel that fails to build or launch, they raise. Nothing falls
+back to the plain version.
+
+A kernel sees each operand as a [M, W] grid over strided memory, W the
+output batch's last axis and M the rest: the wrapper broadcasts the key,
+the fold words, the bounds and p to the output batch as views (a stride
+of 0 where an operand is broadcast) and hands the kernel their pointers
+and strides, so the step's strided key slices and broadcast bounds cost
+no copy. Python ints and floats go by value in the parameter block, so a
+draw inside a CUDA-graph capture builds no host tensor (ROADMAP F4, F7).
+
+`threefry_keys.launches` and `threefry_draw.launches` count kernel
+launches (and nothing else); a launch recorded into a CUDA graph counts
+in `captured` instead.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+
+from ..core import prng
+from .kernels import CKernel, on_cpu
+
+_I32 = torch.int32
+MODE_RANDINT, MODE_UNIFORM, MODE_BERNOULLI = 0, 1, 2
+
+
+def _word(value: int) -> int:
+    """A uint32 constant as the int32 value with the same bits."""
+    value = int(value) & 0xFFFFFFFF
+    return value - (1 << 32) if value >= (1 << 31) else value
+
+
+class _Operand(ctypes.Structure):
+    """csrc/prng.cu `Operand`, field for field."""
+    _fields_ = [("ptr", ctypes.c_void_p), ("sm", ctypes.c_int64),
+                ("sw", ctypes.c_int64)]
+
+
+class _KeysParams(ctypes.Structure):
+    """csrc/prng.cu `KeysParams`, field for field."""
+    _fields_ = [("key", _Operand), ("data", _Operand),
+                ("out", ctypes.c_void_p), ("word", ctypes.c_int32),
+                ("M", ctypes.c_int32), ("W", ctypes.c_int32),
+                ("n", ctypes.c_int32)]
+
+
+class _DrawParams(ctypes.Structure):
+    """csrc/prng.cu `DrawParams`, field for field."""
+    _fields_ = [("key", _Operand), ("lo", _Operand), ("hi", _Operand),
+                ("out", ctypes.c_void_p), ("lo_val", ctypes.c_int32),
+                ("hi_val", ctypes.c_int32), ("p_val", ctypes.c_float),
+                ("M", ctypes.c_int32), ("W", ctypes.c_int32),
+                ("F", ctypes.c_int32), ("mode", ctypes.c_int32),
+                ("inclusive", ctypes.c_int32)]
+
+
+def _grid(shape: tuple) -> tuple[int, int]:
+    """(M, W) of an output batch: W its last axis, M the others."""
+    if not shape:
+        return 1, 1
+    return math.prod(shape[:-1]), shape[-1]
+
+
+def _grid_view(t: torch.Tensor, shape: tuple, pair: bool) -> torch.Tensor:
+    """`t` broadcast to the batch `shape` (and its key pair axis) as a
+    [M, W(, 2)] view: stride 0 along a broadcast axis; a copy only where
+    the batch axes cannot merge or a pair is not adjacent words."""
+    tail = (2,) if pair else ()
+    full = t.expand(tuple(shape) + tail).reshape(_grid(shape) + tail)
+    if pair and full.stride(-1) != 1:
+        full = full.contiguous()
+    return full
+
+
+def _operand(view: torch.Tensor | None) -> _Operand:
+    if view is None:
+        return _Operand(None, 0, 0)
+    return _Operand(view.data_ptr(), view.stride(0), view.stride(1))
+
+
+def _check_key(key: torch.Tensor, what: str) -> None:
+    if key.dtype != _I32:
+        raise TypeError(f"threefry.{what}: keys are int32 bit patterns, "
+                        f"got {key.dtype}")
+    if key.ndim < 1 or key.shape[-1] != 2:
+        raise ValueError(f"threefry.{what}: keys are [..., 2], got "
+                         f"{tuple(key.shape)}")
+
+
+class _ThreefryKeys(CKernel):
+    """`split` and `fold_in` on the kernel (any device the caller hands
+    it; the module's functions send only CUDA tensors here)."""
+
+    def __init__(self):
+        super().__init__("prng", "threefry_keys", _KeysParams)
+
+    def split(self, key: torch.Tensor, n: int = 2) -> torch.Tensor:
+        _check_key(key, "split")
+        shape = tuple(key.shape[:-1])
+        M, W = _grid(shape)
+        out = torch.empty((M, W, n, 2), dtype=_I32, device=key.device)
+        if M * W and n:
+            kview = _grid_view(key, shape, True)    # alive until launched
+            p = _KeysParams(key=_operand(kview), data=_operand(None),
+                            out=out.data_ptr(), word=0, M=M, W=W, n=n)
+            self._launch(p, key.device)
+        return out.reshape(shape + (n, 2))
+
+    def fold_in(self, key: torch.Tensor, data) -> torch.Tensor:
+        _check_key(key, "fold_in")
+        word, dview = 0, None
+        shape = tuple(key.shape[:-1])
+        if isinstance(data, torch.Tensor):
+            data = data if data.dtype == _I32 else data.to(_I32)
+            shape = tuple(torch.broadcast_shapes(shape, data.shape))
+            dview = _grid_view(data, shape, False)
+        else:
+            word = _word(data)
+        M, W = _grid(shape)
+        out = torch.empty((M, W, 2), dtype=_I32, device=key.device)
+        if M * W:
+            kview = _grid_view(key, shape, True)    # alive until launched
+            p = _KeysParams(key=_operand(kview), data=_operand(dview),
+                            out=out.data_ptr(), word=word, M=M, W=W, n=0)
+            self._launch(p, key.device)
+        return out.reshape(shape + (2,))
+
+
+def _bound(x, dev, what):
+    """(int32 view source, value): a tensor bound, or an int by value."""
+    if isinstance(x, torch.Tensor):
+        if x.device != dev:
+            raise ValueError(f"threefry.{what}: bound on {x.device}, keys "
+                             f"on {dev}")
+        return (x if x.dtype == _I32 else x.to(_I32)), 0
+    return None, _word(x)
+
+
+class _ThreefryDraw(CKernel):
+    """`randint_raw`, `uniform` and `bernoulli` on the kernel."""
+
+    def __init__(self):
+        super().__init__("prng", "threefry_draw", _DrawParams)
+
+    def _run(self, key, mode, shape, F, out_dtype, lo=None, hi=None,
+             lo_val=0, hi_val=0, p_val=0.0, inclusive=False):
+        M, W = _grid(shape)
+        out = torch.empty((M, W, F), dtype=out_dtype, device=key.device)
+        if M * W * F:
+            # the views (copies where strides cannot merge) stay alive
+            # until the launch
+            views = [None if t is None else _grid_view(t, shape, pair)
+                     for t, pair in ((key, True), (lo, False), (hi, False))]
+            p = _DrawParams(
+                key=_operand(views[0]), lo=_operand(views[1]),
+                hi=_operand(views[2]),
+                out=out.data_ptr(), lo_val=lo_val, hi_val=hi_val,
+                p_val=p_val, M=M, W=W, F=F, mode=mode,
+                inclusive=int(inclusive))
+            self._launch(p, key.device)
+        return out
+
+    def randint(self, key, minval, maxval, shape: tuple = (),
+                inclusive: bool = False) -> torch.Tensor:
+        _check_key(key, "randint")
+        lo, lo_val = _bound(minval, key.device, "randint")
+        hi, hi_val = _bound(maxval, key.device, "randint")
+        batch = torch.broadcast_shapes(
+            key.shape[:-1], *(t.shape for t in (lo, hi) if t is not None))
+        shape = tuple(shape)
+        out = self._run(key, MODE_RANDINT, tuple(batch), math.prod(shape),
+                        _I32, lo, hi, lo_val, hi_val, inclusive=inclusive)
+        return out.reshape(tuple(batch) + shape)
+
+    def uniform(self, key) -> torch.Tensor:
+        _check_key(key, "uniform")
+        batch = tuple(key.shape[:-1])
+        return self._run(key, MODE_UNIFORM, batch, 1,
+                         torch.float32).reshape(batch)
+
+    def bernoulli(self, key, p) -> torch.Tensor:
+        _check_key(key, "bernoulli")
+        batch = tuple(key.shape[:-1])
+        if isinstance(p, torch.Tensor):
+            if p.device != key.device:
+                raise ValueError(f"threefry.bernoulli: p on {p.device}, "
+                                 f"keys on {key.device}")
+            if p.dtype != torch.float32:
+                # a 0-d p of another float type is compared in float32
+                # (torch's promotion); a wider p tensor would promote the
+                # compare, which the kernel does not do
+                if p.ndim or not p.is_floating_point():
+                    raise TypeError("threefry.bernoulli: p must be a "
+                                    "float32 tensor or a Python number, "
+                                    f"got {p.dtype}")
+                p = p.to(torch.float32)
+            batch = tuple(torch.broadcast_shapes(batch, p.shape))
+            out = self._run(key, MODE_BERNOULLI, batch, 1, torch.bool, lo=p)
+        else:
+            out = self._run(key, MODE_BERNOULLI, batch, 1, torch.bool,
+                            p_val=float(np.float32(p)))
+        return out.reshape(batch)
+
+
+threefry_keys = _ThreefryKeys()
+threefry_draw = _ThreefryDraw()
+
+
+def split(key: torch.Tensor, n: int = 2) -> torch.Tensor:
+    """[..., 2] -> [..., n, 2] (`prng.split`)."""
+    if on_cpu(key, "threefry.split"):
+        return prng.split(key, n)
+    return threefry_keys.split(key, n)
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """Fold uint32 `data` (an int, or an int32 tensor broadcastable
+    against the key batch) into `key` (`prng.fold_in`)."""
+    if on_cpu(key, "threefry.fold_in"):
+        return prng.fold_in(key, data)
+    return threefry_keys.fold_in(key, data)
+
+
+def randint_raw(key: torch.Tensor, minval, maxval,
+                shape: tuple = ()) -> torch.Tensor:
+    """Uniform int32 in [minval, maxval), minval where maxval <= minval
+    (`prng.randint_raw`)."""
+    if on_cpu(key, "threefry.randint_raw"):
+        return prng.randint_raw(key, minval, maxval, shape)
+    return threefry_draw.randint(key, minval, maxval, shape)
+
+
+def randint(key: torch.Tensor, lo, hi) -> torch.Tensor:
+    """Uniform int32 in [lo, hi] INCLUSIVE, one per key (`prng.randint`;
+    hi + 1 wraps in int32)."""
+    if on_cpu(key, "threefry.randint"):
+        return prng.randint(key, lo, hi)
+    return threefry_draw.randint(key, lo, hi, inclusive=True)
+
+
+def uniform(key: torch.Tensor) -> torch.Tensor:
+    """float32 in [0, 1), one per key (`prng.uniform`)."""
+    if on_cpu(key, "threefry.uniform"):
+        return prng.uniform(key)
+    return threefry_draw.uniform(key)
+
+
+def bernoulli(key: torch.Tensor, p) -> torch.Tensor:
+    """uniform(key) < p in float32 (`prng.bernoulli`)."""
+    if on_cpu(key, "threefry.bernoulli"):
+        return prng.bernoulli(key, p)
+    return threefry_draw.bernoulli(key, p)
+
+
+def node_hash_key(seed_or_key, node, stream: int = 0) -> torch.Tensor:
+    """Node `node`'s hash-seed key: fold_in(fold_in(fold_in(key, DOMAIN),
+    node), stream) (`prng.node_hash_key`), three launches on CUDA. A raw
+    seed (an int or a 0-d tensor) becomes the key (0, seed) first."""
+    key = seed_or_key
+    raw = not isinstance(key, torch.Tensor) or key.ndim == 0
+    if not raw:
+        where = key
+    elif isinstance(node, torch.Tensor):
+        where = node
+    else:
+        where = key if isinstance(key, torch.Tensor) else None
+    if where is None or on_cpu(where, "threefry.node_hash_key"):
+        return prng.node_hash_key(seed_or_key, node, stream)
+    dev = where.device
+    if raw:
+        if isinstance(key, torch.Tensor):
+            s = (key.to(dev).to(torch.int64) & 0xFFFFFFFF).to(_I32)
+            key = torch.stack([torch.zeros_like(s), s])
+        else:
+            key = torch.tensor([0, _word(key)], dtype=_I32, device=dev)
+    k = fold_in(key, prng.HASH_STREAM_DOMAIN)
+    k = fold_in(k, torch.as_tensor(node, dtype=_I32, device=dev))
+    return fold_in(k, _word(stream))

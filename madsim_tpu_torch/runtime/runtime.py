@@ -20,6 +20,7 @@ import torch
 from ..core import prng
 from ..core import types as T
 from ..core.api import Program
+from ..core.device import resolve_device
 from ..core.extension import build_ext_state
 from ..core.state import SimState, init_state, map_state, tree_map
 from ..core.step import make_step
@@ -27,19 +28,6 @@ from ..interop import state_leaves
 from ..ops.select import first_k_free
 from ..utils.hashing import fingerprint
 from .scenario import Scenario
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device a runtime runs on: CUDA unless the caller names another.
-    With no GPU present and no device named, raise instead of moving to
-    the CPU silently."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available: madsim_tpu_torch runs on the "
-                "GPU by default; pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 # observation planes of the JAX package that this port does not have yet,

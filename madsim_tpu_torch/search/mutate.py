@@ -47,7 +47,7 @@ from ..core import types as T
 from ..interop import knobs_to_numpy, knobs_to_torch
 from ..ops.apply_knobs import TABLE_COLS, apply_knobs
 from ..ops.mutate import GUARD_KEYS, N_MUT_OPS, mutate_batch
-from ..runtime.runtime import resolve_device
+from ..core.device import resolve_device
 
 # mutation operator ids (the op histogram in fuzz results uses this order)
 OP_NAMES = ("time_nudge", "target_reshuffle", "row_toggle", "row_dup",

@@ -1,0 +1,324 @@
+"""K4 on the CPU, and the rewired step: the node-row gather and the
+in-place row write of madsim_tpu_torch/ops/node_rows.py against the JAX
+package (tolerance: zero).
+
+`put_rows_plain` writes in place where the JAX package's `put_row`
+returns a new array: the values must be `put_row`'s and every row it must
+not touch must stay bit-identical. `node_gather_plain` must be the JAX
+step's `_slice_node`. The CUDA kernels (csrc/node_rows.cu) run only on
+the card, where chip_smoke.py holds them exactly equal to these plain
+versions; their tables, chunking and scalar bits run here, through the
+kernel's path with a stand-in launcher that reads and writes host memory
+through the parameter block's pointers, as the kernel does.
+
+Last, the whole flagship step with every threefry draw and row write on
+its kernel path (stand-in launchers for all four kernels) runs 192 steps
+on the CPU and ends leaf for leaf where the JAX package ends.
+"""
+
+import ctypes
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import assert_same, jax_leaves, reference_stream
+from madsim_tpu.core import step as jstep
+from madsim_tpu.ops import select as jsel
+from madsim_tpu_torch import interop, workloads
+from madsim_tpu_torch.ops import node_rows as nr
+from madsim_tpu_torch.ops import threefry as tf
+from test_torch_threefry import _draw_standin, _keys_standin
+
+B = 64
+
+
+def _mat(rng, shape, dtype):
+    if dtype == np.bool_:
+        return rng.random(shape) < 0.5
+    info = np.iinfo(dtype)
+    return rng.integers(info.min, info.max, shape, dtype=np.int64).astype(
+        dtype)
+
+
+# (rows R, row shape, dtype, value kind)
+PUT_CASES = {
+    "int32_rows": (5, (32,), np.int32, "rows"),
+    "bool_rows": (5, (5,), np.bool_, "rows"),
+    "int32_entries": (96, (), np.int32, "rows"),
+    "int16_scalar": (96, (), np.int16, "scalar"),
+    "bool_scalar": (5, (3, 2), np.bool_, "scalar"),
+    "int32_matrix_rows": (7, (4, 3), np.int32, "rows"),
+    "broadcast_row": (5, (8,), np.int32, "broadcast"),
+}
+
+
+def _put_case(name, seed):
+    R, row, dtype, kind = PUT_CASES[name]
+    rng = np.random.default_rng(seed)
+    mat = _mat(rng, (B, R) + row, dtype)
+    idx = rng.integers(-2, R + 2, B).astype(np.int32)      # out of range too
+    mask = rng.random(B) < 0.7
+    if kind == "rows":
+        val = _mat(rng, (B,) + row, dtype)
+    elif kind == "broadcast":
+        val = _mat(rng, (1,) + row, dtype)
+    else:
+        val = dtype(1) if dtype != np.bool_ else True
+    return mat, idx, val, mask
+
+
+@pytest.mark.parametrize("name", sorted(PUT_CASES))
+@pytest.mark.parametrize("masked", [True, False])
+def test_put_rows_plain_is_put_row_in_place(name, masked):
+    mat, idx, val, mask = _put_case(name, len(name) + masked)
+    jmask = mask if masked else np.ones(B, bool)
+    jval = val if isinstance(val, np.ndarray) and val.shape[0] == B \
+        else np.broadcast_to(np.asarray(val, mat.dtype),
+                             (B,) + mat.shape[2:])
+    want = np.asarray(jax.vmap(jsel.put_row)(mat, idx, jval, jmask))
+    t = torch.as_tensor(mat.copy())
+    tval = (torch.as_tensor(val) if isinstance(val, np.ndarray)
+            else val.item() if isinstance(val, np.generic) else val)
+    out = nr.put_rows_plain([(t, torch.as_tensor(idx), tval,
+                              torch.as_tensor(mask) if masked else True)])
+    assert out[0] is t
+    np.testing.assert_array_equal(t.numpy(), want)
+    # no row but (b, idx[b]) of a written lane moved
+    moved = (t.numpy() != mat).reshape(B, mat.shape[1], -1).any(-1)
+    moved[np.arange(B), np.clip(idx, 0, mat.shape[1] - 1)] &= (
+        (idx < 0) | (idx >= mat.shape[1]) | ~jmask)
+    assert not moved.any()
+
+
+def test_put_rows_plain_skips_a_false_mask_and_writes_several_tensors():
+    mats = [torch.arange(B * 4, dtype=torch.int32).reshape(B, 4),
+            torch.zeros((B, 3, 2), dtype=torch.bool)]
+    before = [m.clone() for m in mats]
+    idx = torch.full((B,), 2, dtype=torch.int32)
+    out = nr.put_rows_plain([(mats[0], idx, 7, False),
+                             (mats[1], idx, True, True)])
+    assert out[0] is mats[0] and torch.equal(mats[0], before[0])
+    assert out[1] is mats[1] and bool(mats[1][:, 2].all())
+    assert not bool(mats[1][:, :2].any())
+
+
+def _flagship_node_state(steps=24):
+    rt = workloads.flagship_runtime(device="cpu")
+    s, _ = rt.run(rt.init_batch(np.arange(B, dtype=np.uint32)), steps,
+                  chunk=steps)
+    return s.node_state
+
+
+def test_node_gather_plain_is_the_jax_steps_slice():
+    """The JAX step's `_slice_node` (one-hot), lane by lane, on a
+    flagship node state after 24 steps, at every node index."""
+    ns = _flagship_node_state()
+    idx = np.arange(B, dtype=np.int32) % 5
+    jns = {k: v.numpy() for k, v in ns.items()}
+    want = jax.vmap(jstep._slice_node)(jns, jnp.asarray(idx))
+    got = nr.node_gather_plain(ns, torch.as_tensor(idx))
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                      err_msg=k)
+
+
+# --------------------------------------------------------------------------
+# The kernels' launch logic, with a stand-in launcher on host memory
+# --------------------------------------------------------------------------
+_NP = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
+
+
+def _host(ptr, count, esize):
+    return np.frombuffer((ctypes.c_char * (count * esize)).from_address(
+        ptr), dtype=_NP[esize], count=count)
+
+
+def _gather_standin(ref, stream):
+    """csrc/node_rows.cu `node_gather`, lane by lane on host memory."""
+    p = ref._obj
+    idx = _host(p.idx, p.B, 4).view(np.int32).clip(0, p.R - 1)
+    for lf in p.leaves[:p.n_leaves]:
+        src = _host(lf.src, p.B * p.R * lf.row, lf.esize).reshape(
+            p.B, p.R, lf.row)
+        dst = _host(lf.dst, p.B * lf.row, lf.esize).reshape(p.B, lf.row)
+        dst[:] = src[np.arange(p.B), idx]
+    return 0
+
+
+def _put_standin(ref, stream):
+    """csrc/node_rows.cu `put_rows`, lane by lane on host memory."""
+    p = ref._obj
+    for w in p.rows[:p.n]:
+        dst = _host(w.dst, p.B * w.R * w.row, w.esize).reshape(
+            p.B, w.R, w.row)
+        idx = _host(w.idx, p.B, 4).view(np.int32)
+        ok = (idx >= 0) & (idx < w.R)
+        if w.mask:
+            ok &= _host(w.mask, p.B, 1) != 0
+        for b in np.nonzero(ok)[0]:
+            if w.src:
+                src = _host(w.src + int(b) * w.src_sb * w.esize, w.row,
+                            w.esize)
+                dst[b, idx[b]] = src
+            else:
+                dst[b, idx[b]] = _NP[w.esize](w.value)
+    return 0
+
+
+@pytest.fixture
+def standin(monkeypatch):
+    monkeypatch.setattr(nr.node_gather, "_fn", _gather_standin)
+    monkeypatch.setattr(nr.put_rows_, "_fn", _put_standin)
+
+
+def _mixed_tree(rng, n_leaves, R=5):
+    dtypes = [torch.int32, torch.bool, torch.int16, torch.int64,
+              torch.float32]
+    tree = {}
+    for i in range(n_leaves):
+        dt = dtypes[i % len(dtypes)]
+        shape = (B, R) + ((i % 3 + 1,) if i % 4 else ())
+        if i == 3:
+            shape = (B, R, 0)                          # a zero-size leaf
+        x = torch.as_tensor(rng.integers(-99, 99, shape))
+        tree[f"l{i}"] = (x > 0) if dt == torch.bool else x.to(dt)
+    return tree
+
+
+@pytest.mark.parametrize("n_leaves", [1, 16, 50])
+def test_node_gather_through_the_kernel_path(standin, n_leaves):
+    """Mixed element sizes, a zero-size leaf, and more leaves than one
+    launch takes (48: two launches)."""
+    rng = np.random.default_rng(n_leaves)
+    tree = _mixed_tree(rng, n_leaves)
+    idx = torch.as_tensor(rng.integers(-1, 7, B).astype(np.int64))
+    before = nr.node_gather.launches
+    got = nr.node_gather.run(tree, idx)
+    filled = sum(t.numel() > 0 for t in tree.values())
+    assert nr.node_gather.launches - before == -(-filled // nr.MAX_GATHER)
+    want = nr.node_gather_plain(tree, idx)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k],
+                                                             want[k]), k
+
+
+@pytest.mark.parametrize("n_writes", [2, 16, 20])
+def test_put_rows_through_the_kernel_path(standin, n_writes):
+    """Row sources, broadcast rows ([1, ...]: lane stride 0), scalars of
+    every element size, masks and no mask, a False mask, indices out of
+    range, int64 indices; more entries than one launch takes (16)."""
+    rng = np.random.default_rng(n_writes)
+    writes, plain = [], []
+    for i in range(n_writes):
+        R = 5 + i % 4
+        mat = _mixed_tree(rng, 5, R)[f"l{i % 5 if i % 5 != 3 else 2}"]
+        idx = torch.as_tensor(rng.integers(-2, R + 2, B))
+        if i % 3 == 0:
+            val = mat[:, 0].clone() + 1 if mat.dtype != torch.bool \
+                else ~mat[:, 0]
+        elif i % 3 == 1:
+            val = mat[:1, 1].clone()
+        else:
+            val = True if mat.dtype == torch.bool else -3
+        mask = (torch.as_tensor(rng.random(B) < 0.6) if i % 4
+                else (True if i % 8 else False))
+        writes.append((mat, idx, val, mask))
+        plain.append((mat.clone(), idx, val, mask))
+    got = nr.put_rows_.run(writes)
+    want = nr.put_rows_plain(plain)
+    for (mat, *_), g, w in zip(writes, got, want):
+        assert g is mat and torch.equal(g, w)
+
+
+def test_put_rows_refuses_one_tensor_twice():
+    mat = torch.zeros((B, 4), dtype=torch.int32)
+    idx = torch.zeros(B, dtype=torch.int32)
+    with pytest.raises(ValueError, match="written twice"):
+        nr.put_rows_.run([(mat, idx, 1, True), (mat, idx, 2, True)])
+
+
+def test_wrappers_take_the_plain_version_on_the_cpu_and_refuse_meta():
+    ns = _mixed_tree(np.random.default_rng(0), 4)
+    idx = torch.zeros(B, dtype=torch.int32)
+    before = (nr.node_gather.launches, nr.put_rows_.launches)
+    nr.node_gather(ns, idx)
+    nr.put_rows_([(ns["l0"], idx, 1, True)])
+    assert (nr.node_gather.launches, nr.put_rows_.launches) == before
+    meta = {k: v.to("meta") for k, v in ns.items()}
+    with pytest.raises(ValueError, match="unsupported device"):
+        nr.node_gather(meta, idx.to("meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        nr.put_rows_([(meta["l0"], idx.to("meta"), 1, True)])
+
+
+# --------------------------------------------------------------------------
+# The rewired step, every draw and row write on its kernel path
+# --------------------------------------------------------------------------
+FLAG_B, FLAG_STEPS = 8, 192
+KERNELS = ("threefry_keys", "threefry_draw", "node_gather", "put_rows_")
+
+
+@pytest.fixture
+def kernel_paths(monkeypatch):
+    """The four K1/K4 kernels on their kernel paths for CPU tensors, with
+    the stand-in launchers."""
+    monkeypatch.setattr(tf, "on_cpu", lambda t, what: False)
+    monkeypatch.setattr(nr, "on_cpu", lambda t, what: False)
+    for w, fn in ((tf.threefry_keys, _keys_standin),
+                  (tf.threefry_draw, _draw_standin),
+                  (nr.node_gather, _gather_standin),
+                  (nr.put_rows_, _put_standin)):
+        monkeypatch.setattr(w, "_fn", fn)
+
+
+def _counts():
+    return (tf.threefry_keys.launches, tf.threefry_draw.launches,
+            nr.node_gather.launches, nr.put_rows_.launches)
+
+
+def test_flagship_on_the_kernel_paths_matches_reference(kernel_paths):
+    """The traced flagship (its Lamport write a third put_rows_), 192
+    steps at B=8: every leaf equal to the JAX package's; each step
+    launches the same kernels, the node gather once."""
+    import bench
+    seeds = np.arange(FLAG_B, dtype=np.uint32)
+    with reference_stream():
+        jrt = bench._make_runtime().derived(trace_cap=64)
+        js, _ = jrt.run(jrt.init_batch(seeds), FLAG_STEPS, chunk=FLAG_STEPS)
+        want = jax_leaves(js)
+    rt = workloads.flagship_runtime(device="cpu", trace_cap=64)
+    s = rt.init_batch(seeds)
+    c0 = _counts()
+    s, _ = rt._step(s)
+    per_step = tuple(b - a for a, b in zip(c0, _counts()))
+    s, _ = rt.run(s, FLAG_STEPS - 1, chunk=FLAG_STEPS - 1)
+    launched = tuple(b - a for a, b in zip(c0, _counts()))
+    assert launched == tuple(FLAG_STEPS * n for n in per_step)
+    assert per_step[2] == 1 and per_step[3] == 3, dict(zip(KERNELS,
+                                                           per_step))
+    assert per_step[0] >= 3 and per_step[1] >= 2
+    assert_same(want, interop.state_to_numpy(s),
+                what="flagship on the K1/K4 kernel paths")
+    assert (interop.state_to_numpy(s)[".steps"] == FLAG_STEPS).all()
+
+
+def test_the_step_writes_node_rows_and_the_popped_row_in_place():
+    """The scatter and the dup pop write the state's own tensors: the
+    result's node-state leaves are the input's (the supervisor op on the
+    CPU replaces only the ones it resets), each changed in at most the
+    acting node's row a lane."""
+    rt = workloads.flagship_runtime(device="cpu")
+    s, _ = rt.run(rt.init_batch(np.arange(B, dtype=np.uint32)), 40,
+                  chunk=40)
+    before = {k: v.clone() for k, v in s.node_state.items()}
+    out, _ = rt._step(s)
+    same = [k for k in before if out.node_state[k] is s.node_state[k]]
+    assert same
+    for k, old in before.items():
+        rows = (s.node_state[k] != old).reshape(B, 5, -1).any(-1)
+        assert (rows.sum(1) <= 1).all(), k
+    assert any(not torch.equal(out.node_state[k], before[k]) for k in same)

@@ -176,11 +176,13 @@ def test_run_fused_refuses_checkpoints():
 
 @pytest.mark.parametrize("name", ["flagship", "wal_kv"])
 def test_step_leaves_its_input_state_unchanged(name):
-    """The step leaves every leaf of its input unchanged but the event
-    table and ring columns the emission write fills in place: those are
-    the result's very tensors, changed only in the rows the result holds
-    occupied (the rows emissions took) and in at most one ring row a
-    lane."""
+    """The step leaves every leaf of its input unchanged but those it
+    writes in place. The event table and ring columns the emission write
+    fills are the result's very tensors, changed only in the rows the
+    result holds occupied (the rows emissions took) and in at most one
+    ring row a lane. The dup pop's t_kind and t_deadline, the scatter's
+    node-state leaves and the recorder's lamport change in at most one
+    row a lane (the popped row, the acting node's)."""
     from madsim_tpu_torch.ops.emit_write import RING_COLS, TABLE_COLS
     if name == "flagship":
         rt = workloads.flagship_runtime(device="cpu", trace_cap=64)
@@ -192,9 +194,15 @@ def test_step_leaves_its_input_state_unchanged(name):
     out, _ = rt._step(s)
     after, result = interop.state_leaves(s), interop.state_leaves(out)
     in_place = {"." + k for k in TABLE_COLS[2:] + RING_COLS}
+    row_writes = {".t_kind", ".t_deadline", ".lamport"} | {
+        k for k in before if k.startswith(".node_state")}
     for k, v in before.items():
         if k in in_place and v.numel():
             assert after[k] is result[k], k
+        elif k in row_writes and v.numel():
+            rows = (after[k] != v).reshape(v.shape[0], v.shape[1], -1)
+            assert (rows.any(-1).sum(1) <= 1).all(), \
+                f"the step wrote more than one row of input leaf {k}"
         else:
             assert torch.equal(after[k], v), f"the step wrote input leaf {k}"
     occupied = out.t_kind != 0

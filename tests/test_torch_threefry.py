@@ -1,0 +1,392 @@
+"""K1 on the CPU: the threefry wrappers of madsim_tpu_torch/ops/threefry.py
+against the JAX package's draws, and the kernels' launch logic against a
+stand-in launcher (tolerance: zero).
+
+On CPU tensors the wrappers are `core/prng.py`'s plain functions; they
+are held here to jax's `split`, `fold_in`, `randint`, `uniform`,
+`bernoulli` and `node_hash_key` across the broadcast shapes the step and
+`Ctx` draw with, on the non-partitionable stream (`reference_stream`).
+
+The CUDA kernels (csrc/prng.cu) run only on the card, where chip_smoke.py
+holds them exactly equal to the plain version. What surrounds them — the
+broadcasting of keys, words, bounds and p to the output batch as strided
+[M, W] views, the parameter block, the reshape of the result — runs here:
+each case goes through the kernel's path with a stand-in launcher that
+reads the operands from host memory through the parameter block's
+pointers and strides, as the kernel does, and draws each element with the
+plain function.
+"""
+
+import ctypes
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import reference_stream
+from madsim_tpu.core import prng as jprng
+from madsim_tpu_torch.core import prng
+from madsim_tpu_torch.ops import threefry as tf
+
+I32_MIN, I32_MAX = -2 ** 31, 2 ** 31 - 1
+B = 257
+
+
+def _keys(n=B, seed=0, shape=None):
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, 2 ** 32, (n, 2), dtype=np.uint64).astype(np.uint32)
+    k[:2] = [[0, 0], [2 ** 32 - 1, 2 ** 32 - 1]][:n]  # the edge keys
+    if shape is not None:
+        k = k.reshape(shape + (2,))
+    return k, torch.as_tensor(k.view(np.int32))
+
+
+def _u32(t):
+    return t.numpy().view(np.uint32)
+
+
+# --------------------------------------------------------------------------
+# The wrappers against jax, in the shapes the step and Ctx draw with
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("n", [1, 2, 5, 16])
+def test_split_matches_jax(n):
+    """[B, 2] keys and a strided key slice (the step's keys[:, 3])."""
+    jk, tk = _keys(seed=n)
+    with reference_stream():
+        want = np.asarray(jax.vmap(lambda k: jprng.split(k, n))(jk))
+    np.testing.assert_array_equal(_u32(tf.split(tk, n)), want)
+    five = tf.split(tk, 5)
+    with reference_stream():
+        jfive = np.asarray(jax.vmap(lambda k: jprng.split(k, 5))(jk))
+        want = np.asarray(jax.vmap(lambda k: jprng.split(k, n))(jfive[:, 3]))
+    np.testing.assert_array_equal(_u32(tf.split(five[:, 3], n)), want)
+
+
+def test_fold_in_matches_jax_in_the_step_and_hash_shapes():
+    """A constant word, the dup section's [B, 1, 2] keys against two
+    words, and a per-key word (node_hash_key's node)."""
+    jk, tk = _keys(seed=3)
+    words = np.array([0x44555031, 0x44555032], np.uint32)
+    per_key = np.arange(B, dtype=np.uint32) * np.uint32(2654435761)
+    with reference_stream():
+        one = np.asarray(jax.vmap(lambda k: jax.random.fold_in(
+            k, 0x44555031))(jk))
+        two = np.asarray(jax.vmap(lambda k: jax.vmap(
+            lambda w: jax.random.fold_in(k, w))(words))(jk))
+        each = np.asarray(jax.vmap(jax.random.fold_in)(jk, per_key))
+    np.testing.assert_array_equal(_u32(tf.fold_in(tk, 0x44555031)), one)
+    got = tf.fold_in(tk[:, None, :], torch.as_tensor(words.view(np.int32)))
+    assert got.shape == (B, 2, 2)
+    np.testing.assert_array_equal(_u32(got), two)
+    np.testing.assert_array_equal(
+        _u32(tf.fold_in(tk, torch.as_tensor(per_key.view(np.int32)))), each)
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 0), (-7, -7), (0, 95), (5, 4),
+                                   (I32_MIN, I32_MAX),
+                                   (I32_MAX - 1000, I32_MAX),
+                                   (I32_MIN, -1)])
+def test_randint_with_constant_bounds_matches_jax(lo, hi):
+    """`Ctx.randint`'s constant inclusive bounds (hi < lo included: jax
+    draws lo there; hi = INT32_MAX wraps hi + 1)."""
+    jk, tk = _keys(seed=abs(lo) % 89 + 1)
+    with reference_stream():
+        want = np.asarray(jax.vmap(lambda k: jprng.randint(k, lo, hi))(jk))
+    np.testing.assert_array_equal(tf.randint(tk, lo, hi).numpy(), want)
+
+
+def test_randint_with_per_key_bounds_matches_jax():
+    """The dup section's latency draw: per-lane tensor bounds, also on a
+    strided key slice."""
+    jk, tk = _keys(seed=9)
+    rng = np.random.default_rng(9)
+    lo = rng.integers(I32_MIN, I32_MAX, B).astype(np.int32)
+    hi = rng.integers(I32_MIN, I32_MAX, B).astype(np.int32)
+    hi[:20] = I32_MAX
+    pair = tf.fold_in(tk[:, None, :], torch.tensor([1, 2], dtype=torch.int32))
+    with reference_stream():
+        jpair = np.asarray(jax.vmap(lambda k: jax.vmap(
+            lambda w: jax.random.fold_in(k, w))(jnp.arange(1, 3, dtype=
+                                                  jnp.uint32)))(jk))
+        want = np.asarray(jax.vmap(jprng.randint)(jpair[:, 1], lo, hi))
+    got = tf.randint(pair[:, 1], torch.as_tensor(lo), torch.as_tensor(hi))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_randint_raw_matches_jax_in_every_shape():
+    """Exclusive bounds: maxval <= minval (minval is drawn), the whole
+    int32 range, a per-key bound, and a vector draw (the torn flush)."""
+    jk, tk = _keys(seed=11)
+    cnt = np.random.default_rng(2).integers(-3, 97, B).astype(np.int32)
+    with reference_stream():
+        eq = np.asarray(jax.vmap(lambda k: jax.random.randint(
+            k, (), 7, 7))(jk))
+        below = np.asarray(jax.vmap(lambda k: jax.random.randint(
+            k, (), 9, -4))(jk))
+        whole = np.asarray(jax.vmap(lambda k: jax.random.randint(
+            k, (), I32_MIN, I32_MAX, dtype=jnp.int32))(jk))
+        per = np.asarray(jax.vmap(lambda k, c: jax.random.randint(
+            k, (), 0, c))(jk, cnt))
+        vec = np.asarray(jax.vmap(lambda k: jax.random.randint(
+            k, (5,), 0, 2 ** 30, dtype=jnp.int32))(jk))
+    np.testing.assert_array_equal(tf.randint_raw(tk, 7, 7).numpy(), eq)
+    np.testing.assert_array_equal(tf.randint_raw(tk, 9, -4).numpy(), below)
+    np.testing.assert_array_equal(
+        tf.randint_raw(tk, I32_MIN, I32_MAX).numpy(), whole)
+    np.testing.assert_array_equal(
+        tf.randint_raw(tk, 0, torch.as_tensor(cnt)).numpy(), per)
+    np.testing.assert_array_equal(
+        tf.randint_raw(tk, 0, 2 ** 30, (5,)).numpy(), vec)
+
+
+def test_uniform_and_bernoulli_match_jax():
+    """uniform; bernoulli with p 0, 1, subnormal, a Python float and a
+    per-key float32 p (the dup section's dup_rate * 1e-6)."""
+    jk, tk = _keys(seed=13)
+    sub = np.float32(1e-40)
+    per = np.random.default_rng(1).random(B).astype(np.float32)
+    per[:3] = [0.0, 1.0, sub]
+    with reference_stream():
+        ju = np.asarray(jax.vmap(jprng.uniform)(jk))
+        jb = {p: np.asarray(jax.vmap(lambda k: jprng.bernoulli(
+            k, np.float32(p)))(jk)) for p in (0.0, 1.0, sub, 0.05)}
+        jper = np.asarray(jax.vmap(jprng.bernoulli)(jk, per))
+    tu = tf.uniform(tk)
+    assert tu.dtype == torch.float32
+    np.testing.assert_array_equal(tu.numpy(), ju)
+    for p, want in jb.items():
+        np.testing.assert_array_equal(tf.bernoulli(tk, float(p)).numpy(),
+                                      want)
+    np.testing.assert_array_equal(
+        tf.bernoulli(tk, torch.as_tensor(per)).numpy(), jper)
+
+
+def test_node_hash_key_matches_jax():
+    jk, tk = _keys(seed=19)
+    nodes = (np.arange(B, dtype=np.int32) % 7) - 1
+    with reference_stream():
+        want = np.asarray(jax.vmap(lambda k, n: jprng.node_hash_key(
+            k, n, 3))(jk, nodes))
+    np.testing.assert_array_equal(
+        _u32(tf.node_hash_key(tk, torch.as_tensor(nodes), 3)), want)
+
+
+def test_wrappers_take_the_plain_version_on_the_cpu_and_refuse_meta():
+    _, tk = _keys(seed=23)
+    before = (tf.threefry_keys.launches, tf.threefry_draw.launches)
+    assert torch.equal(tf.split(tk, 3), prng.split(tk, 3))
+    assert torch.equal(tf.randint(tk, 0, 9), prng.randint(tk, 0, 9))
+    assert (tf.threefry_keys.launches, tf.threefry_draw.launches) == before
+    meta = tk.to("meta")
+    for call in (lambda: tf.split(meta, 2), lambda: tf.fold_in(meta, 1),
+                 lambda: tf.randint(meta, 0, 3), lambda: tf.uniform(meta),
+                 lambda: tf.bernoulli(meta, 0.5),
+                 lambda: tf.randint_raw(meta, 0, 3)):
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
+
+
+# --------------------------------------------------------------------------
+# The kernels' launch logic, with a stand-in launcher on host memory
+# --------------------------------------------------------------------------
+def _grid(op, M, W, dtype, pair=False):
+    """An operand of the parameter block read from host memory: element
+    (m, w) at ptr + m * sm + w * sw, as the kernel reads it."""
+    size = np.dtype(dtype).itemsize
+    tail = 2 if pair else 1
+    span = (M - 1) * op.sm + (W - 1) * op.sw + tail
+    raw = np.frombuffer((ctypes.c_char * (span * size)).from_address(
+        op.ptr), dtype=dtype, count=span)
+    shape, strides = (M, W), (op.sm * size, op.sw * size)
+    if pair:
+        shape, strides = shape + (2,), strides + (size,)
+    return torch.as_tensor(np.lib.stride_tricks.as_strided(
+        raw, shape, strides).copy())
+
+
+def _store(ptr, t):
+    data = t.contiguous().numpy().tobytes()
+    ctypes.memmove(ptr, data, len(data))
+
+
+def _keys_standin(ref, stream):
+    """csrc/prng.cu `threefry_keys`, element by element from the plain
+    functions."""
+    p = ref._obj
+    key = _grid(p.key, p.M, p.W, np.int32, pair=True)
+    if p.n:
+        _store(p.out, prng.split(key, p.n))
+    else:
+        data = (_grid(p.data, p.M, p.W, np.int32) if p.data.ptr
+                else torch.full((p.M, p.W), p.word, dtype=torch.int32))
+        _store(p.out, prng.fold_in(key, data))
+    return 0
+
+
+def _draw_standin(ref, stream):
+    """csrc/prng.cu `threefry_draw`, element by element from the plain
+    functions."""
+    p = ref._obj
+    key = _grid(p.key, p.M, p.W, np.int32, pair=True)
+    if p.mode == tf.MODE_RANDINT:
+        lo, hi = ((_grid(o, p.M, p.W, np.int32) if o.ptr
+                   else torch.full((p.M, p.W), v, dtype=torch.int32))
+                  for o, v in ((p.lo, p.lo_val), (p.hi, p.hi_val)))
+        if p.inclusive:
+            hi = hi + 1
+        out = prng.randint_raw(key, lo, hi, (p.F,))
+    elif p.mode == tf.MODE_UNIFORM:
+        out = prng.uniform(key)
+    else:
+        prob = (_grid(p.lo, p.M, p.W, np.float32) if p.lo.ptr
+                else torch.tensor(p.p_val, dtype=torch.float32))
+        out = prng.bernoulli(key, prob)
+    _store(p.out, out)
+    return 0
+
+
+@pytest.fixture
+def standin(monkeypatch):
+    monkeypatch.setattr(tf.threefry_keys, "_fn", _keys_standin)
+    monkeypatch.setattr(tf.threefry_draw, "_fn", _draw_standin)
+
+
+def _batch_keys(shape, seed):
+    return _keys(int(np.prod(shape)), seed, shape)[1]
+
+
+SPLIT_CASES = {
+    "lanes": lambda: _batch_keys((B,), 1),
+    "strided_slice": lambda: prng.split(_batch_keys((B,), 2), 5)[:, 3],
+    "one_key": lambda: _batch_keys((1,), 3)[0],
+    "grid_3d": lambda: _batch_keys((3, 4, 5), 4),
+    "transposed": lambda: _batch_keys((6, 7), 5).transpose(0, 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+@pytest.mark.parametrize("n", [1, 2, 5, 16])
+def test_split_through_the_kernel_path(standin, case, n):
+    key = SPLIT_CASES[case]()
+    before = tf.threefry_keys.launches
+    got = tf.threefry_keys.split(key, n)
+    assert tf.threefry_keys.launches == before + 1
+    assert torch.equal(got, prng.split(key, n))
+
+
+FOLD_CASES = {
+    "constant_word": lambda: (_batch_keys((B,), 6), 0x44555031),
+    "top_bit_word": lambda: (_batch_keys((B,), 6), 2 ** 32 - 1),
+    "dup_two_words": lambda: (_batch_keys((B,), 7)[:, None, :],
+                              torch.tensor([0x44555031, 0x44555032],
+                                           dtype=torch.int32)),
+    "per_key_word": lambda: (_batch_keys((B,), 8),
+                             torch.arange(B, dtype=torch.int32) - 3),
+    "one_key_many_words": lambda: (_batch_keys((1,), 9)[0],
+                                   torch.arange(B, dtype=torch.int32)),
+    "int64_words": lambda: (_batch_keys((B,), 10),
+                            torch.arange(B, dtype=torch.int64) % 7),
+    "unmergeable_broadcast": lambda: (
+        _batch_keys((3, 1, 5), 11),
+        torch.arange(3 * 4 * 5, dtype=torch.int32).reshape(3, 4, 5)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FOLD_CASES))
+def test_fold_in_through_the_kernel_path(standin, case):
+    key, data = FOLD_CASES[case]()
+    got = tf.threefry_keys.fold_in(key, data)
+    want = prng.fold_in(key, data.to(torch.int32)
+                        if isinstance(data, torch.Tensor) else data)
+    assert torch.equal(got, want)
+
+
+def _bounds(kind):
+    rng = np.random.default_rng(len(kind))
+    if kind == "ints":
+        return -5, 17
+    if kind == "empty_span":
+        return 9, -4
+    if kind == "whole_range":
+        return I32_MIN, I32_MAX
+    lo = torch.as_tensor(rng.integers(-100, 100, B).astype(np.int32))
+    hi = torch.as_tensor(rng.integers(-100, 100, B).astype(np.int32))
+    if kind == "per_key":
+        return lo, hi
+    return lo[:1].reshape(()), hi     # a 0-d bound against per-key hi
+
+
+@pytest.mark.parametrize("kind", ["ints", "empty_span", "whole_range",
+                                  "per_key", "zero_d_and_per_key"])
+@pytest.mark.parametrize("inclusive", [False, True])
+def test_randint_through_the_kernel_path(standin, kind, inclusive):
+    key = prng.split(_batch_keys((B,), 12), 2)[:, 1]       # strided
+    lo, hi = _bounds(kind)
+    if inclusive:     # the high bound + 1 is taken in the kernel
+        got = tf.threefry_draw.randint(key, lo, hi, inclusive=True)
+        want = prng.randint(key, lo, hi)
+    else:
+        got = tf.threefry_draw.randint(key, lo, hi)
+        want = prng.randint_raw(key, lo, hi)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+def test_randint_vector_and_broadcast_shapes_through_the_kernel_path(
+        standin):
+    """A vector draw per key (the torn flush's (F,)), and keys [B, 1, 2]
+    against bounds [3] (a batch wider than the keys')."""
+    key = _batch_keys((B,), 13)
+    got = tf.threefry_draw.randint(key, 0, 2 ** 30, (5,))
+    assert torch.equal(got, prng.randint_raw(key, 0, 2 ** 30, (5,)))
+    hi = torch.tensor([1, 50, 2 ** 20], dtype=torch.int32)
+    got = tf.threefry_draw.randint(key[:, None, :], 0, hi)
+    assert got.shape == (B, 3)
+    assert torch.equal(got, prng.randint_raw(key[:, None, :], 0, hi))
+
+
+@pytest.mark.parametrize("p", ["zero", "one", "subnormal", "half",
+                               "per_key", "zero_d_float64"])
+def test_uniform_and_bernoulli_through_the_kernel_path(standin, p):
+    key = prng.split(_batch_keys((B,), 14), 3)[:, 2]
+    assert torch.equal(tf.threefry_draw.uniform(key), prng.uniform(key))
+    prob = dict(zero=0.0, one=1.0, subnormal=float(np.float32(1e-40)),
+                half=0.5,
+                per_key=torch.rand(B, generator=torch.Generator()
+                                   .manual_seed(3)),
+                zero_d_float64=torch.tensor(0.3, dtype=torch.float64))[p]
+    got = tf.threefry_draw.bernoulli(key, prob)
+    assert got.dtype == torch.bool
+    assert torch.equal(got, prng.bernoulli(key, prob))
+
+
+def test_bernoulli_refuses_a_wider_p_tensor():
+    key = _batch_keys((4,), 15)
+    with pytest.raises(TypeError, match="float32"):
+        tf.threefry_draw.bernoulli(key, torch.full((4,), 0.5,
+                                                   dtype=torch.float64))
+
+
+# --------------------------------------------------------------------------
+# The entry points' device
+# --------------------------------------------------------------------------
+def test_make_step_and_init_state_need_a_device_without_a_gpu():
+    """With no GPU and no device named, the step and the initial state
+    raise instead of moving to the CPU (core/device.py); named, they run
+    where they are told."""
+    from madsim_tpu_torch.core.state import init_state
+    from madsim_tpu_torch.core.step import make_step
+    from madsim_tpu_torch.models import pingpong as tpp
+    import madsim_tpu_torch as P
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is CUDA")
+    cfg = P.SimConfig(n_nodes=2)
+    args = (cfg, [tpp.PingPong(2)], np.zeros(2, np.int32),
+            tpp.state_spec())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_step(*args)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_state(cfg, {})
+    assert callable(make_step(*args, device="cpu"))
+    assert init_state(cfg, {}, device="cpu").now.device.type == "cpu"
