@@ -65,6 +65,10 @@ the frozen golden digests. One JSON object per line, in phases:
                steps) on the card and on the CPU: equal results and equal
                corpora; the fuzzer finds more schedules than blind explore
                on the same budget
+  flagship_same_on_both  the traced flagship (trace_cap=64) at B=203,
+               256 steps, through run and run_fused on the card and run
+               on the CPU: every leaf equal; the card's eager run launches
+               each step kernel its count a step, the CPU run none
   kernel       each kernel against its plain version, exactly equal
                (the kernel's time is device time: launches captured in a
                CUDA graph and replayed between events):
@@ -114,8 +118,10 @@ the frozen golden digests. One JSON object per line, in phases:
                in the effective commit, one entry that differs at the
                common commit point, a commit past the log, two leaders
                of one term, window points that wrap, snapshots, a peer
-               mask; L=8 and 32, N=3 and 5, one and two field columns,
-               B=1, 4096 and 100,003);
+               mask; L=8 and 32, N=3, 5, 8, 16 and 32, one to eight
+               field columns, B=1, 37, 4096, 4101 and 100,003; every
+               operand one element off a 16-byte boundary (the log rows
+               then read 4 bytes an access) or one lane off);
                apply_super on the flagship's operands at steps 0 and 512,
                wal_kv's at step 40 (B=100,000: its fs flush runs beside
                the kernel) and edge cases (every opcode 0-19 and an
@@ -138,7 +144,11 @@ the frozen golden digests. One JSON object per line, in phases:
                the whole int32 range, per key, broadcast, inclusive
                INT32_MAX, a vector draw; bernoulli p 0, 1, subnormal, per
                key; every row index and out of range, masked-off lanes,
-               fifty leaves of five element types, twenty writes), the
+               fifty leaves of five element types, twenty writes; the node
+               scatter with destinations or sources one element or one
+               lane off a 16-byte boundary, broadcast sources, at B=1
+               and B=4099, under three (idx, mask) pairs, an all-false
+               mask and every index out of range), the
                in-place put_rows_ on its own copy against the plain
                version's: equal, and no row touched it must not touch;
                timed on the step's own calls (the 5-way split, the dup
@@ -195,6 +205,7 @@ FUZZ_ROUNDS = 3
 FUZZ_HAVOC = 3
 EXPLORE_ROUNDS = 2
 PCT_STEPS = 512
+SAME_B, SAME_STEPS = 203, 256   # flagship_same_on_both
 # the saturating campaign run on the card and on the CPU (bench.py's
 # search A/B shape); dry_rounds past max_rounds: every round runs
 SAT = dict(max_steps=1500, batch=128, max_rounds=6, chunk=256, rng_seed=7)
@@ -365,6 +376,36 @@ def unaligned(t):
     flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
     out = flat[1:].view(t.shape)
     out.copy_(t)
+    return out
+
+
+def lane_in(t):
+    """A contiguous copy of `t` whose data starts one lane (t[0]'s
+    elements) past an allocation's start: the offset a view of a batch
+    without its first lane has."""
+    import torch
+    lane = t[0].numel() if t.shape[0] else 0
+    flat = torch.empty(t.numel() + lane, dtype=t.dtype, device=t.device)
+    out = flat[lane:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def clone_layout(x):
+    """clone_tree that keeps each tensor's storage offset and strides (a
+    fresh allocation laid out as the original is), so a copy of an
+    operand that starts off a 16-byte boundary does too."""
+    import torch
+    if isinstance(x, (tuple, list)):
+        return type(x)(clone_layout(v) for v in x)
+    if not isinstance(x, torch.Tensor) or not x.numel() \
+            or not x.storage_offset():
+        return clone_tree(x)
+    size = x.storage_offset() + 1 + sum(
+        (n - 1) * st for n, st in zip(x.shape, x.stride()))
+    out = torch.empty(size, dtype=x.dtype, device=x.device).as_strided(
+        x.shape, x.stride(), x.storage_offset())
+    out.copy_(x)
     return out
 
 
@@ -1427,7 +1468,10 @@ def k4_edge_cases(dev, node_state, seed=31):
     put_rows_); fifty leaves of five element types and a zero-size one
     (two gather launches); row, broadcast-row and scalar writes of every
     element size, under masks with masked-off lanes and without, twenty
-    tensors (two put_rows launches); the dup pop's table columns."""
+    tensors (two put_rows launches); the dup pop's table columns; the
+    node scatter with its bases or sources off a 16-byte boundary, with
+    broadcast sources, at B=1 and B=4099, under three (idx, mask) pairs,
+    under an all-false mask and every index out of range."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
@@ -1476,6 +1520,45 @@ def k4_edge_cases(dev, node_state, seed=31):
     cases.append(("put_dup_pop_columns", "put_rows_", ([
         (t_kind, pop, 0, mask),
         (t_dead, pop, t_dead[:, 0] + 7, ~mask)],)))
+    # the write's launch shapes: destinations and sources one element
+    # (4 bytes) and one lane off a 16-byte boundary (the long rows then go
+    # 4 bytes an access), broadcast (stride-0) sources, B=1 and lane counts
+    # no multiple of a warp or a block, three (idx, mask) pairs in one
+    # launch, an all-false mask and every index out of range
+    leaves = list(node_state.values())
+
+    def src(t):
+        return ~t[:, 0] if t.dtype == torch.bool else (t[:, 0] + 1).to(
+            t.dtype)
+
+    def scatter(ts, val=src):
+        return [(t, every[:t.shape[0]], val(t), mask[:t.shape[0]])
+                for t in ts]
+
+    cases += [
+        ("put_node_state_dst_one_element_in", "put_rows_",
+         (scatter([unaligned(t) for t in leaves]),)),
+        ("put_node_state_dst_one_lane_in", "put_rows_",
+         (scatter([lane_in(t) for t in leaves]),)),
+        ("put_node_state_src_one_element_in", "put_rows_",
+         (scatter(leaves, val=lambda t: unaligned(src(t))),)),
+        ("put_node_state_broadcast_rows", "put_rows_",
+         (scatter(leaves, val=lambda t: src(t)[:1].clone()),)),
+        ("put_node_state_B1", "put_rows_", (scatter([t[:1] for t in
+                                                     leaves]),)),
+        ("put_node_state_B4099", "put_rows_",
+         (scatter([t[:4099] for t in leaves]),))]
+    other = torch.roll(every, 1)
+    pairs = [(every, mask), (other, mask), (every, ~mask)]
+    cases.append(("put_node_state_three_pairs", "put_rows_", ([
+        (t, pairs[i % 3][0], src(t), pairs[i % 3][1])
+        for i, t in enumerate(leaves)],)))
+    none = torch.zeros_like(mask)
+    outside = torch.where(every % 2 == 0, -1, N).to(torch.int32)
+    cases.append(("put_node_state_false_mask_and_out_of_range", "put_rows_",
+                  ([(t, every, src(t), none) if i % 2 else
+                    (t, outside, src(t), True)
+                    for i, t in enumerate(leaves)],)))
     return cases
 
 
@@ -1614,7 +1697,7 @@ def k1k4_kernel_phase(wrappers, cases, main, launches):
             out_k = w(*args)
             out_p = node_gather_plain(*args)
         else:     # in place: kernel and plain version each write a copy
-            a, b = clone_tree(args[0]), clone_tree(args[0])
+            a, b = clone_layout(args[0]), clone_layout(args[0])
             out_k = w(a)
             out_p = put_rows_plain(b)
             check(all(o is x[0] for o, x in zip(out_k, a)),
@@ -2203,6 +2286,38 @@ def main() -> int:
           "blind explore")
     del camp, rt
 
+    # ---- flagship_same_on_both: the traced flagship, card against CPU -------
+    # one seed batch (a lane count no multiple of any kernel's lane tile)
+    # through both runners on the card and the eager runner on the CPU:
+    # every leaf equal, the card's eager run through every step kernel
+    runs = {}
+    for where, runner in (("cuda", "run"), ("cuda", "run_fused"),
+                          ("cpu", "run")):
+        rt = workloads.flagship_runtime(device=where, trace_cap=64)
+        s0 = rt.init_batch(np.arange(SAME_B, dtype=np.uint32))
+        reset_counts()
+        out = (rt.run_fused(s0, SAME_STEPS, chunk=64) if runner == "run_fused"
+               else rt.run(s0, SAME_STEPS, chunk=64)[0])
+        runs[where, runner] = (read_counts(), {
+            k: v.cpu() for k, v in interop.state_leaves(out).items()})
+    ref = runs["cpu", "run"][1]
+    for where, runner in (("cuda", "run"), ("cuda", "run_fused")):
+        got = runs[where, runner][1]
+        diff = [k for k in ref if not torch.equal(ref[k], got[k])]
+        check(sorted(got) == sorted(ref) and not diff,
+              f"flagship_same_on_both: {runner} on the card differs from "
+              f"the CPU in {diff[:4]}")
+    eager = runs["cuda", "run"][0]
+    emit(phase="flagship_same_on_both", batch=SAME_B, steps=SAME_STEPS,
+         trace_cap=64, leaves=len(ref), equal=True, launches_cuda_run=eager)
+    check(all(eager[k] == SAME_STEPS * n for k, n in
+              dict(per_tr, raft_invariant=1, sched_pick=1, apply_super=1,
+                   emit_write=1).items()),
+          f"flagship_same_on_both: the card's eager launches {eager}")
+    check(all(v == 0 for v in runs["cpu", "run"][0].values()),
+          "flagship_same_on_both: a kernel launched on the CPU run")
+    del runs, ref, rt, s0, out
+
     # ---- kernel: sched_pick against its plain version -----------------------
     B, C = captured[0][0].shape
     N = captured[0][5].shape[1]
@@ -2478,7 +2593,8 @@ def main() -> int:
             (EDGE_B, 3, 8, 2, True, (1, 0, 1)),
             (EDGE_B, 5, 8, 1, True, (1, 1, 0, 1, 1)),
             (1, 5, 32, 1, False, None), (1, 3, 8, 1, True, None),
-            (FLAG_B + 3, 5, 32, 1, True, None)):
+            (FLAG_B + 3, 5, 32, 1, True, None), (EDGE_B, 8, 8, 2, True, None),
+            (EDGE_B + 5, 32, 32, 8, True, None), (37, 16, 32, 4, True, None)):
         ops = raft_edge_operands(dev, B_r, N_r, L_r, F_r, B_r + L_r, peer,
                                  snap)
         for ws in (False, True):
@@ -2486,6 +2602,17 @@ def main() -> int:
                        f"{'_snap' if snap else ''}"
                        f"{'_peers' if peer else ''}"
                        f"_{'pairwise' if ws else 'adjacent'}"] = ops + (ws,)
+    # operands off a 16-byte boundary: every tensor one element in (the
+    # log rows then go 4 bytes an access), and one lane in (the vectors
+    # off, the log columns still aligned); B=4101, no multiple of a
+    # block's lanes
+    ops = raft_edge_operands(dev, EDGE_B + 5, 5, 32, 1, 77, None, True)
+    for how, move in (("one_element_in", unaligned), ("one_lane_in", lane_in)):
+        moved = tuple(move(t) for t in ops[:7]) + (
+            tuple(move(c) for c in ops[7]),) + ops[8:]
+        for ws in (False, True):
+            raft_cases[f"edges_B{EDGE_B + 5}_{how}_"
+                       f"{'pairwise' if ws else 'adjacent'}"] = moved + (ws,)
     err = 0
     for name, args in raft_cases.items():
         out_k = raft_invariant_check(*args)
@@ -2499,6 +2626,8 @@ def main() -> int:
     p_ms2 = cuda_ms(lambda: raft_invariant_plain(*main_r), 5)
     nbytes, ops_n = raft_bound(*main_r)
     b_ms, o_ms = nbytes / HBM_BYTES_PER_S, ops_n / INT32_OPS_PER_S
+    from madsim_tpu_torch.ops.raft_invariant import rows_vec4
+    vec4 = rows_vec4((main_r[6],) + main_r[7], main_r[6].shape[-1])
     ri = dict(ms=min(k_ms, k_ms2), plain_ms=min(p_ms, p_ms2),
               bound_ms=max(b_ms, o_ms) * 1e3,
               bound_by="bytes" if b_ms >= o_ms else "operations",
@@ -2510,7 +2639,7 @@ def main() -> int:
              "raft_invariant"], ms=[k_ms, k_ms2], plain_ms=[p_ms, p_ms2],
          ms_in_flagship_graph=prof_fused["raft_invariant_ms_per_step"],
          bound_bytes=nbytes, bound_operations=ops_n, bound_ms=ri["bound_ms"],
-         bound_by=ri["bound_by"], library="none")
+         bound_by=ri["bound_by"], library="none", rows_vec4=vec4)
     del raft_cases, main_r
 
     # ---- kernel: the supervisor op against its plain version ----------------

@@ -16,25 +16,61 @@
 //                row (src[b]), or the entry's scalar; an out-of-range
 //                index writes nothing, as `put_row`'s one-hot does
 //
-// The tables (pointers, row sizes, element sizes; a scalar's bits) ride
-// in the parameter block, so a CUDA graph holds the step's own buffers
-// and nothing is copied from the host a step.
+// The tables (pointers, row sizes, element sizes; a scalar's bits; for
+// put_rows the groups and units the wrapper lays out) ride in the
+// parameter block, so a CUDA graph holds the step's own buffers and
+// nothing is copied from the host a step.
 //
-// Bound: bytes, every row read once and written once (the flagship's
-// 16 node-state leaves: a 344-byte row a lane each way, B=100,000).
-// Design: a block takes a tile of one leaf's (or entry's) B * row
-// elements, a thread one element, so consecutive threads copy
-// consecutive elements (the output [B, row] is one coalesced stream,
-// the source rows contiguous runs) and a lane's index and mask are one
-// broadcast load for its threads. The launcher lays the leaves' tiles
-// end to end (`first_block`); a block finds its leaf by a scan that is
-// the same for all its threads, so the table reads are broadcasts and
-// the element size a uniform branch.
+// Both are bound by bytes: every row read once and written once (the
+// flagship's 16 node-state leaves, 344 bytes a lane each way at
+// B=100,000). On this card that bound is reached only with many
+// independent loads in flight, since a load waits on the order of a
+// microsecond for device memory.
+//
+// node_gather: a block takes a tile of one leaf's B * row elements, a
+// thread one element, so consecutive threads copy consecutive elements
+// (the output [B, row] is one coalesced stream, the source rows
+// contiguous runs) and a lane's index is one broadcast load for its
+// threads. The launcher lays the leaves' tiles end to end
+// (`first_block`); a block finds its leaf by a scan that is the same for
+// all its threads.
+//
+// put_rows is lane-major: a thread owns one lane, a block 128 lanes. The
+// wrapper groups a launch's entries by their (idx, mask) pair (the node
+// scatter's 16 entries are one group; the dup pop's two share an index
+// but not a mask, so they are two) and cuts each group into units, one
+// row of blocks (grid.y) each, which run side by side; a thread loads its
+// lane's index and mask once a unit, where a thread an element would load
+// them once an element (86 times a lane in the scatter):
+//   - up to kBatch one-element rows (the flagship's 12 scalar leaves, the
+//     pop's table columns, the Lamport clock): the lane's thread issues
+//     every source load of the unit before its first store, without
+//     waiting for its index (every source row b < B exists), so index,
+//     mask and sources are in flight together;
+//   - one longer row (log_term, log_cmd: 32 int32, 128 bytes; next_idx,
+//     match_idx: 5 int32): the warp copies its 32 lanes' rows together,
+//     cut into chunks, a thread a chunk, each lane's row index reaching
+//     its chunks' threads by shuffle, kWarpBatch chunk loads in flight
+//     before their stores, so a store instruction writes whole rows of
+//     neighbouring lanes rather than one word of 32 lanes. A chunk is 16
+//     bytes (int4; 8 threads a 128-byte row, 4 lanes an instruction)
+//     where the destination and source bases, the source's lane stride
+//     and the row's bytes are all 16-byte aligned; else the widest power
+//     of two that divides them all (4 bytes for an int32 row one element
+//     off a 16-byte boundary, or for the 20-byte rows); a scalar source is
+//     stored an element at a time.
+// A scalar leaf's 4-byte stores land 20 bytes apart, so each touches a
+// sector it only partly writes; rewriting the lanes' whole [R] slots
+// instead (full-sector stores after coalesced loads) measured slower on
+// this card. No integer division is left: a row's chunks are padded to a
+// power of two, so a thread finds its lane and chunk by shift and mask.
 
 #include <cstdint>
+#include <cuda_runtime.h>
 
 constexpr int kMaxGather = 48;   // leaves a node_gather launch
-constexpr int kMaxPut = 16;      // entries a put_rows launch
+constexpr int kMaxPut = 16;      // entries (and units) a put_rows launch
+constexpr int kBatch = 8;        // one-element rows a unit
 
 // One leaf of node_gather: src [B, R, row] and dst [B, row], `row`
 // elements of `esize` bytes; its tiles start at block `first_block` (set
@@ -58,30 +94,50 @@ struct GatherParams {
   int32_t n_blocks, pad;    // set by the launcher
 };
 
-// One entry of put_rows: dst [B, R, row] written in place; src a row a
-// lane at src + b * src_sb (null: the scalar `value`'s low esize bytes);
-// idx [B]; mask [B] bool (null: every lane); its tiles start at block
-// `first_block` (set by the launcher).
+// One entry of put_rows: dst [B, R, row] written in place; src lane b's
+// row at src + b * src_sb elements (src_sb 0: one row for every lane;
+// null: the scalar `value`'s low esize bytes). chunk 0: a one-element
+// row, written by its lane's thread; else the warp copies its 32 lanes'
+// rows `chunk` bytes an access, `chunks` a row, padded to 1 << shift.
 struct PutRow {
   void* dst;
   const void* src;
-  const int32_t* idx;
-  const uint8_t* mask;
   int64_t row;
   int64_t src_sb;
   uint64_t value;
-  int32_t R, esize, first_block, pad;
+  int32_t R, esize;
+  int32_t chunk, chunks, shift, pad;
+};
+
+// The entries that share one (idx, mask) pair.
+struct PutGroup {
+  const int32_t* idx;       // [B]
+  const uint8_t* mask;      // [B] bool; null: every lane
+};
+
+// One row of blocks (grid.y) of a put_rows launch, all of group `group`:
+// a longer row (`entry`), or up to kBatch one-element rows, the entries
+// items[first_item, first_item + n_items).
+struct PutUnit {
+  int32_t group, entry;     // entry -1: one-element rows
+  int32_t first_item, n_items;
 };
 
 struct PutParams {
   PutRow rows[kMaxPut];
+  PutGroup groups[kMaxPut];
+  PutUnit units[kMaxPut];
+  uint8_t items[kMaxPut];       // entries of the one-element units
   int64_t B;
-  int32_t n, n_blocks;      // n_blocks: set by the launcher
+  int32_t n, n_groups, n_units, n_items;
 };
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;      // node_gather
+constexpr int kPutThreads = 128;   // put_rows: lanes a block
+constexpr int kWarpBatch = 8;      // long-row chunk loads before stores
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 __device__ __forceinline__ void copy_elem(void* dst, const void* src,
                                           int64_t di, int64_t si,
@@ -98,6 +154,16 @@ __device__ __forceinline__ void copy_elem(void* dst, const void* src,
   }
 }
 
+__device__ __forceinline__ uint64_t load_elem(const void* src, int64_t si,
+                                              int esize) {
+  switch (esize) {
+    case 1: return static_cast<const uint8_t*>(src)[si];
+    case 2: return static_cast<const uint16_t*>(src)[si];
+    case 4: return static_cast<const uint32_t*>(src)[si];
+    default: return static_cast<const uint64_t*>(src)[si];
+  }
+}
+
 __device__ __forceinline__ void store_value(void* dst, int64_t di,
                                             uint64_t v, int esize) {
   switch (esize) {
@@ -107,6 +173,36 @@ __device__ __forceinline__ void store_value(void* dst, int64_t di,
     case 4: static_cast<uint32_t*>(dst)[di] = static_cast<uint32_t>(v);
       break;
     default: static_cast<uint64_t*>(dst)[di] = v; break;
+  }
+}
+
+// `chunk` bytes at p (aligned to chunk), in the low words of a uint4
+__device__ __forceinline__ uint4 load_chunk(const char* p, int chunk) {
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  switch (chunk) {
+    case 16: v = *reinterpret_cast<const uint4*>(p); break;
+    case 8: {
+      const uint2 t = *reinterpret_cast<const uint2*>(p);
+      v.x = t.x;
+      v.y = t.y;
+      break;
+    }
+    case 4: v.x = *reinterpret_cast<const uint32_t*>(p); break;
+    case 2: v.x = *reinterpret_cast<const uint16_t*>(p); break;
+    default: v.x = *reinterpret_cast<const uint8_t*>(p); break;
+  }
+  return v;
+}
+
+__device__ __forceinline__ void store_chunk(char* p, uint4 v, int chunk) {
+  switch (chunk) {
+    case 16: *reinterpret_cast<uint4*>(p) = v; break;
+    case 8: *reinterpret_cast<uint2*>(p) = make_uint2(v.x, v.y); break;
+    case 4: *reinterpret_cast<uint32_t*>(p) = v.x; break;
+    case 2: *reinterpret_cast<uint16_t*>(p) = static_cast<uint16_t>(v.x);
+      break;
+    default: *reinterpret_cast<uint8_t*>(p) = static_cast<uint8_t>(v.x);
+      break;
   }
 }
 
@@ -127,25 +223,92 @@ node_gather_kernel(const GatherParams p) {
             (static_cast<int64_t>(b) * p.R + r) * row + j, lf.esize);
 }
 
-__global__ void __launch_bounds__(kThreads)
-put_rows_kernel(const PutParams p) {
-  const int bid = blockIdx.x;
-  int l = 0;      // the same for every thread of the block
-  while (l + 1 < p.n && p.rows[l + 1].first_block <= bid) ++l;
-  const PutRow& w = p.rows[l];
-  const uint32_t row = static_cast<uint32_t>(w.row);
-  const uint32_t e = static_cast<uint32_t>(bid - w.first_block) * kThreads
-      + threadIdx.x;
-  if (e >= static_cast<uint32_t>(p.B) * row) return;
-  const uint32_t b = e / row, j = e - b * row;
-  if (w.mask != nullptr && w.mask[b] == 0) return;
-  const int32_t r = w.idx[b];
-  if (r < 0 || r >= w.R) return;
-  const int64_t di = (static_cast<int64_t>(b) * w.R + r) * row + j;
-  if (w.src != nullptr)
-    copy_elem(w.dst, w.src, di, b * w.src_sb + j, w.esize);
+// A lane's one-element rows of one unit: every source load, then the
+// stores where the lane writes (0 <= r < R).
+__device__ __forceinline__ void put_short(const PutParams& p,
+                                          const PutUnit& u, int64_t b,
+                                          bool live, int32_t r) {
+  uint64_t v[kBatch];
+#pragma unroll
+  for (int k = 0; k < kBatch; ++k) {
+    v[k] = 0;
+    if (live && k < u.n_items) {
+      const PutRow& w = p.rows[p.items[u.first_item + k]];
+      v[k] = w.src != nullptr ? load_elem(w.src, b * w.src_sb, w.esize)
+                              : w.value;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kBatch; ++k) {
+    if (r >= 0 && k < u.n_items) {
+      const PutRow& w = p.rows[p.items[u.first_item + k]];
+      if (r < w.R) store_value(w.dst, b * w.R + r, v[k], w.esize);
+    }
+  }
+}
+
+// One longer row of the warp's 32 lanes (from lane `warp0`), chunk by
+// chunk: slot s of the 32 << shift is lane s >> shift's chunk s & mask;
+// thread t takes slots t, t + 32, ... Every thread runs every shuffle.
+__device__ __forceinline__ void put_long(const PutRow& w, int64_t warp0,
+                                         int t, int32_t r) {
+  const int cb = w.chunk, shift = w.shift;
+  const int64_t rb = w.row * w.esize;            // a row's bytes
+  const int64_t sb = w.src_sb * w.esize;         // between lanes' sources
+  const int per = 1 << shift;
+  const char* src = static_cast<const char*>(w.src);
+  char* dst = static_cast<char*>(w.dst);
+  const uint4 value = make_uint4(static_cast<uint32_t>(w.value),
+                                 static_cast<uint32_t>(w.value >> 32), 0u,
+                                 0u);
+  for (int i0 = 0; i0 < per; i0 += kWarpBatch) {
+    uint4 v[kWarpBatch];
+    int32_t rl[kWarpBatch];
+#pragma unroll
+    for (int k = 0; k < kWarpBatch; ++k) {
+      rl[k] = -1;
+      if (i0 + k < per) {          // uniform over the warp
+        const int slot = ((i0 + k) << 5) + t;
+        const int l = slot >> shift, c = slot & (per - 1);
+        const int32_t rr = __shfl_sync(kFull, r, l);
+        rl[k] = (rr >= 0 && rr < w.R && c < w.chunks) ? rr : -1;
+        v[k] = value;
+        if (rl[k] >= 0 && src != nullptr)
+          v[k] = load_chunk(src + (warp0 + l) * sb + c * cb, cb);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kWarpBatch; ++k) {
+      if (rl[k] >= 0) {
+        const int slot = ((i0 + k) << 5) + t;
+        const int l = slot >> shift, c = slot & (per - 1);
+        store_chunk(dst + ((warp0 + l) * w.R + rl[k]) * rb + c * cb, v[k],
+                    cb);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kPutThreads)
+put_rows_kernel(const __grid_constant__ PutParams p) {
+  const PutUnit& u = p.units[blockIdx.y];
+  const PutGroup& g = p.groups[u.group];
+  const int t = threadIdx.x & 31;
+  const int64_t warp0 = static_cast<int64_t>(blockIdx.x) * kPutThreads
+      + (threadIdx.x & ~31);
+  const int64_t b = warp0 + t;
+  const bool live = b < p.B;     // no thread leaves: the warp shuffles
+  // the lane's row, or -1 where it writes nothing
+  int32_t r = -1;
+  if (live) {
+    const int32_t i = g.idx[b];
+    const bool on = g.mask == nullptr || g.mask[b] != 0;
+    r = (on && i >= 0) ? i : -1;
+  }
+  if (u.entry >= 0)
+    put_long(p.rows[u.entry], warp0, t, r);
   else
-    store_value(w.dst, di, w.value, w.esize);
+    put_short(p, u, b, live, r);
 }
 
 inline bool esize_ok(int esize) {
@@ -158,6 +321,29 @@ inline bool tiles(int64_t B, int64_t row, int32_t* blocks) {
   if (row < 1 || n >= (int64_t{1} << 31)) return false;
   *blocks = static_cast<int32_t>((n + kThreads - 1) / kThreads);
   return true;
+}
+
+inline bool aligned(const void* ptr, int64_t bytes, int chunk) {
+  return (reinterpret_cast<uintptr_t>(ptr) % chunk) == 0
+      && bytes % chunk == 0;
+}
+
+// An entry the kernel can copy as its table says: a thread's row has one
+// element; a warp's row's chunk divides its bytes, bases and source
+// stride, and 1 << shift holds its chunks.
+inline bool row_ok(const PutRow& w) {
+  if (!esize_ok(w.esize) || w.R < 1 || w.row < 1 || w.dst == nullptr)
+    return false;
+  if (w.chunk == 0) return w.row == 1;
+  const int64_t rb = w.row * w.esize;
+  const int c = w.chunk;
+  if (c != 1 && c != 2 && c != 4 && c != 8 && c != 16) return false;
+  if (w.src == nullptr && c != w.esize) return false;
+  if (!aligned(w.dst, rb, c) || rb / c != w.chunks || w.shift < 0
+      || w.shift > 24 || (int64_t{1} << w.shift) < w.chunks
+      || (w.shift > 0 && (int64_t{1} << (w.shift - 1)) >= w.chunks))
+    return false;
+  return w.src == nullptr || aligned(w.src, w.src_sb * w.esize, c);
 }
 
 }  // namespace
@@ -183,20 +369,39 @@ extern "C" int node_gather_launch(const GatherParams* params, void* stream) {
 }
 
 extern "C" int put_rows_launch(const PutParams* params, void* stream) {
-  PutParams p = *params;
-  if (p.B < 0 || p.n < 1 || p.n > kMaxPut)
+  const PutParams& p = *params;
+  if (p.B < 0 || p.n < 1 || p.n > kMaxPut || p.n_groups < 1
+      || p.n_groups > p.n || p.n_units < 1 || p.n_units > kMaxPut
+      || p.n_items < 0 || p.n_items > p.n)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (p.B == 0) return 0;
-  p.n_blocks = 0;
-  for (int l = 0; l < p.n; ++l) {
-    int32_t blocks;
-    if (!esize_ok(p.rows[l].esize) || p.rows[l].R < 1
-        || p.rows[l].idx == nullptr || !tiles(p.B, p.rows[l].row, &blocks))
+  for (int e = 0; e < p.n; ++e)
+    if (!row_ok(p.rows[e])) return static_cast<int>(cudaErrorInvalidValue);
+  for (int gi = 0; gi < p.n_groups; ++gi)
+    if (p.groups[gi].idx == nullptr)
       return static_cast<int>(cudaErrorInvalidValue);
-    p.rows[l].first_block = p.n_blocks;
-    p.n_blocks += blocks;
+  for (int ui = 0; ui < p.n_units; ++ui) {
+    const PutUnit& u = p.units[ui];
+    if (u.group < 0 || u.group >= p.n_groups || u.entry >= p.n)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (u.entry >= 0) {
+      if (p.rows[u.entry].chunk == 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+      continue;
+    }
+    if (u.first_item < 0 || u.n_items < 1 || u.n_items > kBatch
+        || u.first_item + u.n_items > p.n_items)
+      return static_cast<int>(cudaErrorInvalidValue);
+    for (int i = u.first_item; i < u.first_item + u.n_items; ++i)
+      if (p.items[i] >= p.n || p.rows[p.items[i]].chunk != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
   }
-  put_rows_kernel<<<p.n_blocks, kThreads, 0,
+  if (p.B == 0) return 0;
+  const int64_t blocks = (p.B + kPutThreads - 1) / kPutThreads;
+  if (blocks >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks),
+                  static_cast<unsigned>(p.n_units));
+  put_rows_kernel<<<grid, kPutThreads, 0,
                     static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,50 +22,74 @@
 // arithmetic: it wraps at 32 bits as the plain version's int32 does.
 //
 // Bound: bytes. The check reads every lane's six [N] node vectors and its
-// (1 + F) [N, L] log columns once and writes two words. Design: a warp
-// takes a lane; thread n holds node n's vectors, and for each node the
-// warp loads log slot k into thread k (the columns are contiguous, so a
-// node's slots are one coalesced 4L-byte read), folds the entry hash,
-// multiplies by P^-(k+1) and runs the wrapping prefix sum as five
-// shuffles. A chain value chain(t) is then one shuffle of S[t] away, so
-// the [N, N, L+1] one-hot of the reference becomes N (pairwise form: N*N
-// in all, kept in shared memory for the pair compare) or two (adjacent
-// form) shuffles a node. No prefix table leaves registers.
+// (1 + F) [N, L] log columns once and writes two words (1,405 bytes a
+// lane for the flagship's N=5, L=32, F=1: 0.042 ms at B=100,000). What
+// holds a warp-a-lane design at over twice that bound on this card is
+// its instructions, not its loads: the warp walks a lane's N nodes one
+// after another, each a round of 32-slot loads, a five-shuffle prefix sum
+// and chain shuffles, ~450 warp instructions a lane, with N of its 32
+// threads at work outside the rounds. Staging a group of lanes through a
+// two-stage ring of bulk copies (cp.async.bulk into shared memory on an
+// mbarrier) keeps those instructions and ran slower still (PERF.md).
+//
+// Design: a thread per (lane, node). A warp takes floor(32 / N) lanes
+// (6 for N=5; thread t is node t % N of lane t / N). Each thread reads
+// its node's six vector words (the warp's reads are one contiguous run)
+// and its own log rows: L words of each column, contiguous, 16 bytes an
+// access, every access of the row issued before the first is used. It
+// folds the entry hashes and runs the prefix sum S over its L slots in
+// order, in registers, writing S into a row of shared memory (stride
+// L + 1 made odd, so the warp's writes hit 32 banks). The lane-wide
+// parts (two leaders, the commit order and predecessor, the verdict) are
+// shuffles and ballots inside the lane's N threads. A chain value is
+// then one shared-memory read: the adjacent form reads its own row at
+// its two points; the pairwise form, for each peer j, its own row and
+// j's at their common point, so one thread settles a pair. About 70
+// warp instructions a lane for the flagship.
+//
+// Where a log column is not 16-byte aligned or L is no multiple of 4, the
+// rows are read 4 bytes an access (`vec4` 0), in the same kernel.
 
 #include <cstdint>
+#include <cuda_runtime.h>
 
 constexpr int kMaxFields = 8;
+constexpr int kVectors = 6;
 
 // The launch parameters, field for field the ctypes structure of the
 // wrapper; outside the unnamed namespace so that the C entry point keeps
 // external linkage.
 struct RaftInvParams {
-  const int32_t* role;          // [B, N]
-  const int32_t* term;
-  const int32_t* snap_len;
-  const int32_t* log_len;
-  const int32_t* commit;
-  const int32_t* snap_digest;
-  const int32_t* log_term;      // [B, N, L]
-  const int32_t* fields[kMaxFields];   // F columns [B, N, L]
+  const int32_t* vecs[kVectors];   // role, term, snap_len, log_len,
+                                   // commit, snap_digest: [B, N]
+  const int32_t* cols[1 + kMaxFields];   // log_term, then F field
+                                         // columns: [B, N, L]
   const uint8_t* peer;          // [N] bool
   const int32_t* powP;          // [L + 1]
   const int32_t* ipowP;         // [L + 1]
   uint8_t* bad;                 // [B] bool
   int32_t* code;                // [B]
   int B, N, L, F, window_slides;
+  int vec4;                     // rows read 16 bytes an access
 };
 
 namespace {
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int kWarps = 4;                  // lanes (warps) a block
+constexpr int kWarps = 4;                  // warps a block
+constexpr int kMaxL = 32;
 constexpr int kLeader = 2;
 constexpr uint32_t kMix = 920419823u;
 constexpr int32_t kTwoLeaders = 101;
 constexpr int32_t kLogMismatch = 102;
 constexpr int32_t kCommitGtLog = 103;
 constexpr int32_t kIntMax = 0x7FFFFFFF;
+
+__host__ __device__ constexpr int row_stride(int L) { return (L + 1) | 1; }
+
+__host__ __device__ constexpr int smem_words(int L) {
+  return 2 * (L + 1) + kWarps * 32 * row_stride(L);
+}
 
 __device__ __forceinline__ int32_t sub32(int32_t a, int32_t b) {
   return static_cast<int32_t>(static_cast<uint32_t>(a)
@@ -76,28 +100,95 @@ __device__ __forceinline__ int clamp_t(int32_t t, int L) {
   return t < 0 ? 0 : (t > L ? L : t);
 }
 
+__device__ __forceinline__ bool in_window(int32_t t, int L) {
+  return t >= 0 && t <= L;
+}
+
+// A node's L log slots of one column (row at element `row0`) into
+// v[0..L), every load issued before any is used: 16 bytes an access with
+// vec4, else 4.
+__device__ __forceinline__ void load_row(const int32_t* col, int64_t row0,
+                                         int L, bool vec4,
+                                         uint32_t (&v)[kMaxL]) {
+  if (vec4) {
+    const int4* r = reinterpret_cast<const int4*>(col + row0);
+#pragma unroll
+    for (int c = 0; c < kMaxL / 4; ++c) {
+      const int4 x = 4 * c < L ? __ldg(r + c) : make_int4(0, 0, 0, 0);
+      v[4 * c] = static_cast<uint32_t>(x.x);
+      v[4 * c + 1] = static_cast<uint32_t>(x.y);
+      v[4 * c + 2] = static_cast<uint32_t>(x.z);
+      v[4 * c + 3] = static_cast<uint32_t>(x.w);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kMaxL; ++k)
+      v[k] = k < L ? static_cast<uint32_t>(__ldg(col + row0 + k)) : 0u;
+  }
+}
+
+// A node's prefix row S[k], k = 0..L, into `S` (S[0] = 0): its entry
+// hashes folded over the columns, times P^-(k+1), summed in order.
+__device__ __forceinline__ void prefix_row(const RaftInvParams& p,
+                                           int64_t row0, const uint32_t* ipw,
+                                           uint32_t* S) {
+  const int L = p.L;
+  uint32_t h[kMaxL];
+  load_row(p.cols[0], row0, L, p.vec4, h);
+  for (int f = 1; f <= p.F; ++f) {
+    uint32_t y[kMaxL];
+    load_row(p.cols[f], row0, L, p.vec4, y);
+#pragma unroll
+    for (int k = 0; k < kMaxL; ++k) h[k] = h[k] * kMix + y[k];
+  }
+  uint32_t s = 0;
+  S[0] = 0;
+#pragma unroll
+  for (int k = 0; k < kMaxL; ++k) {
+    if (k < L) {
+      s += h[k] * ipw[k + 1];
+      S[k + 1] = s;
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kWarps * 32)
-raft_invariant_kernel(const RaftInvParams p) {
+raft_invariant_kernel(const __grid_constant__ RaftInvParams p) {
   extern __shared__ uint32_t sm[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
-  if (b >= p.B) return;                    // the whole warp leaves
-  const int N = p.N, L = p.L;
-  const bool mine = lane < N;              // this thread holds node `lane`
+  const int N = p.N, L = p.L, stride = row_stride(L);
+  uint32_t* pw = sm;
+  uint32_t* ipw = sm + (L + 1);
+  for (int i = threadIdx.x; i <= L; i += blockDim.x) {
+    pw[i] = static_cast<uint32_t>(p.powP[i]);
+    ipw[i] = static_cast<uint32_t>(p.ipowP[i]);
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, t = threadIdx.x & 31;
+  uint32_t* rows = sm + 2 * (L + 1) + warp * 32 * stride;
+  const int G = 32 / N;                    // lanes a warp
+  const int g = t / N;                     // this thread's lane in the warp
+  const int n = t - g * N;                 // and its node
+  const int base = g * N;                  // the lane's first thread
+  const int64_t b = (static_cast<int64_t>(blockIdx.x) * kWarps + warp) * G
+      + g;
+  const bool mine = g < G && b < p.B;      // thread holds node n of lane b
+  // the lane's threads in a ballot
+  const unsigned grp = g < G ? (N == 32 ? kFull : ((1u << N) - 1u) << base)
+                             : 0u;
 
   int32_t role = 0, term = 0, sl = 0, ll = 0, cm = 0;
   uint32_t dig = 0;
   bool peer = false;
   if (mine) {
-    const int64_t i = b * N + lane;
-    role = p.role[i];
-    term = p.term[i];
-    sl = p.snap_len[i];
-    ll = p.log_len[i];
-    cm = p.commit[i];
-    dig = static_cast<uint32_t>(p.snap_digest[i]);
-    peer = p.peer[lane] != 0;
+    const int64_t i = b * N + n;
+    role = p.vecs[0][i];
+    term = p.vecs[1][i];
+    sl = p.vecs[2][i];
+    ll = p.vecs[3][i];
+    cm = p.vecs[4][i];
+    dig = static_cast<uint32_t>(p.vecs[5][i]);
+    peer = p.peer[n] != 0;
+    prefix_row(p, i * L, ipw, rows + t * stride);
   }
   // the reference's masked views: non-peers count as empty, uncommitted
   const int32_t slm = peer ? sl : 0;
@@ -109,100 +200,64 @@ raft_invariant_kernel(const RaftInvParams p) {
   const bool leader = mine && peer && role == kLeader;
   bool two = false;
   for (int j = 0; j < N; ++j) {
-    const int32_t term_j = __shfl_sync(kFull, term, j);
-    const bool leader_j = __shfl_sync(kFull, static_cast<int>(leader), j);
-    two |= leader && leader_j && j != lane && term == term_j;
+    const int32_t term_j = __shfl_sync(kFull, term, base + j);
+    const bool leader_j = __shfl_sync(kFull, static_cast<int>(leader),
+                                      base + j);
+    two |= leader && leader_j && j != n && term == term_j;
   }
-  const bool two_leaders = __any_sync(kFull, two);
-  const bool commit_gt = __any_sync(kFull, mine && ec > loglen);
-  const unsigned peer_mask = __ballot_sync(kFull, mine && peer);
-
-  // adjacent form: rank in the stable commit order (non-peers last) and
-  // the predecessor (the rank-0 node's own index stands in for it, as
-  // the reference's clipped gather does; it is never linked)
-  const int32_t key = peer ? ec : kIntMax;
-  int rank = 0;
-  for (int j = 0; j < N; ++j) {
-    const int32_t key_j = __shfl_sync(kFull, key, j);
-    rank += (key_j < key || (key_j == key && j < lane)) ? 1 : 0;
-  }
-  int prev = lane;
-  for (int j = 0; j < N; ++j) {
-    const int rank_j = __shfl_sync(kFull, rank, j);
-    if (rank > 0 && rank_j == rank - 1) prev = j;
-  }
-  if (!mine) prev = 0;
-  const int32_t prev_ec = __shfl_sync(kFull, ec, prev);
-  const int32_t tY = sub32(prev_ec, slm);
-  const int32_t tX = sub32(ec, slm);
-
-  uint32_t* ci = sm + warp * (N * N + N);  // pairwise form: chain_i(a_ij)
-  uint32_t* okrow = ci + N * N;            // bit j of row i: t_ij in window
-  uint32_t X = 0, Y = 0;
-
-  for (int n = 0; n < N; ++n) {
-    // node n's entry hashes, times P^-(k+1), prefix-summed over the warp
-    uint32_t w = 0;
-    if (lane < L) {
-      const int64_t at = (b * N + n) * L + lane;
-      uint32_t h = static_cast<uint32_t>(p.log_term[at]);
-      for (int f = 0; f < p.F; ++f)
-        h = h * kMix + static_cast<uint32_t>(p.fields[f][at]);
-      w = h * static_cast<uint32_t>(__ldg(p.ipowP + lane + 1));
-    }
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const uint32_t v = __shfl_up_sync(kFull, w, o);
-      if (lane >= o) w += v;
-    }
-    // thread k now holds S[k + 1]; chain(t) needs S[t]
-    const uint32_t dig_n = __shfl_sync(kFull, dig, n);
-    auto chain = [&](int t) -> uint32_t {
-      const uint32_t s = __shfl_sync(kFull, w, (t + 31) & 31);
-      return static_cast<uint32_t>(__ldg(p.powP + t))
-          * (dig_n + (t == 0 ? 0u : s));
-    };
-    if (p.window_slides) {
-      const int32_t ec_n = __shfl_sync(kFull, ec, n);
-      const int32_t sl_n = __shfl_sync(kFull, slm, n);
-      const int32_t a = ec_n < ec ? ec_n : ec;     // thread j: a_nj
-      const int32_t t = sub32(a, sl_n);
-      const bool ok = t >= 0 && t <= L;
-      const uint32_t c = chain(clamp_t(t, L));
-      const unsigned okm = __ballot_sync(kFull, mine && ok);
-      if (mine) ci[n * N + lane] = c;
-      if (lane == 0) okrow[n] = okm;
-    } else {
-      const int32_t tX_n = __shfl_sync(kFull, tX, n);
-      const int32_t tY_n = __shfl_sync(kFull, tY, n);
-      const uint32_t cx = chain(clamp_t(tX_n, L));
-      const uint32_t cy = chain(clamp_t(tY_n, L));
-      if (lane == n) {
-        X = (tX_n >= 0 && tX_n <= L) ? cx : 0u;   // exact point, else 0
-        Y = cy;
-      }
-    }
-  }
+  const bool two_leaders = (__ballot_sync(kFull, two) & grp) != 0;
+  const bool commit_gt = (__ballot_sync(kFull, mine && ec > loglen) & grp)
+      != 0;
+  const unsigned peers = __ballot_sync(kFull, mine && peer) & grp;
+  const unsigned peer_mask = g < G ? peers >> base : 0u;   // bit j: node j
 
   bool mm = false;
+  __syncwarp();                            // every node row is written
+  auto chain = [&](int row, uint32_t d, int32_t at) -> uint32_t {
+    return pw[at] * (d + rows[row * stride + at]);
+  };
   if (p.window_slides) {
-    __syncwarp();
-    for (int q = lane; q < N * N; q += 32) {
-      const int i = q / N, j = q - (q / N) * N;
-      if (i < j && ((peer_mask >> i) & 1u) && ((peer_mask >> j) & 1u)
-          && ((okrow[i] >> j) & 1u) && ((okrow[j] >> i) & 1u)
-          && ci[i * N + j] != ci[j * N + i])
-        mm = true;
+    // thread n settles each pair (n, j), j > n, from both rows
+    for (int j = 0; j < N; ++j) {
+      const int32_t ec_j = __shfl_sync(kFull, ec, base + j);
+      const int32_t sl_j = __shfl_sync(kFull, slm, base + j);
+      const uint32_t dig_j = __shfl_sync(kFull, dig, base + j);
+      if (mine && j > n && peer && ((peer_mask >> j) & 1u)) {
+        const int32_t a = ec_j < ec ? ec_j : ec;
+        const int32_t ti = sub32(a, slm), tj = sub32(a, sl_j);
+        if (in_window(ti, L) && in_window(tj, L)
+            && chain(t, dig, ti) != chain(base + j, dig_j, tj))
+          mm = true;
+      }
     }
   } else {
-    const uint32_t x_prev = __shfl_sync(kFull, X, prev);
-    const bool okY = tY >= 0 && tY <= L;
+    // rank in the stable commit order (non-peers last) and the
+    // predecessor (the rank-0 node's own index stands in for it, as the
+    // reference's clipped gather does; it is never linked)
+    const int32_t key = peer ? ec : kIntMax;
+    int rank = 0;
+    for (int j = 0; j < N; ++j) {
+      const int32_t key_j = __shfl_sync(kFull, key, base + j);
+      rank += (key_j < key || (key_j == key && j < n)) ? 1 : 0;
+    }
+    int prev = n;
+    for (int j = 0; j < N; ++j) {
+      const int rank_j = __shfl_sync(kFull, rank, base + j);
+      if (rank > 0 && rank_j == rank - 1) prev = j;
+    }
+    if (!mine) prev = 0;
+    const int32_t prev_ec = __shfl_sync(kFull, ec, base + prev);
+    const int32_t tY = sub32(prev_ec, slm);
+    const int32_t tX = sub32(ec, slm);
+    const uint32_t X = in_window(tX, L) ? chain(t, dig, tX) : 0u;
+    const uint32_t Y = chain(t, dig, clamp_t(tY, L));
+    const uint32_t x_prev = __shfl_sync(kFull, X, base + prev);
     const bool link = mine && peer && ((peer_mask >> prev) & 1u)
-        && rank > 0 && okY;
+        && rank > 0 && in_window(tY, L);
     mm = link && Y != x_prev;
   }
-  const bool mismatch = __any_sync(kFull, mm);
-  if (lane == 0) {
+  const bool mismatch = (__ballot_sync(kFull, mm) & grp) != 0;
+  if (mine && n == 0) {
     p.bad[b] = (two_leaders || mismatch || commit_gt) ? 1 : 0;
     p.code[b] = two_leaders ? kTwoLeaders
         : (mismatch ? kLogMismatch : kCommitGtLog);
@@ -215,13 +270,18 @@ extern "C" int raft_invariant_launch(const RaftInvParams* params,
                                      void* stream) {
   const RaftInvParams& p = *params;
   if (p.B <= 0) return 0;
-  if (p.N < 1 || p.N > 32 || p.L < 1 || p.L > 32 || p.F < 0
+  if (p.N < 1 || p.N > 32 || p.L < 1 || p.L > kMaxL || p.F < 0
       || p.F > kMaxFields)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = p.window_slides
-      ? sizeof(uint32_t) * kWarps * (p.N * p.N + p.N) : 0;
-  const dim3 grid(static_cast<unsigned>((p.B + kWarps - 1) / kWarps));
-  raft_invariant_kernel<<<grid, kWarps * 32, smem,
+  if (p.vec4) {
+    if (p.L % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    for (int c = 0; c <= p.F; ++c)
+      if (reinterpret_cast<uintptr_t>(p.cols[c]) % 16 != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t lanes = static_cast<int64_t>(kWarps) * (32 / p.N);
+  const dim3 grid(static_cast<unsigned>((p.B + lanes - 1) / lanes));
+  raft_invariant_kernel<<<grid, kWarps * 32, smem_words(p.L) * 4,
                           static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,7 +28,12 @@ write would leak one handler's edits into another's.
 The wrappers take the plain versions only for tensors on the CPU; for
 CUDA tensors they launch the kernels or raise. Their tables (pointers,
 row sizes, element sizes, a scalar's bits) ride in the parameter block,
-so a CUDA-graph capture holds the step's own buffers. `launches` counts
+so a CUDA-graph capture holds the step's own buffers. `put_params` lays
+out a put_rows launch: its entries grouped by their (idx, mask) pair,
+each row of more than one element a unit of its own, copied by the warp
+at the access width `_long_chunk` gives (16 bytes where aligned), and
+each group's one-element rows, copied a lane a thread, in units of
+UNIT_ROWS; the units run side by side. `launches` counts
 kernel launches; a launch recorded into a CUDA graph counts in
 `captured` instead.
 """
@@ -46,7 +51,8 @@ from .kernels import CKernel, on_cpu
 
 _I32 = torch.int32
 MAX_GATHER = 48    # leaves a node_gather launch (csrc kMaxGather)
-MAX_PUT = 16       # entries a put_rows launch (csrc kMaxPut)
+MAX_PUT = 16       # entries (and units) a put_rows launch (csrc kMaxPut)
+UNIT_ROWS = 8      # one-element rows a unit (csrc kBatch)
 
 
 def _leaves(tree) -> list:
@@ -106,17 +112,32 @@ class _GatherParams(ctypes.Structure):
 class _PutRow(ctypes.Structure):
     """csrc/node_rows.cu `PutRow`, field for field."""
     _fields_ = [("dst", ctypes.c_void_p), ("src", ctypes.c_void_p),
-                ("idx", ctypes.c_void_p), ("mask", ctypes.c_void_p),
                 ("row", ctypes.c_int64), ("src_sb", ctypes.c_int64),
                 ("value", ctypes.c_uint64), ("R", ctypes.c_int32),
-                ("esize", ctypes.c_int32), ("first_block", ctypes.c_int32),
+                ("esize", ctypes.c_int32), ("chunk", ctypes.c_int32),
+                ("chunks", ctypes.c_int32), ("shift", ctypes.c_int32),
                 ("pad", ctypes.c_int32)]
+
+
+class _PutGroup(ctypes.Structure):
+    """csrc/node_rows.cu `PutGroup`, field for field."""
+    _fields_ = [("idx", ctypes.c_void_p), ("mask", ctypes.c_void_p)]
+
+
+class _PutUnit(ctypes.Structure):
+    """csrc/node_rows.cu `PutUnit`, field for field."""
+    _fields_ = [("group", ctypes.c_int32), ("entry", ctypes.c_int32),
+                ("first_item", ctypes.c_int32), ("n_items", ctypes.c_int32)]
 
 
 class _PutParams(ctypes.Structure):
     """csrc/node_rows.cu `PutParams`, field for field."""
-    _fields_ = [("rows", _PutRow * MAX_PUT), ("B", ctypes.c_int64),
-                ("n", ctypes.c_int32), ("n_blocks", ctypes.c_int32)]
+    _fields_ = [("rows", _PutRow * MAX_PUT), ("groups", _PutGroup * MAX_PUT),
+                ("units", _PutUnit * MAX_PUT),
+                ("items", ctypes.c_uint8 * MAX_PUT),
+                ("B", ctypes.c_int64), ("n", ctypes.c_int32),
+                ("n_groups", ctypes.c_int32), ("n_units", ctypes.c_int32),
+                ("n_items", ctypes.c_int32)]
 
 
 _NP_DTYPES = {torch.bool: np.bool_, torch.uint8: np.uint8,
@@ -196,6 +217,56 @@ class _NodeGather(CKernel):
         return _rebuild(tree, outs)
 
 
+def _long_chunk(dst: int, src, src_sb_bytes: int, row_bytes: int,
+                esize: int) -> int:
+    """Bytes an access of a row's warp copy: 16 where the
+    destination and source bases, the source's lane stride and the row's
+    bytes are all 16-byte aligned, else the widest power of two that
+    divides them all; a scalar source (`src` None) is stored an element
+    at a time."""
+    if src is None:
+        return esize
+    c = 16
+    while (dst | src | src_sb_bytes | row_bytes) % c:
+        c //= 2
+    return c
+
+
+def _group_key(idx: torch.Tensor, mask) -> tuple:
+    return idx.data_ptr(), 0 if mask is None else mask.data_ptr()
+
+
+def put_params(entries, B: int) -> _PutParams:
+    """The parameter block of one put_rows launch: `entries` ([(PutRow,
+    idx, mask)], at most MAX_PUT; mask None: every lane) grouped by their
+    (idx, mask) pair in order of first appearance; a unit (a row of the
+    kernel's blocks, grid.y) for each row of more than one element, and
+    for each UNIT_ROWS of a group's one-element rows (`items`)."""
+    groups: dict = {}
+    for w, idx, mask in entries:
+        groups.setdefault(_group_key(idx, mask), []).append(w)
+    p = _PutParams(B=B, n=len(entries), n_groups=len(groups))
+    units = []
+    e = 0
+    for gi, ((ip, mp), ws) in enumerate(groups.items()):
+        p.groups[gi].idx, p.groups[gi].mask = ip, mp or None
+        first = p.n_items
+        for w in ws:
+            p.rows[e] = w
+            if w.chunk:
+                units.append(_PutUnit(gi, e, 0, 0))
+            else:
+                p.items[p.n_items] = e
+                p.n_items += 1
+            e += 1
+        units += [_PutUnit(gi, -1, at, min(UNIT_ROWS, p.n_items - at))
+                  for at in range(first, p.n_items, UNIT_ROWS)]
+    p.n_units = len(units)
+    for i, u in enumerate(units):
+        p.units[i] = u
+    return p
+
+
 class _PutRows(CKernel):
     """Callable wrapper: CPU tensors -> `put_rows_plain`; CUDA tensors ->
     the kernel (in place either way)."""
@@ -209,23 +280,28 @@ class _PutRows(CKernel):
             return put_rows_plain(writes)
         return self.run(writes)
 
-    def _entry(self, mat, idx, val, mask):
+    def _entry(self, mat, idx, val, mask, made: dict):
+        """(PutRow, idx, mask or None, operands made here) of one write;
+        `made` holds an index or mask converted once for every entry that
+        shares it, so entries of one pair form one group."""
         dev = mat.device
         B, R = mat.shape[:2]
         _check_table("a written tensor", mat, dev, "put_rows_")
         row = mat[0, 0].numel() if B and R else 0
-        ix = _index(idx, B, dev, "put_rows_")
-        w = _PutRow(dst=mat.data_ptr(), idx=ix.data_ptr(), row=row, R=R,
-                    esize=mat.element_size())
-        keep = [ix]      # operands made here live until the launch
+        es = mat.element_size()
+        if id(idx) not in made:
+            made[id(idx)] = _index(idx, B, dev, "put_rows_")
+        ix, m = made[id(idx)], None
         if mask is not True:
             if mask.dtype != torch.bool or tuple(mask.shape) != (B,) \
                     or mask.device != dev:
                 raise ValueError("put_rows_: a mask is a [B] bool tensor "
                                  f"on {dev}")
-            mask = mask.contiguous()
-            keep.append(mask)
-            w.mask = mask.data_ptr()
+            if id(mask) not in made:
+                made[id(mask)] = mask.contiguous()
+            m = made[id(mask)]
+        w = _PutRow(dst=mat.data_ptr(), row=row, R=R, esize=es)
+        keep = []        # operands made here live until the launch
         if isinstance(val, torch.Tensor):
             if val.device != dev:
                 raise ValueError(f"put_rows_: a row source is on "
@@ -238,31 +314,35 @@ class _PutRows(CKernel):
             w.src, w.src_sb = v.data_ptr(), v.stride(0)
         else:
             w.value = _scalar_bits(val, mat.dtype)
-        return w, keep
+        if row > 1:      # copied by the warp; one element: by its lane
+            w.chunk = _long_chunk(w.dst, w.src, w.src_sb * es, row * es, es)
+            w.chunks = row * es // w.chunk
+            w.shift = (w.chunks - 1).bit_length()
+        return w, ix, m, keep
 
     def run(self, writes) -> list:
         """The kernel's path, on any device (the CPU tests hand it a
         stand-in launcher)."""
         dev = writes[0][0].device
         B = writes[0][0].shape[0]
-        todo = []
+        made, todo, spans = {}, [], []
         for mat, idx, val, mask in writes:
             if mask is False or mat.numel() == 0:
                 continue
             if mat.device != dev or mat.shape[0] != B:
                 raise ValueError("put_rows_: every written tensor is "
                                  f"[{B}, R, ...] on {dev}")
-            todo.append(self._entry(mat, idx, val, mask))
-        dsts = [w.dst for w, _ in todo]
-        if len(set(dsts)) != len(dsts):
+            todo.append(self._entry(mat, idx, val, mask, made))
+            spans.append((mat.data_ptr(),
+                          mat.data_ptr() + mat.numel() * mat.element_size()))
+        spans.sort()
+        if any(a[1] > b[0] for a, b in zip(spans, spans[1:])):
             raise ValueError("put_rows_: one tensor written twice in one "
-                             "call (the kernel's writes are unordered)")
+                             "call, or two that overlap (the kernel's "
+                             "writes are unordered)")
         for at in range(0, len(todo), MAX_PUT):
-            p = _PutParams(B=B)
-            for i, (w, _) in enumerate(todo[at:at + MAX_PUT]):
-                p.rows[i] = w
-            p.n = min(MAX_PUT, len(todo) - at)
-            self._launch(p, dev)
+            self._launch(put_params([e[:3] for e in todo[at:at + MAX_PUT]],
+                                    B), dev)
         return [mat for mat, _, _, _ in writes]
 
 

@@ -21,7 +21,9 @@ sound only while no log window slides. Every product and sum wraps at 32
 bits, so kernel and plain version agree exactly.
 
 `raft_invariant_check` takes the plain version only for tensors on the
-CPU; for CUDA tensors it launches the kernel or raises.
+CPU; for CUDA tensors it launches the kernel or raises. The kernel
+(csrc/raft_invariant.cu) gives each (lane, node) a thread, which reads
+its node's log rows 16 bytes an access where `rows_vec4` holds, else 4.
 `raft_invariant_check.launches` counts kernel launches (a launch recorded
 into a CUDA graph under capture counts in `captured` instead).
 """
@@ -33,6 +35,7 @@ import ctypes
 import numpy as np
 import torch
 
+from .kernels import CKernel, on_cpu
 from .select import take1
 
 LEADER = 2
@@ -158,12 +161,18 @@ _NODE_VECTORS = ("role", "term", "snap_len", "log_len", "commit",
 class _Params(ctypes.Structure):
     """csrc/raft_invariant.cu `RaftInvParams`, field for field."""
     _fields_ = (
-        [(n, ctypes.c_void_p) for n in _NODE_VECTORS + ("log_term",)]
-        + [("fields", ctypes.c_void_p * MAX_FIELDS)]
+        [("vecs", ctypes.c_void_p * len(_NODE_VECTORS)),
+         ("cols", ctypes.c_void_p * (1 + MAX_FIELDS))]
         + [(n, ctypes.c_void_p) for n in ("peer", "powP", "ipowP", "bad",
                                           "code")]
-        + [(n, ctypes.c_int) for n in ("B", "N", "L", "F",
-                                       "window_slides")])
+        + [(n, ctypes.c_int) for n in ("B", "N", "L", "F", "window_slides",
+                                       "vec4")])
+
+
+def rows_vec4(cols, L: int) -> bool:
+    """Whether the kernel reads the log rows 16 bytes an access: L a
+    multiple of 4 and every column 16-byte aligned (else 4 bytes)."""
+    return L % 4 == 0 and all(c.data_ptr() % 16 == 0 for c in cols)
 
 
 def _check(name, t, dtype, shape, device):
@@ -180,24 +189,13 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"raft_invariant: {name} must be contiguous")
 
 
-class _RaftInvariant:
+class _RaftInvariant(CKernel):
     """Callable wrapper: CPU tensors -> `raft_invariant_plain`; CUDA
     tensors -> the kernel. `launches` counts kernel launches (and nothing
     else); `captured` counts launches recorded into a CUDA graph."""
 
     def __init__(self):
-        self.launches = 0
-        self.captured = 0
-        self._fn = None
-
-    def _kernel(self):
-        if self._fn is None:
-            from .kernels import load
-            fn = load("raft_invariant").raft_invariant_launch
-            fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+        super().__init__("raft_invariant", "raft_invariant", _Params)
 
     def __call__(self, role, term, snap_len, log_len, commit, snap_digest,
                  log_term, log_fields, peer, powP, ipowP,
@@ -205,14 +203,19 @@ class _RaftInvariant:
         args = (role, term, snap_len, log_len, commit, snap_digest,
                 log_term, tuple(log_fields), peer, powP, ipowP,
                 window_slides)
-        dev = role.device
-        if dev.type == "cpu":
+        if on_cpu(role, "raft_invariant"):
             return raft_invariant_plain(*args)
-        if dev.type != "cuda":
-            raise ValueError(f"raft_invariant: unsupported device {dev}")
+        return self.run(*args)
+
+    def run(self, role, term, snap_len, log_len, commit, snap_digest,
+            log_term, log_fields, peer, powP, ipowP, window_slides: bool):
+        """The kernel's path, on any device (the CPU tests hand it a
+        stand-in launcher)."""
+        dev = role.device
+        vecs = (role, term, snap_len, log_len, commit, snap_digest)
         B, N = role.shape
         L = log_term.shape[-1]
-        F = len(args[7])
+        F = len(log_fields)
         if F > MAX_FIELDS:
             raise NotImplementedError(
                 f"raft_invariant: the CUDA kernel takes at most "
@@ -222,11 +225,10 @@ class _RaftInvariant:
                 f"raft_invariant: the CUDA kernel supports 1 <= N <= "
                 f"{MAX_N} and 1 <= L <= {MAX_L}; got N={N}, L={L}")
         i32 = torch.int32
-        checks = [(n, t, i32, (B, N)) for n, t in zip(_NODE_VECTORS,
-                                                       args[:6])]
+        checks = [(n, t, i32, (B, N)) for n, t in zip(_NODE_VECTORS, vecs)]
         checks += [("log_term", log_term, i32, (B, N, L))]
         checks += [(f"log_fields[{i}]", c, i32, (B, N, L))
-                   for i, c in enumerate(args[7])]
+                   for i, c in enumerate(log_fields)]
         checks += [("peer", peer, torch.bool, (N,)),
                    ("powP", powP, i32, (L + 1,)),
                    ("ipowP", ipowP, i32, (L + 1,))]
@@ -234,28 +236,19 @@ class _RaftInvariant:
             _check(name, t, dt, shape, dev)
         bad = torch.empty((B,), dtype=torch.bool, device=dev)
         code = torch.empty((B,), dtype=i32, device=dev)
-        p = _Params()
-        for n, t in zip(_NODE_VECTORS, args[:6]):
-            setattr(p, n, t.data_ptr())
-        p.log_term = log_term.data_ptr()
-        for i, c in enumerate(args[7]):
-            p.fields[i] = c.data_ptr()
+        if B == 0:
+            return bad, code
+        cols = (log_term,) + tuple(log_fields)
+        p = _Params(B=B, N=N, L=L, F=F, window_slides=int(bool(
+            window_slides)), vec4=int(rows_vec4(cols, L)))
+        for i, t in enumerate(vecs):
+            p.vecs[i] = t.data_ptr()
+        for i, c in enumerate(cols):
+            p.cols[i] = c.data_ptr()
         p.peer, p.powP, p.ipowP = peer.data_ptr(), powP.data_ptr(), \
             ipowP.data_ptr()
         p.bad, p.code = bad.data_ptr(), code.data_ptr()
-        p.B, p.N, p.L, p.F = B, N, L, F
-        p.window_slides = int(bool(window_slides))
-        fn = self._kernel()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        with torch.cuda.device(dev):
-            err = fn(ctypes.byref(p), stream)
-        if err != 0:
-            raise RuntimeError(f"raft_invariant: kernel launch failed "
-                               f"(cudaError {err})")
-        if torch.cuda.is_current_stream_capturing():
-            self.captured += 1
-        else:
-            self.launches += 1
+        self._launch(p, dev)
         return bad, code
 
 

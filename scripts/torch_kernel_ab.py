@@ -15,6 +15,13 @@ host falls on both sides. A measurement holds:
   apply_knobs_ms  the knob write as a CUDA-graph replay (20 launches) of
                   the flagship plan's base knobs into a fresh init batch
                   of B=100,000 lanes
+  put_rows_ms     the node scatter (the step's largest put_rows_ call: 16
+                  node-state leaves, in place) as a CUDA-graph replay (50
+                  launches) on the operands of the same step 512
+  raft_invariant_ms, raft_invariant_pairwise_ms
+                  the Raft safety check as a CUDA-graph replay (50
+                  launches) on the operands of the same step 512, in the
+                  flagship's adjacent form and in the pairwise one
   run_fused_ms_per_step
                   the traced flagship (trace_cap=64) through run_fused:
                   512 steps to warm and capture, then 1536 steps timed on
@@ -55,6 +62,40 @@ def graph_ms(fn, n):
     return t0.elapsed_time(t1) / n
 
 
+def step_calls(rt, state):
+    """(the largest put_rows_ call, the raft_invariant_check call) of the
+    next step of `state`, run on a copy with both wrappers recorded: each
+    call's operands, cloned before the call."""
+    import torch
+    import madsim_tpu_torch.models.raft as raft_mod
+    from madsim_tpu_torch.core.state import map_state
+    from madsim_tpu_torch.ops import node_rows as nr
+    puts, checks = [], []
+    real_put, real_check = nr.put_rows_, raft_mod.raft_invariant_check
+
+    def clone(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        if isinstance(x, (tuple, list)):
+            return type(x)(clone(v) for v in x)
+        return x
+
+    def put_spy(writes):
+        puts.append(clone(list(writes)))
+        return real_put(writes)
+
+    def check_spy(*args):
+        checks.append(clone(args))
+        return real_check(*args)
+
+    nr.put_rows_, raft_mod.raft_invariant_check = put_spy, check_spy
+    try:
+        rt._step(map_state(torch.clone, state))
+    finally:
+        nr.put_rows_, raft_mod.raft_invariant_check = real_put, real_check
+    return max(puts, key=len), checks[0]
+
+
 def measure(tree: str) -> dict:
     """One measurement of the checkout at `tree` (run in a worker)."""
     sys.path.insert(0, os.path.abspath(tree))
@@ -64,6 +105,8 @@ def measure(tree: str) -> dict:
     from madsim_tpu_torch.core import prng
     from madsim_tpu_torch.ops import kernels
     from madsim_tpu_torch.ops.apply_knobs import apply_knobs
+    from madsim_tpu_torch.ops.node_rows import put_rows_
+    from madsim_tpu_torch.ops.raft_invariant import raft_invariant_check
     from madsim_tpu_torch.ops.sched_pick import sched_pick
     from madsim_tpu_torch.search import KnobPlan
     dev = torch.device("cuda")
@@ -72,6 +115,14 @@ def measure(tree: str) -> dict:
 
     rt = workloads.flagship_runtime(device=dev)
     s, _ = rt.run(rt.init_batch(seeds), 512, chunk=512)
+    scatter, raft_args = step_calls(rt, s)
+    pr = min(graph_ms(lambda: put_rows_(scatter), 50) for _ in range(2))
+    ri = min(graph_ms(lambda: raft_invariant_check(*raft_args), 50)
+             for _ in range(2))
+    pairwise = raft_args[:-1] + (True,)
+    rp = min(graph_ms(lambda: raft_invariant_check(*pairwise), 50)
+             for _ in range(2))
+    del scatter, raft_args, pairwise
     k_sched = prng.split(s.key, 5)[:, 1].contiguous()
     sel = tuple(x.clone() for x in (
         s.t_kind, s.t_node, s.t_deadline, s.t_tag, s.t_src, s.alive,
@@ -99,7 +150,8 @@ def measure(tree: str) -> dict:
     torch.cuda.synchronize()
     fused = (time.perf_counter() - t0) / 1536 * 1e3
     check = not bool(s.crashed.any())
-    return dict(sched_pick_ms=sp, apply_knobs_ms=ak,
+    return dict(sched_pick_ms=sp, apply_knobs_ms=ak, put_rows_ms=pr,
+                raft_invariant_ms=ri, raft_invariant_pairwise_ms=rp,
                 run_fused_ms_per_step=fused, no_crash=check)
 
 

@@ -149,24 +149,74 @@ def _gather_standin(ref, stream):
     return 0
 
 
+def _put_row_ok(w):
+    """csrc/node_rows.cu `row_ok`: the table entry the kernel can copy."""
+    if w.esize not in _NP or w.R < 1 or w.row < 1 or not w.dst:
+        return False
+    if w.chunk == 0:
+        return w.row == 1
+    rb, c = w.row * w.esize, w.chunk
+    if c not in (1, 2, 4, 8, 16) or (not w.src and c != w.esize):
+        return False
+    if w.dst % c or rb % c or rb // c != w.chunks or w.shift < 0 \
+            or 1 << w.shift < w.chunks \
+            or (w.shift > 0 and 1 << (w.shift - 1) >= w.chunks):
+        return False
+    return not w.src or (w.src % c == 0 and w.src_sb * w.esize % c == 0)
+
+
 def _put_standin(ref, stream):
-    """csrc/node_rows.cu `put_rows`, lane by lane on host memory."""
+    """csrc/node_rows.cu `put_rows`, lane by lane on host memory, read
+    from the parameter block as the kernel reads it: a unit (a row of
+    more than one element, or up to UNIT_ROWS one-element rows of one
+    group) at a time, its group's index and mask once a lane, a longer
+    row chunk by chunk at its access width. Refuses
+    (cudaErrorInvalidValue) what the launcher refuses, and units that do
+    not take every entry exactly once."""
     p = ref._obj
-    for w in p.rows[:p.n]:
-        dst = _host(w.dst, p.B * w.R * w.row, w.esize).reshape(
-            p.B, w.R, w.row)
-        idx = _host(w.idx, p.B, 4).view(np.int32)
-        ok = (idx >= 0) & (idx < w.R)
-        if w.mask:
-            ok &= _host(w.mask, p.B, 1) != 0
-        for b in np.nonzero(ok)[0]:
-            if w.src:
-                src = _host(w.src + int(b) * w.src_sb * w.esize, w.row,
-                            w.esize)
-                dst[b, idx[b]] = src
-            else:
-                dst[b, idx[b]] = _NP[w.esize](w.value)
-    return 0
+    rows = p.rows[:p.n]
+    if not 1 <= p.n_groups <= p.n <= nr.MAX_PUT \
+            or not 1 <= p.n_units <= nr.MAX_PUT \
+            or not all(_put_row_ok(w) for w in rows):
+        return 1
+    covered = []
+    for u in p.units[:p.n_units]:
+        if not 0 <= u.group < p.n_groups:
+            return 1
+        g = p.groups[u.group]
+        r = _host(g.idx, p.B, 4).view(np.int32).astype(np.int64)
+        r = np.where(r >= 0, r, -1)
+        if g.mask:
+            r = np.where(_host(g.mask, p.B, 1) != 0, r, -1)
+        if u.entry >= 0:
+            w = rows[u.entry]
+            if not w.chunk:
+                return 1
+            covered.append(u.entry)
+            rb, cb = w.row * w.esize, w.chunk
+            value = np.array([w.value], np.uint64).view(np.uint8)[:cb]
+            for b in np.nonzero((r >= 0) & (r < w.R))[0]:
+                at = (int(b) * w.R + int(r[b])) * rb
+                for c in range(w.chunks):
+                    ctypes.memmove(
+                        w.dst + at + c * cb,
+                        w.src + int(b) * w.src_sb * w.esize + c * cb
+                        if w.src else value.ctypes.data, cb)
+            continue
+        if not 1 <= u.n_items <= nr.UNIT_ROWS \
+                or u.first_item + u.n_items > p.n_items:
+            return 1
+        for e in p.items[u.first_item:u.first_item + u.n_items]:
+            w = rows[e]
+            if w.chunk:
+                return 1
+            covered.append(e)
+            dst = _host(w.dst, p.B * w.R, w.esize)
+            for b in np.nonzero((r >= 0) & (r < w.R))[0]:
+                dst[b * w.R + r[b]] = (
+                    _host(w.src + int(b) * w.src_sb * w.esize, 1,
+                          w.esize)[0] if w.src else _NP[w.esize](w.value))
+    return 0 if sorted(covered) == list(range(p.n)) else 1
 
 
 @pytest.fixture
@@ -239,6 +289,165 @@ def test_put_rows_refuses_one_tensor_twice():
     idx = torch.zeros(B, dtype=torch.int32)
     with pytest.raises(ValueError, match="written twice"):
         nr.put_rows_.run([(mat, idx, 1, True), (mat, idx, 2, True)])
+
+
+def _params_of(writes):
+    """The parameter blocks put_rows_ launches for `writes` (recorded by
+    a stand-in that also runs them), and the writes' results."""
+    blocks = []
+
+    def record(ref, stream):
+        p = _copy_params(ref._obj)
+        blocks.append(p)
+        return _put_standin(ref, stream)
+
+    real = nr.put_rows_._fn
+    nr.put_rows_._fn = record
+    try:
+        out = nr.put_rows_.run(writes)
+    finally:
+        nr.put_rows_._fn = real
+    return blocks, out
+
+
+def _copy_params(p):
+    q = nr._PutParams()
+    ctypes.memmove(ctypes.addressof(q), ctypes.addressof(p),
+                   ctypes.sizeof(q))
+    return q
+
+
+def test_put_params_groups_entries_by_their_index_and_mask(standin):
+    """Entries that share an (idx, mask) pair form one group (an int64
+    index shared by two entries is converted once, so they still do);
+    the dup pop's shape, one index under two masks, is two groups; a row
+    of more than one element is a unit of its own, a group's one-element
+    rows share units of up to UNIT_ROWS."""
+    rng = np.random.default_rng(5)
+    R = 5
+    idx = torch.as_tensor(rng.integers(-1, R + 1, B))          # int64
+    m1 = torch.as_tensor(rng.random(B) < 0.5)
+    mats = [torch.zeros((B, R), dtype=torch.int32),
+            torch.zeros((B, R, 32), dtype=torch.int32),
+            torch.zeros((B, R, 5), dtype=torch.int32),
+            torch.zeros((B, R), dtype=torch.int16),
+            torch.zeros((B, R), dtype=torch.int32)]
+    writes = [(mats[0], idx, 1, m1), (mats[1], idx, 2, m1),
+              (mats[2], idx, torch.ones((B, 5), dtype=torch.int32), m1),
+              (mats[3], idx, 3, ~m1), (mats[4], idx, 4, True)]
+    want = nr.put_rows_plain([(m.clone(), i, v, k) for m, i, v, k in writes])
+    blocks, out = _params_of(writes)
+    assert len(blocks) == 1
+    p = blocks[0]
+    assert (p.n, p.n_groups, p.n_items) == (5, 3, 3)
+    g = p.groups[:3]
+    assert g[0].idx == g[1].idx == g[2].idx
+    assert g[0].mask and g[1].mask and g[0].mask != g[1].mask \
+        and g[2].mask is None
+    units = [(u.group, u.entry, u.first_item, u.n_items)
+             for u in p.units[:p.n_units]]
+    assert units == [(0, 1, 0, 0), (0, 2, 0, 0), (0, -1, 0, 1),
+                     (1, -1, 1, 1), (2, -1, 2, 1)]
+    assert list(p.items[:3]) == [0, 3, 4]
+    long_row, row5 = p.rows[1], p.rows[2]
+    assert long_row.dst == mats[1].data_ptr()
+    assert (long_row.chunk, long_row.chunks) == (4, 32)  # a scalar source
+    assert (row5.chunk, row5.chunks, row5.shift) == (4, 5, 3)
+    for got, w in zip(out, want):
+        assert torch.equal(got, w)
+
+
+def _long_write(shape, dtype, offset=0, src=None):
+    """A [B, 5, *shape] tensor of `dtype` that starts `offset` elements
+    into its allocation."""
+    n = B * 5 * int(np.prod(shape))
+    flat = torch.zeros(n + offset, dtype=dtype)
+    return flat[offset:].view((B, 5) + shape)
+
+
+LONG_CASES = {
+    # case: (row shape, dtype, dst offset, source kind, chunk bytes)
+    "int32_aligned": ((32,), torch.int32, 0, "rows", 16),
+    "int32_dst_one_element_in": ((32,), torch.int32, 1, "rows", 4),
+    "int32_src_one_element_in": ((32,), torch.int32, 0, "offset_rows", 4),
+    "int32_src_lane_stride_33": ((32,), torch.int32, 0, "wide_rows", 4),
+    "int32_broadcast_row": ((32,), torch.int32, 0, "broadcast", 16),
+    "int32_scalar": ((32,), torch.int32, 0, "scalar", 4),
+    "int32_two_elements_in": ((32,), torch.int32, 2, "rows", 8),
+    "bool_24": ((24,), torch.bool, 0, "rows", 8),
+    "int64_3x5": ((3, 5), torch.int64, 0, "rows", 8),
+    "int16_96": ((96,), torch.int16, 0, "rows", 16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LONG_CASES))
+def test_long_rows_take_the_widest_aligned_access(standin, case):
+    """A row of more than one element is copied by the warp
+    16 bytes an access where both bases, the source's lane stride and the
+    row are 16-byte aligned, else the widest power of two that divides
+    them all (4 bytes for an int32 row one element off), a scalar an
+    element at a time; a row of 2^k chunks takes shift k, padded up
+    otherwise. Every case equals the plain version."""
+    shape, dtype, off, kind, chunk = LONG_CASES[case]
+    rng = np.random.default_rng(len(case))
+    mat = _long_write(shape, dtype, off)
+    mat.copy_(torch.as_tensor(rng.integers(0, 2, mat.shape)).to(dtype))
+    row = int(np.prod(shape))
+    full = torch.as_tensor(rng.integers(-99, 99, (B + 1, row + 1))).to(dtype)
+    val = {"rows": full[:B, :row].contiguous().view((B,) + shape),
+           "offset_rows": full.flatten()[1:1 + B * row].view((B,) + shape),
+           "wide_rows": full[:B, :row],
+           "broadcast": full[:1, :row].contiguous().view((1,) + shape),
+           "scalar": 1}[kind]
+    idx = torch.as_tensor(rng.integers(-1, 6, B).astype(np.int32))
+    mask = torch.as_tensor(rng.random(B) < 0.7)
+    want = nr.put_rows_plain([(mat.clone(), idx, val, mask)])[0]
+    blocks, out = _params_of([(mat, idx, val, mask)])
+    w = blocks[0].rows[0]
+    nbytes = row * mat.element_size()
+    assert (w.chunk, w.chunks) == (chunk, nbytes // chunk)
+    assert 1 << w.shift >= w.chunks > (1 << w.shift) // 2
+    assert torch.equal(out[0], want)
+
+
+@pytest.mark.parametrize("lanes", [1, 37, 129])
+def test_put_rows_on_ragged_lanes_split_across_launches(standin, lanes):
+    """A scatter-shaped call (one index and mask, short and long rows) of
+    18 tensors at B=1 and at lane counts no multiple of the kernel's
+    32-lane warps or 128-lane blocks: two launches, the second holding
+    the group's last two entries; equal to the plain version."""
+    rng = np.random.default_rng(lanes)
+    R = 5
+    idx = torch.as_tensor(rng.integers(-1, R + 1, lanes).astype(np.int32))
+    mask = torch.as_tensor(rng.random(lanes) < 0.8)
+    writes = []
+    for i in range(18):
+        shape = ((), (R,), (32,))[i % 3]
+        mat = torch.as_tensor(rng.integers(-9, 9, (lanes, R) + shape)).to(
+            torch.int32)
+        writes.append((mat, idx, (mat[:, 0] * 3).contiguous(), mask))
+    want = nr.put_rows_plain([(m.clone(), i, v, k) for m, i, v, k in writes])
+    before = nr.put_rows_.launches
+    blocks, out = _params_of(writes)
+    assert nr.put_rows_.launches - before == 2
+    assert [(p.n, p.n_groups) for p in blocks] == [(16, 1), (2, 1)]
+    # 5 32-element and 5 five-element rows, and 6 one-element rows in
+    # one unit; then a five-element and a 32-element row
+    assert [p.n_units for p in blocks] == [11, 2]
+    assert [p.rows[u.entry].chunk for p in blocks
+            for u in p.units[:p.n_units] if u.entry >= 0] == [4, 16] * 6
+    for got, w in zip(out, want):
+        assert torch.equal(got, w)
+
+
+def test_put_rows_refuses_two_tensors_that_overlap():
+    """Two views of one storage whose bytes overlap are refused as one
+    tensor written twice is: the kernel's writes are unordered."""
+    flat = torch.zeros(B * 5 + 5, dtype=torch.int32)
+    a, b = flat[:B * 5].view(B, 5), flat[5:].view(B, 5)
+    idx = torch.zeros(B, dtype=torch.int32)
+    with pytest.raises(ValueError, match="overlap"):
+        nr.put_rows_.run([(a, idx, 1, True), (b, idx, 2, True)])
 
 
 def test_wrappers_take_the_plain_version_on_the_cpu_and_refuse_meta():

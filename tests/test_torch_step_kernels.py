@@ -84,6 +84,82 @@ def test_raft_invariant_matches_reference(case, window_slides):
             jraft.CRASH_COMMIT_GT_LOG}
 
 
+def _raft_standin(ref, stream):
+    """csrc/raft_invariant.cu on host memory: its blocks of four warps,
+    floor(32 / N) lanes a warp, each lane checked with the plain version
+    from operands read through the parameter block's pointers. Refuses
+    (cudaErrorInvalidValue) what the launcher refuses: 16-byte row reads
+    of columns that are not 16-byte aligned or of an L no multiple of 4."""
+    from madsim_tpu_torch.ops import raft_invariant as ri
+    from test_torch_node_rows import _host
+    p = ref._obj
+    B, N, L, F = p.B, p.N, p.L, p.F
+    if p.vec4 and (L % 4 or any(c % 16 for c in p.cols[:1 + F])):
+        return 1
+
+    def arr(ptr, shape, esize=4, dtype=np.int32):
+        return torch.as_tensor(_host(ptr, int(np.prod(shape)), esize)
+                               .view(dtype).reshape(shape))
+
+    peer = arr(p.peer, (N,), 1, np.bool_)
+    powP, ipowP = arr(p.powP, (L + 1,)), arr(p.ipowP, (L + 1,))
+    bad = _host(p.bad, B, 1)
+    code = _host(p.code, B, 4).view(np.int32)
+    lanes = 4 * (32 // N)                 # a block's
+    for b0 in range(0, B, lanes):
+        w = min(lanes, B - b0)
+        vecs = [arr(v + b0 * N * 4, (w, N)) for v in p.vecs[:6]]
+        cols = [arr(c + b0 * N * L * 4, (w, N, L)) for c in p.cols[:1 + F]]
+        got = ri.raft_invariant_plain(*vecs, cols[0], tuple(cols[1:]), peer,
+                                      powP, ipowP, bool(p.window_slides))
+        bad[b0:b0 + w] = got[0].numpy()
+        code[b0:b0 + w] = got[1].numpy()
+    return 0
+
+
+# (B, N, L, F, peer mask, columns one element into their allocation,
+# 16-byte row reads)
+RAFT_LAUNCHES = {
+    "flagship_shape": (1000, 5, 32, 1, None, False, True),
+    "ragged_B1003": (1003, 5, 32, 1, None, False, True),
+    "columns_one_element_in": (1003, 5, 32, 1, None, True, False),
+    "B1_N3_L8_F2": (1, 3, 8, 2, (True, False, True), False, True),
+    "N8_L6_F2": (300, 8, 6, 2, None, False, False),
+    "N32_L32_F8": (45, 32, 32, 8, None, False, True),
+}
+
+
+@pytest.mark.parametrize("window_slides", [False, True])
+@pytest.mark.parametrize("case", sorted(RAFT_LAUNCHES))
+def test_raft_invariant_launch_reads_rows_by_their_alignment(
+        monkeypatch, case, window_slides):
+    """The kernel's launch logic on the CPU: rows read 16 bytes an access
+    (`vec4`) only where every log column is 16-byte aligned and L is a
+    multiple of 4; a stand-in launcher that refuses what the launcher
+    refuses checks every lane with the plain version through the
+    parameter block. Equal to the plain version, one launch."""
+    from madsim_tpu_torch.ops import raft_invariant as ri
+    B, N, L, F, peer, off, vec4 = RAFT_LAUNCHES[case]
+    ops = chip_smoke.raft_edge_operands("cpu", B, N, L, F, seed=B + N,
+                                        peer=peer, snap=True)
+    if off:
+        ops = ops[:6] + (chip_smoke.unaligned(ops[6]), tuple(
+            chip_smoke.unaligned(c) for c in ops[7])) + ops[8:]
+    seen = []
+
+    def standin(ref, stream):
+        seen.append(ref._obj.vec4)
+        return _raft_standin(ref, stream)
+
+    monkeypatch.setattr(raft_invariant_check, "_fn", standin)
+    before = raft_invariant_check.launches
+    bad, code = raft_invariant_check.run(*ops, window_slides)
+    assert raft_invariant_check.launches == before + 1
+    assert seen == [int(vec4)] == [int(ri.rows_vec4((ops[6],) + ops[7], L))]
+    want = raft_invariant_plain(*ops, window_slides)
+    assert torch.equal(bad, want[0]) and torch.equal(code, want[1])
+
+
 # --------------------------------------------------------------------------
 # K3: the supervisor op
 # --------------------------------------------------------------------------
