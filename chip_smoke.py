@@ -136,23 +136,31 @@ the frozen golden digests. One JSON object per line, in phases:
                fingerprint on the flagship's state at step 2048, the
                golden pingpong (traced) and wal_kv states and wal_kv's
                with zero-size leaves added;
-               threefry_keys, threefry_draw, node_gather and put_rows_ on
-               every call of the flagship's step 512 and on edge operands
-               (keys (0, 0) and all ones; split into 1, 2, 5 and 16, one
-               key, B=100,003, a strided slice; fold_in words 0, 2^32-1,
-               two a key, one a key; randint bounds with maxval <= minval,
-               the whole int32 range, per key, broadcast, inclusive
-               INT32_MAX, a vector draw; bernoulli p 0, 1, subnormal, per
-               key; every row index and out of range, masked-off lanes,
-               fifty leaves of five element types, twenty writes; the node
-               scatter with destinations or sources one element or one
-               lane off a 16-byte boundary, broadcast sources, at B=1
-               and B=4099, under three (idx, mask) pairs, an all-false
-               mask and every index out of range), the
+               step_keys, threefry_keys, threefry_draw, node_gather and
+               put_rows_ on every call of the flagship's step 512 and on
+               edge operands (keys (0, 0) and all ones; the step's fused
+               keys at extension widths 2-5 and 9, with halted lanes,
+               keys off an 8-byte boundary or strided, extreme dup
+               words, B=1 and B=100,003; split into 1, 2, 5, 8, 9 and 16,
+               one key, B=100,003, a strided slice; fold_in words 0,
+               2^32-1, two a key, one a key; randint bounds with maxval
+               <= minval, the whole int32 range, per key, broadcast,
+               inclusive INT32_MAX, a vector draw; bernoulli p 0, 1,
+               subnormal, per key; every row index and out of range,
+               masked-off lanes, fifty leaves of five element types, the
+               node slice with every leaf one element or one lane off a
+               16-byte boundary, at B=1 and B=4099, at the int32
+               extremes, longer rows of every element size, twenty
+               writes; the node scatter with destinations or sources one
+               element or one lane off a 16-byte boundary, broadcast
+               sources, at B=1 and B=4099, under three (idx, mask) pairs,
+               an all-false mask and every index out of range), the
                in-place put_rows_ on its own copy against the plain
                version's: equal, and no row touched it must not touch;
-               timed on the step's own calls (the 5-way split, the dup
-               latency draw, the node slice, the node scatter)
+               timed on the step's own calls (the fused keys, the
+               handlers' first split, the dup latency draw, the node
+               slice, the node scatter), and the step's K1 key launches
+               (step_keys and the handlers' splits) timed together
   determinism  lanes 0..4095 alone, twice through run (512 steps) and
                twice through run_fused (2048 steps): fingerprints equal
                to each other and to lanes 0..4095 of the B=100,000 eager
@@ -685,6 +693,9 @@ def check_once_per_step(what, launches, steps, names, per_step):
         want = steps if k in names else 0
         check(launches[k] == want,
               f"{what}: {k} launched {launches[k]} times in {steps} steps")
+    check(per_step["step_keys"] == 1,
+          f"{what}: the step's keys took {per_step['step_keys']} "
+          f"step_keys launches a step, not 1")
     for k in K1K4:
         check(per_step[k] >= 1, f"{what}: {k} is not on the step's path")
         check(launches[k] == steps * per_step[k],
@@ -1019,7 +1030,8 @@ def is_range(name):
 # no range's device time holds it: each is counted in the range whose
 # device-side annotation spans its start
 OWN_KERNELS = ("sched_pick", "apply_super", "emit_write", "raft_invariant",
-               "threefry_keys", "threefry_draw", "node_gather", "put_rows")
+               "step_keys", "threefry_keys", "threefry_draw", "node_gather",
+               "put_rows")
 
 
 def section_split(prof, steps):
@@ -1323,12 +1335,15 @@ def fp_bound(state):
 
 
 # ---- K1 (threefry draws) and K4 (node rows) ---------------------------------
-K1K4 = ("threefry_keys", "threefry_draw", "node_gather", "put_rows_")
+K1K4 = ("step_keys", "threefry_keys", "threefry_draw", "node_gather",
+        "put_rows_")
 # the wrapper methods that launch them (ops/threefry.py, ops/node_rows.py)
-K1K4_METHODS = (("threefry_keys", "split"), ("threefry_keys", "fold_in"),
+K1K4_METHODS = (("step_keys", "run"), ("threefry_keys", "split"),
+                ("threefry_keys", "fold_in"),
                 ("threefry_draw", "randint"), ("threefry_draw", "uniform"),
                 ("threefry_draw", "bernoulli"), ("node_gather", "run"),
                 ("put_rows_", "run"))
+K1 = ("step_keys", "threefry_keys", "threefry_draw")
 # integer operations of one 20-round threefry2x32 block (mutate_bound's)
 THREEFRY_BLOCK_OPS = 80
 
@@ -1369,7 +1384,10 @@ def k1k4_operands(wrappers, rt, state):
 def k1_plain(method, args, kw):
     """The plain version (core/prng.py) of one threefry kernel call."""
     from madsim_tpu_torch.core import prng
+    from madsim_tpu_torch.ops.threefry import step_keys_plain
     key = args[0]
+    if method == "run":             # step_keys
+        return step_keys_plain(*args, **kw)
     if method == "split":
         return prng.split(key, *args[1:])
     if method == "fold_in":
@@ -1390,7 +1408,10 @@ def k1_plain(method, args, kw):
 
 def k1_edge_cases(dev, B, seed=21):
     """[(case, kernel, method, args, kwargs)] of edge operands: keys (0, 0)
-    and all ones among random ones; split into 1, 2, 5 and 16 at B keys,
+    and all ones among random ones; the step's fused keys (step_keys) at
+    the extension width it unrolls and four it does not, with halted
+    lanes, keys off an 8-byte boundary or strided, extreme dup words, one
+    lane and B=100,003; split into 1, 2, 5, 8, 9 and 16 at B keys,
     one key, B=100,003 keys and a strided key slice; fold_in words 0 and
     2^32-1, the dup section's two words a key, a word a key; randint_raw
     with maxval <= minval, maxval = minval and the whole int32 range, per
@@ -1422,7 +1443,31 @@ def k1_edge_cases(dev, B, seed=21):
     p = torch.as_tensor(rng.random(B).astype(np.float32), device=dev)
     p[:3] = torch.tensor([0.0, 1.0, float(np.float32(1e-40))])
     cases = [(f"split_n{n}", "threefry_keys", "split", (K, n), {})
-             for n in (1, 2, 5, 16)]
+             for n in (1, 2, 5, 8, 9, 16)]
+    # the step's fused keys: the extension width it unrolls (2) and ones
+    # it takes key by key (3, 4, 5, 9), halted lanes, all and none,
+    # keys one word off an 8-byte boundary and strided (both copied by
+    # the wrapper), extreme dup words, one lane and B=100,003
+    dup = (0x44555031, 0x44555032)
+    mixed = torch.as_tensor(rng.random(B) < 0.3, device=dev)
+    mixed[:2] = torch.tensor([True, False])
+    cases += [
+        (f"step_keys_{name}", "step_keys", "run", args, {})
+        for name, args in (
+            ("flagship_shape", (K, mixed, dup, 2, 1)),
+            ("both_ext_keys", (K, mixed, dup, 2, 2)),
+            ("ext_3", (K, mixed, dup, 3, 3)),
+            ("ext_4_one_read", (K, mixed, dup, 4, 1)),
+            ("ext_5", (K, mixed, dup, 5, 5)),
+            ("ext_9_by_key", (K, mixed, dup, 9, 9)),
+            ("all_halted", (K, torch.ones_like(mixed), dup, 2, 1)),
+            ("none_halted", (K, torch.zeros_like(mixed), dup, 2, 1)),
+            ("keys_one_word_in", (unaligned(K), mixed, dup, 2, 1)),
+            ("keys_strided", (prng.split(K, 5)[:, 3], mixed, dup, 2, 1)),
+            ("extreme_words", (K, mixed, (0, 2 ** 32 - 1), 2, 1)),
+            ("B1", (keys(1), mixed[:1], dup, 2, 1)),
+            ("B100003", (keys(100_003), torch.as_tensor(
+                rng.random(100_003) < 0.3, device=dev), dup, 2, 1)))]
     cases += [
         ("split_B1", "threefry_keys", "split", (keys(1), 5), {}),
         ("split_B100003", "threefry_keys", "split", (keys(100_003), 5), {}),
@@ -1466,8 +1511,11 @@ def k4_edge_cases(dev, node_state, seed=31):
     """[(case, kernel, args)] of edge operands: the node state at every
     row index and out of range (clamped by the gather, written nowhere by
     put_rows_); fifty leaves of five element types and a zero-size one
-    (two gather launches); row, broadcast-row and scalar writes of every
-    element size, under masks with masked-off lanes and without, twenty
+    (two gather launches); the gather with every leaf one element or one
+    lane off a 16-byte boundary, at B=1 and B=4099, at the int32
+    extremes, and longer rows of every element size; row, broadcast-row
+    and scalar writes of every element size, under masks with masked-off
+    lanes and without, twenty
     tensors (two put_rows launches); the dup pop's table columns; the
     node scatter with its bases or sources off a 16-byte boundary, with
     broadcast sources, at B=1 and B=4099, under three (idx, mask) pairs,
@@ -1493,6 +1541,41 @@ def k4_edge_cases(dev, node_state, seed=31):
     cases = [("gather_node_state_every_row", "node_gather",
               (node_state, every)),
              ("gather_50_mixed_leaves", "node_gather", (mixed, every))]
+    # the gather's launch shapes: every leaf one element (4 bytes) or one
+    # lane off a 16-byte boundary (the long rows then go 4 bytes an
+    # access), B=1 and lane counts no multiple of a warp or a block,
+    # indices at the int32 extremes, and longer rows of every element size
+    # at every access width
+    extreme = every.clone()
+    extreme[::3] = -2 ** 31
+    extreme[1::3] = 2 ** 31 - 1
+
+    def rows(shape, dtype, off=0):
+        x = torch.as_tensor(rng.integers(-99, 99, (B, N) + shape),
+                            device=dev)
+        x = (x > 0) if dtype == torch.bool else x.to(dtype)
+        return unaligned(x) if off else x
+
+    long_rows = {
+        "bool_24": rows((24,), torch.bool), "bool_3": rows((3,), torch.bool),
+        "int8_5": rows((5,), torch.int8), "int16_96": rows((96,), torch.int16),
+        "int16_8_one_in": rows((8,), torch.int16, 1),
+        "int32_32_one_in": rows((32,), torch.int32, 1),
+        "int64_3x5": rows((3, 5), torch.int64),
+        "float64_one_in": rows((), torch.float64, 1),
+        "float32_4x4": rows((4, 4), torch.float32)}
+    cases += [
+        ("gather_node_state_one_element_in", "node_gather",
+         ({k: unaligned(t) for k, t in node_state.items()}, every)),
+        ("gather_node_state_one_lane_in", "node_gather",
+         ({k: lane_in(t) for k, t in node_state.items()}, every)),
+        ("gather_node_state_B1", "node_gather",
+         ({k: t[:1] for k, t in node_state.items()}, every[:1])),
+        ("gather_node_state_B4099", "node_gather",
+         ({k: t[:4099] for k, t in node_state.items()}, every[:4099])),
+        ("gather_node_state_extreme_indices", "node_gather",
+         (node_state, extreme)),
+        ("gather_long_rows_every_width", "node_gather", (long_rows, every))]
     rows = [(t, every, t[:, 0].clone() if t.dtype == torch.bool
              else (t[:, 0] + 1).to(t.dtype), mask)
             for t in node_state.values()]
@@ -1585,10 +1668,19 @@ def check_put_rows(name, writes, written):
 def k1_bound(method, args, kw, out):
     """(bytes, operations) of one threefry kernel call: each operand
     tensor read once and the output written once; THREEFRY_BLOCK_OPS a
-    block, for the blocks the draws need (split: one a key it makes;
+    block, for the blocks the draws need (step_keys: the 5-way split's
+    five, the two dup fold_ins and the extension split's blocks its
+    written keys read; split: one a key it makes;
     fold_in, uniform, bernoulli: one a value; randint: the key's split
     into two, then F words from each half, two words a block)."""
     import math
+    if method == "run":      # step_keys: 5 + 2 blocks, and the extension
+        # split's blocks that the keys it writes read (words 0 .. 2n - 1)
+        key, halted, _, n_ext, n_write = args
+        nbytes = key.numel() * 4 + halted.numel() + sum(
+            t.numel() * 4 for t in out)
+        blocks = key.shape[0] * (7 + min(n_ext, 2 * n_write))
+        return nbytes, blocks * THREEFRY_BLOCK_OPS
     nbytes = out.numel() * out.element_size()
     for a in args:
         if hasattr(a, "element_size"):
@@ -1630,6 +1722,29 @@ def k4_bound(kernel, args):
         nbytes += idx.numel() * idx.element_size() + int(ok.sum()) * (
             row + src)
     return nbytes
+
+
+def gather_sector_bytes(tree, idx):
+    """The bytes node_gather moves counted in whole 32-byte sectors, the
+    memory's unit of transfer: the distinct sectors its lanes' source rows
+    touch (a one-element row's 4 bytes fetch its sector, a 20-byte row
+    one or two) and those of its contiguous outputs."""
+    import torch
+    R = next(iter(flat_tree(tree).values())).shape[1]
+    r = idx.to(torch.int64).clamp(0, R - 1)
+    lanes = torch.arange(idx.shape[0], device=idx.device)
+    total = 0
+    for t in flat_tree(tree).values():
+        if not t.numel():
+            continue
+        rb = t[0, 0].numel() * t.element_size()
+        start = t.data_ptr() + (lanes * R + r) * rb
+        first, last = start // 32, (start + rb - 1) // 32
+        span = int((last - first).max()) + 1
+        ids = first[:, None] + torch.arange(span, device=idx.device)
+        total += 32 * int(torch.unique(ids[ids <= last[:, None]]).numel())
+        total += 32 * -(-idx.shape[0] * rb // 32)
+    return total + idx.numel() * 4
 
 
 def plain_draws_in_step(rt, state):
@@ -1690,7 +1805,7 @@ def k1k4_kernel_phase(wrappers, cases, main, launches):
     names = {k: [] for k in K1K4}
     for case, k, method, args, kw in cases:
         w = wrappers[k]
-        if k in ("threefry_keys", "threefry_draw"):
+        if k in K1:
             out_k = getattr(w, method)(*args, **kw)
             out_p = k1_plain(method, args, kw)
         elif k == "node_gather":
@@ -1710,7 +1825,7 @@ def k1k4_kernel_phase(wrappers, cases, main, launches):
     for k in K1K4:
         method, args, kw = main[k]
         w = wrappers[k]
-        if k in ("threefry_keys", "threefry_draw"):
+        if k in K1:
             def kern():
                 return getattr(w, method)(*args, **kw)
 
@@ -1745,7 +1860,12 @@ def k1k4_kernel_phase(wrappers, cases, main, launches):
                       bound_ms=max(b_ms, o_ms) * 1e3,
                       bound_by="bytes" if b_ms >= o_ms else "operations",
                       max_abs_err=err[k], library_ms=None)
-        emit(phase="kernel", name=k, cases=names[k],
+        extra = {}
+        if k == "node_gather":     # the floor in whole sectors, beside it
+            extra["sector_bytes"] = gather_sector_bytes(*args)
+            extra["sector_bound_ms"] = (extra["sector_bytes"]
+                                        / HBM_BYTES_PER_S * 1e3)
+        emit(phase="kernel", name=k, cases=names[k], **extra,
              main_case=f"flagship_step_{FLAG_CHUNK}:{method}", exact=True,
              max_abs_err=err[k], launches_on_main_path=launches[k],
              ms=[k_ms, k_ms2], plain_ms=[p_ms, p_ms2], bound_bytes=nbytes,
@@ -1887,6 +2007,9 @@ def main() -> int:
     raft_cases = {"flagship_step_0": raft_operands(rt, s)}
     super_cases = {"flagship_step_0": super_operands(rt, s)}
     per_flag = step_launches(wrappers, rt, s)
+    check(per_flag["step_keys"] == 1 and per_flag["threefry_keys"] == 2,
+          f"flagship: a step launches {per_flag}; its keys take one "
+          f"step_keys launch and the handlers' splits two threefry_keys")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -2745,11 +2868,13 @@ def main() -> int:
     for k, calls in k1k4_cases.items():
         k_cases += [(f"flagship_step_{FLAG_CHUNK}_{i}_{m}", k, m, a, kw)
                     for i, (m, a, kw) in enumerate(calls)]
-    # timed on the step's own calls: the select's 5-way split, the dup
-    # section's latency draw, the node slice, the node scatter
+    # timed on the step's own calls: its fused keys, the handlers' first
+    # split, the dup section's latency draw, the node slice, the node
+    # scatter
     k1k4_main = {
+        "step_keys": k1k4_cases["step_keys"][0],
         "threefry_keys": next(c for c in k1k4_cases["threefry_keys"]
-                              if c[0] == "split" and c[1][1] == 5),
+                              if c[0] == "split"),
         "threefry_draw": next(c for c in k1k4_cases["threefry_draw"]
                               if c[0] == "randint"
                               and isinstance(c[1][2], torch.Tensor)),
@@ -2757,7 +2882,24 @@ def main() -> int:
         "put_rows_": max(k1k4_cases["put_rows_"],
                          key=lambda c: len(c[1][0]))}
     k1k4 = k1k4_kernel_phase(wrappers, k_cases, k1k4_main, fused_launch)
-    del k_cases, k1k4_cases, k1k4_main, node_tree
+    # the step's K1 key launches all together (step_keys and the handlers'
+    # splits), replayed in one graph beside the sum of their bounds
+    key_calls = [(k, m, a, kw) for k in ("step_keys", "threefry_keys")
+                 for m, a, kw in k1k4_cases[k]]
+
+    def step_key_launches():
+        return [getattr(wrappers[k], m)(*a, **kw)
+                for k, m, a, kw in key_calls]
+    outs = step_key_launches()
+    kb = [k1_bound(m, a, kw, o) for (_, m, a, kw), o in zip(key_calls, outs)]
+    keys_bound = sum(max(b / HBM_BYTES_PER_S, o / INT32_OPS_PER_S)
+                     for b, o in kb) * 1e3
+    keys_ms = [graph_ms(step_key_launches, 50) for _ in range(2)]
+    emit(phase="kernel", name="k1_key_launches_a_step",
+         launches=[f"{k}.{m}" for k, m, _, _ in key_calls], ms=keys_ms,
+         bound_bytes=sum(b for b, _ in kb),
+         bound_operations=sum(o for _, o in kb), bound_ms=keys_bound)
+    del k_cases, k1k4_cases, k1k4_main, node_tree, key_calls, outs
 
     # ---- determinism and batch independence ---------------------------------
     # each runner twice on lanes 0..4095 alone, held against the same lanes
@@ -2821,10 +2963,11 @@ def main() -> int:
     from madsim_tpu_torch.ops import threefry as tf_mod
     draws = ("split", "fold_in", "randint", "randint_raw", "uniform",
              "bernoulli", "node_hash_key")
-    real_k = ({n: getattr(tf_mod, n) for n in draws},
+    real_k = ({n: getattr(tf_mod, n) for n in draws + ("step_keys",)},
               nr_mod.node_gather, nr_mod.put_rows_)
     for n in draws:
         setattr(tf_mod, n, getattr(prng, n))
+    tf_mod.step_keys = tf_mod.step_keys_plain
     nr_mod.node_gather = nr_mod.node_gather_plain
     nr_mod.put_rows_ = lambda writes: [sel_mod.put_row(*w) for w in writes]
     try:
@@ -2919,6 +3062,7 @@ def main() -> int:
         dict(name=k, route="cuda", source=f"madsim_tpu_torch/csrc/{src}",
              replaces=where, launches=fused_launch[k], **k1k4[k])
         for k, src, where in (
+            ("step_keys", "prng.cu", "madsim_tpu/core/step.py:138"),
             ("threefry_keys", "prng.cu", "madsim_tpu/core/prng.py:24"),
             ("threefry_draw", "prng.cu", "madsim_tpu/core/prng.py:28"),
             ("node_gather", "node_rows.cu", "madsim_tpu/ops/select.py:66"),

@@ -26,11 +26,14 @@ other leaf. The other observation planes (profiler, latency, spans,
 sketch, series) are not ported yet: `Runtime` refuses configs that
 enable them.
 
-The step's threefry draws outside those kernels (the select's key
-split, the duplicate-delivery draws, the supervisor section's extension
-split, every handler draw) go through `ops/threefry.py` (the
-`threefry_keys` and `threefry_draw` kernels on CUDA), and its node-row
-slice and writes through `ops/node_rows.py` (`node_gather`, `put_rows_`).
+The step's threefry draws outside those kernels go through
+`ops/threefry.py`: its own keys (the select's 5-way split, the
+duplicate-delivery fold_ins, the supervisor section's extension split)
+in one `step_keys` launch in the select section, the duplicate-delivery
+draws through `threefry_draw` and every handler draw through
+`threefry_keys` and `threefry_draw` (the kernels on CUDA); its node-row
+slice and writes go through `ops/node_rows.py` (`node_gather`,
+`put_rows_`).
 
 The step writes the state it is given in place: the popped event row's
 kind and deadline (`put_rows_`), the supervisor op's edits (section 2,
@@ -150,8 +153,11 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
                     if persist is None else persist)
     use_jitter = cfg.net.op_jitter_max > 0
     trace = cfg.trace_cap > 0
-    dup_fold = torch.tensor([0x44555031, 0x44555032], dtype=_I32,
-                            device=device)
+    # the dup section's fold words; the extension split's width, and the
+    # extension keys the step reads (only the first without extensions)
+    dup_words = (0x44555031, 0x44555032)
+    n_ext = 1 + max(len(extensions), 1)
+    n_ext_read = n_ext if extensions else 1
     per_million = torch.tensor(1e-6, dtype=torch.float32, device=device)
     super_plan = SuperPlan(cfg, spec_default, persist_mask)
 
@@ -161,10 +167,10 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
         # ---- 1. pick the next event (the sched_pick kernel) ------------
         with _section("select"):
             live = ~s.halted
-            keys = tf.split(s.key, 5)
-            key = torch.where(live[:, None], keys[:, 0], s.key)
-            k_sched = keys[:, 1].contiguous()
-            k_super, k_handler, k_net = keys[:, 2], keys[:, 3], keys[:, 4]
+            # every key of the select, dup and super sections, one launch
+            (key, k_sched, k_handler, k_net, k_dupf, k_dupd,
+             *ext_keys) = tf.step_keys(s.key, s.halted, dup_words, n_ext,
+                                       n_ext_read)
             # ev_node_raw may be NODE_RANDOM
             (idx, dmin, valid, any_ev, sched_hash, ev_kind, ev_node_raw,
              ev_src, ev_tag) = sched_pick(
@@ -185,17 +191,16 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
 
         # ---- duplicate delivery: both draws ride keys folded off k_sched
         with _section("dup"):
-            dup_keys = tf.fold_in(k_sched[:, None, :], dup_fold)
             dup_p = (sel.take1(s.dup_rate, ev_node).to(torch.float32)
                      * per_million)
             dup_fire = (valid & (ev_kind == T.EV_MSG)
-                        & tf.bernoulli(dup_keys[:, 0], dup_p))
+                        & tf.bernoulli(k_dupf, dup_p))
 
             # pop the slot; the clock never runs backward
             now = torch.where(valid, torch.maximum(s.now, dmin), s.now)
             time_over = now > s.tlimit
             redeliver = now + torch.clamp(
-                tf.randint(dup_keys[:, 1], s.lat_lo, s.lat_hi), min=1)
+                tf.randint(k_dupd, s.lat_lo, s.lat_hi), min=1)
             inf = torch.full_like(now, int(T.T_INF))
             t_kind, t_deadline = nr.put_rows_([
                 (s.t_kind, idx, T.EV_FREE, valid & ~dup_fire),
@@ -208,16 +213,14 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
         with _section("super"):
             is_super = valid & (ev_kind == T.EV_SUPER)
             op = torch.where(is_super, ev_tag, torch.zeros_like(ev_tag))
-            ext_keys = tf.split(k_super, 1 + max(len(extensions), 1))
             s, init_node, reset_target, reset_mask = apply_super(
                 super_plan, s, op, ev_node_raw.contiguous(),
-                ev_src.contiguous(), ev_payload,
-                ext_keys[:, 0].contiguous())
+                ev_src.contiguous(), ev_payload, ext_keys[0])
             if extensions:
                 new_ext = dict(s.ext)
                 for i, e in enumerate(extensions):
                     sub = e.on_op(cfg, new_ext[e.name], op, reset_target,
-                                  ev_src, ev_payload, ext_keys[:, 1 + i])
+                                  ev_src, ev_payload, ext_keys[1 + i])
                     new_ext[e.name] = e.reset_node(cfg, sub, reset_target,
                                                    reset_mask)
                 s = s.replace(ext=new_ext)
@@ -338,7 +341,7 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
                 lane = dict(now=s.now, h_node=h_node, sk_h=sk_h,
                             dlat_h=dlat_h, loss=s.loss, lat_lo=s.lat_lo,
                             lat_hi=s.lat_hi, jitter=s.jitter,
-                            k_net=k_net.contiguous(),
+                            k_net=k_net,
                             clog_node=s.clog_node, clog_link=s.clog_link,
                             disp_idx=disp_idx if trace else zi,
                             ev_lamport=ev_lamport if trace else zi)

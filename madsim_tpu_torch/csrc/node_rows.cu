@@ -27,43 +27,46 @@
 // independent loads in flight, since a load waits on the order of a
 // microsecond for device memory.
 //
-// node_gather: a block takes a tile of one leaf's B * row elements, a
-// thread one element, so consecutive threads copy consecutive elements
-// (the output [B, row] is one coalesced stream, the source rows
-// contiguous runs) and a lane's index is one broadcast load for its
-// threads. The launcher lays the leaves' tiles end to end
-// (`first_block`); a block finds its leaf by a scan that is the same for
-// all its threads.
-//
-// put_rows is lane-major: a thread owns one lane, a block 128 lanes. The
-// wrapper groups a launch's entries by their (idx, mask) pair (the node
-// scatter's 16 entries are one group; the dup pop's two share an index
-// but not a mask, so they are two) and cuts each group into units, one
-// row of blocks (grid.y) each, which run side by side; a thread loads its
-// lane's index and mask once a unit, where a thread an element would load
-// them once an element (86 times a lane in the scatter):
+// Both are lane-major: a thread owns one lane, a block 128 lanes, and
+// the wrapper cuts a launch's leaves (or entries) into units, one row of
+// blocks (grid.y) each, which run side by side; a thread loads its lane's
+// index (and mask) once a unit, where a thread an element would load it
+// once an element (86 times a lane in the flagship's 16 leaves):
 //   - up to kBatch one-element rows (the flagship's 12 scalar leaves, the
 //     pop's table columns, the Lamport clock): the lane's thread issues
-//     every source load of the unit before its first store, without
-//     waiting for its index (every source row b < B exists), so index,
-//     mask and sources are in flight together;
+//     every load of the unit before its first store, so kBatch loads are
+//     in flight a thread where a thread an element had one;
 //   - one longer row (log_term, log_cmd: 32 int32, 128 bytes; next_idx,
 //     match_idx: 5 int32): the warp copies its 32 lanes' rows together,
 //     cut into chunks, a thread a chunk, each lane's row index reaching
 //     its chunks' threads by shuffle, kWarpBatch chunk loads in flight
-//     before their stores, so a store instruction writes whole rows of
-//     neighbouring lanes rather than one word of 32 lanes. A chunk is 16
-//     bytes (int4; 8 threads a 128-byte row, 4 lanes an instruction)
-//     where the destination and source bases, the source's lane stride
-//     and the row's bytes are all 16-byte aligned; else the widest power
-//     of two that divides them all (4 bytes for an int32 row one element
-//     off a 16-byte boundary, or for the 20-byte rows); a scalar source is
-//     stored an element at a time.
-// A scalar leaf's 4-byte stores land 20 bytes apart, so each touches a
-// sector it only partly writes; rewriting the lanes' whole [R] slots
-// instead (full-sector stores after coalesced loads) measured slower on
-// this card. No integer division is left: a row's chunks are padded to a
-// power of two, so a thread finds its lane and chunk by shift and mask.
+//     before their stores, so an access moves whole rows of neighbouring
+//     lanes rather than one word of 32 lanes. A chunk is 16 bytes (int4;
+//     8 threads a 128-byte row, 4 lanes an instruction) where both bases,
+//     the source's lane stride and the row's bytes are all 16-byte
+//     aligned; else the widest power of two that divides them all (4
+//     bytes for an int32 row one element off a 16-byte boundary, or for
+//     the 20-byte rows); a scalar source is stored an element at a time.
+// No integer division is left: a row's chunks are padded to a power of
+// two, so a thread finds its lane and chunk by shift and mask.
+//
+// node_gather reads: its stores to the fresh [B, row] outputs are
+// coalesced (a one-element leaf's 32 lanes are 32 neighbouring elements,
+// a longer row's lanes neighbouring rows), its loads are one row a lane
+// at the lane's index, so a scalar leaf's 4-byte load touches a sector of
+// the lane's [R] slot (20 bytes at R=5) that it only partly uses; the
+// byte bound (each row read once) does not count that.
+//
+// put_rows groups a launch's entries by their (idx, mask) pair (the node
+// scatter's 16 entries are one group; the dup pop's two share an index
+// but not a mask, so they are two) and cuts each group into units. A
+// one-element unit's thread issues every source load before its first
+// store, without waiting for its index (every source row b < B exists),
+// so index, mask and sources are in flight together. A scalar leaf's
+// 4-byte stores land 20 bytes apart, so each touches a sector it only
+// partly writes; rewriting the lanes' whole [R] slots instead
+// (full-sector stores after coalesced loads) measured slower on this
+// card.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -73,14 +76,23 @@ constexpr int kMaxPut = 16;      // entries (and units) a put_rows launch
 constexpr int kBatch = 8;        // one-element rows a unit
 
 // One leaf of node_gather: src [B, R, row] and dst [B, row], `row`
-// elements of `esize` bytes; its tiles start at block `first_block` (set
-// by the launcher).
+// elements of `esize` bytes. chunk 0: a one-element row, copied by its
+// lane's thread; else the warp copies its 32 lanes' rows `chunk` bytes an
+// access, `chunks` a row, padded to 1 << shift.
 struct GatherLeaf {
   const void* src;
   void* dst;
   int64_t row;
   int32_t esize;
-  int32_t first_block;
+  int32_t chunk, chunks, shift;
+};
+
+// One row of blocks (grid.y) of a node_gather launch: a longer row
+// (`leaf`), or up to kBatch one-element rows, the leaves
+// items[first_item, first_item + n_items).
+struct GatherUnit {
+  int32_t leaf;             // -1: one-element rows
+  int32_t first_item, n_items, pad;
 };
 
 // The launch parameters, field for field the ctypes structures of
@@ -89,9 +101,10 @@ struct GatherLeaf {
 struct GatherParams {
   const int32_t* idx;   // [B]
   GatherLeaf leaves[kMaxGather];
+  GatherUnit units[kMaxGather];
+  uint8_t items[kMaxGather];    // leaves of the one-element units
   int64_t B;
-  int32_t R, n_leaves;
-  int32_t n_blocks, pad;    // set by the launcher
+  int32_t R, n_leaves, n_units, n_items;
 };
 
 // One entry of put_rows: dst [B, R, row] written in place; src lane b's
@@ -134,25 +147,9 @@ struct PutParams {
 
 namespace {
 
-constexpr int kThreads = 256;      // node_gather
-constexpr int kPutThreads = 128;   // put_rows: lanes a block
+constexpr int kLanes = 128;        // lanes a block (both kernels)
 constexpr int kWarpBatch = 8;      // long-row chunk loads before stores
 constexpr unsigned kFull = 0xFFFFFFFFu;
-
-__device__ __forceinline__ void copy_elem(void* dst, const void* src,
-                                          int64_t di, int64_t si,
-                                          int esize) {
-  switch (esize) {
-    case 1: static_cast<uint8_t*>(dst)[di] =
-        static_cast<const uint8_t*>(src)[si]; break;
-    case 2: static_cast<uint16_t*>(dst)[di] =
-        static_cast<const uint16_t*>(src)[si]; break;
-    case 4: static_cast<uint32_t*>(dst)[di] =
-        static_cast<const uint32_t*>(src)[si]; break;
-    default: static_cast<uint64_t*>(dst)[di] =
-        static_cast<const uint64_t*>(src)[si]; break;
-  }
-}
 
 __device__ __forceinline__ uint64_t load_elem(const void* src, int64_t si,
                                               int esize) {
@@ -206,21 +203,86 @@ __device__ __forceinline__ void store_chunk(char* p, uint4 v, int chunk) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-node_gather_kernel(const GatherParams p) {
-  const int bid = blockIdx.x;
-  int l = 0;      // the same for every thread of the block
-  while (l + 1 < p.n_leaves && p.leaves[l + 1].first_block <= bid) ++l;
-  const GatherLeaf& lf = p.leaves[l];
-  const uint32_t row = static_cast<uint32_t>(lf.row);
-  const uint32_t e = static_cast<uint32_t>(bid - lf.first_block) * kThreads
-      + threadIdx.x;
-  if (e >= static_cast<uint32_t>(p.B) * row) return;
-  const uint32_t b = e / row, j = e - b * row;
-  int32_t r = p.idx[b];
-  r = r < 0 ? 0 : (r >= p.R ? p.R - 1 : r);
-  copy_elem(lf.dst, lf.src, e,
-            (static_cast<int64_t>(b) * p.R + r) * row + j, lf.esize);
+// A lane's one-element rows of one gather unit: every load (the lane's
+// row r, already clamped; -1 past the last lane), then the stores.
+__device__ __forceinline__ void gather_short(const GatherParams& p,
+                                             const GatherUnit& u, int64_t b,
+                                             int32_t r) {
+  uint64_t v[kBatch];
+#pragma unroll
+  for (int k = 0; k < kBatch; ++k) {
+    v[k] = 0;
+    if (r >= 0 && k < u.n_items) {
+      const GatherLeaf& lf = p.leaves[p.items[u.first_item + k]];
+      v[k] = load_elem(lf.src, b * p.R + r, lf.esize);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kBatch; ++k) {
+    if (r >= 0 && k < u.n_items) {
+      const GatherLeaf& lf = p.leaves[p.items[u.first_item + k]];
+      store_value(lf.dst, b, v[k], lf.esize);
+    }
+  }
+}
+
+// One longer row of the warp's 32 lanes (from lane `warp0`), chunk by
+// chunk, as put_long: slot s of the 32 << shift is lane s >> shift's
+// chunk s & mask; thread t takes slots t, t + 32, ... Every thread runs
+// every shuffle.
+__device__ __forceinline__ void gather_long(const GatherLeaf& lf,
+                                            int64_t warp0, int t, int32_t r,
+                                            int32_t R) {
+  const int cb = lf.chunk, shift = lf.shift;
+  const int64_t rb = lf.row * lf.esize;          // a row's bytes
+  const int per = 1 << shift;
+  const char* src = static_cast<const char*>(lf.src);
+  char* dst = static_cast<char*>(lf.dst);
+  for (int i0 = 0; i0 < per; i0 += kWarpBatch) {
+    uint4 v[kWarpBatch];
+    int32_t rl[kWarpBatch];
+#pragma unroll
+    for (int k = 0; k < kWarpBatch; ++k) {
+      rl[k] = -1;
+      v[k] = make_uint4(0u, 0u, 0u, 0u);
+      if (i0 + k < per) {          // uniform over the warp
+        const int slot = ((i0 + k) << 5) + t;
+        const int l = slot >> shift, c = slot & (per - 1);
+        const int32_t rr = __shfl_sync(kFull, r, l);
+        rl[k] = (rr >= 0 && c < lf.chunks) ? rr : -1;
+        if (rl[k] >= 0)
+          v[k] = load_chunk(src + ((warp0 + l) * R + rr) * rb + c * cb, cb);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kWarpBatch; ++k) {
+      if (rl[k] >= 0) {
+        const int slot = ((i0 + k) << 5) + t;
+        const int l = slot >> shift, c = slot & (per - 1);
+        store_chunk(dst + (warp0 + l) * rb + c * cb, v[k], cb);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kLanes)
+node_gather_kernel(const __grid_constant__ GatherParams p) {
+  const GatherUnit& u = p.units[blockIdx.y];
+  const int t = threadIdx.x & 31;
+  const int64_t warp0 = static_cast<int64_t>(blockIdx.x) * kLanes
+      + (threadIdx.x & ~31);
+  const int64_t b = warp0 + t;
+  // the lane's row, clamped; -1 past the last lane (no thread leaves:
+  // the warp shuffles)
+  int32_t r = -1;
+  if (b < p.B) {
+    const int32_t i = p.idx[b];
+    r = i < 0 ? 0 : (i >= p.R ? p.R - 1 : i);
+  }
+  if (u.leaf >= 0)
+    gather_long(p.leaves[u.leaf], warp0, t, r, p.R);
+  else
+    gather_short(p, u, b, r);
 }
 
 // A lane's one-element rows of one unit: every source load, then the
@@ -289,12 +351,12 @@ __device__ __forceinline__ void put_long(const PutRow& w, int64_t warp0,
   }
 }
 
-__global__ void __launch_bounds__(kPutThreads)
+__global__ void __launch_bounds__(kLanes)
 put_rows_kernel(const __grid_constant__ PutParams p) {
   const PutUnit& u = p.units[blockIdx.y];
   const PutGroup& g = p.groups[u.group];
   const int t = threadIdx.x & 31;
-  const int64_t warp0 = static_cast<int64_t>(blockIdx.x) * kPutThreads
+  const int64_t warp0 = static_cast<int64_t>(blockIdx.x) * kLanes
       + (threadIdx.x & ~31);
   const int64_t b = warp0 + t;
   const bool live = b < p.B;     // no thread leaves: the warp shuffles
@@ -315,55 +377,95 @@ inline bool esize_ok(int esize) {
   return esize == 1 || esize == 2 || esize == 4 || esize == 8;
 }
 
-// The tiles of one leaf or entry: B * row elements, indexed in 32 bits.
-inline bool tiles(int64_t B, int64_t row, int32_t* blocks) {
-  const int64_t n = B * row;
-  if (row < 1 || n >= (int64_t{1} << 31)) return false;
-  *blocks = static_cast<int32_t>((n + kThreads - 1) / kThreads);
-  return true;
-}
-
 inline bool aligned(const void* ptr, int64_t bytes, int chunk) {
   return (reinterpret_cast<uintptr_t>(ptr) % chunk) == 0
       && bytes % chunk == 0;
 }
 
+// A warp copy's chunking: `chunk` bytes an access divides the row's `rb`
+// bytes into `chunks`, and 1 << shift is the least power of two that
+// holds them.
+inline bool chunks_ok(int64_t rb, int chunk, int chunks, int shift) {
+  const int c = chunk;
+  return (c == 1 || c == 2 || c == 4 || c == 8 || c == 16) && rb % c == 0
+      && rb / c == chunks && shift >= 0 && shift <= 24
+      && (int64_t{1} << shift) >= chunks
+      && (shift == 0 || (int64_t{1} << (shift - 1)) < chunks);
+}
+
+// A leaf the kernel can copy as its table says: a thread's row has one
+// element; a warp's row's chunk divides its bytes and both bases.
+inline bool leaf_ok(const GatherLeaf& lf) {
+  if (!esize_ok(lf.esize) || lf.row < 1 || lf.src == nullptr
+      || lf.dst == nullptr)
+    return false;
+  if (lf.chunk == 0) return lf.row == 1;
+  const int64_t rb = lf.row * lf.esize;
+  return chunks_ok(rb, lf.chunk, lf.chunks, lf.shift)
+      && aligned(lf.src, rb, lf.chunk) && aligned(lf.dst, rb, lf.chunk);
+}
+
 // An entry the kernel can copy as its table says: a thread's row has one
 // element; a warp's row's chunk divides its bytes, bases and source
-// stride, and 1 << shift holds its chunks.
+// stride.
 inline bool row_ok(const PutRow& w) {
   if (!esize_ok(w.esize) || w.R < 1 || w.row < 1 || w.dst == nullptr)
     return false;
   if (w.chunk == 0) return w.row == 1;
   const int64_t rb = w.row * w.esize;
   const int c = w.chunk;
-  if (c != 1 && c != 2 && c != 4 && c != 8 && c != 16) return false;
-  if (w.src == nullptr && c != w.esize) return false;
-  if (!aligned(w.dst, rb, c) || rb / c != w.chunks || w.shift < 0
-      || w.shift > 24 || (int64_t{1} << w.shift) < w.chunks
-      || (w.shift > 0 && (int64_t{1} << (w.shift - 1)) >= w.chunks))
+  if (!chunks_ok(rb, c, w.chunks, w.shift) || !aligned(w.dst, rb, c))
     return false;
-  return w.src == nullptr || aligned(w.src, w.src_sb * w.esize, c);
+  if (w.src == nullptr) return c == w.esize;
+  return aligned(w.src, w.src_sb * w.esize, c);
+}
+
+// The grid of a lane-major launch: a row of blocks a unit.
+inline bool lane_grid(int64_t B, int n_units, dim3* grid) {
+  const int64_t blocks = (B + kLanes - 1) / kLanes;
+  if (blocks >= (int64_t{1} << 31)) return false;
+  *grid = dim3(static_cast<unsigned>(blocks),
+               static_cast<unsigned>(n_units));
+  return true;
 }
 
 }  // namespace
 
 extern "C" int node_gather_launch(const GatherParams* params, void* stream) {
-  GatherParams p = *params;
-  if (p.B < 0 || p.R < 1 || p.n_leaves < 1 || p.n_leaves > kMaxGather
-      || p.idx == nullptr)
+  const GatherParams& p = *params;
+  if (p.B < 0 || p.R < 1 || p.idx == nullptr || p.n_leaves < 1
+      || p.n_leaves > kMaxGather || p.n_units < 1
+      || p.n_units > kMaxGather || p.n_items < 0
+      || p.n_items > p.n_leaves)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (p.B == 0) return 0;
-  p.n_blocks = 0;
-  for (int l = 0; l < p.n_leaves; ++l) {
-    int32_t blocks;
-    if (!esize_ok(p.leaves[l].esize) || !tiles(p.B, p.leaves[l].row,
-                                               &blocks))
+  // every leaf copyable, and taken by exactly one unit
+  int taken[kMaxGather] = {};
+  for (int l = 0; l < p.n_leaves; ++l)
+    if (!leaf_ok(p.leaves[l])) return static_cast<int>(cudaErrorInvalidValue);
+  for (int ui = 0; ui < p.n_units; ++ui) {
+    const GatherUnit& u = p.units[ui];
+    if (u.leaf >= 0) {
+      if (u.leaf >= p.n_leaves || p.leaves[u.leaf].chunk == 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+      ++taken[u.leaf];
+      continue;
+    }
+    if (u.leaf != -1 || u.first_item < 0 || u.n_items < 1
+        || u.n_items > kBatch || u.first_item + u.n_items > p.n_items)
       return static_cast<int>(cudaErrorInvalidValue);
-    p.leaves[l].first_block = p.n_blocks;
-    p.n_blocks += blocks;
+    for (int i = u.first_item; i < u.first_item + u.n_items; ++i) {
+      if (p.items[i] >= p.n_leaves || p.leaves[p.items[i]].chunk != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+      ++taken[p.items[i]];
+    }
   }
-  node_gather_kernel<<<p.n_blocks, kThreads, 0,
+  for (int l = 0; l < p.n_leaves; ++l)
+    if (taken[l] != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (p.B == 0) return 0;
+  dim3 grid;
+  if (!lane_grid(p.B, p.n_units, &grid))
+    return static_cast<int>(cudaErrorInvalidValue);
+  node_gather_kernel<<<grid, kLanes, 0,
                        static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -396,12 +498,10 @@ extern "C" int put_rows_launch(const PutParams* params, void* stream) {
         return static_cast<int>(cudaErrorInvalidValue);
   }
   if (p.B == 0) return 0;
-  const int64_t blocks = (p.B + kPutThreads - 1) / kPutThreads;
-  if (blocks >= (int64_t{1} << 31))
+  dim3 grid;
+  if (!lane_grid(p.B, p.n_units, &grid))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(blocks),
-                  static_cast<unsigned>(p.n_units));
-  put_rows_kernel<<<grid, kPutThreads, 0,
+  put_rows_kernel<<<grid, kLanes, 0,
                     static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,8 +43,9 @@ SOURCES = {
 }
 
 # kernel (wrapper) name -> its library, where the two names differ
-LIBRARY = {"threefry_keys": "prng", "threefry_draw": "prng",
-           "node_gather": "node_rows", "put_rows_": "node_rows"}
+LIBRARY = {"step_keys": "prng", "threefry_keys": "prng",
+           "threefry_draw": "prng", "node_gather": "node_rows",
+           "put_rows_": "node_rows"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -192,11 +193,12 @@ def wrappers() -> dict:
     from .node_rows import node_gather, put_rows_
     from .raft_invariant import raft_invariant_check
     from .sched_pick import sched_pick
-    from .threefry import threefry_draw, threefry_keys
+    from .threefry import step_keys_kernel, threefry_draw, threefry_keys
     return {"sched_pick": sched_pick, "emit_write": emit_write,
             "mutate": mutate_batch, "apply_knobs": apply_knobs,
             "coverage_digest": coverage_digest,
             "raft_invariant": raft_invariant_check,
             "apply_super": apply_super, "fingerprint": fingerprint,
-            "threefry_keys": threefry_keys, "threefry_draw": threefry_draw,
+            "step_keys": step_keys_kernel, "threefry_keys": threefry_keys,
+            "threefry_draw": threefry_draw,
             "node_gather": node_gather, "put_rows_": put_rows_}

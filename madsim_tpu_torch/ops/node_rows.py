@@ -28,14 +28,15 @@ write would leak one handler's edits into another's.
 The wrappers take the plain versions only for tensors on the CPU; for
 CUDA tensors they launch the kernels or raise. Their tables (pointers,
 row sizes, element sizes, a scalar's bits) ride in the parameter block,
-so a CUDA-graph capture holds the step's own buffers. `put_params` lays
-out a put_rows launch: its entries grouped by their (idx, mask) pair,
-each row of more than one element a unit of its own, copied by the warp
-at the access width `_long_chunk` gives (16 bytes where aligned), and
-each group's one-element rows, copied a lane a thread, in units of
-UNIT_ROWS; the units run side by side. `launches` counts
-kernel launches; a launch recorded into a CUDA graph counts in
-`captured` instead.
+so a CUDA-graph capture holds the step's own buffers. Both kernels are
+lane-major and cut a launch into units that run side by side: each row
+of more than one element a unit of its own, copied by the warp at the
+access width `_long_chunk` gives (16 bytes where aligned), and the
+one-element rows, copied a lane a thread, in units of UNIT_ROWS.
+`gather_params` lays out a node_gather launch (one index for every
+leaf), `put_params` a put_rows launch (its entries grouped by their
+(idx, mask) pair first). `launches` counts kernel launches; a launch
+recorded into a CUDA graph counts in `captured` instead.
 """
 
 from __future__ import annotations
@@ -97,16 +98,25 @@ class _GatherLeaf(ctypes.Structure):
     """csrc/node_rows.cu `GatherLeaf`, field for field."""
     _fields_ = [("src", ctypes.c_void_p), ("dst", ctypes.c_void_p),
                 ("row", ctypes.c_int64), ("esize", ctypes.c_int32),
-                ("first_block", ctypes.c_int32)]
+                ("chunk", ctypes.c_int32), ("chunks", ctypes.c_int32),
+                ("shift", ctypes.c_int32)]
+
+
+class _GatherUnit(ctypes.Structure):
+    """csrc/node_rows.cu `GatherUnit`, field for field."""
+    _fields_ = [("leaf", ctypes.c_int32), ("first_item", ctypes.c_int32),
+                ("n_items", ctypes.c_int32), ("pad", ctypes.c_int32)]
 
 
 class _GatherParams(ctypes.Structure):
     """csrc/node_rows.cu `GatherParams`, field for field."""
     _fields_ = [("idx", ctypes.c_void_p),
                 ("leaves", _GatherLeaf * MAX_GATHER),
+                ("units", _GatherUnit * MAX_GATHER),
+                ("items", ctypes.c_uint8 * MAX_GATHER),
                 ("B", ctypes.c_int64), ("R", ctypes.c_int32),
-                ("n_leaves", ctypes.c_int32), ("n_blocks", ctypes.c_int32),
-                ("pad", ctypes.c_int32)]
+                ("n_leaves", ctypes.c_int32), ("n_units", ctypes.c_int32),
+                ("n_items", ctypes.c_int32)]
 
 
 class _PutRow(ctypes.Structure):
@@ -207,13 +217,8 @@ class _NodeGather(CKernel):
             if out.numel():
                 todo.append((t, out))
         for at in range(0, len(todo), MAX_GATHER):
-            p = _GatherParams(idx=idx.data_ptr(), B=B, R=R)
-            for i, (t, out) in enumerate(todo[at:at + MAX_GATHER]):
-                p.leaves[i] = _GatherLeaf(t.data_ptr(), out.data_ptr(),
-                                          out.numel() // B,
-                                          t.element_size())
-            p.n_leaves = min(MAX_GATHER, len(todo) - at)
-            self._launch(p, dev)
+            self._launch(gather_params(todo[at:at + MAX_GATHER], idx, B, R),
+                         dev)
         return _rebuild(tree, outs)
 
 
@@ -230,6 +235,43 @@ def _long_chunk(dst: int, src, src_sb_bytes: int, row_bytes: int,
     while (dst | src | src_sb_bytes | row_bytes) % c:
         c //= 2
     return c
+
+
+def _chunking(w, src, src_sb_bytes: int, row_bytes: int, esize: int):
+    """Set a warp-copied row's access width (`_long_chunk`), its chunks a
+    row and the shift of their power-of-two padding on table entry `w`."""
+    w.chunk = _long_chunk(w.dst, src, src_sb_bytes, row_bytes, esize)
+    w.chunks = row_bytes // w.chunk
+    w.shift = (w.chunks - 1).bit_length()
+
+
+def gather_params(leaves, idx: torch.Tensor, B: int,
+                  R: int) -> _GatherParams:
+    """The parameter block of one node_gather launch: `leaves` ([(leaf
+    [B, R, ...], out [B, ...])], at most MAX_GATHER, none empty) read at
+    `idx`'s rows; a unit (a row of the kernel's blocks, grid.y) for each
+    leaf whose row has more than one element, copied by the warp, and for
+    each UNIT_ROWS of the one-element leaves (`items`), a lane a thread."""
+    p = _GatherParams(idx=idx.data_ptr(), B=B, R=R, n_leaves=len(leaves))
+    units = []
+    for i, (t, out) in enumerate(leaves):
+        es = t.element_size()
+        row = out.numel() // B
+        lf = _GatherLeaf(src=t.data_ptr(), dst=out.data_ptr(), row=row,
+                         esize=es)
+        if row > 1:
+            _chunking(lf, lf.src, R * row * es, row * es, es)
+            units.append(_GatherUnit(i, 0, 0))
+        else:
+            p.items[p.n_items] = i
+            p.n_items += 1
+        p.leaves[i] = lf
+    units += [_GatherUnit(-1, at, min(UNIT_ROWS, p.n_items - at))
+              for at in range(0, p.n_items, UNIT_ROWS)]
+    p.n_units = len(units)
+    for i, u in enumerate(units):
+        p.units[i] = u
+    return p
 
 
 def _group_key(idx: torch.Tensor, mask) -> tuple:
@@ -315,9 +357,7 @@ class _PutRows(CKernel):
         else:
             w.value = _scalar_bits(val, mat.dtype)
         if row > 1:      # copied by the warp; one element: by its lane
-            w.chunk = _long_chunk(w.dst, w.src, w.src_sb * es, row * es, es)
-            w.chunks = row * es // w.chunk
-            w.shift = (w.chunks - 1).bit_length()
+            _chunking(w, w.src, w.src_sb * es, row * es, es)
         return w, ix, m, keep
 
     def run(self, writes) -> list:

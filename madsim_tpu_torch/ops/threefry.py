@@ -1,14 +1,24 @@
-"""The threefry draws of the step and the handlers (K1): `threefry_keys`
-and `threefry_draw`, hand-written CUDA kernels (csrc/prng.cu), behind the
-functions of `core/prng.py`'s signatures and broadcasting.
+"""The threefry draws of the step and the handlers (K1): `step_keys`,
+`threefry_keys` and `threefry_draw`, hand-written CUDA kernels
+(csrc/prng.cu), behind the functions of `core/prng.py`'s signatures and
+broadcasting.
 
 They replace the JAX package's threefry draws (madsim_tpu/core/prng.py
 :24 `split`, :28 `randint`, :35 `uniform`, :39 `bernoulli`, :49
 `node_hash_key`, and `jax.random.fold_in`) where the step draws outside
-a kernel: the select's 5-way split, the duplicate-delivery `fold_in`,
-`bernoulli` and `randint`, the supervisor section's extension split, and
-every `Ctx` draw of the handlers (core/api.py).
+a kernel: the step's own keys (the select's 5-way split, the
+duplicate-delivery `fold_in`s and the supervisor section's extension
+split, madsim_tpu/core/step.py:138, :246, :315, :338), the dup section's
+`bernoulli` and `randint`, and every `Ctx` draw of the handlers
+(core/api.py).
 
+    step_keys(key, halted, words, n_ext, n_write)
+                                   the step's keys in one launch: [the
+                                   next key, k_sched, k_handler, k_net,
+                                   fold_in(k_sched, words[0]),
+                                   fold_in(k_sched, words[1]), the first
+                                   n_write keys of split(k_super, n_ext)],
+                                   each a contiguous [B, 2] tensor
     split(key, n)                  [..., 2] -> [..., n, 2]
     fold_in(key, data)             one word (an int, or a tensor
                                    broadcastable against the key batch)
@@ -18,12 +28,13 @@ every `Ctx` draw of the handlers (core/api.py).
     bernoulli(key, p)              uniform(key) < p, in float32
     node_hash_key(seed_or_key, node, stream)
 
-On CPU tensors each function is `core/prng.py`'s own, which stays the
-plain version: the kernels' plain references (the plain supervisor op,
-emission write, mutator and `masked_choice`) call it directly and never
-come here. On CUDA tensors they launch the kernels; on any other device,
-and on a kernel that fails to build or launch, they raise. Nothing falls
-back to the plain version.
+On CPU tensors each function is `core/prng.py`'s own (`step_keys`:
+`step_keys_plain`, which composes them as the step does), and that stays
+the plain version: the kernels' plain references (the plain supervisor
+op, emission write, mutator and `masked_choice`) call it directly and
+never come here. On CUDA tensors they launch the kernels; on any other
+device, and on a kernel that fails to build or launch, they raise.
+Nothing falls back to the plain version.
 
 A kernel sees each operand as a [M, W] grid over strided memory, W the
 output batch's last axis and M the rest: the wrapper broadcasts the key,
@@ -33,9 +44,9 @@ and strides, so the step's strided key slices and broadcast bounds cost
 no copy. Python ints and floats go by value in the parameter block, so a
 draw inside a CUDA-graph capture builds no host tensor (ROADMAP F4, F7).
 
-`threefry_keys.launches` and `threefry_draw.launches` count kernel
-launches (and nothing else); a launch recorded into a CUDA graph counts
-in `captured` instead.
+`step_keys_kernel.launches`, `threefry_keys.launches` and
+`threefry_draw.launches` count kernel launches (and nothing else); a
+launch recorded into a CUDA graph counts in `captured` instead.
 """
 
 from __future__ import annotations
@@ -81,6 +92,17 @@ class _DrawParams(ctypes.Structure):
                 ("M", ctypes.c_int32), ("W", ctypes.c_int32),
                 ("F", ctypes.c_int32), ("mode", ctypes.c_int32),
                 ("inclusive", ctypes.c_int32)]
+
+
+class _StepKeysParams(ctypes.Structure):
+    """csrc/prng.cu `StepKeysParams`, field for field."""
+    _fields_ = [("key", ctypes.c_void_p), ("halted", ctypes.c_void_p),
+                ("out", ctypes.c_void_p), ("dup_word0", ctypes.c_int32),
+                ("dup_word1", ctypes.c_int32), ("B", ctypes.c_int32),
+                ("n_ext", ctypes.c_int32), ("n_write", ctypes.c_int32)]
+
+
+STEP_KEYS = 6      # step_keys' keys before the extension keys
 
 
 def _grid(shape: tuple) -> tuple[int, int]:
@@ -153,6 +175,61 @@ class _ThreefryKeys(CKernel):
                             out=out.data_ptr(), word=word, M=M, W=W, n=0)
             self._launch(p, key.device)
         return out.reshape(shape + (2,))
+
+
+def step_keys_plain(key: torch.Tensor, halted: torch.Tensor, words,
+                    n_ext: int, n_write: int) -> list:
+    """The step's keys from `core/prng.py`, composed as the JAX step
+    composes them (madsim_tpu/core/step.py:138 `split(s.key, 5)` and
+    `where(live, key, s.key)`, :246 and :315 `fold_in(k_sched, word)`,
+    :338 `split(k_super, n_ext)`): [the next key, k_sched, k_handler,
+    k_net, the two dup keys, the first n_write extension keys], each a
+    contiguous [B, 2] tensor."""
+    keys = prng.split(key, 5)
+    k_sched = keys[:, 1]
+    ext = prng.split(keys[:, 2], n_ext)
+    out = [torch.where(~halted[:, None], keys[:, 0], key), k_sched,
+           keys[:, 3], keys[:, 4], prng.fold_in(k_sched, words[0]),
+           prng.fold_in(k_sched, words[1])]
+    out += [ext[:, i] for i in range(n_write)]
+    return [t.contiguous() for t in out]
+
+
+class _StepKeys(CKernel):
+    """`step_keys` on the kernel (any device the caller hands it; the
+    module's function sends only CUDA tensors here)."""
+
+    def __init__(self):
+        super().__init__("prng", "step_keys", _StepKeysParams)
+
+    def run(self, key: torch.Tensor, halted: torch.Tensor, words,
+            n_ext: int, n_write: int) -> list:
+        _check_key(key, "step_keys")
+        dev = key.device
+        B = key.shape[0]
+        if key.shape != (B, 2) or halted.shape != (B,) \
+                or halted.dtype != torch.bool or halted.device != dev:
+            raise ValueError("threefry.step_keys: keys are [B, 2] and "
+                             f"halted a [B] bool tensor on {dev}")
+        if not 1 <= n_write <= n_ext:
+            raise ValueError(f"threefry.step_keys: {n_write} of {n_ext} "
+                             "extension keys")
+        # the kernel reads a key as one 8-byte word: a copy where the keys
+        # are strided or start off an 8-byte boundary (alive until the
+        # launch)
+        k = key if key.is_contiguous() and key.data_ptr() % 8 == 0 \
+            else key.clone(memory_format=torch.contiguous_format)
+        h = halted.contiguous()
+        out = torch.empty((STEP_KEYS + n_write, B, 2), dtype=_I32,
+                          device=dev)
+        if B:
+            p = _StepKeysParams(key=k.data_ptr(), halted=h.data_ptr(),
+                                out=out.data_ptr(),
+                                dup_word0=_word(words[0]),
+                                dup_word1=_word(words[1]), B=B,
+                                n_ext=n_ext, n_write=n_write)
+            self._launch(p, dev)
+        return list(out.unbind(0))
 
 
 def _bound(x, dev, what):
@@ -231,8 +308,17 @@ class _ThreefryDraw(CKernel):
         return out.reshape(batch)
 
 
+step_keys_kernel = _StepKeys()
 threefry_keys = _ThreefryKeys()
 threefry_draw = _ThreefryDraw()
+
+
+def step_keys(key: torch.Tensor, halted: torch.Tensor, words, n_ext: int,
+              n_write: int) -> list:
+    """The step's keys in one launch (`step_keys_plain`'s)."""
+    if on_cpu(key, "threefry.step_keys"):
+        return step_keys_plain(key, halted, words, n_ext, n_write)
+    return step_keys_kernel.run(key, halted, words, n_ext, n_write)
 
 
 def split(key: torch.Tensor, n: int = 2) -> torch.Tensor:

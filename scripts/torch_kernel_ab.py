@@ -18,6 +18,15 @@ host falls on both sides. A measurement holds:
   put_rows_ms     the node scatter (the step's largest put_rows_ call: 16
                   node-state leaves, in place) as a CUDA-graph replay (50
                   launches) on the operands of the same step 512
+  node_gather_ms  the node slice (the step's node_gather call: 16 leaves)
+                  as a CUDA-graph replay (50 launches) on the operands of
+                  the same step 512
+  k1_keys_ms      all of the step's K1 key launches (the tree's own: every
+                  threefry_keys split and fold_in of the step, and its
+                  step_keys launch where it has one) replayed together as
+                  a CUDA graph (50 steps' worth) on the operands of the
+                  same step 512, a step's worth; `k1_key_launches` names
+                  them
   raft_invariant_ms, raft_invariant_pairwise_ms
                   the Raft safety check as a CUDA-graph replay (50
                   launches) on the operands of the same step 512, in the
@@ -62,23 +71,36 @@ def graph_ms(fn, n):
     return t0.elapsed_time(t1) / n
 
 
+def clone(x):
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: clone(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(clone(v) for v in x)
+    return x
+
+
+# the K1 key launches of a step and the node slice: (wrapper, method);
+# a tree without a wrapper or method has no such launch
+KEY_METHODS = (("step_keys", "run"), ("threefry_keys", "split"),
+               ("threefry_keys", "fold_in"))
+
+
 def step_calls(rt, state):
-    """(the largest put_rows_ call, the raft_invariant_check call) of the
-    next step of `state`, run on a copy with both wrappers recorded: each
-    call's operands, cloned before the call."""
+    """(the largest put_rows_ call, the raft_invariant_check call, the
+    node_gather call, [(wrapper, method, args, kwargs)] of the step's K1
+    key launches) of the next step of `state`, run on a copy with the
+    wrappers recorded: each call's operands, cloned before the call."""
     import torch
     import madsim_tpu_torch.models.raft as raft_mod
     from madsim_tpu_torch.core.state import map_state
+    from madsim_tpu_torch.ops import kernels
     from madsim_tpu_torch.ops import node_rows as nr
-    puts, checks = [], []
+    puts, checks, keys, gathers = [], [], [], []
     real_put, real_check = nr.put_rows_, raft_mod.raft_invariant_check
-
-    def clone(x):
-        if isinstance(x, torch.Tensor):
-            return x.clone()
-        if isinstance(x, (tuple, list)):
-            return type(x)(clone(v) for v in x)
-        return x
+    wrappers = kernels.wrappers()
 
     def put_spy(writes):
         puts.append(clone(list(writes)))
@@ -88,12 +110,27 @@ def step_calls(rt, state):
         checks.append(clone(args))
         return real_check(*args)
 
+    spied = []
+    for name, meth in KEY_METHODS + (("node_gather", "run"),):
+        w = wrappers.get(name)
+        if w is None or not hasattr(w, meth):
+            continue
+        real = getattr(w, meth)
+
+        def spy(*args, _real=real, _w=w, _m=meth, **kw):
+            (gathers if _m == "run" and _w is wrappers["node_gather"]
+             else keys).append((_w, _m, clone(args), clone(kw)))
+            return _real(*args, **kw)
+        setattr(w, meth, spy)          # shadows the method
+        spied.append((w, meth))
     nr.put_rows_, raft_mod.raft_invariant_check = put_spy, check_spy
     try:
         rt._step(map_state(torch.clone, state))
     finally:
         nr.put_rows_, raft_mod.raft_invariant_check = real_put, real_check
-    return max(puts, key=len), checks[0]
+        for w, meth in spied:
+            delattr(w, meth)
+    return max(puts, key=len), checks[0], gathers[0], keys
 
 
 def measure(tree: str) -> dict:
@@ -115,8 +152,17 @@ def measure(tree: str) -> dict:
 
     rt = workloads.flagship_runtime(device=dev)
     s, _ = rt.run(rt.init_batch(seeds), 512, chunk=512)
-    scatter, raft_args = step_calls(rt, s)
+    scatter, raft_args, gather, key_calls = step_calls(rt, s)
     pr = min(graph_ms(lambda: put_rows_(scatter), 50) for _ in range(2))
+    gw, _, gargs, _ = gather
+    ng = min(graph_ms(lambda: gw.run(*gargs), 50) for _ in range(2))
+
+    def step_keys():
+        for w, meth, args, kw in key_calls:
+            getattr(w, meth)(*args, **kw)
+    k1 = min(graph_ms(step_keys, 50) for _ in range(2))
+    k1_names = [f"{w.symbol}.{meth}" for w, meth, _, _ in key_calls]
+    del gather, gargs, key_calls
     ri = min(graph_ms(lambda: raft_invariant_check(*raft_args), 50)
              for _ in range(2))
     pairwise = raft_args[:-1] + (True,)
@@ -151,6 +197,7 @@ def measure(tree: str) -> dict:
     fused = (time.perf_counter() - t0) / 1536 * 1e3
     check = not bool(s.crashed.any())
     return dict(sched_pick_ms=sp, apply_knobs_ms=ak, put_rows_ms=pr,
+                node_gather_ms=ng, k1_keys_ms=k1, k1_key_launches=k1_names,
                 raft_invariant_ms=ri, raft_invariant_pairwise_ms=rp,
                 run_fused_ms_per_step=fused, no_crash=check)
 

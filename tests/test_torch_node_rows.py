@@ -30,7 +30,8 @@ from madsim_tpu.ops import select as jsel
 from madsim_tpu_torch import interop, workloads
 from madsim_tpu_torch.ops import node_rows as nr
 from madsim_tpu_torch.ops import threefry as tf
-from test_torch_threefry import _draw_standin, _keys_standin
+from test_torch_threefry import (_draw_standin, _keys_standin,
+                                 _step_keys_standin)
 
 B = 64
 
@@ -137,16 +138,66 @@ def _host(ptr, count, esize):
         ptr), dtype=_NP[esize], count=count)
 
 
+def _chunks_ok(rb, c, chunks, shift):
+    """csrc/node_rows.cu `chunks_ok`: a warp copy's chunking."""
+    return (c in (1, 2, 4, 8, 16) and rb % c == 0 and rb // c == chunks
+            and 0 <= shift <= 24 and 1 << shift >= chunks
+            and (shift == 0 or 1 << (shift - 1) < chunks))
+
+
+def _gather_leaf_ok(lf):
+    """csrc/node_rows.cu `leaf_ok`: the leaf the kernel can copy."""
+    if lf.esize not in _NP or lf.row < 1 or not lf.src or not lf.dst:
+        return False
+    if lf.chunk == 0:
+        return lf.row == 1
+    rb, c = lf.row * lf.esize, lf.chunk
+    return (_chunks_ok(rb, c, lf.chunks, lf.shift) and lf.src % c == 0
+            and lf.dst % c == 0)
+
+
 def _gather_standin(ref, stream):
-    """csrc/node_rows.cu `node_gather`, lane by lane on host memory."""
+    """csrc/node_rows.cu `node_gather`, lane by lane on host memory, read
+    from the parameter block as the kernel reads it: a unit (a row of
+    more than one element, or up to UNIT_ROWS one-element rows) at a
+    time, each lane's index once a unit and clamped, a longer row chunk
+    by chunk at its access width. Refuses (cudaErrorInvalidValue) what
+    the launcher refuses, and units that do not take every leaf exactly
+    once."""
     p = ref._obj
-    idx = _host(p.idx, p.B, 4).view(np.int32).clip(0, p.R - 1)
-    for lf in p.leaves[:p.n_leaves]:
-        src = _host(lf.src, p.B * p.R * lf.row, lf.esize).reshape(
-            p.B, p.R, lf.row)
-        dst = _host(lf.dst, p.B * lf.row, lf.esize).reshape(p.B, lf.row)
-        dst[:] = src[np.arange(p.B), idx]
-    return 0
+    leaves = p.leaves[:p.n_leaves]
+    if not 1 <= p.n_leaves <= nr.MAX_GATHER or p.R < 1 or not p.idx \
+            or not 1 <= p.n_units <= nr.MAX_GATHER \
+            or not 0 <= p.n_items <= p.n_leaves \
+            or not all(_gather_leaf_ok(lf) for lf in leaves):
+        return 1
+    taken = []
+    for u in p.units[:p.n_units]:
+        r = _host(p.idx, p.B, 4).view(np.int32).clip(0, p.R - 1)
+        if u.leaf >= 0:
+            lf = leaves[u.leaf] if u.leaf < p.n_leaves else None
+            if lf is None or not lf.chunk:
+                return 1
+            taken.append(u.leaf)
+            rb, cb = lf.row * lf.esize, lf.chunk
+            for b in range(p.B):
+                at = (b * p.R + int(r[b])) * rb
+                for c in range(lf.chunks):
+                    ctypes.memmove(lf.dst + b * rb + c * cb,
+                                   lf.src + at + c * cb, cb)
+            continue
+        if u.leaf != -1 or not 1 <= u.n_items <= nr.UNIT_ROWS \
+                or u.first_item < 0 \
+                or u.first_item + u.n_items > p.n_items:
+            return 1
+        for i in p.items[u.first_item:u.first_item + u.n_items]:
+            if i >= p.n_leaves or leaves[i].chunk:
+                return 1
+            taken.append(i)
+            lf = leaves[i]
+            src = _host(lf.src, p.B * p.R, lf.esize).reshape(p.B, p.R)
+            _host(lf.dst, p.B, lf.esize)[:] = src[np.arange(p.B), r]
+    return 0 if sorted(taken) == list(range(p.n_leaves)) else 1
 
 
 def _put_row_ok(w):
@@ -156,13 +207,11 @@ def _put_row_ok(w):
     if w.chunk == 0:
         return w.row == 1
     rb, c = w.row * w.esize, w.chunk
-    if c not in (1, 2, 4, 8, 16) or (not w.src and c != w.esize):
+    if not _chunks_ok(rb, c, w.chunks, w.shift) or w.dst % c:
         return False
-    if w.dst % c or rb % c or rb // c != w.chunks or w.shift < 0 \
-            or 1 << w.shift < w.chunks \
-            or (w.shift > 0 and 1 << (w.shift - 1) >= w.chunks):
-        return False
-    return not w.src or (w.src % c == 0 and w.src_sb * w.esize % c == 0)
+    if not w.src:
+        return c == w.esize
+    return w.src % c == 0 and w.src_sb * w.esize % c == 0
 
 
 def _put_standin(ref, stream):
@@ -256,6 +305,146 @@ def test_node_gather_through_the_kernel_path(standin, n_leaves):
                                                              want[k]), k
 
 
+def _gather_blocks(tree, idx):
+    """The parameter blocks node_gather launches for `tree` at `idx`
+    (recorded by a stand-in that also runs them), and the result."""
+    blocks = []
+
+    def record(ref, stream):
+        blocks.append(_copy_params(ref._obj))
+        return _gather_standin(ref, stream)
+
+    real = nr.node_gather._fn
+    nr.node_gather._fn = record
+    try:
+        out = nr.node_gather.run(tree, idx)
+    finally:
+        nr.node_gather._fn = real
+    return blocks, out
+
+
+def _offset_leaf(rng, lanes, R, shape, dtype, offset):
+    """A [lanes, R, *shape] leaf of `dtype` with random values that starts
+    `offset` elements into its allocation."""
+    n = lanes * R * int(np.prod(shape))
+    vals = rng.integers(-99, 99, n + offset)
+    flat = (torch.as_tensor(vals) > 0 if dtype == torch.bool
+            else torch.as_tensor(vals).to(dtype))
+    return flat[offset:].view((lanes, R) + shape)
+
+
+GATHER_CASES = {
+    # case: (row shape, dtype, offset in elements, chunk bytes; 0: one
+    # element a lane, copied by its thread)
+    "int8_scalar": ((), torch.int8, 0, 0),
+    "bool_scalar": ((), torch.bool, 1, 0),
+    "int16_scalar": ((), torch.int16, 0, 0),
+    "int32_scalar": ((), torch.int32, 1, 0),
+    "int64_scalar": ((), torch.int64, 0, 0),
+    "float64_scalar": ((1,), torch.float64, 0, 0),
+    "int32_32_aligned": ((32,), torch.int32, 0, 16),
+    "int32_32_one_element_in": ((32,), torch.int32, 1, 4),
+    "int32_32_two_elements_in": ((32,), torch.int32, 2, 8),
+    "int32_5": ((5,), torch.int32, 0, 4),
+    "bool_24": ((24,), torch.bool, 0, 8),
+    "bool_3": ((3,), torch.bool, 0, 1),
+    "int16_96": ((96,), torch.int16, 0, 16),
+    "int16_8_one_element_in": ((8,), torch.int16, 1, 2),
+    "int64_3x5": ((3, 5), torch.int64, 0, 8),
+    "float32_4x4": ((4, 4), torch.float32, 0, 16),
+}
+
+
+@pytest.mark.parametrize("lanes", [1, 37, 129])
+@pytest.mark.parametrize("case", sorted(GATHER_CASES))
+def test_node_gather_rows_take_the_widest_aligned_access(standin, case,
+                                                         lanes):
+    """A one-element row of every element size goes a lane a thread; a
+    longer row is copied by the warp 16 bytes an access where both bases
+    and the row are 16-byte aligned, else the widest power of two that
+    divides them (a leaf one element into its allocation takes narrower
+    chunks); indices below 0 and at or above R clamp; lane counts no
+    multiple of a warp or a block. Equal to the plain version."""
+    shape, dtype, off, chunk = GATHER_CASES[case]
+    rng = np.random.default_rng(len(case) + lanes)
+    R = 5
+    tree = {"x": _offset_leaf(rng, lanes, R, shape, dtype, off)}
+    idx = torch.as_tensor(rng.integers(-3, R + 3, lanes).astype(np.int32))
+    idx[0] = -(2 ** 31) if lanes > 1 else R
+    want = nr.node_gather_plain(tree, idx)
+    blocks, got = _gather_blocks(tree, idx)
+    lf = blocks[0].leaves[0]
+    assert lf.chunk == chunk
+    if chunk:
+        nbytes = int(np.prod(shape)) * tree["x"].element_size()
+        assert lf.chunks == nbytes // chunk
+        assert 1 << lf.shift >= lf.chunks > (1 << lf.shift) // 2
+        assert [(u.leaf, u.n_items) for u in blocks[0].units[:1]] == [(0, 0)]
+    else:
+        assert [(u.leaf, u.first_item, u.n_items)
+                for u in blocks[0].units[:1]] == [(-1, 0, 1)]
+    assert got["x"].dtype == dtype and torch.equal(got["x"], want["x"])
+
+
+def test_node_gather_units_of_the_flagship_shape(standin):
+    """The flagship's slice: 12 one-element leaves and 4 longer ones
+    (two of 32 int32, two of 5) in one launch of six units: a unit for
+    each longer row, the one-element rows in units of UNIT_ROWS."""
+    rng = np.random.default_rng(7)
+    shapes = [()] * 6 + [(32,), (5,)] + [()] * 6 + [(32,), (5,)]
+    tree = {f"l{i:02d}": _offset_leaf(rng, 100, 5, sh, torch.int32, 0)
+            for i, sh in enumerate(shapes)}
+    idx = torch.as_tensor(rng.integers(-1, 7, 100).astype(np.int32))
+    blocks, got = _gather_blocks(tree, idx)
+    assert len(blocks) == 1
+    p = blocks[0]
+    assert (p.n_leaves, p.n_items, p.n_units) == (16, 12, 6)
+    units = [(u.leaf, u.first_item, u.n_items) for u in p.units[:6]]
+    assert units == [(6, 0, 0), (7, 0, 0), (14, 0, 0), (15, 0, 0),
+                     (-1, 0, 8), (-1, 8, 4)]
+    assert [p.leaves[i].chunk for i in (6, 7, 14, 15)] == [16, 4, 16, 4]
+    want = nr.node_gather_plain(tree, idx)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_node_gather_splits_more_than_48_leaves_across_launches(standin):
+    """Sixty leaves, one and more elements a row: a launch of 48 leaves,
+    then one of 12, each taking every one of its leaves in one unit."""
+    rng = np.random.default_rng(8)
+    tree = {f"l{i:02d}": _offset_leaf(rng, 37, 4, ((), (3,), (8,))[i % 3],
+                                      torch.int32, 0) for i in range(60)}
+    idx = torch.as_tensor(rng.integers(-2, 6, 37).astype(np.int32))
+    blocks, got = _gather_blocks(tree, idx)
+    assert [p.n_leaves for p in blocks] == [48, 12]
+    assert [p.n_items for p in blocks] == [16, 4]
+    assert [p.n_units for p in blocks] == [32 + 2, 8 + 1]
+    want = nr.node_gather_plain(tree, idx)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_node_gather_refuses_a_table_that_takes_a_leaf_twice(standin):
+    """The stand-in refuses, as the launcher does, units that take a
+    leaf twice or not at all; the wrapper raises on the refusal."""
+    rng = np.random.default_rng(9)
+    tree = {"a": _offset_leaf(rng, 8, 3, (), torch.int32, 0),
+            "b": _offset_leaf(rng, 8, 3, (), torch.int32, 0)}
+    idx = torch.zeros(8, dtype=torch.int32)
+    out = [torch.empty(8, dtype=torch.int32) for _ in range(2)]
+    p = nr.gather_params(list(zip(tree.values(), out)), idx, 8, 3)
+    assert _gather_standin(ctypes.byref(p), None) == 0
+    p.items[1] = 0                         # leaf 0 twice, leaf 1 never
+    assert _gather_standin(ctypes.byref(p), None) == 1
+    real = nr.gather_params
+    try:
+        nr.gather_params = lambda *a: p
+        with pytest.raises(RuntimeError, match="launch failed"):
+            nr.node_gather.run(tree, idx)
+    finally:
+        nr.gather_params = real
+
+
 @pytest.mark.parametrize("n_writes", [2, 16, 20])
 def test_put_rows_through_the_kernel_path(standin, n_writes):
     """Row sources, broadcast rows ([1, ...]: lane stride 0), scalars of
@@ -311,7 +500,7 @@ def _params_of(writes):
 
 
 def _copy_params(p):
-    q = nr._PutParams()
+    q = type(p)()
     ctypes.memmove(ctypes.addressof(q), ctypes.addressof(p),
                    ctypes.sizeof(q))
     return q
@@ -468,31 +657,36 @@ def test_wrappers_take_the_plain_version_on_the_cpu_and_refuse_meta():
 # The rewired step, every draw and row write on its kernel path
 # --------------------------------------------------------------------------
 FLAG_B, FLAG_STEPS = 8, 192
-KERNELS = ("threefry_keys", "threefry_draw", "node_gather", "put_rows_")
+KERNELS = ("threefry_keys", "threefry_draw", "node_gather", "put_rows_",
+           "step_keys")
 
 
 @pytest.fixture
 def kernel_paths(monkeypatch):
-    """The four K1/K4 kernels on their kernel paths for CPU tensors, with
+    """The five K1/K4 kernels on their kernel paths for CPU tensors, with
     the stand-in launchers."""
     monkeypatch.setattr(tf, "on_cpu", lambda t, what: False)
     monkeypatch.setattr(nr, "on_cpu", lambda t, what: False)
     for w, fn in ((tf.threefry_keys, _keys_standin),
                   (tf.threefry_draw, _draw_standin),
                   (nr.node_gather, _gather_standin),
-                  (nr.put_rows_, _put_standin)):
+                  (nr.put_rows_, _put_standin),
+                  (tf.step_keys_kernel, _step_keys_standin)):
         monkeypatch.setattr(w, "_fn", fn)
 
 
 def _counts():
     return (tf.threefry_keys.launches, tf.threefry_draw.launches,
-            nr.node_gather.launches, nr.put_rows_.launches)
+            nr.node_gather.launches, nr.put_rows_.launches,
+            tf.step_keys_kernel.launches)
 
 
 def test_flagship_on_the_kernel_paths_matches_reference(kernel_paths):
     """The traced flagship (its Lamport write a third put_rows_), 192
     steps at B=8: every leaf equal to the JAX package's; each step
-    launches the same kernels, the node gather once."""
+    launches the same kernels: the node gather once, the step's keys in
+    one step_keys launch, and threefry_keys only for the handlers' two
+    splits."""
     import bench
     seeds = np.arange(FLAG_B, dtype=np.uint32)
     with reference_stream():
@@ -509,7 +703,7 @@ def test_flagship_on_the_kernel_paths_matches_reference(kernel_paths):
     assert launched == tuple(FLAG_STEPS * n for n in per_step)
     assert per_step[2] == 1 and per_step[3] == 3, dict(zip(KERNELS,
                                                            per_step))
-    assert per_step[0] >= 3 and per_step[1] >= 2
+    assert per_step[4] == 1 and per_step[0] == 2 and per_step[1] >= 2
     assert_same(want, interop.state_to_numpy(s),
                 what="flagship on the K1/K4 kernel paths")
     assert (interop.state_to_numpy(s)[".steps"] == FLAG_STEPS).all()

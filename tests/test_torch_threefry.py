@@ -173,6 +173,63 @@ def test_node_hash_key_matches_jax():
         _u32(tf.node_hash_key(tk, torch.as_tensor(nodes), 3)), want)
 
 
+DUP_WORDS = (0x44555031, 0x44555032)
+
+
+def _jax_step_keys(key, halted, n_ext, n_write, words=DUP_WORDS):
+    """The JAX step's own keys for one lane, as madsim_tpu/core/step.py
+    composes them: :138 the 5-way split and the halted lane's key kept,
+    :246 and :315 the dup fold_ins of k_sched, :338 the extension split
+    of k_super."""
+    key_next, k_sched, k_super, k_handler, k_net = jprng.split(key, 5)
+    key_next = jnp.where(~halted, key_next, key)
+    ext = jprng.split(k_super, n_ext)
+    return ([key_next, k_sched, k_handler, k_net,
+             jax.random.fold_in(k_sched, words[0]),
+             jax.random.fold_in(k_sched, words[1])]
+            + [ext[i] for i in range(n_write)])
+
+
+@pytest.mark.parametrize("n_ext,n_write", [(2, 1), (2, 2), (3, 3), (5, 5),
+                                           (9, 1), (9, 9)])
+def test_step_keys_plain_is_the_jax_steps_composition(n_ext, n_write):
+    """[the next key, k_sched, k_handler, k_net, the two dup keys, the
+    first n_write extension keys], halted lanes keeping their key; each a
+    contiguous [B, 2] tensor."""
+    jk, tk = _keys(seed=40 + n_ext)
+    halted = np.random.default_rng(n_ext).random(B) < 0.3
+    halted[:3] = [True, False, True]
+    with reference_stream():
+        want = jax.vmap(lambda k, h: _jax_step_keys(k, h, n_ext, n_write))(
+            jk, halted)
+    got = tf.step_keys(tk, torch.as_tensor(halted), DUP_WORDS, n_ext,
+                       n_write)
+    assert len(got) == tf.STEP_KEYS + n_write == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == (B, 2) and g.is_contiguous(), i
+        np.testing.assert_array_equal(_u32(g), np.asarray(w), err_msg=i)
+    np.testing.assert_array_equal(_u32(got[0])[halted], jk[halted])
+
+
+def test_step_keys_matches_the_steps_former_composition():
+    """The fused keys equal the launches they replace in the port's step
+    (`split(key, 5)`, `fold_in(k_sched[:, None], words)`,
+    `split(k_super, n_ext)`), dup words at the extremes."""
+    _, tk = _keys(seed=44)
+    halted = torch.as_tensor(np.arange(B) % 3 == 0)
+    words = (0, 2 ** 32 - 1)
+    keys = tf.split(tk, 5)
+    dup = tf.fold_in(keys[:, 1][:, None, :],
+                     torch.tensor([0, -1], dtype=torch.int32))
+    ext = tf.split(keys[:, 2], 4)
+    want = [torch.where(halted[:, None], tk, keys[:, 0]), keys[:, 1],
+            keys[:, 3], keys[:, 4], dup[:, 0], dup[:, 1],
+            *ext.unbind(1)]
+    got = tf.step_keys(tk, halted, words, 4, 4)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), i
+
+
 def test_wrappers_take_the_plain_version_on_the_cpu_and_refuse_meta():
     _, tk = _keys(seed=23)
     before = (tf.threefry_keys.launches, tf.threefry_draw.launches)
@@ -211,17 +268,77 @@ def _store(ptr, t):
     ctypes.memmove(ptr, data, len(data))
 
 
+def _blocks(k0, k1, n):
+    """The n blocks of split((k0, k1), n) as the kernels unroll them:
+    block j hashes (j, j + n); returns (x0, x1), each [..., n]."""
+    j = torch.arange(n, dtype=torch.int32)
+    return prng.threefry2x32(k0[..., None], k1[..., None], j, j + n)
+
+
+def _split_out(x0, x1, n, i):
+    """csrc/prng.cu `split_out`: key i of split(key, n) from its blocks,
+    word w being x0[w] for w < n, else x1[w - n]."""
+    def word(w):
+        return x0[..., w] if w < n else x1[..., w - n]
+    return torch.stack([word(2 * i), word(2 * i + 1)], -1)
+
+
 def _keys_standin(ref, stream):
-    """csrc/prng.cu `threefry_keys`, element by element from the plain
-    functions."""
+    """csrc/prng.cu `threefry_keys` on host memory, as its kernels compute
+    and store: a split of n <= 8 unrolled block by block, its keys in
+    output order; a wider one word by word (block j's first word at j,
+    its second at j + n); a fold_in one block (0, word) a key. Refuses
+    (cudaErrorInvalidValue) what the launcher refuses."""
     p = ref._obj
+    if p.M < 0 or p.W < 0 or p.n < 0 or not p.key.ptr or not p.out:
+        return 1
+    if 2 * p.M * p.W * max(p.n, 1) >= 2 ** 31:
+        return 1
     key = _grid(p.key, p.M, p.W, np.int32, pair=True)
-    if p.n:
-        _store(p.out, prng.split(key, p.n))
-    else:
+    k0, k1 = key[..., 0], key[..., 1]
+    if p.n == 0:
         data = (_grid(p.data, p.M, p.W, np.int32) if p.data.ptr
                 else torch.full((p.M, p.W), p.word, dtype=torch.int32))
-        _store(p.out, prng.fold_in(key, data))
+        x0, x1 = prng.threefry2x32(k0, k1, torch.zeros_like(data), data)
+        _store(p.out, torch.stack([x0, x1], -1))
+    elif p.n <= 8:
+        x0, x1 = _blocks(k0, k1, p.n)
+        _store(p.out, torch.stack([_split_out(x0, x1, p.n, i)
+                                   for i in range(p.n)], -2))
+    else:
+        x0, x1 = _blocks(k0, k1, p.n)
+        _store(p.out, torch.cat([x0, x1], -1))
+    return 0
+
+
+def _step_keys_standin(ref, stream):
+    """csrc/prng.cu `step_keys` on host memory, as its kernel computes:
+    split(key, 5)'s five blocks, the next key (the lane's own where it
+    has halted), k_sched, k_handler, k_net, the two dup fold_ins of
+    k_sched, and n_write keys of split(k_super, n_ext) into
+    [6 + n_write, B, 2]. Refuses what the launcher refuses."""
+    p = ref._obj
+    if p.B < 0 or not 1 <= p.n_write <= p.n_ext or not p.key \
+            or not p.halted or not p.out or p.key % 8 or p.out % 8:
+        return 1
+    if p.B == 0:
+        return 0
+    op = tf._Operand(p.key, 2, 0)
+    key = _grid(op, p.B, 1, np.int32, pair=True)[:, 0]
+    halted = torch.as_tensor(np.frombuffer(
+        (ctypes.c_char * p.B).from_address(p.halted), np.uint8) != 0)
+    x0, x1 = _blocks(key[:, 0], key[:, 1], 5)
+    sched, ksuper = _split_out(x0, x1, 5, 1), _split_out(x0, x1, 5, 2)
+    out = [torch.where(halted[:, None], key, _split_out(x0, x1, 5, 0)),
+           sched, _split_out(x0, x1, 5, 3), _split_out(x0, x1, 5, 4)]
+    for word in (p.dup_word0, p.dup_word1):
+        d0, d1 = prng.threefry2x32(sched[:, 0], sched[:, 1],
+                                   torch.zeros_like(sched[:, 0]),
+                                   torch.full_like(sched[:, 0], word))
+        out.append(torch.stack([d0, d1], -1))
+    y0, y1 = _blocks(ksuper[:, 0], ksuper[:, 1], p.n_ext)
+    out += [_split_out(y0, y1, p.n_ext, i) for i in range(p.n_write)]
+    _store(p.out, torch.stack(out))
     return 0
 
 
@@ -249,6 +366,7 @@ def _draw_standin(ref, stream):
 
 @pytest.fixture
 def standin(monkeypatch):
+    monkeypatch.setattr(tf.step_keys_kernel, "_fn", _step_keys_standin)
     monkeypatch.setattr(tf.threefry_keys, "_fn", _keys_standin)
     monkeypatch.setattr(tf.threefry_draw, "_fn", _draw_standin)
 
@@ -267,7 +385,7 @@ SPLIT_CASES = {
 
 
 @pytest.mark.parametrize("case", sorted(SPLIT_CASES))
-@pytest.mark.parametrize("n", [1, 2, 5, 16])
+@pytest.mark.parametrize("n", [1, 2, 5, 8, 16])
 def test_split_through_the_kernel_path(standin, case, n):
     key = SPLIT_CASES[case]()
     before = tf.threefry_keys.launches
@@ -301,6 +419,82 @@ def test_fold_in_through_the_kernel_path(standin, case):
     want = prng.fold_in(key, data.to(torch.int32)
                         if isinstance(data, torch.Tensor) else data)
     assert torch.equal(got, want)
+
+
+def _step_key_operands(lanes, layout, seed):
+    """[lanes, 2] keys laid out as `layout` says: contiguous, a strided
+    slice of a split, or one int32 off an 8-byte boundary."""
+    k = _batch_keys((lanes,), seed)
+    if layout == "strided":
+        return prng.split(k, 5)[:, 3]
+    if layout == "one_word_in":
+        flat = torch.zeros(2 * lanes + 1, dtype=torch.int32)
+        flat[1:] = k.flatten()
+        return flat[1:].view(lanes, 2)
+    return k
+
+
+STEP_KEY_CASES = {
+    # case: (lanes, key layout, halted, n_ext, n_write, dup words)
+    "flagship_shape": (B, "contiguous", "mixed", 2, 1, DUP_WORDS),
+    "both_ext_keys": (B, "contiguous", "mixed", 2, 2, DUP_WORDS),
+    "three_extensions": (B, "contiguous", "mixed", 4, 4, DUP_WORDS),
+    "five_ext_keys_one_read": (B, "contiguous", "mixed", 5, 1, DUP_WORDS),
+    "runtime_width_9": (B, "contiguous", "mixed", 9, 9, DUP_WORDS),
+    "runtime_width_17_one_read": (37, "contiguous", "none", 17, 1,
+                                  DUP_WORDS),
+    "all_halted": (B, "contiguous", "all", 2, 1, DUP_WORDS),
+    "strided_keys": (B, "strided", "mixed", 2, 1, DUP_WORDS),
+    "keys_one_word_in": (129, "one_word_in", "mixed", 3, 3, DUP_WORDS),
+    "extreme_words": (B, "contiguous", "mixed", 2, 1, (0, 2 ** 32 - 1)),
+    "one_lane": (1, "contiguous", "none", 2, 1, DUP_WORDS),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STEP_KEY_CASES))
+def test_step_keys_through_the_kernel_path(standin, case):
+    """The fused launch against its plain version: widths the kernel
+    unrolls and ones it takes key by key, halted lanes, strided keys and
+    keys off an 8-byte boundary (copied before the launch), extreme dup
+    words, one lane."""
+    lanes, layout, halt, n_ext, n_write, words = STEP_KEY_CASES[case]
+    key = _step_key_operands(lanes, layout, len(case))
+    halted = {"none": torch.zeros(lanes, dtype=torch.bool),
+              "all": torch.ones(lanes, dtype=torch.bool),
+              "mixed": torch.as_tensor(np.arange(lanes) % 3 == 1)}[halt]
+    before = tf.step_keys_kernel.launches
+    got = tf.step_keys_kernel.run(key, halted, words, n_ext, n_write)
+    assert tf.step_keys_kernel.launches == before + 1
+    want = tf.step_keys_plain(key, halted, words, n_ext, n_write)
+    assert len(got) == len(want) == tf.STEP_KEYS + n_write
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == (lanes, 2) and g.is_contiguous()
+        assert torch.equal(g, w), i
+
+
+def test_step_keys_refuses_a_bad_table_and_launches_nothing_for_no_lanes(
+        standin):
+    """The stand-in refuses what the launcher refuses (more keys written
+    than split, a key off an 8-byte boundary); zero lanes launch no
+    kernel; the wrapper refuses mismatched operands."""
+    key = _batch_keys((8,), 50)
+    halted = torch.zeros(8, dtype=torch.bool)
+    out = torch.empty((7, 8, 2), dtype=torch.int32)
+    p = tf._StepKeysParams(key=key.data_ptr(), halted=halted.data_ptr(),
+                           out=out.data_ptr(), B=8, n_ext=2, n_write=1)
+    assert _step_keys_standin(ctypes.byref(p), None) == 0
+    p.n_write = 3
+    assert _step_keys_standin(ctypes.byref(p), None) == 1
+    p.n_write, p.key = 1, key.data_ptr() + 4
+    assert _step_keys_standin(ctypes.byref(p), None) == 1
+    before = tf.step_keys_kernel.launches
+    none = tf.step_keys_kernel.run(key[:0], halted[:0], DUP_WORDS, 2, 1)
+    assert [t.shape for t in none] == [(0, 2)] * 7
+    assert tf.step_keys_kernel.launches == before
+    with pytest.raises(ValueError, match="halted"):
+        tf.step_keys_kernel.run(key, halted[:4], DUP_WORDS, 2, 1)
+    with pytest.raises(ValueError, match="extension keys"):
+        tf.step_keys_kernel.run(key, halted, DUP_WORDS, 2, 3)
 
 
 def _bounds(kind):
