@@ -124,21 +124,35 @@ the frozen golden digests. One JSON object per line, in phases:
                then read 4 bytes an access) or one lane off);
                apply_super on the flagship's operands at steps 0 and 512,
                wal_kv's at step 40 (B=100,000: its fs flush runs beside
-               the kernel) and edge cases (every opcode 0-19 and an
-               unknown one, NODE_RANDOM with and without a pool and with
-               an empty one, src out of range, RESTARTs of torn, live
-               nodes; the Raft schema at B=4096 and B=1, the fs +
-               conn/stream schema at B=100,000), kernel and plain version
+               the kernel), the step-512 operands with no op lane and with
+               every lane a RESTART, and edge cases (every opcode 0-19 and
+               an unknown one, NODE_RANDOM with and without a pool and
+               with an empty one, src out of range, RESTARTs of torn, live
+               nodes; the Raft schema at B=4096, 1003 and 1, the fs +
+               conn/stream schema at B=100,000, int32, bool and zero-size
+               leaves with N=7 and N=32, C=100 and C=33), kernel and
+               plain version
                each on a copy: every leaf and return value equal, the
                state written in place, no node row but the target's and no
-               table row but the target's written; timed as restore-then-
-               apply less the restore;
+               table row but the target's written; timed as a CUDA graph
+               of 20 calls, each on its own copy of the leaves the op
+               writes, restored outside the timed replay, at the three
+               step-512 operands (no op lane, as they are, every lane a
+               RESTART: its time against its op count);
                fingerprint on the flagship's state at step 2048, the
                golden pingpong (traced) and wal_kv states and wal_kv's
                with zero-size leaves added;
-               step_keys, threefry_keys, threefry_draw, node_gather and
-               put_rows_ on every call of the flagship's step 512 and on
-               edge operands (keys (0, 0) and all ones; the step's fused
+               step_keys, dup_draws, split_randint, threefry_keys,
+               threefry_draw, node_gather and put_rows_ on every call of
+               the flagship's step 512, the torn-write flush's calls of
+               wal_kv's step 40, and on edge operands (keys (0, 0) and all
+               ones; the dup section with dup rates 0 and at the cap,
+               equal and inverted latency bounds, invalid lanes,
+               non-message kinds, now past the time limit, keys off an
+               8-byte boundary, strided lanes, B=1 and B=100,003; the
+               handlers' split and draw with equal, inverted and extreme
+               bounds, strided keys and keys off an 8-byte boundary, one
+               key and B=100,003; the step's fused
                keys at extension widths 2-5 and 9, with halted lanes,
                keys off an 8-byte boundary or strided, extreme dup
                words, B=1 and B=100,003; split into 1, 2, 5, 8, 9 and 16,
@@ -157,10 +171,11 @@ the frozen golden digests. One JSON object per line, in phases:
                an all-false mask and every index out of range), the
                in-place put_rows_ on its own copy against the plain
                version's: equal, and no row touched it must not touch;
-               timed on the step's own calls (the fused keys, the
-               handlers' first split, the dup latency draw, the node
-               slice, the node scatter), and the step's K1 key launches
-               (step_keys and the handlers' splits) timed together
+               timed on the step's own calls (the fused keys, the dup
+               section, the handlers' first split and draw, the node
+               slice, the node scatter; wal_kv's flush split and draw),
+               and a flagship step's K1 launches (step_keys, dup_draws
+               and the handlers' two split_randint) timed together
   determinism  lanes 0..4095 alone, twice through run (512 steps) and
                twice through run_fused (2048 steps): fingerprints equal
                to each other and to lanes 0..4095 of the B=100,000 eager
@@ -188,7 +203,11 @@ and read just after; a kernel of the path that was not launched once per
 step fails the run (raft_invariant runs on the Raft paths only: on the
 pingpong and wal_kv paths it must not launch at all), and so does a
 K1/K4 kernel not launched exactly its count a step (one eager step of the
-path's runtime, counted beforehand), at least once. A CUDA-graph replay
+path's runtime, counted beforehand; step_keys and dup_draws once,
+node_gather and put_rows_ at least once; a flagship step launches
+split_randint twice and neither threefry_keys nor threefry_draw, which
+run on wal_kv's step, and every K1/K4 kernel must run on some path). A
+CUDA-graph replay
 launches the kernels it captured without calling their wrappers, so
 run_fused's launches are the wrappers' own counts (the warm-up step
 before a capture) plus the launches captured per block times the
@@ -687,20 +706,23 @@ def fused_launches(rt, counts, names):
 def check_once_per_step(what, launches, steps, names, per_step):
     """Each step kernel of `names` launched once a step, every other step
     kernel (the Raft check, on a workload with no Raft) never; each K1/K4
-    kernel `per_step[k]` times a step (`step_launches`), and at least
-    once."""
+    kernel `per_step[k]` times a step (`step_launches`): those of
+    ON_EVERY_STEP at least once, the rest where the path's step draws
+    with them. Returns the K1/K4 kernels the path ran."""
     for k in STEP_KERNELS:
         want = steps if k in names else 0
         check(launches[k] == want,
               f"{what}: {k} launched {launches[k]} times in {steps} steps")
-    check(per_step["step_keys"] == 1,
-          f"{what}: the step's keys took {per_step['step_keys']} "
-          f"step_keys launches a step, not 1")
-    for k in K1K4:
+    for k in ("step_keys", "dup_draws"):
+        check(per_step[k] == 1, f"{what}: {k} launched {per_step[k]} "
+              f"times a step, not 1")
+    for k in ON_EVERY_STEP:
         check(per_step[k] >= 1, f"{what}: {k} is not on the step's path")
+    for k in K1K4:
         check(launches[k] == steps * per_step[k],
               f"{what}: {k} launched {launches[k]} times in {steps} steps "
               f"({per_step[k]} a step)")
+    return {k for k in K1K4 if per_step[k] and steps}
 
 
 def fingerprints_once(rt, state, what):
@@ -1030,8 +1052,8 @@ def is_range(name):
 # no range's device time holds it: each is counted in the range whose
 # device-side annotation spans its start
 OWN_KERNELS = ("sched_pick", "apply_super", "emit_write", "raft_invariant",
-               "step_keys", "threefry_keys", "threefry_draw", "node_gather",
-               "put_rows")
+               "step_keys", "dup_draws", "split_randint", "threefry_keys",
+               "threefry_draw", "node_gather", "put_rows")
 
 
 def section_split(prof, steps):
@@ -1197,6 +1219,33 @@ def fs_conn_runtime(dev):
     return rt, plan
 
 
+def mixed_leaf_runtime(dev, N=7, C=100, P=3):
+    """An N-node runtime (C event rows, P payload words) whose node state
+    mixes int32 and bool leaves of several row lengths (one of 33
+    elements), a zero-size leaf and a persistent one, with its SuperPlan:
+    the kernel's boot reset over a flattened (leaf, element) space that no
+    warp chunk divides evenly, and a kill's scan of a C that is no
+    multiple of 32. Its programs never run (the state is made, not
+    stepped)."""
+    import numpy as np
+    import torch
+    from madsim_tpu_torch import Runtime, SimConfig
+    from madsim_tpu_torch.models.pingpong import PingPong
+    from madsim_tpu_torch.ops.apply_super import SuperPlan
+    shapes = dict(a=(), flag=(), bits=(N, 3), vec=(5,), empty=(0,),
+                  keep=(4,), mask=(33,), tail=(N,))
+    rng = np.random.default_rng(17)
+    spec = {k: torch.as_tensor(
+        rng.integers(0, 2, v).astype(bool) if k in ("flag", "bits", "mask")
+        else rng.integers(-9, 9, v).astype(np.int32))
+        for k, v in shapes.items()}
+    persist = {k: k == "keep" for k in shapes}
+    cfg = SimConfig(n_nodes=N, event_capacity=C, payload_words=P)
+    rt = Runtime(cfg, [PingPong(N)], spec, persist=persist, device=dev)
+    plan = SuperPlan(cfg, {k: v.to(dev) for k, v in spec.items()}, persist)
+    return rt, plan
+
+
 def super_edge_operands(rt, B, seed, plan=None):
     """apply_super operands on a random state of runtime `rt`'s schema:
     every opcode 0-19 and an unknown one (20); NODE_RANDOM targets with
@@ -1326,6 +1375,108 @@ def super_bound(plan, s, op, node, src, payload, key):
     return nbytes, 80 * 6 * n_rnd
 
 
+def super_sector_bytes(plan, s, op, node, src, payload, key):
+    """The supervisor op's bytes counted in whole 32-byte sectors, the
+    memory's unit of transfer, for this data: the lanes' op, node and src
+    and the four outputs (coalesced), and the distinct sectors of a kill
+    lane's t_node and t_kind rows, of the table cells it clears, of a
+    boot's rows of every reset leaf, of the target's alive and paused
+    bytes, and of a link op's matrix. A lane's target rows are scattered
+    (row b * N + target), so its small writes each fill a sector of
+    their own."""
+    import torch
+    from madsim_tpu_torch.core import types as T
+    from madsim_tpu_torch.ops.apply_super import _get, apply_super_plain
+    B, C = s.t_kind.shape
+    N = s.alive.shape[1]
+    out, _, target, reset = apply_super_plain(
+        plan.cfg, plan.spec_default, plan.persist_mask, clone_tree(s), op,
+        node, src, payload, key)
+    lanes = torch.arange(B, device=op.device, dtype=torch.int64)
+    t = target.to(torch.int64)
+
+    def sectors(starts, nbytes):
+        """Distinct sectors of the byte ranges [starts, starts + nbytes)."""
+        if not starts.numel() or not nbytes:
+            return 0
+        first, last = starts // 32, (starts + nbytes - 1) // 32
+        span = int((last - first).max()) + 1
+        ids = first[:, None] + torch.arange(span, device=starts.device)
+        return 32 * int(torch.unique(ids[ids <= last[:, None]]).numel())
+
+    total = 32 * (-(-B * 12 // 32) + -(-B * 8 // 32) + -(-B * 2 // 32))
+    kill = reset & (op != T.OP_INIT)
+    boot = reset & (op != T.OP_KILL)
+    kb = lanes[kill]
+    for tab in (s.t_node, s.t_kind):
+        total += sectors(tab.data_ptr() + kb * C * 4, C * 4)
+    cleared = torch.nonzero((s.t_kind != out.t_kind).flatten()).flatten()
+    for tab in (s.t_kind, s.t_deadline):
+        total += sectors(tab.data_ptr() + cleared * 4, 4)
+    bb = lanes[boot] * N + t[boot]
+    for path, d in plan.leaves:
+        leaf = _get(s.node_state, path)
+        rb = d.numel() * leaf.element_size()
+        total += sectors(leaf.data_ptr() + bb * rb, rb)
+    rt_ = lanes[reset] * N + t[reset]
+    for vec in (s.alive, s.paused):
+        total += sectors(vec.data_ptr() + rt_, 1)
+    link = ((op >= T.OP_HEAL) & (op <= T.OP_PARTITION_ONEWAY)) & (
+        (out.clog_link != s.clog_link).flatten(1).any(1) | (op == T.OP_HEAL))
+    total += sectors(s.clog_link.data_ptr() + lanes[link] * N * N, N * N)
+    return total
+
+
+SUPER_WRITES = ("t_kind", "t_deadline", "alive", "paused", "clog_node",
+                "clog_link", "loss", "lat_lo", "lat_hi", "skew", "disk_lat",
+                "torn", "dup_rate")
+
+
+def super_apply_ms(apply, args, n=20, reps=3):
+    """Device ms of one `apply(*args)` call (the in-place supervisor op):
+    n calls captured as one CUDA graph, each on its own copy of the leaves
+    the op writes (the rest shared), the copies restored from `args`
+    outside the timed replay; the least of `reps` replays. Returns (ms,
+    [each replay's ms])."""
+    import torch
+    plan, s = args[:2]
+    src = [getattr(s, k) for k in SUPER_WRITES] + [
+        s.node_state[p[0]] for p, _ in plan.leaves]
+    copies = []
+    for _ in range(n):
+        own = s.replace(**{k: getattr(s, k).clone() for k in SUPER_WRITES})
+        ns = dict(own.node_state)
+        for p, _ in plan.leaves:
+            ns[p[0]] = ns[p[0]].clone()
+        own = own.replace(node_state=ns)
+        dst = [getattr(own, k) for k in SUPER_WRITES] + [
+            own.node_state[p[0]] for p, _ in plan.leaves]
+        copies.append(((plan, own) + tuple(args[2:]), dst))
+
+    def restore():
+        for _, dst in copies:
+            for d, x in zip(dst, src):
+                d.copy_(x)
+    apply(*copies[0][0])            # warm: build, allocate
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for a, _ in copies:
+            apply(*a)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps + 1):         # the first replay warms the graph
+        restore()
+        torch.cuda.synchronize()
+        t0.record()
+        graph.replay()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1) / n)
+    return min(times[1:]), times[1:]
+
+
 def fp_bound(state):
     """The bytes of the fingerprint: every fingerprinted leaf read once,
     one word written a lane."""
@@ -1335,15 +1486,26 @@ def fp_bound(state):
 
 
 # ---- K1 (threefry draws) and K4 (node rows) ---------------------------------
-K1K4 = ("step_keys", "threefry_keys", "threefry_draw", "node_gather",
-        "put_rows_")
+K1K4 = ("step_keys", "dup_draws", "split_randint", "threefry_keys",
+        "threefry_draw", "node_gather", "put_rows_")
 # the wrapper methods that launch them (ops/threefry.py, ops/node_rows.py)
-K1K4_METHODS = (("step_keys", "run"), ("threefry_keys", "split"),
+K1K4_METHODS = (("step_keys", "run"), ("dup_draws", "run"),
+                ("split_randint", "run"), ("threefry_keys", "split"),
                 ("threefry_keys", "fold_in"),
                 ("threefry_draw", "randint"), ("threefry_draw", "uniform"),
                 ("threefry_draw", "bernoulli"), ("node_gather", "run"),
                 ("put_rows_", "run"))
-K1 = ("step_keys", "threefry_keys", "threefry_draw")
+K1 = ("step_keys", "dup_draws", "split_randint", "threefry_keys",
+      "threefry_draw")
+# a flagship step's K1/K4 launches, eager and in the captured graph
+FLAGSHIP_K1K4 = dict(step_keys=1, dup_draws=1, split_randint=2,
+                     threefry_keys=0, threefry_draw=0, node_gather=1,
+                     put_rows_=2)
+# launched by every step of every path; the others where a path's step
+# draws with them (threefry_keys and threefry_draw: wal_kv's torn-write
+# flush; split_randint: a handler's Ctx.randint with int bounds)
+ON_EVERY_STEP = ("step_keys", "dup_draws", "node_gather", "put_rows_")
+DUP_WORDS = (0x44555031, 0x44555032)
 # integer operations of one 20-round threefry2x32 block (mutate_bound's)
 THREEFRY_BLOCK_OPS = 80
 
@@ -1381,13 +1543,20 @@ def k1k4_operands(wrappers, rt, state):
     return seen
 
 
-def k1_plain(method, args, kw):
-    """The plain version (core/prng.py) of one threefry kernel call."""
+def k1_plain(kernel, method, args, kw):
+    """The plain version (core/prng.py, or the composition of it the
+    fused kernels replace) of one threefry kernel call."""
     from madsim_tpu_torch.core import prng
-    from madsim_tpu_torch.ops.threefry import step_keys_plain
-    key = args[0]
-    if method == "run":             # step_keys
+    from madsim_tpu_torch.ops.threefry import (dup_draws_plain,
+                                               split_randint_plain,
+                                               step_keys_plain)
+    if kernel == "step_keys":
         return step_keys_plain(*args, **kw)
+    if kernel == "dup_draws":
+        return dup_draws_plain(*args)
+    if kernel == "split_randint":
+        return split_randint_plain(*args)
+    key = args[0]
     if method == "split":
         return prng.split(key, *args[1:])
     if method == "fold_in":
@@ -1406,6 +1575,71 @@ def k1_plain(method, args, kw):
     return prng.bernoulli(key, args[1])
 
 
+DUP_CASES = ("mixed", "rate_zero", "rate_cap", "equal_latency_bounds",
+             "inverted_latency_bounds", "invalid_lanes", "non_message_kinds",
+             "past_time_limit")
+
+
+def dup_edge_operands(case, n, seed=None, N=5):
+    """The dup section's operands for `case` as numpy arrays over n lanes
+    of N nodes: k_sched (uint32 keys, (0, 0) and all ones first), valid,
+    ev_kind, ev_node (in range, as the step clamps it), dup_rate [n, N],
+    now, dmin, lat_lo, lat_hi, tlimit. Every case mixes its extreme with
+    ordinary lanes: rates over [0, 900000] (the OP_SET_DUP cap), mostly
+    message kinds, latency bounds with INT32_MAX (hi + 1 wraps); then
+    rates all 0 or all at the cap, lat_lo == lat_hi, lat_hi < lat_lo,
+    mostly invalid lanes, mostly non-message kinds, or now past tlimit."""
+    import numpy as np
+    from madsim_tpu_torch.core import types as T
+    rng = np.random.default_rng(len(case) if seed is None else seed)
+    k_sched = rng.integers(0, 2 ** 32, (n, 2), dtype=np.uint64).astype(
+        np.uint32)
+    k_sched[:2] = np.array([[0, 0], [2 ** 32 - 1] * 2], np.uint32)[:n]
+    valid = rng.random(n) < 0.85
+    kind = np.where(rng.random(n) < 0.7, T.EV_MSG,
+                    rng.integers(0, 4, n)).astype(np.int32)
+    node = rng.integers(0, N, n).astype(np.int32)
+    rate = rng.integers(0, 900_001, (n, N)).astype(np.int32)
+    rate[::4] = 900_000
+    rate[1::5] = 0
+    now = rng.integers(0, 10 ** 6, n).astype(np.int32)
+    dmin = (now + rng.integers(-5000, 5000, n)).astype(np.int32)
+    lo = rng.integers(0, 10 ** 5, n).astype(np.int32)
+    hi = (lo + rng.integers(0, 10 ** 5, n)).astype(np.int32)
+    hi[0] = 2 ** 31 - 1
+    hi[1:2] = lo[1:2]
+    tlimit = (now + rng.integers(0, 10 ** 6, n)).astype(np.int32)
+    if case == "rate_zero":
+        rate[:] = 0
+    elif case == "rate_cap":
+        rate[:] = 900_000
+    elif case == "equal_latency_bounds":
+        hi = lo.copy()
+    elif case == "inverted_latency_bounds":
+        hi = (lo - rng.integers(1, 1000, n)).astype(np.int32)
+    elif case == "invalid_lanes":
+        valid = rng.random(n) < 0.2
+    elif case == "non_message_kinds":
+        kind = rng.integers(0, 4, n).astype(np.int32)
+        kind[kind == T.EV_MSG] = T.EV_TIMER
+        kind[::7] = T.EV_MSG
+    elif case == "past_time_limit":
+        tlimit = (np.maximum(now, dmin) - rng.integers(0, 3, n)).astype(
+            np.int32)
+    return k_sched, valid, kind, node, rate, now, dmin, lo, hi, tlimit
+
+
+def dup_draws_args(ops, dev):
+    """dup_draws' operands on `dev` from dup_edge_operands' arrays: the two
+    dup keys folded off k_sched (plain), then the lane tensors."""
+    import numpy as np
+    import torch
+    from madsim_tpu_torch.core import prng
+    k_sched = torch.as_tensor(ops[0].view(np.int32), device=dev)
+    return ([prng.fold_in(k_sched, w) for w in DUP_WORDS]
+            + [torch.as_tensor(a, device=dev) for a in ops[1:]])
+
+
 def k1_edge_cases(dev, B, seed=21):
     """[(case, kernel, method, args, kwargs)] of edge operands: keys (0, 0)
     and all ones among random ones; the step's fused keys (step_keys) at
@@ -1417,7 +1651,12 @@ def k1_edge_cases(dev, B, seed=21):
     with maxval <= minval, maxval = minval and the whole int32 range, per
     key and broadcast scalar bounds, an inclusive INT32_MAX, a vector
     draw and bounds wider than the keys; uniform; bernoulli with p 0, 1,
-    subnormal, per key and a 0-d tensor."""
+    subnormal, per key and a 0-d tensor; the dup section (dup_draws) in
+    every case of dup_edge_operands, keys off an 8-byte boundary, lane
+    operands strided, one lane and B=100,003; the handlers' split and
+    draw (split_randint) with Raft's and pingpong's bounds, equal and
+    inverted bounds, an inclusive INT32_MAX and the whole int32 range,
+    strided keys, keys off an 8-byte boundary, one key and B=100,003."""
     import numpy as np
     import torch
     from madsim_tpu_torch.core import prng
@@ -1448,7 +1687,7 @@ def k1_edge_cases(dev, B, seed=21):
     # it takes key by key (3, 4, 5, 9), halted lanes, all and none,
     # keys one word off an 8-byte boundary and strided (both copied by
     # the wrapper), extreme dup words, one lane and B=100,003
-    dup = (0x44555031, 0x44555032)
+    dup = DUP_WORDS
     mixed = torch.as_tensor(rng.random(B) < 0.3, device=dev)
     mixed[:2] = torch.tensor([True, False])
     cases += [
@@ -1504,6 +1743,34 @@ def k1_edge_cases(dev, B, seed=21):
         ("bernoulli_per_key", "threefry_draw", "bernoulli", (K, p), {}),
         ("bernoulli_0d", "threefry_draw", "bernoulli",
          (K, torch.tensor(0.3, device=dev)), {})]
+    for case in DUP_CASES:
+        cases.append((f"dup_{case}", "dup_draws", "run", tuple(
+            dup_draws_args(dup_edge_operands(case, B), dev)), {}))
+    mixed_dup = dup_draws_args(dup_edge_operands("mixed", B, seed=5), dev)
+    cases += [
+        ("dup_keys_one_word_in", "dup_draws", "run",
+         tuple(unaligned(a) if i < 2 else a
+               for i, a in enumerate(mixed_dup)), {}),
+        ("dup_strided_lanes", "dup_draws", "run",
+         tuple(torch.stack([a, a], -1)[..., 0] if a.ndim == 1 else a
+               for a in mixed_dup), {}),
+        ("dup_B1", "dup_draws", "run", tuple(
+            dup_draws_args(dup_edge_operands("mixed", 1), dev)), {}),
+        ("dup_B100003", "dup_draws", "run", tuple(
+            dup_draws_args(dup_edge_operands("rate_cap", 100_003), dev)),
+         {})]
+    cases += [(f"split_randint_{name}", "split_randint", "run", args, {})
+              for name, args in (
+                  ("raft_election", (K, 150_000, 300_000)),
+                  ("pingpong_retry", (K, 0, 1000)),
+                  ("equal_bounds", (K, 7, 7)),
+                  ("hi_below_lo", (K, 9, -4)),
+                  ("inclusive_int32_max", (K, 0, 2 ** 31 - 1)),
+                  ("whole_range", (K, -2 ** 31, 2 ** 31 - 1)),
+                  ("strided_keys", (prng.split(K, 2)[:, 0], 0, 20_000)),
+                  ("keys_one_word_in", (unaligned(K), 3, 40)),
+                  ("one_key", (keys(1)[0], 3, 40)),
+                  ("B100003", (keys(100_003), 0, 999)))]
     return cases
 
 
@@ -1665,22 +1932,41 @@ def check_put_rows(name, writes, written):
               f"{name}: write {i} changed a row it must not touch")
 
 
-def k1_bound(method, args, kw, out):
+def k1_bound(kernel, method, args, kw, out):
     """(bytes, operations) of one threefry kernel call: each operand
     tensor read once and the output written once; THREEFRY_BLOCK_OPS a
     block, for the blocks the draws need (step_keys: the 5-way split's
     five, the two dup fold_ins and the extension split's blocks its
-    written keys read; split: one a key it makes;
-    fold_in, uniform, bernoulli: one a value; randint: the key's split
-    into two, then F words from each half, two words a block)."""
+    written keys read; split: one a key it makes; fold_in, uniform,
+    bernoulli: one a value; randint: the key's split into two, then F
+    words from each half, two words a block; split_randint: the split's
+    two and the randint's four). dup_draws counts what this data needs,
+    as the kernel reads it: valid, now, dmin and tlimit every lane, the
+    kind where valid, the node and its rate where a message, the Bernoulli
+    key and block where the rate is positive, the latency key, bounds and
+    four blocks where the lane fired; its five outputs every lane."""
     import math
-    if method == "run":      # step_keys: 5 + 2 blocks, and the extension
-        # split's blocks that the keys it writes read (words 0 .. 2n - 1)
+    if kernel == "step_keys":   # 5 + 2 blocks, and the extension split's
+        # blocks that the keys it writes read (words 0 .. 2n - 1)
         key, halted, _, n_ext, n_write = args
         nbytes = key.numel() * 4 + halted.numel() + sum(
             t.numel() * 4 for t in out)
         blocks = key.shape[0] * (7 + min(n_ext, 2 * n_write))
         return nbytes, blocks * THREEFRY_BLOCK_OPS
+    if kernel == "dup_draws":
+        _, _, valid, kind, node, rate, now = args[:7]
+        fire = out[2]
+        N = rate.shape[-1]
+        r = rate.gather(1, node.long().clamp(0, N - 1)[:, None])[:, 0]
+        msg = valid & (kind == 1)
+        may = msg & (r > 0)
+        nv, nm, nmay, nf = (int(t.sum()) for t in (valid, msg, may, fire))
+        B = now.shape[0]
+        nbytes = B * 13 + nv * 4 + nm * 8 + nmay * 8 + nf * 16 + B * 11
+        return nbytes, (nmay + 4 * nf) * THREEFRY_BLOCK_OPS
+    if kernel == "split_randint":
+        n = out[2].numel()
+        return n * (8 + 20), n * 6 * THREEFRY_BLOCK_OPS
     nbytes = out.numel() * out.element_size()
     for a in args:
         if hasattr(a, "element_size"):
@@ -1795,9 +2081,9 @@ def plain_draws_in_step(rt, state):
 def k1k4_kernel_phase(wrappers, cases, main, launches):
     """Each K1/K4 kernel against its plain version on `cases` ([(case,
     kernel, method, args, kwargs)]), exactly; then its time on `main`
-    ({kernel: (method, args, kwargs)}, the flagship's step-512 operands)
-    as a CUDA-graph replay against the plain version's eager calls, in
-    turns, beside its bound. Returns {kernel: kernels-line numbers}."""
+    ({kernel: (case, method, args, kwargs)}, a call of a main path's
+    step) as a CUDA-graph replay against the plain version's eager calls,
+    in turns, beside its bound. Returns {kernel: kernels-line numbers}."""
     import torch
     from madsim_tpu_torch.ops.node_rows import node_gather_plain, \
         put_rows_plain
@@ -1807,7 +2093,7 @@ def k1k4_kernel_phase(wrappers, cases, main, launches):
         w = wrappers[k]
         if k in K1:
             out_k = getattr(w, method)(*args, **kw)
-            out_p = k1_plain(method, args, kw)
+            out_p = k1_plain(k, method, args, kw)
         elif k == "node_gather":
             out_k = w(*args)
             out_p = node_gather_plain(*args)
@@ -1823,16 +2109,16 @@ def k1k4_kernel_phase(wrappers, cases, main, launches):
         names[k].append(case)
     out = {}
     for k in K1K4:
-        method, args, kw = main[k]
+        main_case, method, args, kw = main[k]
         w = wrappers[k]
         if k in K1:
             def kern():
                 return getattr(w, method)(*args, **kw)
 
             def plain():
-                return k1_plain(method, args, kw)
+                return k1_plain(k, method, args, kw)
             res = kern()
-            nbytes, ops = k1_bound(method, args, kw, res)
+            nbytes, ops = k1_bound(k, method, args, kw, res)
         elif k == "node_gather":
             def kern():
                 return w(*args)
@@ -1866,7 +2152,7 @@ def k1k4_kernel_phase(wrappers, cases, main, launches):
             extra["sector_bound_ms"] = (extra["sector_bytes"]
                                         / HBM_BYTES_PER_S * 1e3)
         emit(phase="kernel", name=k, cases=names[k], **extra,
-             main_case=f"flagship_step_{FLAG_CHUNK}:{method}", exact=True,
+             main_case=f"{main_case}:{method}", exact=True,
              max_abs_err=err[k], launches_on_main_path=launches[k],
              ms=[k_ms, k_ms2], plain_ms=[p_ms, p_ms2], bound_bytes=nbytes,
              bound_operations=ops, bound_ms=out[k]["bound_ms"],
@@ -1907,6 +2193,7 @@ def main() -> int:
     names = list(STEP_KERNELS)          # launched once per Raft step
     no_raft = [k for k in names if k != "raft_invariant"]
     every = names + list(K1K4)          # every kernel of the step
+    on_path = set()                     # the K1/K4 kernels a path ran
 
     def reset_counts():
         for w in wrappers.values():
@@ -1968,8 +2255,8 @@ def main() -> int:
                 launches = fused_launches(rt, counts, every)
                 steps = rt.steps_run + rt.fused_stats["warmup_steps"]
             check(steps > 0, f"golden {wname} {runner}: no step ran")
-            check_once_per_step(f"golden {wname} {runner}", launches, steps,
-                                no_raft, per)
+            on_path |= check_once_per_step(
+                f"golden {wname} {runner}", launches, steps, no_raft, per)
             want = golden[wname][runner]
             got = interop.leaf_digests(s)
             bad = [k for k in want if got.get(k) != want[k]]
@@ -2007,9 +2294,11 @@ def main() -> int:
     raft_cases = {"flagship_step_0": raft_operands(rt, s)}
     super_cases = {"flagship_step_0": super_operands(rt, s)}
     per_flag = step_launches(wrappers, rt, s)
-    check(per_flag["step_keys"] == 1 and per_flag["threefry_keys"] == 2,
-          f"flagship: a step launches {per_flag}; its keys take one "
-          f"step_keys launch and the handlers' splits two threefry_keys")
+    check(per_flag == FLAGSHIP_K1K4,
+          f"flagship: a step launches {per_flag}, not {FLAGSHIP_K1K4}: its "
+          f"keys one step_keys, the dup section one dup_draws, Raft's two "
+          f"timer draws two split_randint, no threefry_keys or "
+          f"threefry_draw")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -2048,7 +2337,8 @@ def main() -> int:
     captured[FLAG_STEPS] = select_inputs(s)
     raft_cases[f"flagship_step_{FLAG_STEPS}"] = raft_operands(rt, s)
     check(steps_run == FLAG_STEPS, f"flagship: {steps_run} steps")
-    check_once_per_step("flagship", counts, steps_run, names, per_flag)
+    on_path |= check_once_per_step("flagship", counts, steps_run, names,
+                                   per_flag)
     crashed = int(s.crashed.sum())
     oops = int((s.oops != 0).sum())
     live = float((~s.halted).float().mean())
@@ -2077,6 +2367,9 @@ def main() -> int:
     s = rt.init_batch(np.arange(FLAG_B, dtype=np.uint32))
     emit_cases["flagship_step_0"] = emit_operands(rt, s)
     per_tr = step_launches(wrappers, rt, s)
+    check(per_tr == dict(FLAGSHIP_K1K4, put_rows_=3),
+          f"fused: a traced step launches {per_tr} (the Lamport clock a "
+          f"third put_rows_)")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -2100,7 +2393,8 @@ def main() -> int:
     launches = {k: launches[k] + more[k] for k in every}
     steps_run += rt.steps_run
     check(steps_run == FLAG_STEPS, f"fused: {steps_run} steps")
-    check_once_per_step("fused", launches, steps_run + warm, names, per_tr)
+    on_path |= check_once_per_step("fused", launches, steps_run + warm,
+                                   names, per_tr)
     fused_launch = {k: launches[k] for k in every}
     block = rt.fused_stats["block"]
     graph_per_step = {k: rt.fused_stats["captured"][k] / block
@@ -2178,6 +2472,11 @@ def main() -> int:
     super_cases[wal_case] = super_operands(rt, mid)
     wal_select = select_inputs(mid)
     per_wal = step_launches(wrappers, rt, mid)
+    # the torn-write flush's split and draw: wal_kv's step keeps the
+    # threefry_keys and threefry_draw kernels on a main path
+    wal_k1 = {k: [(wal_case, *c) for c in calls] for k, calls in
+              k1k4_operands(wrappers, rt, mid).items()
+              if k in ("threefry_keys", "threefry_draw")}
     del mid
     torch.cuda.synchronize()
     reset_counts()
@@ -2186,9 +2485,13 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = fused_launches(rt, read_counts(), every)
-    check_once_per_step("fused_wal_kv", launches,
-                        rt.steps_run + rt.fused_stats["warmup_steps"],
-                        no_raft, per_wal)
+    on_path |= check_once_per_step(
+        "fused_wal_kv", launches,
+        rt.steps_run + rt.fused_stats["warmup_steps"], no_raft, per_wal)
+    check(per_wal["threefry_keys"] >= 1 and per_wal["threefry_draw"] >= 1,
+          f"fused_wal_kv: a step launches {per_wal}; the torn-write flush "
+          f"draws through threefry_keys and threefry_draw")
+    wal_launch = launches
     want = golden["wal_kv"]["run_fused"]
     got = interop.leaf_digests(slice_lanes(s, p["seeds"]))
     bad = [k for k in want if got.get(k) != want[k]]
@@ -2283,8 +2586,8 @@ def main() -> int:
     check(fuzz_launch["mutate"] == mutated >= 1,
           f"fuzz_flagship: mutate launched {fuzz_launch['mutate']} times "
           f"in {mutated} mutated rounds")
-    check_once_per_step("fuzz_flagship", fuzz_launch, steps + warm, names,
-                        per_fz)
+    on_path |= check_once_per_step("fuzz_flagship", fuzz_launch,
+                                   steps + warm, names, per_fz)
     check(res["distinct_schedules"] >= 0.99 * res["seeds_run"],
           f"fuzz_flagship: {res['distinct_schedules']} distinct schedules "
           f"in {res['seeds_run']} lanes")
@@ -2340,9 +2643,9 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = fused_launches(rt, read_counts(), every)
-    check_once_per_step("pct_flagship", launches,
-                        rt.steps_run + rt.fused_stats["warmup_steps"], names,
-                        per_fz)
+    on_path |= check_once_per_step(
+        "pct_flagship", launches,
+        rt.steps_run + rt.fused_stats["warmup_steps"], names, per_fz)
     emit(phase="pct_flagship", batch=FLAG_B, steps=rt.steps_run,
          wall_s=wall, seed_events_per_s=FLAG_B * rt.steps_run / wall,
          launches=launches, distinct_schedules=res["distinct_schedules"],
@@ -2770,9 +3073,31 @@ def main() -> int:
     flag_rt = workloads.flagship_runtime(device=dev)
     super_cases["edges_raft"] = super_edge_operands(flag_rt, EDGE_B, 7)
     super_cases["edges_raft_B1"] = super_edge_operands(flag_rt, 1, 9)
+    # the warp mapping's edges: a partial last warp, C no multiple of 32,
+    # N = 32, bool and zero-size leaves
+    super_cases["edges_raft_B1003"] = super_edge_operands(flag_rt, 1003, 10)
+    for n_, c_, b_ in ((7, 100, 4099), (32, 100, 4099), (32, 33, 77)):
+        m_rt, m_plan = mixed_leaf_runtime(dev, N=n_, C=c_)
+        super_cases[f"edges_mixed_leaves_N{n_}_C{c_}_B{b_}"] = \
+            super_edge_operands(m_rt, b_, n_ + c_, m_plan)
+        del m_rt
     fc_rt, fc_plan = fs_conn_runtime(dev)
     super_cases[f"edges_fs_conn_B{FLAG_B}"] = super_edge_operands(
         fc_rt, FLAG_B, 8, fc_plan)
+    # K3's time against its op count: the step-512 operands with no op
+    # lane, as they are, and with every lane a RESTART (a kill and a boot)
+    flag_main = f"flagship_step_{FLAG_CHUNK}"
+    super_timed = (f"{flag_main}_no_op_lanes", flag_main,
+                   f"{flag_main}_every_lane_restart")
+    plan_m, s_m, op_m, node_m, src_m, pay_m, key_m = super_cases[flag_main]
+    n_m = plan_m.cfg.n_nodes
+    lanes_m = torch.arange(op_m.shape[0], device=dev, dtype=torch.int32)
+    super_cases[super_timed[0]] = (
+        plan_m, s_m, torch.zeros_like(op_m), node_m.clamp(0, n_m - 1),
+        src_m, pay_m, key_m)
+    super_cases[super_timed[2]] = (
+        plan_m, s_m, torch.full_like(op_m, 3), lanes_m % n_m, src_m, pay_m,
+        key_m)
     err = 0
     for name, args in super_cases.items():
         # in place: kernel and plain version each take a copy
@@ -2790,49 +3115,45 @@ def main() -> int:
             (interop.state_leaves(out_p[0]), out_p[1:])))
         check_super_rows(f"apply_super on {name}", args[1], out_k[0],
                          args[2], out_k[2])
-    main_s = super_cases[f"flagship_step_{FLAG_CHUNK}"]
-    # the op writes its operands, so each timed call restores the leaves it
-    # may write from main_s first; the restore alone is subtracted
-    live = clone_tree(main_s)
-    restores = [(getattr(live[1], k), getattr(main_s[1], k)) for k in (
-        "t_kind", "t_deadline", "alive", "paused", "clog_node", "clog_link",
-        "loss", "lat_lo", "lat_hi", "skew", "disk_lat", "torn", "dup_rate")]
-    restores += [(live[1].node_state[p[0]], main_s[1].node_state[p[0]])
-                 for p, _ in main_s[0].leaves]
-
-    def restore():
-        for dst, src in restores:
-            dst.copy_(src)
-
-    def super_kernel_ms():
-        return (graph_ms(lambda: (restore(), apply_super(*live)), 20)
-                - graph_ms(restore, 20))
-
-    def super_plain_ms():
-        return cuda_ms(lambda: apply_super_plain(
+    # the op writes its operands, so each timed call works on its own copy
+    # of the leaves it writes, restored before each timed replay
+    timed = {}
+    for name in super_timed:
+        main_s = super_cases[name]
+        k_ms = [super_apply_ms(apply_super, main_s)[0] for _ in range(2)]
+        p_ms = [cuda_ms(lambda: apply_super_plain(
             main_s[0].cfg, main_s[0].spec_default, main_s[0].persist_mask,
-            *main_s[1:]), 5)
-
-    sk, spl, sk2, spl2 = (super_kernel_ms(), super_plain_ms(),
-                          super_kernel_ms(), super_plain_ms())
-    nbytes, ops_n = super_bound(*main_s)
-    b_ms, o_ms = nbytes / HBM_BYTES_PER_S, ops_n / INT32_OPS_PER_S
-    asup = dict(ms=min(sk, sk2), plain_ms=min(spl, spl2),
-                bound_ms=max(b_ms, o_ms) * 1e3,
-                bound_by="bytes" if b_ms >= o_ms else "operations",
+            *main_s[1:]), 5) for _ in range(2)]
+        nbytes, ops_n = super_bound(*main_s)
+        b_ms, o_ms = nbytes / HBM_BYTES_PER_S, ops_n / INT32_OPS_PER_S
+        op_lanes = main_s[2] != 0
+        heavy = op_lanes & ((main_s[2] <= 3) | ((main_s[2] >= 13)
+                                                & (main_s[2] <= 15)))
+        sector_bytes = super_sector_bytes(*main_s)
+        timed[name] = dict(
+            ms=k_ms, plain_ms=p_ms, op_lanes=int(op_lanes.sum()),
+            heavy_op_lanes=int(heavy.sum()), bound_bytes=nbytes,
+            bound_operations=ops_n, bound_ms=max(b_ms, o_ms) * 1e3,
+            bound_by="bytes" if b_ms >= o_ms else "operations",
+            sector_bytes=sector_bytes,
+            sector_bound_ms=sector_bytes / HBM_BYTES_PER_S * 1e3)
+    main_t = timed[flag_main]
+    asup = dict(ms=min(main_t["ms"]), plain_ms=min(main_t["plain_ms"]),
+                bound_ms=main_t["bound_ms"], bound_by=main_t["bound_by"],
                 max_abs_err=err, library_ms=None)
     emit(phase="kernel", name="apply_super", cases={
         k: list(v[2].shape) for k, v in sorted(super_cases.items())},
-         main_case=f"flagship_step_{FLAG_CHUNK}", exact=True,
-         max_abs_err=err, launches_on_main_path=fused_launch["apply_super"],
-         ms=[sk, sk2], plain_ms=[spl, spl2],
-         restore_ms=graph_ms(restore, 20),
+         main_case=flag_main, exact=True, max_abs_err=err,
+         launches_on_main_path=fused_launch["apply_super"],
+         ms=main_t["ms"], plain_ms=main_t["plain_ms"],
          ms_in_flagship_graph=prof_fused["apply_super_ms_per_step"],
-         ops_in_main_case=int((main_s[2] != 0).sum()),
-         bound_bytes=nbytes, bound_operations=ops_n,
+         ops_in_main_case=main_t["op_lanes"], by_operands=timed,
+         bound_bytes=main_t["bound_bytes"],
+         bound_operations=main_t["bound_operations"],
          bound_ms=asup["bound_ms"], bound_by=asup["bound_by"],
          library="none")
-    del super_cases, main_s, live, restores, flag_rt, fc_rt
+    del super_cases, main_s, flag_rt, fc_rt, s_m, op_m, node_m, src_m, \
+        pay_m, key_m
 
     # ---- kernel: the state fingerprint against its plain version ------------
     from madsim_tpu_torch.utils.hashing import fingerprint, fingerprint_plain
@@ -2860,6 +3181,10 @@ def main() -> int:
     del fp_cases, main_f
 
     # ---- kernel: the threefry draws (K1) and the node rows (K4) -------------
+    # their launches on a main path: the traced flagship's, and for the
+    # torn-write flush's split and draw the wal_kv run's
+    k1k4_launches = dict(fused_launch, **{
+        k: wal_launch[k] for k in ("threefry_keys", "threefry_draw")})
     # edge operands, and every K1/K4 launch of the flagship's step 512
     k_cases = k1_edge_cases(dev, EDGE_B)
     node_tree = k1k4_cases["node_gather"][0][1][0]
@@ -2868,38 +3193,44 @@ def main() -> int:
     for k, calls in k1k4_cases.items():
         k_cases += [(f"flagship_step_{FLAG_CHUNK}_{i}_{m}", k, m, a, kw)
                     for i, (m, a, kw) in enumerate(calls)]
-    # timed on the step's own calls: its fused keys, the handlers' first
-    # split, the dup section's latency draw, the node slice, the node
-    # scatter
+    for k, calls in wal_k1.items():
+        k_cases += [(f"{case}_{i}_{m}", k, m, a, kw)
+                    for i, (case, m, a, kw) in enumerate(calls)]
+    # timed on the step's own calls: the flagship's fused keys, dup
+    # section, first handler draw, node slice and node scatter; wal_kv's
+    # torn-write flush split and draw (no flagship step launches them)
+    flag_main = f"flagship_step_{FLAG_CHUNK}"
     k1k4_main = {
-        "step_keys": k1k4_cases["step_keys"][0],
-        "threefry_keys": next(c for c in k1k4_cases["threefry_keys"]
-                              if c[0] == "split"),
-        "threefry_draw": next(c for c in k1k4_cases["threefry_draw"]
-                              if c[0] == "randint"
-                              and isinstance(c[1][2], torch.Tensor)),
-        "node_gather": k1k4_cases["node_gather"][0],
-        "put_rows_": max(k1k4_cases["put_rows_"],
-                         key=lambda c: len(c[1][0]))}
-    k1k4 = k1k4_kernel_phase(wrappers, k_cases, k1k4_main, fused_launch)
-    # the step's K1 key launches all together (step_keys and the handlers'
-    # splits), replayed in one graph beside the sum of their bounds
-    key_calls = [(k, m, a, kw) for k in ("step_keys", "threefry_keys")
-                 for m, a, kw in k1k4_cases[k]]
+        "step_keys": (flag_main, *k1k4_cases["step_keys"][0]),
+        "dup_draws": (flag_main, *k1k4_cases["dup_draws"][0]),
+        "split_randint": (flag_main, *k1k4_cases["split_randint"][0]),
+        "threefry_keys": next(c for c in wal_k1["threefry_keys"]
+                              if c[1] == "split"),
+        "threefry_draw": next(c for c in wal_k1["threefry_draw"]
+                              if c[1] == "randint"),
+        "node_gather": (flag_main, *k1k4_cases["node_gather"][0]),
+        "put_rows_": (flag_main, *max(k1k4_cases["put_rows_"],
+                                      key=lambda c: len(c[1][0])))}
+    k1k4 = k1k4_kernel_phase(wrappers, k_cases, k1k4_main, k1k4_launches)
+    # a flagship step's K1 launches all together (step_keys, dup_draws,
+    # the handlers' split_randint), replayed in one graph beside the sum
+    # of their bounds
+    k1_calls = [(k, m, a, kw) for k in K1 for m, a, kw in k1k4_cases[k]]
 
-    def step_key_launches():
+    def step_k1_launches():
         return [getattr(wrappers[k], m)(*a, **kw)
-                for k, m, a, kw in key_calls]
-    outs = step_key_launches()
-    kb = [k1_bound(m, a, kw, o) for (_, m, a, kw), o in zip(key_calls, outs)]
-    keys_bound = sum(max(b / HBM_BYTES_PER_S, o / INT32_OPS_PER_S)
-                     for b, o in kb) * 1e3
-    keys_ms = [graph_ms(step_key_launches, 50) for _ in range(2)]
-    emit(phase="kernel", name="k1_key_launches_a_step",
-         launches=[f"{k}.{m}" for k, m, _, _ in key_calls], ms=keys_ms,
+                for k, m, a, kw in k1_calls]
+    outs = step_k1_launches()
+    kb = [k1_bound(k, m, a, kw, o)
+          for (k, m, a, kw), o in zip(k1_calls, outs)]
+    k1_bound_ms = sum(max(b / HBM_BYTES_PER_S, o / INT32_OPS_PER_S)
+                      for b, o in kb) * 1e3
+    k1_ms = [graph_ms(step_k1_launches, 50) for _ in range(2)]
+    emit(phase="kernel", name="k1_launches_a_step",
+         launches=[f"{k}.{m}" for k, m, _, _ in k1_calls], ms=k1_ms,
          bound_bytes=sum(b for b, _ in kb),
-         bound_operations=sum(o for _, o in kb), bound_ms=keys_bound)
-    del k_cases, k1k4_cases, k1k4_main, node_tree, key_calls, outs
+         bound_operations=sum(o for _, o in kb), bound_ms=k1_bound_ms)
+    del k_cases, k1k4_cases, k1k4_main, node_tree, k1_calls, outs, wal_k1
 
     # ---- determinism and batch independence ---------------------------------
     # each runner twice on lanes 0..4095 alone, held against the same lanes
@@ -2926,8 +3257,8 @@ def main() -> int:
                 launched = rt4.steps_run + rt4.fused_stats["warmup_steps"]
             check(rt4.steps_run == steps,
                   f"determinism {runner}: {rt4.steps_run} steps")
-            check_once_per_step(f"determinism {runner}", counts, launched,
-                                names, per_det)
+            on_path |= check_once_per_step(
+                f"determinism {runner}", counts, launched, names, per_det)
             fps.append(fingerprints_once(rt4, s, f"determinism {runner}"))
             emit(phase="determinism", runner=runner, run=rep, batch=DET_B,
                  steps=rt4.steps_run, launches=counts,
@@ -2963,11 +3294,13 @@ def main() -> int:
     from madsim_tpu_torch.ops import threefry as tf_mod
     draws = ("split", "fold_in", "randint", "randint_raw", "uniform",
              "bernoulli", "node_hash_key")
-    real_k = ({n: getattr(tf_mod, n) for n in draws + ("step_keys",)},
+    fused = ("step_keys", "dup_draws", "split_randint")
+    real_k = ({n: getattr(tf_mod, n) for n in draws + fused},
               nr_mod.node_gather, nr_mod.put_rows_)
     for n in draws:
         setattr(tf_mod, n, getattr(prng, n))
-    tf_mod.step_keys = tf_mod.step_keys_plain
+    for n in fused:
+        setattr(tf_mod, n, getattr(tf_mod, n + "_plain"))
     nr_mod.node_gather = nr_mod.node_gather_plain
     nr_mod.put_rows_ = lambda writes: [sel_mod.put_row(*w) for w in writes]
     try:
@@ -3025,6 +3358,9 @@ def main() -> int:
         check(prof["int32_scan_ms_per_step"] == 0,
               f"profile {what}: an int32 scan is left in the step")
 
+    check(on_path == set(K1K4),
+          f"K1/K4 kernels on no checked path: {set(K1K4) - on_path}")
+
     # ---- kernels ------------------------------------------------------------
     emit(kernels=[
         dict(name="sched_pick", route="cuda",
@@ -3060,9 +3396,11 @@ def main() -> int:
             ("fingerprint", "madsim_tpu/utils/hashing.py:43", fp_launches,
              fpk))] + [
         dict(name=k, route="cuda", source=f"madsim_tpu_torch/csrc/{src}",
-             replaces=where, launches=fused_launch[k], **k1k4[k])
+             replaces=where, launches=k1k4_launches[k], **k1k4[k])
         for k, src, where in (
             ("step_keys", "prng.cu", "madsim_tpu/core/step.py:138"),
+            ("dup_draws", "prng.cu", "madsim_tpu/core/step.py:244"),
+            ("split_randint", "prng.cu", "madsim_tpu/core/api.py:82"),
             ("threefry_keys", "prng.cu", "madsim_tpu/core/prng.py:24"),
             ("threefry_draw", "prng.cu", "madsim_tpu/core/prng.py:28"),
             ("node_gather", "node_rows.cu", "madsim_tpu/ops/select.py:66"),

@@ -119,9 +119,19 @@ class Ctx:
         return k
 
     def randint(self, lo, hi) -> torch.Tensor:
-        """Uniform int32 in [lo, hi] inclusive, per lane."""
+        """Uniform int32 in [lo, hi] inclusive, per lane. With int bounds
+        on a key no context has split yet, the split and the draw are one
+        `split_randint` launch, which fills both memo entries as
+        `rand_key` and the draw below would."""
+        ints = isinstance(lo, int) and isinstance(hi, int)
+        if ints and ("split", id(self._key)) not in self._draws:
+            nxt, k, value = tf.split_randint(self._key, lo, hi)
+            self._draws[("split", id(self._key))] = (self._key, nxt, k)
+            self._draws[("randint", id(k), lo, hi)] = (k, value)
+            self._key = nxt
+            return value
         k = self.rand_key()
-        if not (isinstance(lo, int) and isinstance(hi, int)):
+        if not ints:
             return tf.randint(k, lo, hi)
         memo = ("randint", id(k), lo, hi)
         hit = self._draws.get(memo)

@@ -30,9 +30,10 @@ The step's threefry draws outside those kernels go through
 `ops/threefry.py`: its own keys (the select's 5-way split, the
 duplicate-delivery fold_ins, the supervisor section's extension split)
 in one `step_keys` launch in the select section, the duplicate-delivery
-draws through `threefry_draw` and every handler draw through
-`threefry_keys` and `threefry_draw` (the kernels on CUDA); its node-row
-slice and writes go through `ops/node_rows.py` (`node_gather`,
+section in one `dup_draws` launch, a handler's `Ctx.randint` with int
+bounds in one `split_randint` launch and every other handler draw
+through `threefry_keys` and `threefry_draw` (the kernels on CUDA); its
+node-row slice and writes go through `ops/node_rows.py` (`node_gather`,
 `put_rows_`).
 
 The step writes the state it is given in place: the popped event row's
@@ -158,7 +159,6 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
     dup_words = (0x44555031, 0x44555032)
     n_ext = 1 + max(len(extensions), 1)
     n_ext_read = n_ext if extensions else 1
-    per_million = torch.tensor(1e-6, dtype=torch.float32, device=device)
     super_plan = SuperPlan(cfg, spec_default, persist_mask)
 
     def live_step(s: SimState):
@@ -190,22 +190,16 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
                                         torch.full_like(prov[:, 0], -1))
 
         # ---- duplicate delivery: both draws ride keys folded off k_sched
+        # (the dup_draws kernel: the clock, the end of time, the Bernoulli
+        # and the redelivery's latency draw in one launch)
         with _section("dup"):
-            dup_p = (sel.take1(s.dup_rate, ev_node).to(torch.float32)
-                     * per_million)
-            dup_fire = (valid & (ev_kind == T.EV_MSG)
-                        & tf.bernoulli(k_dupf, dup_p))
-
-            # pop the slot; the clock never runs backward
-            now = torch.where(valid, torch.maximum(s.now, dmin), s.now)
-            time_over = now > s.tlimit
-            redeliver = now + torch.clamp(
-                tf.randint(k_dupd, s.lat_lo, s.lat_hi), min=1)
-            inf = torch.full_like(now, int(T.T_INF))
+            now, time_over, _, deadline, free = tf.dup_draws(
+                k_dupf, k_dupd, valid, ev_kind, ev_node, s.dup_rate, s.now,
+                dmin, s.lat_lo, s.lat_hi, s.tlimit)
+            # pop the slot, or re-arm it at the redelivery
             t_kind, t_deadline = nr.put_rows_([
-                (s.t_kind, idx, T.EV_FREE, valid & ~dup_fire),
-                (s.t_deadline, idx, torch.where(dup_fire, redeliver, inf),
-                 valid)])
+                (s.t_kind, idx, T.EV_FREE, free),
+                (s.t_deadline, idx, deadline, valid)])
             s = s.replace(key=key, now=now, sched_hash=sched_hash,
                           t_kind=t_kind, t_deadline=t_deadline)
 

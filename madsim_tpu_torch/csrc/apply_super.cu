@@ -33,12 +33,32 @@
 //
 // Bound: bytes, and for the flagship's data very few of them. Most lanes
 // dispatched no supervisor event (op 0, an in-range node): such a lane
-// reads op, node and src and writes its four outputs. Design: a thread
-// takes a lane, so those lanes are four coalesced loads and four stores,
-// and the rare op lanes (a kill's scan of the lane's C table rows, a
-// boot's reset rows, a partition's matrix) run in their own thread with
-// no coordination. The pool is a bitmask, so the pick is a popcount and a
-// walk over at most 32 bits.
+// reads op, node and src and writes its four outputs. The rare op lanes
+// add a kill's scan of the lane's C table rows, a boot's reset rows and a
+// partition's N x N matrix. Design, in two phases per warp:
+//
+//   phase 1   a thread a lane: the coalesced loads of op, node and src,
+//             the pool pick (the pool is a bitmask, so the pick is a
+//             popcount and a walk over at most 32 bits), the lane's
+//             scalar and node-vector writes and the four outputs
+//   phase 2   the warp takes its heavy lanes (a kill, a boot, PARTITION,
+//             PARTITION_ONEWAY or HEAL) one after another, picked out by a
+//             ballot; the lane's index, target, node set and flags reach
+//             the other threads by shuffle. The 32 threads scan its C
+//             table rows in coalesced 32-wide chunks (four chunks' loads
+//             in flight before the first compare), write its boot
+//             reset rows spread over the flattened (leaf, element) space
+//             (leaf l holds elements [start_l, start_l + row_l), the
+//             prefix table `SuperPlan` builds; the defaults table is laid
+//             out the same way) and write its link matrix a cell a thread
+//
+// So a kill's 3 x C dependent loads and stores in one thread become C/32
+// coalesced ones for the warp, and a warp that holds one op lane no
+// longer waits on that lane's serial loops. Where every lane is heavy
+// (a RESTART in each), a boot's small scattered row writes, a sector
+// each, bound both this mapping and a thread a lane alike. Every thread
+// of a warp runs the ballot and the shuffles (ROADMAP F9): a thread past
+// the last lane takes part with no lane of its own.
 
 #include <cstdint>
 
@@ -47,13 +67,14 @@
 constexpr int kMaxLeaves = 48;
 
 // One node-state leaf of the boot reset table: its [B, N, row] tensor,
-// the element size (4: int32, 1: bool) and the offset of its default row
-// in the defaults table.
+// the element size (4: int32, 1: bool) and its first element in the
+// flattened (leaf, element) space, which is also the offset of its
+// default row in the defaults table.
 struct SuperLeaf {
   void* ptr;
   int32_t row;
   int32_t esize;
-  int32_t dflt;
+  int32_t start;
   int32_t pad;
 };
 
@@ -86,12 +107,14 @@ struct SuperParams {
   uint8_t* reset_mask;
   uint8_t* effective;
   SuperLeaf leaves[kMaxLeaves];
-  int B, C, N, P, n_leaves;
+  int B, C, N, P, n_leaves, reset_elems;
 };
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kKillChunks = 4;      // a kill's table rows: 128 a pass
+constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int32_t kNodeRandom = -1;
 constexpr int32_t kEvFree = 0, kEvMsg = 1, kEvTimer = 2;
 constexpr int32_t kTInf = 0x7FFFFFFF;
@@ -107,6 +130,12 @@ enum : int32_t {
   kOpSetDup = 19
 };
 
+// a heavy lane's work, as the flags phase 2 receives by shuffle
+enum : int {
+  kDoKill = 1, kDoBoot = 2, kDoPartition = 4, kDoOneway = 8, kDoHeal = 16,
+  kReversed = 32
+};
+
 __device__ __forceinline__ int32_t clip(int32_t v, int32_t lo, int32_t hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
@@ -120,149 +149,194 @@ __device__ __forceinline__ uint32_t bits_of(const uint8_t* v, int N) {
 
 __global__ void __launch_bounds__(kThreads)
 apply_super_kernel(const SuperParams p) {
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * kThreads
-      + threadIdx.x;
-  if (b >= p.B) return;
+  const int32_t* __restrict__ op_in = p.op;
+  const int32_t* __restrict__ node_in = p.node;
+  const int32_t* __restrict__ src_in = p.src;
+  const int32_t* __restrict__ payload = p.payload;
+  const int32_t* __restrict__ key = p.key;
+  const int32_t* __restrict__ t_node = p.t_node;
+  const int32_t* __restrict__ defaults = p.defaults;
+  int32_t* __restrict__ t_kind = p.t_kind;
+  int32_t* __restrict__ t_deadline = p.t_deadline;
+  uint8_t* __restrict__ alive = p.alive;
+  uint8_t* __restrict__ paused = p.paused;
+  uint8_t* __restrict__ clog_node = p.clog_node;
+  uint8_t* __restrict__ clog_link = p.clog_link;
+
+  const int b = blockIdx.x * kThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31;
   const int N = p.N, P = p.P, C = p.C;
-  const int32_t op = p.op[b];
-  const int32_t nd = p.node[b];
-  const int32_t src = p.src[b];
-  const int32_t* pay = p.payload + b * P;
-  const uint32_t all = N == 32 ? 0xFFFFFFFFu : (1u << N) - 1u;
-  const bool is_random = nd == kNodeRandom;
 
-  // the payload's node set, 31 nodes a word (PARTITION's group A, and a
-  // NODE_RANDOM op's pool)
+  // ---- phase 1: a thread a lane -------------------------------------------
+  int32_t target = 0;
   uint32_t in_a = 0;
-  if (is_random || op == kOpPartition || op == kOpPartitionOneway) {
-    for (int n = 0; n < N; ++n) {
-      const int w = n / 31;
-      const uint32_t word = w < P ? static_cast<uint32_t>(pay[w]) : 0u;
-      in_a |= ((word >> (n - 31 * w)) & 1u) << n;
+  int flags = 0;
+  if (b < p.B) {
+    const int32_t op = __ldg(op_in + b);
+    const int32_t nd = __ldg(node_in + b);
+    const int32_t src = __ldg(src_in + b);
+    const int32_t* pay = payload + static_cast<int64_t>(b) * P;
+    const uint32_t all = N == 32 ? kFull : (1u << N) - 1u;
+    const bool is_random = nd == kNodeRandom;
+
+    // the payload's node set, 31 nodes a word (PARTITION's group A, and a
+    // NODE_RANDOM op's pool): nodes 0-30 in word 0, node 31 in word 1
+    if (is_random || op == kOpPartition || op == kOpPartitionOneway) {
+      in_a = static_cast<uint32_t>(__ldg(pay)) & 0x7FFFFFFFu;
+      if (N > 31) in_a |= (static_cast<uint32_t>(__ldg(pay + 1)) & 1u) << 31;
+      in_a &= all;
     }
-  }
 
-  int32_t target;
-  bool eff = true;
-  const int64_t row0 = b * N;
-  if (is_random) {
-    uint32_t pool = all;
-    if (op == kOpKill || op == kOpPause || op == kOpClogNode)
-      pool = bits_of(p.alive + row0, N);
-    else if (op == kOpRestart)
-      pool = ~bits_of(p.alive + row0, N) & all;
-    else if (op == kOpResume)
-      pool = bits_of(p.paused + row0, N);
-    else if (op == kOpUnclogNode)
-      pool = bits_of(p.clog_node + row0, N);
-    const int n_pool_words = P < (N + 30) / 31 ? P : (N + 30) / 31;
-    bool any = false;
-    for (int w = 0; w < n_pool_words; ++w) any |= pay[w] != 0;
-    if (any) pool &= in_a;
-    const int cnt = __popc(pool);
-    uint32_t k0, k1;
-    threefry::split_key(static_cast<uint32_t>(p.key[2 * b]),
-                        static_cast<uint32_t>(p.key[2 * b + 1]), 2, 0, k0,
-                        k1);
-    int r = threefry::randint_raw(k0, k1, 0, cnt > 1 ? cnt : 1);
-    int rnd = 0;
-    for (int n = 0; n < N; ++n) {     // the (r+1)-th node of the pool
-      if ((pool >> n) & 1u) {
-        if (r == 0) {
-          rnd = n;
-          break;
-        }
-        --r;
-      }
-    }
-    eff = cnt > 0;
-    target = rnd;
-  } else {
-    target = clip(nd, 0, N - 1);
-  }
-  const int64_t at = row0 + target;       // the target's [B, N] entry
-
-  auto when = [&](bool c) { return c && eff; };
-  const bool kill = when(op == kOpKill || op == kOpRestart);
-  const bool boot = when(op == kOpInit || op == kOpRestart);
-
-  if (kill) {    // drop the target's queued messages and timers
-    const int64_t t0 = b * C;
-    for (int c = 0; c < C; ++c) {
-      if (p.t_node[t0 + c] == target) {
-        const int32_t k = p.t_kind[t0 + c];
-        if (k == kEvMsg || k == kEvTimer) {
-          p.t_kind[t0 + c] = kEvFree;
-          p.t_deadline[t0 + c] = kTInf;
+    bool eff = true;
+    const int64_t row0 = static_cast<int64_t>(b) * N;
+    if (is_random) {
+      uint32_t pool = all;
+      if (op == kOpKill || op == kOpPause || op == kOpClogNode)
+        pool = bits_of(alive + row0, N);
+      else if (op == kOpRestart)
+        pool = ~bits_of(alive + row0, N) & all;
+      else if (op == kOpResume)
+        pool = bits_of(paused + row0, N);
+      else if (op == kOpUnclogNode)
+        pool = bits_of(clog_node + row0, N);
+      // the pool words: min(P, ceil(N / 31)), P >= 2
+      const bool any = __ldg(pay) != 0 || (N > 31 && __ldg(pay + 1) != 0);
+      if (any) pool &= in_a;
+      const int cnt = __popc(pool);
+      uint32_t k0, k1;
+      const int32_t* kp = key + 2 * static_cast<int64_t>(b);
+      threefry::split_key(static_cast<uint32_t>(__ldg(kp)),
+                          static_cast<uint32_t>(__ldg(kp + 1)), 2, 0, k0, k1);
+      int r = threefry::randint_raw(k0, k1, 0, cnt > 1 ? cnt : 1);
+      int rnd = 0;
+      for (int n = 0; n < N; ++n) {     // the (r+1)-th node of the pool
+        if ((pool >> n) & 1u) {
+          if (r == 0) {
+            rnd = n;
+            break;
+          }
+          --r;
         }
       }
+      eff = cnt > 0;
+      target = rnd;
+    } else {
+      target = clip(nd, 0, N - 1);
     }
-  }
-  if (kill || boot) p.alive[at] = boot ? 1 : 0;
-  if (kill || boot || when(op == kOpResume)) p.paused[at] = 0;
-  else if (when(op == kOpPause)) p.paused[at] = 1;
-  if (when(op == kOpClogNode)) p.clog_node[at] = 1;
-  if (when(op == kOpUnclogNode)) p.clog_node[at] = 0;
+    const int64_t at = row0 + target;       // the target's [B, N] entry
 
-  uint8_t* link = p.clog_link + b * N * N;
-  const int src_c = clip(src, 0, N - 1);
-  if (when(op == kOpClogLink)) link[src_c * N + target] = 1;
-  if (when(op == kOpUnclogLink)) link[src_c * N + target] = 0;
-  if (when(op == kOpPartition)) {
-    for (int i = 0; i < N; ++i)
-      for (int j = 0; j < N; ++j)
-        link[i * N + j] = ((in_a >> i) & 1u) != ((in_a >> j) & 1u);
+    auto when = [&](bool c) { return c && eff; };
+    const bool kill = when(op == kOpKill || op == kOpRestart);
+    const bool boot = when(op == kOpInit || op == kOpRestart);
+
+    if (kill || boot) alive[at] = boot ? 1 : 0;
+    if (kill || boot || when(op == kOpResume)) paused[at] = 0;
+    else if (when(op == kOpPause)) paused[at] = 1;
+    if (when(op == kOpClogNode)) clog_node[at] = 1;
+    if (when(op == kOpUnclogNode)) clog_node[at] = 0;
+    if (when(op == kOpClogLink || op == kOpUnclogLink)) {
+      const int src_c = clip(src, 0, N - 1);
+      clog_link[row0 * N + src_c * N + target] = op == kOpClogLink ? 1 : 0;
+    }
+
+    if (when(op == kOpSetLoss))
+      p.loss[b] = __fdiv_rn(static_cast<float>(__ldg(pay)), 1e6f);
+    if (when(op == kOpSetLatency)) {
+      const int32_t lo = __ldg(pay), hi = __ldg(pay + 1);
+      p.lat_lo[b] = lo;
+      p.lat_hi[b] = hi > lo ? hi : lo;
+    }
+    // the gray-failure values ride the payload's last word
+    if (when(op == kOpSetSkew))
+      p.skew[at] = clip(__ldg(pay + P - 1), -kSkewCap, kSkewCap);
+    if (when(op == kOpSetDisk)) {
+      p.disk_lat[at] = clip(__ldg(pay + P - 1), 0, kDiskLatCap);
+      p.torn[at] = __ldg(pay + P - 2) != 0 ? 1 : 0;
+    }
+    if (when(op == kOpSetDup))
+      p.dup_rate[at] = clip(__ldg(pay + P - 1), 0, kDupRateCap);
+
+    p.init_node[b] = boot ? target : -1;
+    p.target[b] = target;
+    p.reset_mask[b] = (kill || boot) ? 1 : 0;
+    p.effective[b] = eff ? 1 : 0;
+
+    flags = (kill ? kDoKill : 0) | (boot ? kDoBoot : 0)
+        | (when(op == kOpPartition) ? kDoPartition : 0)
+        | (when(op == kOpPartitionOneway) ? kDoOneway : 0)
+        | (when(op == kOpHeal) ? kDoHeal : 0)
+        | ((src & 1) == 1 ? kReversed : 0);
+    if (!(flags & (kDoKill | kDoBoot | kDoPartition | kDoOneway | kDoHeal)))
+      flags = 0;
   }
-  if (when(op == kOpPartitionOneway)) {
-    const bool rev = (src & 1) == 1;
-    for (int i = 0; i < N; ++i) {
-      for (int j = 0; j < N; ++j) {
-        const int from = rev ? j : i, to = rev ? i : j;
-        if (((in_a >> from) & 1u) && !((in_a >> to) & 1u))
-          link[i * N + j] = 1;
+
+  // ---- phase 2: the warp takes its heavy lanes one after another -----------
+  unsigned todo = __ballot_sync(kFull, flags != 0);
+  while (todo) {
+    const int from = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const int hb = __shfl_sync(kFull, b, from);
+    const int ht = __shfl_sync(kFull, target, from);
+    const uint32_t ha = __shfl_sync(kFull, in_a, from);
+    const int hf = __shfl_sync(kFull, flags, from);
+
+    if (hf & kDoKill) {    // drop the target's queued messages and timers
+      // kKillChunks chunks of 32 rows a pass, every load issued before
+      // the first compare: one round trip to memory a pass
+      const int64_t t0 = static_cast<int64_t>(hb) * C;
+      for (int c0 = lane; c0 < C; c0 += 32 * kKillChunks) {
+        int32_t tn[kKillChunks], tk[kKillChunks];
+#pragma unroll
+        for (int u = 0; u < kKillChunks; ++u) {
+          const int c = c0 + 32 * u;
+          tn[u] = c < C ? __ldg(t_node + t0 + c) : -1;
+          tk[u] = c < C ? t_kind[t0 + c] : kEvFree;
+        }
+#pragma unroll
+        for (int u = 0; u < kKillChunks; ++u) {
+          if (tn[u] == ht && (tk[u] == kEvMsg || tk[u] == kEvTimer)) {
+            const int c = c0 + 32 * u;
+            t_kind[t0 + c] = kEvFree;
+            t_deadline[t0 + c] = kTInf;
+          }
+        }
       }
     }
-  }
-  if (when(op == kOpHeal)) {
-    for (int q = 0; q < N * N; ++q) link[q] = 0;
-    for (int n = 0; n < N; ++n) p.clog_node[row0 + n] = 0;
-  }
-
-  if (when(op == kOpSetLoss))
-    p.loss[b] = __fdiv_rn(static_cast<float>(pay[0]), 1e6f);
-  if (when(op == kOpSetLatency)) {
-    p.lat_lo[b] = pay[0];
-    p.lat_hi[b] = pay[1] > pay[0] ? pay[1] : pay[0];
-  }
-  // the gray-failure values ride the payload's last word
-  if (when(op == kOpSetSkew))
-    p.skew[at] = clip(pay[P - 1], -kSkewCap, kSkewCap);
-  if (when(op == kOpSetDisk)) {
-    p.disk_lat[at] = clip(pay[P - 1], 0, kDiskLatCap);
-    p.torn[at] = pay[P - 2] != 0 ? 1 : 0;
-  }
-  if (when(op == kOpSetDup))
-    p.dup_rate[at] = clip(pay[P - 1], 0, kDupRateCap);
-
-  if (boot) {    // volatile protocol state back to the spec default
-    for (int l = 0; l < p.n_leaves; ++l) {
-      const SuperLeaf lf = p.leaves[l];
-      const int64_t off = at * lf.row;
-      const int32_t* d = p.defaults + lf.dflt;
-      if (lf.esize == 4) {
-        int32_t* dst = static_cast<int32_t*>(lf.ptr) + off;
-        for (int e = 0; e < lf.row; ++e) dst[e] = d[e];
-      } else {
-        uint8_t* dst = static_cast<uint8_t*>(lf.ptr) + off;
-        for (int e = 0; e < lf.row; ++e) dst[e] = d[e] != 0 ? 1 : 0;
+    if (hf & kDoBoot) {    // volatile protocol state back to the default
+      const int64_t at = static_cast<int64_t>(hb) * N + ht;
+      int l = 0;
+      for (int e = lane; e < p.reset_elems; e += 32) {
+        while (l + 1 < p.n_leaves && e >= p.leaves[l + 1].start) ++l;
+        const SuperLeaf& lf = p.leaves[l];
+        const int32_t v = __ldg(defaults + e);
+        const int64_t off = at * lf.row + (e - lf.start);
+        if (lf.esize == 4)
+          static_cast<int32_t*>(lf.ptr)[off] = v;
+        else
+          static_cast<uint8_t*>(lf.ptr)[off] = v != 0 ? 1 : 0;
       }
     }
+    if (hf & (kDoPartition | kDoOneway | kDoHeal)) {
+      // PARTITION: the cut A <-> not-A; PARTITION_ONEWAY: ORs in A ->
+      // not-A (reversed for odd src); HEAL: clears the matrix
+      uint8_t* link = clog_link + static_cast<int64_t>(hb) * N * N;
+      for (int q = lane; q < N * N; q += 32) {
+        const int i = q / N, j = q - i * N;
+        const uint32_t ai = (ha >> i) & 1u, aj = (ha >> j) & 1u;
+        if (hf & kDoPartition) {
+          link[q] = ai != aj ? 1 : 0;
+        } else if (hf & kDoOneway) {
+          const bool cut = (hf & kReversed) ? (aj && !ai) : (ai && !aj);
+          if (cut) link[q] = 1;
+        } else {
+          link[q] = 0;
+        }
+      }
+      if (hf & kDoHeal)
+        for (int n = lane; n < N; n += 32)
+          clog_node[static_cast<int64_t>(hb) * N + n] = 0;
+    }
   }
-
-  p.init_node[b] = boot ? target : -1;
-  p.target[b] = target;
-  p.reset_mask[b] = (kill || boot) ? 1 : 0;
-  p.effective[b] = eff ? 1 : 0;
 }
 
 }  // namespace
@@ -273,9 +347,15 @@ extern "C" int apply_super_launch(const SuperParams* params, void* stream) {
   if (p.C < 1 || p.N < 1 || p.N > 32 || p.P < 2 || p.n_leaves < 0
       || p.n_leaves > kMaxLeaves)
     return static_cast<int>(cudaErrorInvalidValue);
-  for (int l = 0; l < p.n_leaves; ++l)
-    if (p.leaves[l].esize != 4 && p.leaves[l].esize != 1)
+  // the leaves tile [0, reset_elems) in order (the prefix table)
+  int32_t next = 0;
+  for (int l = 0; l < p.n_leaves; ++l) {
+    const SuperLeaf& lf = p.leaves[l];
+    if ((lf.esize != 4 && lf.esize != 1) || lf.row < 0 || lf.start != next)
       return static_cast<int>(cudaErrorInvalidValue);
+    next += lf.row;
+  }
+  if (next != p.reset_elems) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>((p.B + kThreads - 1) / kThreads));
   apply_super_kernel<<<grid, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(p);

@@ -28,6 +28,17 @@
 //                   uniform, or bernoulli(p); F values a key are
 //                   `random_bits(split(key, 2), (F,))`'s, as
 //                   randint_raw(key, lo, hi, shape) draws them
+//   dup_draws       the step's duplicate-delivery section (madsim_tpu/
+//                   core/step.py:244-317) a thread a lane: the clock
+//                   where(valid, max(now, dmin), now), time_over = now >
+//                   tlimit, dup_fire = valid & kind == MSG &
+//                   bernoulli(k_dupf, float32(dup_rate[node]) * 1e-6f),
+//                   the popped row's deadline where(dup_fire, now +
+//                   max(randint(k_dupd, lat_lo, lat_hi), 1), T_INF) and
+//                   its free mask valid & ~dup_fire
+//   split_randint   a handler's `Ctx.randint` with int bounds: split(key,
+//                   2) and the inclusive randint of its second key, the
+//                   next key, the drawn key and the value in one pass
 //
 // Operands of threefry_keys and threefry_draw are [M, W] grids over
 // strided memory: element (m, w) of an operand lies at ptr + m * sm + w *
@@ -38,7 +49,12 @@
 //
 // Bound: each launch moves a few bytes a key (8 in, 4-64 out) and does
 // one to sixteen 20-round threefry blocks a key, at the step's B=100,000
-// keys a few microseconds of either: one wave, bound by its latency.
+// keys a few microseconds of either: one wave, bound by its latency. So
+// the step makes as few launches as it can: step_keys every key the
+// step itself needs, dup_draws both of the dup section's draws and the
+// elementwise ops around them (it draws only where the draw decides a
+// value: the Bernoulli where the lane may fire, p > 0, the latency
+// where it fired), split_randint a handler's split and its draw.
 // Design: a thread a key (a key and a value for the draws), indexed in
 // 32 bits (a lane's row and column by one 32-bit division only where the
 // grid has more than one row); a key's blocks are independent, so where
@@ -96,11 +112,45 @@ struct DrawParams {
   int32_t inclusive;        // randint: maxval is inclusive (hi + 1 wraps)
 };
 
+// dup_draws: the step's dup section, every operand [B] (keys [B, 2],
+// 8-byte aligned; dup_rate [B, N]).
+struct DupParams {
+  const int32_t* k_dupf;
+  const int32_t* k_dupd;
+  const uint8_t* valid;       // bool
+  const int32_t* ev_kind;
+  const int32_t* ev_node;     // clamped to [0, N)
+  const int32_t* dup_rate;
+  const int32_t* now;
+  const int32_t* dmin;
+  const int32_t* lat_lo;
+  const int32_t* lat_hi;
+  const int32_t* tlimit;
+  int32_t* now_out;
+  uint8_t* time_over;         // bool outputs
+  uint8_t* dup_fire;
+  int32_t* deadline;
+  uint8_t* free_row;
+  int32_t B, N;
+};
+
+// split_randint: out holds [2, M * W, 2] keys (the next key, then the
+// drawn key) and value [M * W] the draw in [lo, hi] inclusive.
+struct SplitRandintParams {
+  Operand key;        // int32 pairs
+  int32_t* out;
+  int32_t* value;
+  int32_t lo, hi;
+  int32_t M, W;
+};
+
 namespace {
 
 constexpr int kThreads = 256;       // threefry_draw
 constexpr int kKeyThreads = 128;    // the key kernels: 782 blocks at 100k
 constexpr int32_t kRandint = 0, kUniform = 1, kBernoulli = 2;
+constexpr int32_t kEvMsg = 1;            // core/types.py EV_MSG
+constexpr int32_t kTInf = 0x7FFFFFFF;    // core/types.py T_INF
 
 __device__ __forceinline__ const int32_t* at_i32(const Operand& o,
                                                  int64_t m, int64_t w) {
@@ -323,6 +373,68 @@ threefry_draw_kernel(const DrawParams p) {
   static_cast<uint8_t*>(p.out)[t] = u < prob ? 1 : 0;
 }
 
+// The dup section, a thread a lane. The Bernoulli draw decides only
+// where the lane may fire (valid, a message, p > 0: u >= 0 is never
+// below p <= 0), the latency draw only where it fired, so each is drawn
+// there alone; the values are the reference's everywhere.
+__global__ void __launch_bounds__(kKeyThreads)
+dup_draws_kernel(const DupParams p) {
+  const uint32_t b = blockIdx.x * kKeyThreads + threadIdx.x;
+  if (b >= static_cast<uint32_t>(p.B)) return;
+  const bool valid = __ldg(p.valid + b) != 0;
+  const int32_t now0 = __ldg(p.now + b);
+  const int32_t dmin = __ldg(p.dmin + b);
+  const int32_t now = valid ? (dmin > now0 ? dmin : now0) : now0;
+  bool fire = false;
+  if (valid && __ldg(p.ev_kind + b) == kEvMsg) {
+    const int32_t nd = __ldg(p.ev_node + b);     // take1 clamps
+    const int32_t rate = __ldg(p.dup_rate + static_cast<size_t>(b) * p.N
+                               + (nd < 0 ? 0 : (nd >= p.N ? p.N - 1 : nd)));
+    const float prob = __fmul_rn(static_cast<float>(rate), 1e-6f);
+    if (prob > 0.0f) {
+      const int2 k = __ldg(reinterpret_cast<const int2*>(p.k_dupf) + b);
+      fire = threefry::bernoulli(static_cast<uint32_t>(k.x),
+                                 static_cast<uint32_t>(k.y), prob);
+    }
+  }
+  int32_t deadline = kTInf;
+  if (fire) {       // the redelivery: a fresh latency draw, at least 1
+    const int2 k = __ldg(reinterpret_cast<const int2*>(p.k_dupd) + b);
+    const int32_t lat = threefry::randint(
+        static_cast<uint32_t>(k.x), static_cast<uint32_t>(k.y),
+        __ldg(p.lat_lo + b), __ldg(p.lat_hi + b));
+    deadline = static_cast<int32_t>(static_cast<uint32_t>(now)
+                                    + static_cast<uint32_t>(
+                                        lat > 1 ? lat : 1));
+  }
+  p.now_out[b] = now;
+  p.time_over[b] = now > __ldg(p.tlimit + b) ? 1 : 0;
+  p.dup_fire[b] = fire ? 1 : 0;
+  p.deadline[b] = deadline;
+  p.free_row[b] = valid && !fire ? 1 : 0;
+}
+
+// split(key, 2) (blocks (0, 2) and (1, 3)) and randint(key 1, lo, hi)
+// inclusive, a thread a key: six blocks, each key one int2 store.
+__global__ void __launch_bounds__(kKeyThreads)
+split_randint_kernel(const SplitRandintParams p) {
+  const uint32_t n = static_cast<uint32_t>(p.M) * p.W;
+  const uint32_t t = blockIdx.x * kKeyThreads + threadIdx.x;
+  if (t >= n) return;
+  uint32_t m, w, k0, k1;
+  grid_at(t, p.M, p.W, m, w);
+  load_key(p.key, m, w, k0, k1);
+  uint32_t x0[2], x1[2];
+  split_blocks<2>(k0, k1, x0, x1);
+  const int2 next = split_out<2>(x0, x1, 0);
+  const int2 drawn = split_out<2>(x0, x1, 1);
+  int2* out = reinterpret_cast<int2*>(p.out);
+  out[t] = next;
+  out[n + t] = drawn;
+  p.value[t] = threefry::randint(static_cast<uint32_t>(drawn.x),
+                                 static_cast<uint32_t>(drawn.y), p.lo, p.hi);
+}
+
 inline unsigned grid_of(int64_t n, int threads) {
   return static_cast<unsigned>((n + threads - 1) / threads);
 }
@@ -383,6 +495,33 @@ extern "C" int threefry_draw_launch(const DrawParams* params, void* stream) {
   const int64_t n = static_cast<int64_t>(p.M) * p.W * p.F;
   if (n == 0) return 0;
   threefry_draw_kernel<<<grid_of(n, kThreads), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dup_draws_launch(const DupParams* params, void* stream) {
+  const DupParams& p = *params;
+  if (p.B < 0 || p.N < 1 || p.k_dupf == nullptr || p.k_dupd == nullptr
+      || reinterpret_cast<uintptr_t>(p.k_dupf) % 8 != 0
+      || reinterpret_cast<uintptr_t>(p.k_dupd) % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (p.B == 0) return 0;
+  dup_draws_kernel<<<grid_of(p.B, kKeyThreads), kKeyThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int split_randint_launch(const SplitRandintParams* params,
+                                    void* stream) {
+  const SplitRandintParams& p = *params;
+  if (p.M < 0 || p.W < 0 || p.key.ptr == nullptr || p.out == nullptr
+      || p.value == nullptr || reinterpret_cast<uintptr_t>(p.out) % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t n = static_cast<int64_t>(p.M) * p.W;
+  if (n == 0) return 0;
+  if (4 * n >= (int64_t{1} << 31))     // output words indexed in 32 bits
+    return static_cast<int>(cudaErrorInvalidValue);
+  split_randint_kernel<<<grid_of(n, kKeyThreads), kKeyThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

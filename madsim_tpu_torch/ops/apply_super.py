@@ -34,9 +34,10 @@ out of the kernel's reset table, and after the flush their
 non-persistent ones are reset in plain PyTorch.
 
 `apply_super` takes the plain version only for tensors on the CPU; for
-CUDA tensors it launches the kernel or raises. `apply_super.launches`
-counts kernel launches (a launch recorded into a CUDA graph under capture
-counts in `captured` instead).
+CUDA tensors it launches the kernel or raises (`apply_super.run`, the
+kernel's path, which the CPU tests drive through a stand-in launcher).
+`apply_super.launches` counts kernel launches (a launch recorded into a
+CUDA graph under capture counts in `captured` instead).
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ from ..core import types as T
 from ..core.state import tree_map
 from . import select as sel
 from . import threefry as tf
+from .kernels import CKernel, on_cpu
 
 _I32 = torch.int32
 MAX_N = 32        # a lane's node pool is one 32-bit mask
@@ -290,20 +292,23 @@ class SuperPlan:
             raise NotImplementedError(
                 f"apply_super: {len(self.leaves)} non-persistent node-state "
                 f"leaves; the kernel takes at most {MAX_LEAVES}")
+        # the prefix table of the reset rows: leaf i holds elements
+        # [starts[i], starts[i] + its row length) of the flattened (leaf,
+        # element) space the kernel's warp spreads a boot over, and the
+        # defaults table is laid out the same way
+        rows = [d.numel() for _, d in self.leaves]
+        self.starts = [sum(rows[:i]) for i in range(len(rows))]
+        self.reset_elems = sum(rows)
         self._defaults: dict = {}
 
-    def defaults(self, dev) -> tuple:
-        """(int32 table of every reset leaf's default row on `dev`, each
-        leaf's offset in it); built once per device."""
+    def defaults(self, dev) -> torch.Tensor:
+        """The int32 table of every reset leaf's default row on `dev`,
+        leaf i's at `starts[i]`; built once per device."""
         if dev not in self._defaults:
             rows = [d.reshape(-1).to(_I32).to(dev) for _, d in self.leaves]
-            offs, at = [], 0
-            for r in rows:
-                offs.append(at)
-                at += r.numel()
-            table = (torch.cat(rows) if rows
-                     else torch.zeros(1, dtype=_I32, device=dev))
-            self._defaults[dev] = (table, offs)
+            self._defaults[dev] = (
+                torch.cat(rows) if self.reset_elems
+                else torch.zeros(1, dtype=_I32, device=dev))
         return self._defaults[dev]
 
 
@@ -331,7 +336,7 @@ def _remainder(plan, s, op, key, init_node, target, reset_mask, effective,
 class _Leaf(ctypes.Structure):
     """csrc/apply_super.cu `SuperLeaf`, field for field."""
     _fields_ = [("ptr", ctypes.c_void_p), ("row", ctypes.c_int),
-                ("esize", ctypes.c_int), ("dflt", ctypes.c_int),
+                ("esize", ctypes.c_int), ("start", ctypes.c_int),
                 ("pad", ctypes.c_int)]
 
 
@@ -348,7 +353,8 @@ class _Params(ctypes.Structure):
         [(n, ctypes.c_void_p) for n in _LANE_IN + _STATE + ("defaults",)
          + _OUT]
         + [("leaves", _Leaf * MAX_LEAVES)]
-        + [(n, ctypes.c_int) for n in ("B", "C", "N", "P", "n_leaves")])
+        + [(n, ctypes.c_int) for n in ("B", "C", "N", "P", "n_leaves",
+                                       "reset_elems")])
 
 
 def _check(name, t, dtype, shape, device):
@@ -365,37 +371,29 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"apply_super: {name} must be contiguous")
 
 
-class _ApplySuper:
+class _ApplySuper(CKernel):
     """Callable wrapper: CPU tensors -> `apply_super_plain`; CUDA tensors
-    -> the kernel (in place) and the plain remainder. `launches` counts
-    kernel launches (and nothing else); `captured` counts launches
+    -> `run`, the kernel (in place) and the plain remainder. `launches`
+    counts kernel launches (and nothing else); `captured` counts launches
     recorded into a CUDA graph."""
 
     def __init__(self):
-        self.launches = 0
-        self.captured = 0
-        self._fn = None
-
-    def _kernel(self):
-        if self._fn is None:
-            from .kernels import load
-            fn = load("apply_super").apply_super_launch
-            fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+        super().__init__("apply_super", "apply_super", _Params)
 
     def __call__(self, plan: SuperPlan, s, op, node, src, payload, key):
         """(state, init_node, target, reset_mask) of the op `op` [B] on
         node `node` [B] (NODE_RANDOM: drawn from the op's pool with the
         key [B, 2]), link source `src` [B] and `payload` [B, P]."""
-        dev = op.device
-        if dev.type == "cpu":
+        if on_cpu(op, "apply_super"):
             return apply_super_plain(plan.cfg, plan.spec_default,
                                      plan.persist_mask, s, op, node, src,
                                      payload, key)
-        if dev.type != "cuda":
-            raise ValueError(f"apply_super: unsupported device {dev}")
+        return self.run(plan, s, op, node, src, payload, key)
+
+    def run(self, plan: SuperPlan, s, op, node, src, payload, key):
+        """The kernel's path on the operands' device (the module's call
+        sends only CUDA tensors here)."""
+        dev = op.device
         B, C = s.t_kind.shape
         N, P = plan.cfg.n_nodes, plan.cfg.payload_words
         if s.t_kind.dtype != torch.int32:
@@ -433,29 +431,21 @@ class _ApplySuper:
                    target=torch.empty((B,), dtype=i32, device=dev),
                    reset_mask=torch.empty((B,), dtype=b8, device=dev),
                    effective=torch.empty((B,), dtype=b8, device=dev))
-        table, offs = plan.defaults(dev)
+        table = plan.defaults(dev)
         p = _Params()
         for n, t in list(lane.items()) + list(state.items()) \
                 + list(out.items()):
             setattr(p, n, t.data_ptr())
         p.defaults = table.data_ptr()
-        for i, ((_, t, d), off) in enumerate(zip(leaves, offs)):
+        for i, ((_, t, d), start) in enumerate(zip(leaves, plan.starts)):
             p.leaves[i].ptr = t.data_ptr()
             p.leaves[i].row = d.numel()
             p.leaves[i].esize = t.element_size()
-            p.leaves[i].dflt = off
-        p.B, p.C, p.N, p.P, p.n_leaves = B, C, N, P, len(leaves)
-        fn = self._kernel()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        with torch.cuda.device(dev):
-            err = fn(ctypes.byref(p), stream)
-        if err != 0:
-            raise RuntimeError(f"apply_super: kernel launch failed "
-                               f"(cudaError {err})")
-        if torch.cuda.is_current_stream_capturing():
-            self.captured += 1
-        else:
-            self.launches += 1
+            p.leaves[i].start = start
+        p.B, p.C, p.N, p.P = B, C, N, P
+        p.n_leaves, p.reset_elems = len(leaves), plan.reset_elems
+        if B:
+            self._launch(p, dev)
         if plan.fs or plan.conn:
             s = _remainder(plan, s, op, key, out["init_node"], out["target"],
                            out["reset_mask"], out["effective"], pre_tear)

@@ -43,7 +43,8 @@ SOURCES = {
 }
 
 # kernel (wrapper) name -> its library, where the two names differ
-LIBRARY = {"step_keys": "prng", "threefry_keys": "prng",
+LIBRARY = {"step_keys": "prng", "dup_draws": "prng",
+           "split_randint": "prng", "threefry_keys": "prng",
            "threefry_draw": "prng", "node_gather": "node_rows",
            "put_rows_": "node_rows"}
 
@@ -193,12 +194,15 @@ def wrappers() -> dict:
     from .node_rows import node_gather, put_rows_
     from .raft_invariant import raft_invariant_check
     from .sched_pick import sched_pick
-    from .threefry import step_keys_kernel, threefry_draw, threefry_keys
+    from .threefry import (dup_draws_kernel, split_randint_kernel,
+                           step_keys_kernel, threefry_draw, threefry_keys)
     return {"sched_pick": sched_pick, "emit_write": emit_write,
             "mutate": mutate_batch, "apply_knobs": apply_knobs,
             "coverage_digest": coverage_digest,
             "raft_invariant": raft_invariant_check,
             "apply_super": apply_super, "fingerprint": fingerprint,
-            "step_keys": step_keys_kernel, "threefry_keys": threefry_keys,
+            "step_keys": step_keys_kernel, "dup_draws": dup_draws_kernel,
+            "split_randint": split_randint_kernel,
+            "threefry_keys": threefry_keys,
             "threefry_draw": threefry_draw,
             "node_gather": node_gather, "put_rows_": put_rows_}

@@ -1,7 +1,7 @@
 """The threefry draws of the step and the handlers (K1): `step_keys`,
-`threefry_keys` and `threefry_draw`, hand-written CUDA kernels
-(csrc/prng.cu), behind the functions of `core/prng.py`'s signatures and
-broadcasting.
+`dup_draws`, `split_randint`, `threefry_keys` and `threefry_draw`,
+hand-written CUDA kernels (csrc/prng.cu), behind the functions of
+`core/prng.py`'s signatures and broadcasting.
 
 They replace the JAX package's threefry draws (madsim_tpu/core/prng.py
 :24 `split`, :28 `randint`, :35 `uniform`, :39 `bernoulli`, :49
@@ -19,6 +19,14 @@ split, madsim_tpu/core/step.py:138, :246, :315, :338), the dup section's
                                    fold_in(k_sched, words[1]), the first
                                    n_write keys of split(k_super, n_ext)],
                                    each a contiguous [B, 2] tensor
+    dup_draws(k_dupf, k_dupd, valid, ev_kind, ev_node, dup_rate, now,
+              dmin, lat_lo, lat_hi, tlimit)
+                                   the step's dup section in one launch:
+                                   (now, time_over, dup_fire, the popped
+                                   row's deadline, its free mask)
+    split_randint(key, lo, hi)     `Ctx.randint` with int bounds in one
+                                   launch: (the next key, the drawn key,
+                                   randint(drawn key, lo, hi) inclusive)
     split(key, n)                  [..., 2] -> [..., n, 2]
     fold_in(key, data)             one word (an int, or a tensor
                                    broadcastable against the key batch)
@@ -28,11 +36,12 @@ split, madsim_tpu/core/step.py:138, :246, :315, :338), the dup section's
     bernoulli(key, p)              uniform(key) < p, in float32
     node_hash_key(seed_or_key, node, stream)
 
-On CPU tensors each function is `core/prng.py`'s own (`step_keys`:
-`step_keys_plain`, which composes them as the step does), and that stays
-the plain version: the kernels' plain references (the plain supervisor
-op, emission write, mutator and `masked_choice`) call it directly and
-never come here. On CUDA tensors they launch the kernels; on any other
+On CPU tensors each function is `core/prng.py`'s own (`step_keys`,
+`dup_draws`, `split_randint`: `step_keys_plain`, `dup_draws_plain`,
+`split_randint_plain`, which compose them as the step and `Ctx` did),
+and that stays the plain version: the kernels' plain references (the
+plain supervisor op, emission write, mutator and `masked_choice`) call
+it directly and never come here. On CUDA tensors they launch the kernels; on any other
 device, and on a kernel that fails to build or launch, they raise.
 Nothing falls back to the plain version.
 
@@ -44,7 +53,8 @@ and strides, so the step's strided key slices and broadcast bounds cost
 no copy. Python ints and floats go by value in the parameter block, so a
 draw inside a CUDA-graph capture builds no host tensor (ROADMAP F4, F7).
 
-`step_keys_kernel.launches`, `threefry_keys.launches` and
+`step_keys_kernel.launches`, `dup_draws_kernel.launches`,
+`split_randint_kernel.launches`, `threefry_keys.launches` and
 `threefry_draw.launches` count kernel launches (and nothing else); a
 launch recorded into a CUDA graph counts in `captured` instead.
 """
@@ -58,6 +68,8 @@ import numpy as np
 import torch
 
 from ..core import prng
+from ..core import types as T
+from . import select as sel
 from .kernels import CKernel, on_cpu
 
 _I32 = torch.int32
@@ -100,6 +112,23 @@ class _StepKeysParams(ctypes.Structure):
                 ("out", ctypes.c_void_p), ("dup_word0", ctypes.c_int32),
                 ("dup_word1", ctypes.c_int32), ("B", ctypes.c_int32),
                 ("n_ext", ctypes.c_int32), ("n_write", ctypes.c_int32)]
+
+
+class _DupParams(ctypes.Structure):
+    """csrc/prng.cu `DupParams`, field for field."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "k_dupf", "k_dupd", "valid", "ev_kind", "ev_node", "dup_rate", "now",
+        "dmin", "lat_lo", "lat_hi", "tlimit", "now_out", "time_over",
+        "dup_fire", "deadline", "free_row")]
+        + [("B", ctypes.c_int32), ("N", ctypes.c_int32)])
+
+
+class _SplitRandintParams(ctypes.Structure):
+    """csrc/prng.cu `SplitRandintParams`, field for field."""
+    _fields_ = [("key", _Operand), ("out", ctypes.c_void_p),
+                ("value", ctypes.c_void_p), ("lo", ctypes.c_int32),
+                ("hi", ctypes.c_int32), ("M", ctypes.c_int32),
+                ("W", ctypes.c_int32)]
 
 
 STEP_KEYS = 6      # step_keys' keys before the extension keys
@@ -232,6 +261,119 @@ class _StepKeys(CKernel):
         return list(out.unbind(0))
 
 
+_PER_MILLION: dict = {}
+
+
+def _per_million(dev) -> torch.Tensor:
+    """A cached float32 1e-6 on `dev`: the step's dup rate is a float32
+    product with it, as the JAX step's `astype(float32) * float32(1e-6)`
+    (a tensor, so no host value is copied while a graph is captured)."""
+    t = _PER_MILLION.get(str(dev))
+    if t is None:
+        t = _PER_MILLION[str(dev)] = torch.tensor(1e-6, dtype=torch.float32,
+                                                  device=dev)
+    return t
+
+
+def dup_draws_plain(k_dupf, k_dupd, valid, ev_kind, ev_node, dup_rate, now,
+                    dmin, lat_lo, lat_hi, tlimit) -> tuple:
+    """The step's dup section from `core/prng.py`, composed as the JAX
+    step composes it (madsim_tpu/core/step.py:244-317): (now, time_over,
+    dup_fire, the popped row's deadline where(dup_fire, redeliver, T_INF),
+    its free mask valid & ~dup_fire)."""
+    dup_p = (sel.take1(dup_rate, ev_node).to(torch.float32)
+             * _per_million(now.device))
+    dup_fire = (valid & (ev_kind == T.EV_MSG)
+                & prng.bernoulli(k_dupf, dup_p))
+    # pop the slot; the clock never runs backward
+    now = torch.where(valid, torch.maximum(now, dmin), now)
+    time_over = now > tlimit
+    redeliver = now + torch.clamp(prng.randint(k_dupd, lat_lo, lat_hi),
+                                  min=1)
+    deadline = torch.where(dup_fire, redeliver,
+                           torch.full_like(now, int(T.T_INF)))
+    return now, time_over, dup_fire, deadline, valid & ~dup_fire
+
+
+class _DupDraws(CKernel):
+    """`dup_draws` on the kernel (any device the caller hands it; the
+    module's function sends only CUDA tensors here)."""
+
+    def __init__(self):
+        super().__init__("prng", "dup_draws", _DupParams)
+
+    def run(self, k_dupf, k_dupd, valid, ev_kind, ev_node, dup_rate, now,
+            dmin, lat_lo, lat_hi, tlimit) -> tuple:
+        dev = now.device
+        B = now.shape[0]
+        lanes = dict(ev_kind=ev_kind, ev_node=ev_node, now=now, dmin=dmin,
+                     lat_lo=lat_lo, lat_hi=lat_hi, tlimit=tlimit)
+        for name, t in dict(lanes, k_dupf=k_dupf, k_dupd=k_dupd,
+                            valid=valid, dup_rate=dup_rate).items():
+            want = torch.bool if name == "valid" else _I32
+            shape = {"k_dupf": (B, 2), "k_dupd": (B, 2),
+                     "dup_rate": (B, dup_rate.shape[-1])}.get(name, (B,))
+            if t.device != dev or t.dtype != want or t.shape != shape:
+                raise ValueError(
+                    f"threefry.dup_draws: {name} is {t.dtype} "
+                    f"{tuple(t.shape)} on {t.device}, expected {want} "
+                    f"{shape} on {dev}")
+        # the kernel reads a key as one 8-byte word and every other operand
+        # a lane at a time: copies where an operand is strided or a key off
+        # an 8-byte boundary (alive until the launch)
+        keys = [k if k.is_contiguous() and k.data_ptr() % 8 == 0
+                else k.clone(memory_format=torch.contiguous_format)
+                for k in (k_dupf, k_dupd)]
+        ops = {n: t.contiguous() for n, t in dict(
+            lanes, valid=valid, dup_rate=dup_rate).items()}
+        out = dict(now_out=torch.empty((B,), dtype=_I32, device=dev),
+                   time_over=torch.empty((B,), dtype=torch.bool, device=dev),
+                   dup_fire=torch.empty((B,), dtype=torch.bool, device=dev),
+                   deadline=torch.empty((B,), dtype=_I32, device=dev),
+                   free_row=torch.empty((B,), dtype=torch.bool, device=dev))
+        if B:
+            p = _DupParams(k_dupf=keys[0].data_ptr(),
+                           k_dupd=keys[1].data_ptr(), B=B,
+                           N=dup_rate.shape[-1])
+            for n, t in list(ops.items()) + list(out.items()):
+                setattr(p, n, t.data_ptr())
+            self._launch(p, dev)
+        return tuple(out.values())
+
+
+def split_randint_plain(key: torch.Tensor, lo: int, hi: int) -> tuple:
+    """`Ctx.randint`'s two draws from `core/prng.py`: split(key, 2), then
+    randint(its second key, lo, hi) inclusive. Returns (the next key, the
+    drawn key, the value)."""
+    ks = prng.split(key, 2)
+    nxt, k = ks[..., 0, :], ks[..., 1, :]
+    return nxt, k, prng.randint(k, lo, hi)
+
+
+class _SplitRandint(CKernel):
+    """`split_randint` on the kernel (any device the caller hands it; the
+    module's function sends only CUDA tensors here)."""
+
+    def __init__(self):
+        super().__init__("prng", "split_randint", _SplitRandintParams)
+
+    def run(self, key: torch.Tensor, lo: int, hi: int) -> tuple:
+        _check_key(key, "split_randint")
+        shape = tuple(key.shape[:-1])
+        M, W = _grid(shape)
+        buf = torch.empty(5 * M * W, dtype=_I32, device=key.device)
+        keys = buf[:4 * M * W].view(2, M * W, 2)
+        value = buf[4 * M * W:]
+        if M * W:
+            kview = _grid_view(key, shape, True)    # alive until launched
+            p = _SplitRandintParams(
+                key=_operand(kview), out=keys.data_ptr(),
+                value=value.data_ptr(), lo=_word(lo), hi=_word(hi), M=M, W=W)
+            self._launch(p, key.device)
+        return (keys[0].view(shape + (2,)), keys[1].view(shape + (2,)),
+                value.view(shape))
+
+
 def _bound(x, dev, what):
     """(int32 view source, value): a tensor bound, or an int by value."""
     if isinstance(x, torch.Tensor):
@@ -309,6 +451,8 @@ class _ThreefryDraw(CKernel):
 
 
 step_keys_kernel = _StepKeys()
+dup_draws_kernel = _DupDraws()
+split_randint_kernel = _SplitRandint()
 threefry_keys = _ThreefryKeys()
 threefry_draw = _ThreefryDraw()
 
@@ -319,6 +463,25 @@ def step_keys(key: torch.Tensor, halted: torch.Tensor, words, n_ext: int,
     if on_cpu(key, "threefry.step_keys"):
         return step_keys_plain(key, halted, words, n_ext, n_write)
     return step_keys_kernel.run(key, halted, words, n_ext, n_write)
+
+
+def dup_draws(k_dupf, k_dupd, valid, ev_kind, ev_node, dup_rate, now,
+              dmin, lat_lo, lat_hi, tlimit) -> tuple:
+    """The step's dup section in one launch (`dup_draws_plain`'s): (now,
+    time_over, dup_fire, the popped row's deadline, its free mask)."""
+    if on_cpu(now, "threefry.dup_draws"):
+        return dup_draws_plain(k_dupf, k_dupd, valid, ev_kind, ev_node,
+                               dup_rate, now, dmin, lat_lo, lat_hi, tlimit)
+    return dup_draws_kernel.run(k_dupf, k_dupd, valid, ev_kind, ev_node,
+                                dup_rate, now, dmin, lat_lo, lat_hi, tlimit)
+
+
+def split_randint(key: torch.Tensor, lo: int, hi: int) -> tuple:
+    """(the next key, the drawn key, randint(drawn key, lo, hi) inclusive)
+    of split(key, 2), in one launch (`split_randint_plain`'s)."""
+    if on_cpu(key, "threefry.split_randint"):
+        return split_randint_plain(key, lo, hi)
+    return split_randint_kernel.run(key, lo, hi)
 
 
 def split(key: torch.Tensor, n: int = 2) -> torch.Tensor:

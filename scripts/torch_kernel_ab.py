@@ -27,6 +27,20 @@ host falls on both sides. A measurement holds:
                   a CUDA graph (50 steps' worth) on the operands of the
                   same step 512, a step's worth; `k1_key_launches` names
                   them
+  k1_ms           all of the step's K1 launches (keys and draws: the
+                  tree's step_keys, dup_draws, split_randint,
+                  threefry_keys and threefry_draw calls of the step)
+                  replayed together the same way; `k1_launches` names them
+  apply_super_ms  the supervisor op as a CUDA-graph replay of 20 calls,
+                  each on its own copy of the leaves it writes (chip_smoke
+                  `super_apply_ms`), at the operands of the same step 512
+                  with no op lane (`no_op_lanes`), as they are
+                  (`step_512`) and with every lane a RESTART
+                  (`every_lane_restart`)
+  dup_section_ms  the device ms a step of the eager step's dup section
+                  (its `live_step.dup` profiler range, split as chip_smoke
+                  `section_split` splits it) over 16 profiled steps from
+                  the same step 512; `sections_ms` holds every section
   raft_invariant_ms, raft_invariant_pairwise_ms
                   the Raft safety check as a CUDA-graph replay (50
                   launches) on the operands of the same step 512, in the
@@ -73,6 +87,9 @@ def graph_ms(fn, n):
 
 def clone(x):
     import torch
+    from madsim_tpu_torch.core.state import SimState, map_state
+    if isinstance(x, SimState):
+        return map_state(torch.clone, x)
     if isinstance(x, torch.Tensor):
         return x.clone()
     if isinstance(x, dict):
@@ -86,20 +103,39 @@ def clone(x):
 # a tree without a wrapper or method has no such launch
 KEY_METHODS = (("step_keys", "run"), ("threefry_keys", "split"),
                ("threefry_keys", "fold_in"))
+# the step's K1 draws beside its keys
+DRAW_METHODS = (("dup_draws", "run"), ("split_randint", "run"),
+                ("threefry_draw", "randint"), ("threefry_draw", "uniform"),
+                ("threefry_draw", "bernoulli"))
+
+
+def smoke():
+    """This checkout's chip_smoke.py as a module (its timing and section
+    helpers import nothing of the port at load time)."""
+    import importlib.util
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", os.path.join(here, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
 
 
 def step_calls(rt, state):
     """(the largest put_rows_ call, the raft_invariant_check call, the
     node_gather call, [(wrapper, method, args, kwargs)] of the step's K1
-    key launches) of the next step of `state`, run on a copy with the
-    wrappers recorded: each call's operands, cloned before the call."""
+    key launches, the same of its K1 draws, the apply_super call) of the
+    next step of `state`, run on a copy with the wrappers recorded: each
+    call's operands, cloned before the call."""
     import torch
+    import madsim_tpu_torch.core.step as step_mod
     import madsim_tpu_torch.models.raft as raft_mod
     from madsim_tpu_torch.core.state import map_state
     from madsim_tpu_torch.ops import kernels
     from madsim_tpu_torch.ops import node_rows as nr
-    puts, checks, keys, gathers = [], [], [], []
+    puts, checks, keys, draws, gathers, supers = [], [], [], [], [], []
     real_put, real_check = nr.put_rows_, raft_mod.raft_invariant_check
+    real_super = step_mod.apply_super
     wrappers = kernels.wrappers()
 
     def put_spy(writes):
@@ -110,27 +146,74 @@ def step_calls(rt, state):
         checks.append(clone(args))
         return real_check(*args)
 
+    def super_spy(*args):
+        supers.append(clone(args))
+        return real_super(*args)
+
     spied = []
-    for name, meth in KEY_METHODS + (("node_gather", "run"),):
+    for name, meth in KEY_METHODS + DRAW_METHODS + (("node_gather", "run"),):
         w = wrappers.get(name)
         if w is None or not hasattr(w, meth):
             continue
         real = getattr(w, meth)
+        into = (gathers if name == "node_gather" else
+                keys if (name, meth) in KEY_METHODS else draws)
 
-        def spy(*args, _real=real, _w=w, _m=meth, **kw):
-            (gathers if _m == "run" and _w is wrappers["node_gather"]
-             else keys).append((_w, _m, clone(args), clone(kw)))
+        def spy(*args, _real=real, _w=w, _m=meth, _into=into, **kw):
+            _into.append((_w, _m, clone(args), clone(kw)))
             return _real(*args, **kw)
         setattr(w, meth, spy)          # shadows the method
         spied.append((w, meth))
     nr.put_rows_, raft_mod.raft_invariant_check = put_spy, check_spy
+    step_mod.apply_super = super_spy
     try:
         rt._step(map_state(torch.clone, state))
     finally:
         nr.put_rows_, raft_mod.raft_invariant_check = real_put, real_check
+        step_mod.apply_super = real_super
         for w, meth in spied:
             delattr(w, meth)
-    return max(puts, key=len), checks[0], gathers[0], keys
+    return (max(puts, key=len), checks[0], gathers[0], keys, draws,
+            supers[0])
+
+
+def super_ms(args):
+    """{operands: ms} of the tree's supervisor op at `args` (the step's
+    call) with no op lane, as it is, and with every lane a RESTART: each
+    timed as chip_smoke `super_apply_ms` times it (20 calls in a graph,
+    each on its own copy of the leaves the op writes)."""
+    import torch
+    from madsim_tpu_torch.core.step import apply_super
+    cs = smoke()
+    plan, s, op, node = args[:4]
+    n = plan.cfg.n_nodes
+    lanes = torch.arange(op.shape[0], device=op.device, dtype=op.dtype)
+    out = {}
+    for name, o, nd in (
+            ("no_op_lanes", torch.zeros_like(op), node.clamp(0, n - 1)),
+            ("step_512", op, node),
+            ("every_lane_restart", torch.full_like(op, 3), lanes % n)):
+        out[name] = cs.super_apply_ms(apply_super,
+                                      (plan, s, o, nd) + tuple(args[4:]))[0]
+    return out
+
+
+def sections_ms(rt, state):
+    """{section: device ms a step} of 16 eager steps of `state` (on a
+    copy) under torch.profiler, split as this checkout's chip_smoke
+    `section_split` splits them; None where the trace holds no section."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from madsim_tpu_torch.core.state import map_state
+    cs = smoke()
+    s = map_state(torch.clone, state)
+    s, _ = rt.run(s, 16, chunk=16)        # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        s, _ = rt.run(s, 16, chunk=16)
+        torch.cuda.synchronize()
+    return cs.section_split(prof, 16)[0]
 
 
 def measure(tree: str) -> dict:
@@ -152,7 +235,8 @@ def measure(tree: str) -> dict:
 
     rt = workloads.flagship_runtime(device=dev)
     s, _ = rt.run(rt.init_batch(seeds), 512, chunk=512)
-    scatter, raft_args, gather, key_calls = step_calls(rt, s)
+    scatter, raft_args, gather, key_calls, draw_calls, super_args = \
+        step_calls(rt, s)
     pr = min(graph_ms(lambda: put_rows_(scatter), 50) for _ in range(2))
     gw, _, gargs, _ = gather
     ng = min(graph_ms(lambda: gw.run(*gargs), 50) for _ in range(2))
@@ -162,7 +246,17 @@ def measure(tree: str) -> dict:
             getattr(w, meth)(*args, **kw)
     k1 = min(graph_ms(step_keys, 50) for _ in range(2))
     k1_names = [f"{w.symbol}.{meth}" for w, meth, _, _ in key_calls]
-    del gather, gargs, key_calls
+
+    def step_k1():
+        for w, meth, args, kw in key_calls + draw_calls:
+            getattr(w, meth)(*args, **kw)
+    k1_all = min(graph_ms(step_k1, 50) for _ in range(2))
+    k1_all_names = k1_names + [f"{w.symbol}.{meth}"
+                               for w, meth, _, _ in draw_calls]
+    del gather, gargs, key_calls, draw_calls
+    asup = super_ms(super_args)
+    del super_args
+    sections = sections_ms(rt, s)
     ri = min(graph_ms(lambda: raft_invariant_check(*raft_args), 50)
              for _ in range(2))
     pairwise = raft_args[:-1] + (True,)
@@ -198,6 +292,10 @@ def measure(tree: str) -> dict:
     check = not bool(s.crashed.any())
     return dict(sched_pick_ms=sp, apply_knobs_ms=ak, put_rows_ms=pr,
                 node_gather_ms=ng, k1_keys_ms=k1, k1_key_launches=k1_names,
+                k1_ms=k1_all, k1_launches=k1_all_names,
+                apply_super_ms=asup,
+                dup_section_ms=sections["dup"] if sections else None,
+                sections_ms=sections,
                 raft_invariant_ms=ri, raft_invariant_pairwise_ms=rp,
                 run_fused_ms_per_step=fused, no_crash=check)
 

@@ -11,9 +11,10 @@ versions; their tables, chunking and scalar bits run here, through the
 kernel's path with a stand-in launcher that reads and writes host memory
 through the parameter block's pointers, as the kernel does.
 
-Last, the whole flagship step with every threefry draw and row write on
-its kernel path (stand-in launchers for all four kernels) runs 192 steps
-on the CPU and ends leaf for leaf where the JAX package ends.
+Last, the whole flagship step with every threefry draw, row write and
+the supervisor op on its kernel path (stand-in launchers for all eight
+kernels) runs 192 steps on the CPU and ends leaf for leaf where the JAX
+package ends.
 """
 
 import ctypes
@@ -30,8 +31,9 @@ from madsim_tpu.ops import select as jsel
 from madsim_tpu_torch import interop, workloads
 from madsim_tpu_torch.ops import node_rows as nr
 from madsim_tpu_torch.ops import threefry as tf
-from test_torch_threefry import (_draw_standin, _keys_standin,
-                                 _step_keys_standin)
+from test_torch_step_kernels import _super_standin
+from test_torch_threefry import (_draw_standin, _dup_standin, _keys_standin,
+                                 _split_randint_standin, _step_keys_standin)
 
 B = 64
 
@@ -658,35 +660,44 @@ def test_wrappers_take_the_plain_version_on_the_cpu_and_refuse_meta():
 # --------------------------------------------------------------------------
 FLAG_B, FLAG_STEPS = 8, 192
 KERNELS = ("threefry_keys", "threefry_draw", "node_gather", "put_rows_",
-           "step_keys")
+           "step_keys", "dup_draws", "split_randint", "apply_super")
 
 
 @pytest.fixture
 def kernel_paths(monkeypatch):
-    """The five K1/K4 kernels on their kernel paths for CPU tensors, with
-    the stand-in launchers."""
+    """The K1/K4 kernels and the supervisor op on their kernel paths for
+    CPU tensors, with the stand-in launchers."""
+    from madsim_tpu_torch.ops import apply_super as asup
     monkeypatch.setattr(tf, "on_cpu", lambda t, what: False)
     monkeypatch.setattr(nr, "on_cpu", lambda t, what: False)
+    monkeypatch.setattr(asup, "on_cpu", lambda t, what: False)
     for w, fn in ((tf.threefry_keys, _keys_standin),
                   (tf.threefry_draw, _draw_standin),
                   (nr.node_gather, _gather_standin),
                   (nr.put_rows_, _put_standin),
-                  (tf.step_keys_kernel, _step_keys_standin)):
+                  (tf.step_keys_kernel, _step_keys_standin),
+                  (tf.dup_draws_kernel, _dup_standin),
+                  (tf.split_randint_kernel, _split_randint_standin),
+                  (asup.apply_super, _super_standin)):
         monkeypatch.setattr(w, "_fn", fn)
 
 
 def _counts():
+    from madsim_tpu_torch.ops.apply_super import apply_super
     return (tf.threefry_keys.launches, tf.threefry_draw.launches,
             nr.node_gather.launches, nr.put_rows_.launches,
-            tf.step_keys_kernel.launches)
+            tf.step_keys_kernel.launches, tf.dup_draws_kernel.launches,
+            tf.split_randint_kernel.launches, apply_super.launches)
 
 
 def test_flagship_on_the_kernel_paths_matches_reference(kernel_paths):
     """The traced flagship (its Lamport write a third put_rows_), 192
     steps at B=8: every leaf equal to the JAX package's; each step
     launches the same kernels: the node gather once, the step's keys in
-    one step_keys launch, and threefry_keys only for the handlers' two
-    splits."""
+    one step_keys launch, the dup section in one dup_draws launch, Raft's
+    two timer draws (`Ctx.randint` with int bounds) in two split_randint
+    launches, the supervisor op once, and no threefry_keys or
+    threefry_draw."""
     import bench
     seeds = np.arange(FLAG_B, dtype=np.uint32)
     with reference_stream():
@@ -701,11 +712,11 @@ def test_flagship_on_the_kernel_paths_matches_reference(kernel_paths):
     s, _ = rt.run(s, FLAG_STEPS - 1, chunk=FLAG_STEPS - 1)
     launched = tuple(b - a for a, b in zip(c0, _counts()))
     assert launched == tuple(FLAG_STEPS * n for n in per_step)
-    assert per_step[2] == 1 and per_step[3] == 3, dict(zip(KERNELS,
-                                                           per_step))
-    assert per_step[4] == 1 and per_step[0] == 2 and per_step[1] >= 2
+    assert dict(zip(KERNELS, per_step)) == dict(
+        threefry_keys=0, threefry_draw=0, node_gather=1, put_rows_=3,
+        step_keys=1, dup_draws=1, split_randint=2, apply_super=1)
     assert_same(want, interop.state_to_numpy(s),
-                what="flagship on the K1/K4 kernel paths")
+                what="flagship on the K1/K3/K4 kernel paths")
     assert (interop.state_to_numpy(s)[".steps"] == FLAG_STEPS).all()
 
 

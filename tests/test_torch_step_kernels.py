@@ -266,6 +266,242 @@ def test_the_kernel_paths_plain_remainder_reads_the_state_before_the_op():
     assert set(FS_LEAVES) - {p[0] for p, _ in plan.leaves} == set(FS_LEAVES)
 
 
+def _super_standin(ref, stream, seen=None):
+    """csrc/apply_super.cu on host memory, as its kernel maps the work:
+    phase 1 a thread a lane (here vectorised over the lanes: the pool
+    pick, the lane's scalar and node-vector writes, the four outputs and
+    the heavy flags); phase 2 each warp of 32 lanes (the last one partial
+    where B is not a multiple of 32) takes its heavy lanes in ballot order,
+    its 32 threads each scanning table rows c = t, t + 32, ..., writing
+    boot elements e = t, t + 32, ... of the flattened (leaf, element)
+    space (the leaf found by walking the prefix table forward) and link
+    cells q = t, t + 32, .... `seen` collects (kind, lane, thread, index)
+    of every phase-2 visit. Refuses what the launcher refuses."""
+    from madsim_tpu_torch.core import prng
+    from test_torch_node_rows import _host
+    p = ref._obj
+    B, C, N, P, L = p.B, p.C, p.N, p.P, p.n_leaves
+    nxt = 0
+    for lf in p.leaves[:L]:
+        if lf.esize not in (1, 4) or lf.row < 0 or lf.start != nxt:
+            return 1
+        nxt += lf.row
+    if nxt != p.reset_elems or not 1 <= N <= 32 or P < 2 or C < 1:
+        return 1
+
+    def i32(ptr, n):
+        return _host(ptr, n, 4).view(np.int32)
+
+    op, nd, src = i32(p.op, B), i32(p.node, B), i32(p.src, B)
+    pay = i32(p.payload, B * P).reshape(B, P)
+    key = torch.as_tensor(i32(p.key, 2 * B).reshape(B, 2).copy())
+    t_kind, t_node = i32(p.t_kind, B * C), i32(p.t_node, B * C)
+    t_deadline = i32(p.t_deadline, B * C)
+    alive, paused = _host(p.alive, B * N, 1), _host(p.paused, B * N, 1)
+    clog_node, torn = _host(p.clog_node, B * N, 1), _host(p.torn, B * N, 1)
+    link = _host(p.clog_link, B * N * N, 1)
+    dflt = i32(p.defaults, max(p.reset_elems, 1))
+
+    # ---- phase 1 ----
+    u = np.uint64
+    full = u((1 << N) - 1)
+    lanes = np.arange(B)
+
+    def bits(v):
+        v = v.reshape(B, N).astype(u)
+        return (v << np.arange(N, dtype=u)).sum(1).astype(u)
+
+    rand = nd == -1
+    w0 = pay[:, 0].astype(np.uint32).astype(u)
+    w1 = pay[:, 1].astype(np.uint32).astype(u)
+    in_a = w0 & u(0x7FFFFFFF)
+    if N > 31:
+        in_a |= (w1 & u(1)) << u(31)
+    in_a = np.where(rand | (op == T.OP_PARTITION)
+                    | (op == T.OP_PARTITION_ONEWAY), in_a & full, u(0))
+    pool = np.full(B, full, dtype=u)
+    pool = np.where(np.isin(op, (T.OP_KILL, T.OP_PAUSE, T.OP_CLOG_NODE)),
+                    bits(alive), pool)
+    pool = np.where(op == T.OP_RESTART, ~bits(alive) & full, pool)
+    pool = np.where(op == T.OP_RESUME, bits(paused), pool)
+    pool = np.where(op == T.OP_UNCLOG_NODE, bits(clog_node), pool)
+    any_word = (w0 != 0) | ((w1 != 0) if N > 31 else False)
+    pool = np.where(any_word, pool & in_a, pool)
+    cnt = np.array([bin(int(x)).count("1") for x in pool])
+    r = prng.randint_raw(prng.split(key, 2)[:, 0], 0, torch.as_tensor(
+        np.maximum(cnt, 1).astype(np.int32))).numpy()
+    rnd = np.zeros(B, dtype=np.int64)
+    for b in np.nonzero(rand)[0]:
+        set_bits = [n for n in range(N) if (int(pool[b]) >> n) & 1]
+        rnd[b] = set_bits[r[b]] if set_bits else 0
+    eff = np.where(rand, cnt > 0, True)
+    target = np.where(rand, rnd, np.clip(nd, 0, N - 1)).astype(np.int64)
+    at = lanes * N + target
+
+    def when(c):
+        return c & eff
+
+    kill = when((op == T.OP_KILL) | (op == T.OP_RESTART))
+    boot = when((op == T.OP_INIT) | (op == T.OP_RESTART))
+    alive[at[kill | boot]] = boot[kill | boot]
+    paused[at[kill | boot | when(op == T.OP_RESUME)]] = 0
+    paused[at[when(op == T.OP_PAUSE) & ~(kill | boot)]] = 1
+    clog_node[at[when(op == T.OP_CLOG_NODE)]] = 1
+    clog_node[at[when(op == T.OP_UNCLOG_NODE)]] = 0
+    for code, v in ((T.OP_CLOG_LINK, 1), (T.OP_UNCLOG_LINK, 0)):
+        m = when(op == code)
+        link[(at * N + np.clip(src, 0, N - 1) * N + target
+              - target * N)[m]] = v
+    m = when(op == T.OP_SET_LOSS)
+    _host(p.loss, B, 4).view(np.float32)[m] = (
+        pay[m, 0].astype(np.float32) / np.float32(1e6))
+    m = when(op == T.OP_SET_LATENCY)
+    i32(p.lat_lo, B)[m] = pay[m, 0]
+    i32(p.lat_hi, B)[m] = np.maximum(pay[m, 1], pay[m, 0])
+    m = when(op == T.OP_SET_SKEW)
+    i32(p.skew, B * N)[at[m]] = np.clip(pay[m, P - 1], -T.SKEW_CAP,
+                                        T.SKEW_CAP)
+    m = when(op == T.OP_SET_DISK)
+    i32(p.disk_lat, B * N)[at[m]] = np.clip(pay[m, P - 1], 0,
+                                            T.DISK_LAT_CAP)
+    torn[at[m]] = pay[m, P - 2] != 0
+    m = when(op == T.OP_SET_DUP)
+    i32(p.dup_rate, B * N)[at[m]] = np.clip(pay[m, P - 1], 0,
+                                            T.DUP_RATE_CAP)
+    i32(p.init_node, B)[:] = np.where(boot, target, -1)
+    i32(p.target, B)[:] = target
+    _host(p.reset_mask, B, 1)[:] = kill | boot
+    _host(p.effective, B, 1)[:] = eff
+    part, oneway = when(op == T.OP_PARTITION), when(
+        op == T.OP_PARTITION_ONEWAY)
+    heal = when(op == T.OP_HEAL)
+    heavy = kill | boot | part | oneway | heal
+
+    # ---- phase 2 ----
+    leaves = p.leaves[:L]
+    for w0_ in range(0, B, 32):
+        ballot = [b for b in range(w0_, w0_ + 32) if b < B and heavy[b]]
+        for hb in ballot:           # ascending: __ffs order
+            ht, ha = int(target[hb]), int(in_a[hb])
+            for t in range(32):
+                if kill[hb]:
+                    for c in range(t, C, 32):
+                        i = hb * C + c
+                        if seen is not None:
+                            seen.append(("row", hb, t, c))
+                        if t_node[i] == ht and t_kind[i] in (T.EV_MSG,
+                                                            T.EV_TIMER):
+                            t_kind[i] = T.EV_FREE
+                            t_deadline[i] = T.T_INF
+                if boot[hb]:
+                    lf_i = 0
+                    for e in range(t, p.reset_elems, 32):
+                        while lf_i + 1 < L and e >= leaves[lf_i + 1].start:
+                            lf_i += 1
+                        lf = leaves[lf_i]
+                        if seen is not None:
+                            seen.append(("reset", hb, t, (lf_i, e - lf.start)))
+                        off = (hb * N + ht) * lf.row + e - lf.start
+                        dst = _host(lf.ptr + off * lf.esize, 1, lf.esize)
+                        dst[0] = (int(dflt[e]) & 0xFFFFFFFF if lf.esize == 4
+                                  else int(dflt[e] != 0))
+                if part[hb] or oneway[hb] or heal[hb]:
+                    for q in range(t, N * N, 32):
+                        i, j = divmod(q, N)
+                        ai, aj = (ha >> i) & 1, (ha >> j) & 1
+                        if seen is not None:
+                            seen.append(("link", hb, t, q))
+                        if part[hb]:
+                            link[hb * N * N + q] = ai != aj
+                        elif oneway[hb]:
+                            cut = (aj and not ai) if src[hb] & 1 else (
+                                ai and not aj)
+                            if cut:
+                                link[hb * N * N + q] = 1
+                        else:
+                            link[hb * N * N + q] = 0
+                    if heal[hb]:
+                        for n in range(t, N, 32):
+                            clog_node[hb * N + n] = 0
+    return 0
+
+
+SUPER_LAUNCHES = {
+    # case: (runtime, B)
+    "flagship_B1000_partial_warp": (lambda: (
+        workloads.flagship_runtime(device="cpu"), None), 1000),
+    "flagship_B1": (lambda: (workloads.flagship_runtime(device="cpu"),
+                             None), 1),
+    "fs_conn_C16_bool_leaf": (lambda: chip_smoke.fs_conn_runtime("cpu"),
+                              1003),
+    "N32_C512": (lambda: (workloads.flagship_runtime(device="cpu",
+                                                     n_nodes=32), None), 70),
+    "C100_mixed_leaves": (lambda: chip_smoke.mixed_leaf_runtime("cpu"), 333),
+    "N32_C33_mixed_leaves": (lambda: chip_smoke.mixed_leaf_runtime(
+        "cpu", N=32, C=33), 77),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SUPER_LAUNCHES))
+def test_apply_super_warp_mapping_through_the_kernel_path(monkeypatch, case):
+    """The supervisor op's kernel path on the CPU with a stand-in launcher
+    that maps the work as the kernel's two phases do, on chip_smoke's edge
+    operands: equal to `apply_super_plain` in every leaf and output, one
+    launch, in place. Each heavy lane's table rows, boot elements and link
+    cells are visited once each, by thread index mod 32 of a 32-wide
+    chunk; C not a multiple of 32 (16, 100), B not a multiple of 32 (a
+    partial last warp), N = 32, and int32, bool and zero-size leaves."""
+    from madsim_tpu_torch.core.state import map_state
+    build, B = SUPER_LAUNCHES[case]
+    rt, plan = build()
+    plan, s, op, node, src, payload, key = chip_smoke.super_edge_operands(
+        rt, B, seed=B, plan=plan)
+    seen = []
+    monkeypatch.setattr(apply_super, "_fn",
+                        lambda ref, st: _super_standin(ref, st, seen))
+    mine = map_state(torch.clone, s)
+    before = apply_super.launches
+    got = apply_super.run(plan, mine, op, node, src, payload, key)
+    assert apply_super.launches == before + 1
+    assert got[0].alive is mine.alive and got[0].t_kind is mine.t_kind
+    want = apply_super_plain(plan.cfg, plan.spec_default, plan.persist_mask,
+                             s, op, node, src, payload, key)
+    assert_same(interop.state_to_numpy(want[0]),
+                interop.state_to_numpy(got[0]), what=case)
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
+    # every heavy lane's work visited once, a 32-wide chunk a thread
+    C, N = s.t_kind.shape[1], rt.cfg.n_nodes
+    E = plan.reset_elems
+    by = {}
+    for kind, b, t, i in seen:
+        by.setdefault((kind, b), []).append((t, i))
+    kill = want[3] & (op != T.OP_INIT)
+    boot = want[1] >= 0
+    assert {b for k, b in by if k == "row"} == set(
+        torch.nonzero(kill).flatten().tolist())
+    assert {b for k, b in by if k == "reset"} == set(
+        torch.nonzero(boot).flatten().tolist())
+    flat = [(li, e) for li, (_, d) in enumerate(plan.leaves)
+            for e in range(d.numel())]
+    for (kind, b), visits in by.items():
+        idx = [i for _, i in visits]
+        if kind == "row":
+            assert sorted(idx) == list(range(C))
+            assert all(t == c % 32 for t, c in visits)
+        elif kind == "reset":
+            assert sorted(idx) == flat
+            assert all(t == flat.index(i) % 32 for t, i in visits)
+        else:
+            assert sorted(idx) == list(range(N * N))
+            assert all(t == q % 32 for t, q in visits)
+    assert len(flat) == E
+    if B > 1:           # the operands reach what the test names
+        assert kill.any() and boot.any()
+        assert any(k == "link" for k, _ in by)
+        assert B % 32 == 0 or (kill | boot)[B - B % 32:].any()
+
+
 @pytest.mark.cuda
 def test_the_plain_loss_quotient_is_correctly_rounded_on_the_card():
     """CUDA torch divides a float32 tensor by a host scalar as a multiply

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from _torch_parity import reference_stream
 from madsim_tpu.core import prng as jprng
 from madsim_tpu_torch.core import prng
@@ -230,6 +231,54 @@ def test_step_keys_matches_the_steps_former_composition():
         assert torch.equal(g, w), i
 
 
+def _jax_dup(k_sched, valid, kind, node, rate, now, dmin, lo, hi, tlimit):
+    """The JAX step's dup composition for one lane (madsim_tpu/core/
+    step.py:244-317): (now, time_over, dup_fire, the popped row's
+    deadline, its free mask)."""
+    from madsim_tpu.core import types as JT
+    from madsim_tpu.ops import select as jsel
+    dup_p = (jsel.take1(rate, node).astype(jnp.float32)
+             * jnp.float32(1e-6))
+    k_dupf = jax.random.fold_in(k_sched, chip_smoke.DUP_WORDS[0])
+    fire = valid & (kind == JT.EV_MSG) & jprng.bernoulli(k_dupf, dup_p)
+    now = jnp.where(valid, jnp.maximum(now, dmin), now)
+    time_over = now > tlimit
+    k_dupd = jax.random.fold_in(k_sched, chip_smoke.DUP_WORDS[1])
+    redeliver = now + jnp.maximum(jprng.randint(k_dupd, lo, hi), 1)
+    deadline = jnp.where(fire, redeliver, jnp.asarray(JT.T_INF, jnp.int32))
+    return now, time_over, fire, deadline, valid & ~fire
+
+
+def _dup_operands(case, n=B):
+    """chip_smoke's dup operands for `case`: (numpy arrays for the JAX
+    side, the port's dup_draws operands on the CPU)."""
+    ops = chip_smoke.dup_edge_operands(case, n)
+    return ops, chip_smoke.dup_draws_args(ops, "cpu")
+
+
+@pytest.mark.parametrize("case", chip_smoke.DUP_CASES)
+def test_dup_draws_plain_is_the_jax_steps_dup_composition(case):
+    """`dup_draws_plain` (the dup_draws kernel's plain version, what the
+    step's dup section takes on the CPU) against the JAX step's
+    composition: rates 0 and at the 900000 cap, lat_lo == lat_hi and
+    lat_hi < lat_lo, invalid lanes, non-message kinds, now past tlimit."""
+    ops, args = _dup_operands(case)
+    with reference_stream():
+        want = jax.vmap(_jax_dup)(*ops)
+    got = tf.dup_draws(*args)
+    names = ("now", "time_over", "dup_fire", "deadline", "free")
+    for name, g, w in zip(names, got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                      err_msg=name)
+    fire = got[2].numpy()
+    if case in ("rate_zero", "invalid_lanes", "non_message_kinds",
+                "mixed", "rate_cap"):
+        # the operands reach what the case names
+        assert fire.any() != (case == "rate_zero")
+    if case == "past_time_limit":     # strict >: a tie is not late
+        assert 0.5 < float(got[1].float().mean()) < 1
+
+
 def test_wrappers_take_the_plain_version_on_the_cpu_and_refuse_meta():
     _, tk = _keys(seed=23)
     before = (tf.threefry_keys.launches, tf.threefry_draw.launches)
@@ -364,11 +413,72 @@ def _draw_standin(ref, stream):
     return 0
 
 
+def _lane_vec(ptr, n, dtype=np.int32):
+    size = np.dtype(dtype).itemsize
+    return torch.as_tensor(np.frombuffer(
+        (ctypes.c_char * (n * size)).from_address(ptr), dtype=dtype,
+        count=n).copy())
+
+
+def _dup_standin(ref, stream):
+    """csrc/prng.cu `dup_draws` on host memory, as its kernel computes a
+    lane: the clock and time_over; the Bernoulli drawn only where the
+    lane may fire (valid, a message, p = float32(rate) * 1e-6 > 0), the
+    latency only where it fired. Refuses what the launcher refuses."""
+    p = ref._obj
+    if p.B < 0 or p.N < 1 or not p.k_dupf or not p.k_dupd \
+            or p.k_dupf % 8 or p.k_dupd % 8:
+        return 1
+    B, N = p.B, p.N
+    keys = [_grid(tf._Operand(ptr, 2, 0), B, 1, np.int32, pair=True)[:, 0]
+            for ptr in (p.k_dupf, p.k_dupd)]
+    valid = _lane_vec(p.valid, B, np.bool_)
+    kind, node = _lane_vec(p.ev_kind, B), _lane_vec(p.ev_node, B)
+    now0, dmin = _lane_vec(p.now, B), _lane_vec(p.dmin, B)
+    lo, hi = _lane_vec(p.lat_lo, B), _lane_vec(p.lat_hi, B)
+    tlimit = _lane_vec(p.tlimit, B)
+    rate = _lane_vec(p.dup_rate, B * N).reshape(B, N)
+    now = torch.where(valid, torch.maximum(now0, dmin), now0)
+    r = rate[torch.arange(B), node.clamp(0, N - 1).long()]
+    prob = torch.as_tensor(r.numpy().astype(np.float32) * np.float32(1e-6))
+    may = valid & (kind == 1) & (prob > 0)
+    fire = torch.zeros(B, dtype=torch.bool)
+    fire[may] = prng.bernoulli(keys[0][may], prob[may])
+    deadline = torch.full((B,), 2 ** 31 - 1, dtype=torch.int32)
+    lat = prng.randint(keys[1][fire], lo[fire], hi[fire])
+    deadline[fire] = now[fire] + torch.clamp(lat, min=1)
+    for ptr, t in ((p.now_out, now), (p.time_over, now > tlimit),
+                   (p.dup_fire, fire), (p.deadline, deadline),
+                   (p.free_row, valid & ~fire)):
+        _store(ptr, t)
+    return 0
+
+
+def _split_randint_standin(ref, stream):
+    """csrc/prng.cu `split_randint` on host memory: split(key, 2)'s two
+    blocks unrolled, the next key and the drawn key stored [2, M * W, 2],
+    and randint(drawn key, lo, hi) inclusive. Refuses what the launcher
+    refuses."""
+    p = ref._obj
+    if p.M < 0 or p.W < 0 or not p.key.ptr or not p.out or not p.value \
+            or p.out % 8 or 4 * p.M * p.W >= 2 ** 31:
+        return 1
+    key = _grid(p.key, p.M, p.W, np.int32, pair=True).reshape(-1, 2)
+    x0, x1 = _blocks(key[:, 0], key[:, 1], 2)
+    nxt, drawn = _split_out(x0, x1, 2, 0), _split_out(x0, x1, 2, 1)
+    _store(p.out, torch.stack([nxt, drawn]))
+    _store(p.value, prng.randint(drawn, p.lo, p.hi))
+    return 0
+
+
 @pytest.fixture
 def standin(monkeypatch):
     monkeypatch.setattr(tf.step_keys_kernel, "_fn", _step_keys_standin)
     monkeypatch.setattr(tf.threefry_keys, "_fn", _keys_standin)
     monkeypatch.setattr(tf.threefry_draw, "_fn", _draw_standin)
+    monkeypatch.setattr(tf.dup_draws_kernel, "_fn", _dup_standin)
+    monkeypatch.setattr(tf.split_randint_kernel, "_fn",
+                        _split_randint_standin)
 
 
 def _batch_keys(shape, seed):
@@ -495,6 +605,157 @@ def test_step_keys_refuses_a_bad_table_and_launches_nothing_for_no_lanes(
         tf.step_keys_kernel.run(key, halted[:4], DUP_WORDS, 2, 1)
     with pytest.raises(ValueError, match="extension keys"):
         tf.step_keys_kernel.run(key, halted, DUP_WORDS, 2, 3)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "keys_one_word_in",
+                                    "strided_lanes"])
+@pytest.mark.parametrize("case", chip_smoke.DUP_CASES)
+def test_dup_draws_through_the_kernel_path(standin, case, layout):
+    """The dup section's launch against its plain version, one launch:
+    every case of the JAX parity test; keys one int32 off an 8-byte
+    boundary and lane operands strided (both copied before the launch)."""
+    args = _dup_operands(case, n=131)[1]
+    if layout == "keys_one_word_in":
+        flat = [torch.zeros(2 * 131 + 1, dtype=torch.int32) for _ in "ab"]
+        for f, k in zip(flat, args[:2]):
+            f[1:] = k.flatten()
+        args[:2] = [f[1:].view(131, 2) for f in flat]
+    elif layout == "strided_lanes":
+        args[2:] = [torch.stack([a, a], -1)[..., 0] if a.ndim == 1
+                    else a for a in args[2:]]
+        assert not args[3].is_contiguous()
+    before = tf.dup_draws_kernel.launches
+    got = tf.dup_draws_kernel.run(*args)
+    assert tf.dup_draws_kernel.launches == before + 1
+    want = tf.dup_draws_plain(*args)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_dup_draws_refuses_bad_operands_and_launches_nothing_for_no_lanes(
+        standin):
+    args = _dup_operands("mixed", n=8)[1]
+    before = tf.dup_draws_kernel.launches
+    none = tf.dup_draws_kernel.run(*[a[:0] for a in args])
+    assert [t.shape for t in none] == [(0,)] * 5
+    assert tf.dup_draws_kernel.launches == before
+    with pytest.raises(ValueError, match="valid"):
+        tf.dup_draws_kernel.run(*args[:2], args[2].to(torch.int32),
+                                *args[3:])
+    with pytest.raises(ValueError, match="lat_lo"):
+        tf.dup_draws_kernel.run(*args[:8], args[8][:4], *args[9:])
+
+
+SPLIT_RANDINT_CASES = {
+    # case: (keys, lo, hi)
+    "raft_election": (lambda: _batch_keys((B,), 70), 150_000, 300_000),
+    "from_zero": (lambda: _batch_keys((B,), 71), 0, 999),
+    "equal_bounds": (lambda: _batch_keys((B,), 72), 7, 7),
+    "hi_below_lo": (lambda: _batch_keys((B,), 73), 9, -4),
+    "inclusive_int32_max": (lambda: _batch_keys((B,), 74), 0, I32_MAX),
+    "whole_range": (lambda: _batch_keys((B,), 75), I32_MIN, I32_MAX),
+    "strided_keys": (lambda: prng.split(_batch_keys((B,), 76), 2)[:, 0],
+                     0, 20_000),
+    "one_key": (lambda: _batch_keys((1,), 77)[0], 3, 40),
+    "grid_3d": (lambda: _batch_keys((3, 4, 5), 78), -50, 50),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_RANDINT_CASES))
+def test_split_randint_through_the_kernel_path(standin, case):
+    """One launch against the two plain calls it replaces (`split(key,
+    2)`, then `randint(its second key, lo, hi)`): the next key, the drawn
+    key and the value, each contiguous, for int bounds at the int32
+    extremes, equal and inverted bounds, strided keys, one key, a 3-d
+    batch."""
+    keys, lo, hi = SPLIT_RANDINT_CASES[case]
+    key = keys()
+    before = tf.split_randint_kernel.launches
+    got = tf.split_randint_kernel.run(key, lo, hi)
+    assert tf.split_randint_kernel.launches == before + 1
+    ks = prng.split(key, 2)
+    want = (ks[..., 0, :], ks[..., 1, :], prng.randint(ks[..., 1, :], lo, hi))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.is_contiguous()
+        assert torch.equal(g, w)
+    for g, w in zip(got, tf.split_randint_plain(key, lo, hi)):
+        assert torch.equal(g, w)
+
+
+def test_split_randint_matches_jax():
+    """`Ctx.randint`'s draw, the split and the inclusive randint of the
+    second key, against jax on the handlers' [B, 2] keys."""
+    jk, tk = _keys(seed=79)
+    with reference_stream():
+        ks = jax.vmap(lambda k: jprng.split(k, 2))(jk)
+        val = jax.vmap(lambda k: jprng.randint(k, 150, 300))(ks[:, 1])
+    nxt, k, v = tf.split_randint(tk, 150, 300)
+    np.testing.assert_array_equal(_u32(nxt), np.asarray(ks[:, 0]))
+    np.testing.assert_array_equal(_u32(k), np.asarray(ks[:, 1]))
+    np.testing.assert_array_equal(v.numpy(), np.asarray(val))
+
+
+@pytest.fixture
+def ctx_kernel_paths(standin, monkeypatch):
+    """Ctx's draws on the kernels' paths for CPU tensors (stand-ins)."""
+    monkeypatch.setattr(tf, "on_cpu", lambda t, what: False)
+
+
+def _ctx(key, draws):
+    import madsim_tpu_torch as P
+    from madsim_tpu_torch.core.api import Ctx
+    n = key.shape[0]
+    z = torch.zeros(n, dtype=torch.int32)
+    return Ctx(P.SimConfig(n_nodes=3), z, z, key, {}, draws=draws)
+
+
+def _launches():
+    return (tf.split_randint_kernel.launches, tf.threefry_keys.launches,
+            tf.threefry_draw.launches)
+
+
+def test_ctx_randint_fills_both_memo_entries_as_the_two_calls_did(
+        ctx_kernel_paths):
+    """Contexts sharing one key and one draw memo, as the step's handler
+    contexts do: the first `randint(3, 40)` is one split_randint launch
+    and fills the split and randint memo entries, so a later `rand_key`,
+    `uniform`, `bernoulli` or repeated `randint` on any context sees the
+    keys and draws of the two-call path (`split`, then `randint`, both
+    from core/prng.py); a draw the memo lacks launches its own kernel."""
+    _, key = _keys(seed=80)
+    ks1 = prng.split(key, 2)
+    ks2 = prng.split(ks1[:, 0], 2)
+    ks3 = prng.split(ks2[:, 0], 2)
+    draws = {}
+    c1 = _ctx(key, draws)
+    l0 = _launches()
+    v1 = c1.randint(3, 40)
+    assert _launches() == (l0[0] + 1, l0[1], l0[2])
+    assert torch.equal(v1, prng.randint(ks1[:, 1], 3, 40))
+    assert torch.equal(c1.rand_key(), ks2[:, 1])        # a threefry split
+    assert torch.equal(c1.randint(3, 40), prng.randint(ks3[:, 1], 3, 40))
+    assert _launches() == (l0[0] + 2, l0[1] + 1, l0[2])
+    # another context on the same key: every draw from the memo
+    c2 = _ctx(key, draws)
+    l1 = _launches()
+    assert torch.equal(c2.randint(3, 40), v1)
+    assert torch.equal(c2.rand_key(), ks2[:, 1])
+    assert torch.equal(c2.randint(3, 40), prng.randint(ks3[:, 1], 3, 40))
+    assert _launches() == l1
+    # other bounds on a memoised key: its own draw launch
+    assert torch.equal(c2.randint(0, 5), prng.randint(
+        prng.split(ks3[:, 0], 2)[:, 1], 0, 5))
+    c3 = _ctx(key, draws)
+    assert torch.equal(c3.rand_key(), ks1[:, 1])
+    assert torch.equal(c3.randint(0, 9), prng.randint(ks2[:, 1], 0, 9))
+    assert torch.equal(c3.uniform(), prng.uniform(ks3[:, 1]))
+    c4 = _ctx(key, draws)
+    c4.randint(3, 40)
+    assert torch.equal(c4.bernoulli(0.5), prng.bernoulli(ks2[:, 1], 0.5))
+    # a fresh memo: the same values through the kernel paths
+    c5 = _ctx(key, {})
+    assert torch.equal(c5.randint(3, 40), v1)
+    assert torch.equal(c5.randint(0, 9), prng.randint(ks2[:, 1], 0, 9))
 
 
 def _bounds(kind):
