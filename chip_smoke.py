@@ -14,6 +14,7 @@ the frozen golden digests. One JSON object per line, in phases:
 
   device       torch / CUDA versions, the card's name and power limit
   build        nvcc of every kernel source, in parallel, with ptxas stats
+               (each kernel's registers, static shared memory and spills)
   golden       the frozen golden workloads (pingpong with the flight
                recorder, trace_cap=64: 64 seeds, 4000 steps, chunk 256;
                wal_kv: 32 seeds, 30,000 steps, chunk 512), each through
@@ -97,7 +98,12 @@ the frozen golden digests. One JSON object per line, in phases:
                mutate, apply_knobs and coverage_digest on the flagship's
                own operands at B=100,000 (the first mutated fuzz round's
                parents and key, the last round's init state and knobs,
-               explore's first schedule hashes) and on edge cases (havoc 0,
+               explore's first schedule hashes; mutate also on that
+               round's operands cut to its tile + 1 and to 4099 lanes,
+               masked, and with row_time one element off a 16-byte
+               boundary, which turns its 16-byte copies off; its tile and
+               dynamic shared memory beside its time) and on edge cases
+               (havoc 0,
                1 and 6, masked; a plan with value, direction, torn, pool
                and dup rows; foreign knobs out of every bound; hashes with
                the top bit set, all equal, all distinct, one lane, B=1,
@@ -139,9 +145,12 @@ the frozen golden digests. One JSON object per line, in phases:
                writes, restored outside the timed replay, at the three
                step-512 operands (no op lane, as they are, every lane a
                RESTART: its time against its op count);
-               fingerprint on the flagship's state at step 2048, the
-               golden pingpong (traced) and wal_kv states and wal_kv's
-               with zero-size leaves added;
+               fingerprint on the flagship's state at step 2048 (also
+               with its payload one element and its halted leaf one byte
+               off a 16-byte boundary, and cut to one lane and to its
+               tile + 1 lanes), the golden pingpong (traced) and wal_kv
+               states and wal_kv's with zero-size leaves added, with its
+               tile and dynamic shared memory beside its time;
                step_keys, dup_draws, split_randint, threefry_keys,
                threefry_draw, node_gather and put_rows_ on every call of
                the flagship's step 512, the torn-write flush's calls of
@@ -2217,7 +2226,8 @@ def main() -> int:
     t0 = time.perf_counter()
     report = kernels.build_all(force=True)
     ptxas = {k: [ln.strip() for ln in r["log"].splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "entry function" in ln or "registers" in ln
+                 or "spill" in ln]
              for k, r in report.items()}
     emit(phase="build", seconds=time.perf_counter() - t0,
          kernels=sorted(report), ptxas=ptxas)
@@ -2891,8 +2901,25 @@ def main() -> int:
         apply_knobs_plain
     from madsim_tpu_torch.ops.coverage import coverage_digest, \
         coverage_digest_plain, sort_key
-    from madsim_tpu_torch.ops.mutate import mutate_batch, mutate_batch_plain
+    from madsim_tpu_torch.ops.mutate import (mutate_batch, mutate_batch_plain,
+                                             mutate_tile)
     search_kernels = {}
+    # the first mutated round's own operands: at B not a multiple of the
+    # kernel's tile, masked, and with a knob array off a 16-byte boundary
+    main_m = f"flagship_round_{first_mut}"
+    kb_m, key_m, guards_m, havoc_m, _ = mutate_cases[main_m]
+    R_m, D_m = kb_m["row_time"].shape[1], kb_m["dup_src"].shape[1]
+    m_tile, m_smem = mutate_tile(R_m, D_m, guards_m["pool_ok"].shape[1] - 1)
+    for n in (m_tile + 1, 4099):
+        mutate_cases[f"{main_m}_B{n}"] = (
+            {k: v[:n] for k, v in kb_m.items()}, key_m, guards_m, havoc_m,
+            None)
+    mutate_cases[f"{main_m}_masked"] = (
+        kb_m, key_m, guards_m, havoc_m, torch.as_tensor(
+            np.random.default_rng(7).random(FLAG_B) < 0.6, device=dev))
+    mutate_cases[f"{main_m}_row_time_one_element_in"] = (
+        dict(kb_m, row_time=unaligned(kb_m["row_time"])), key_m, guards_m,
+        havoc_m, None)
     edge_rts = {"all_knobs": workloads.all_knobs_runtime(device=dev),
                 "flagship": workloads.flagship_runtime(device=dev)}
     for pname, ert in edge_rts.items():
@@ -2969,6 +2996,7 @@ def main() -> int:
         lib_ms = None
         if kname == "mutate":
             nbytes, ops = mutate_bound(*margs)
+            extra = dict(tile=m_tile, smem_bytes=m_smem)
         elif kname == "apply_knobs":
             nbytes, ops = apply_bound(*margs), 0
             # the write's own layout, for scale: torch's fill_ of the
@@ -3156,14 +3184,29 @@ def main() -> int:
         pay_m, key_m
 
     # ---- kernel: the state fingerprint against its plain version ------------
-    from madsim_tpu_torch.utils.hashing import fingerprint, fingerprint_plain
+    from madsim_tpu_torch.utils.hashing import (_KIND, _leaves, fingerprint,
+                                                fingerprint_plain, fp_layout,
+                                                fp_tile)
+    main_f = fp_cases[f"flagship_step_{FLAG_STEPS}"]
+    fp_meta = [(t.numel() // FLAG_B, _KIND[t.dtype]) for t in _leaves(main_f)]
+    f_tile = fp_tile(fp_meta)
+    f_smem = fp_layout(fp_meta, f_tile)[1]
+    # one leaf off a 16-byte boundary (an int32 leaf 4 bytes: 4-byte copies;
+    # a bool leaf 1 byte: an element at a time), one lane, a tile and one
+    for name, st in (
+            ("payload_one_element_in",
+             main_f.replace(t_payload=unaligned(main_f.t_payload))),
+            ("halted_one_byte_in",
+             main_f.replace(halted=unaligned(main_f.halted))),
+            ("B1", slice_lanes(main_f, 1)),
+            (f"B{f_tile + 1}", slice_lanes(main_f, f_tile + 1))):
+        fp_cases[f"flagship_step_{FLAG_STEPS}_{name}"] = st
     err = 0
     for name, st in fp_cases.items():
         out_k = fingerprint(st)
         out_p = fingerprint_plain(st)
         torch.cuda.synchronize()
         err = max(err, check_equal(f"fingerprint on {name}", out_k, out_p))
-    main_f = fp_cases[f"flagship_step_{FLAG_STEPS}"]
     fk, fpl, fk2, fpl2 = (graph_ms(lambda: fingerprint(main_f), 20),
                           cuda_ms(lambda: fingerprint_plain(main_f), 3),
                           graph_ms(lambda: fingerprint(main_f), 20),
@@ -3177,7 +3220,8 @@ def main() -> int:
          main_case=f"flagship_step_{FLAG_STEPS}", exact=True,
          max_abs_err=err, launches_on_main_path=fp_launches,
          ms=[fk, fk2], plain_ms=[fpl, fpl2], bound_bytes=nbytes,
-         bound_ms=fpk["bound_ms"], bound_by="bytes", library="none")
+         bound_ms=fpk["bound_ms"], bound_by="bytes", library="none",
+         tile=f_tile, smem_bytes=f_smem)
     del fp_cases, main_f
 
     # ---- kernel: the threefry draws (K1) and the node rows (K4) -------------
@@ -3380,7 +3424,7 @@ def main() -> int:
         dict(name=k, route="cuda", source=f"madsim_tpu_torch/csrc/{src}",
              replaces=where, launches=n, **search_kernels[k])
         for k, src, where, n in (
-            ("mutate", "mutate.cu", "madsim_tpu/search/mutate.py:470",
+            ("mutate", "mutate.cu", "madsim_tpu/search/mutate.py:471",
              fuzz_launch["mutate"]),
             ("apply_knobs", "apply_knobs.cu",
              "madsim_tpu/search/mutate.py:499", fuzz_launch["apply_knobs"]),

@@ -54,6 +54,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
+# the most dynamic shared memory a block of these kernels asks for: the
+# H100's 227 KB a block less 1 KB for the kernels' static shared memory
+SMEM_MAX = 231_424
+
+
+def up16(x: int) -> int:
+    """x rounded up to a multiple of 16 (a 16-byte aligned region)."""
+    return (x + 15) // 16 * 16
+
 
 def nvcc_path() -> str:
     found = shutil.which("nvcc")

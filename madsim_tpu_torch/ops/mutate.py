@@ -3,7 +3,7 @@ kernel (csrc/mutate.cu), and `mutate_batch_plain`, the same function in
 plain PyTorch.
 
 It replaces the JAX package's `_mutate_batch` and `_mutate_batch_masked`
-(`madsim_tpu/search/mutate.py:470,481`, body `_mutate_one` at `:344`):
+(`madsim_tpu/search/mutate.py:471,482`, body `_mutate_one` at `:344`):
 lane b takes key b of `split(key, B)`; each of its `havoc` stacked steps
 takes one key of `split(lane_key, havoc)`, splits it 16 ways, draws an
 operator in [0, 8) from the first and applies that operator under the
@@ -36,9 +36,11 @@ bool [R], val_lo, val_hi int32 [R], pool_ok bool [R, N + 1]. The key is
 one int32 [2] tensor of uint32 bit patterns.
 
 `mutate_batch` takes the plain version only for tensors on the CPU; for
-CUDA tensors it launches the kernel or raises. `launches` counts kernel
-launches; a launch recorded into a CUDA graph under capture counts in
-`captured` instead.
+CUDA tensors it launches the kernel or raises. The kernel takes a tile of
+T lanes a block (`mutate_tile`: T and its shared-memory bytes from R, D
+and N) and copies the tile's rows 16 bytes an access where every knob
+array is 16-byte aligned. `launches` counts kernel launches; a launch
+recorded into a CUDA graph under capture counts in `captured` instead.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ import torch
 from ..core import prng
 from ..core import types as T
 from . import select as sel
+from .kernels import SMEM_MAX, CKernel, on_cpu, up16
 
 N_MUT_OPS = 8
 LAT_CAP = 30_000_000      # latency knob bound (30 simulated seconds)
@@ -60,6 +63,8 @@ KNOB_KEYS = ("row_time", "row_node", "row_on", "row_val", "row_flag",
 GUARD_KEYS = ("time_ok", "node_ok", "drop_ok", "pool_ok", "val_ok",
               "val_lo", "val_hi", "dir_ok", "torn_ok")
 _BOOL_KNOBS = ("row_on", "dup_on")
+# the knob arrays the kernel stages a tile at a time ([B, R] and [B, D])
+_TILED = tuple(n for n in KNOB_KEYS if n.startswith(("row_", "dup_")))
 _TIME_MAX = int(T.T_INF) - 1
 # 0.2 as the float32 the JAX expression multiplies by, exactly, in float64
 _F32_0_2 = float(torch.tensor(0.2, dtype=torch.float32))
@@ -185,7 +190,16 @@ def mutate_batch_plain(knobs: dict, key: torch.Tensor, guards: dict,
     input knobs, no operator)."""
     B = knobs["row_time"].shape[0]
     dev = knobs["row_time"].device
-    lane_keys = prng.split(key.to(dev), B)                  # [B, 2]
+    return mutate_lanes(knobs, prng.split(key.to(dev), B), guards, havoc,
+                        mask)
+
+
+def mutate_lanes(knobs: dict, lane_keys: torch.Tensor, guards: dict,
+                 havoc: int, mask: torch.Tensor | None = None):
+    """`mutate_batch_plain` of lanes whose keys of `split(key, B)` are given
+    ([B', 2]): the work of the lanes of one tile of the kernel."""
+    B = knobs["row_time"].shape[0]
+    dev = knobs["row_time"].device
     kn = dict(knobs)
     hist = torch.zeros((B, N_MUT_OPS), dtype=torch.int32, device=dev)
     last_op = torch.full((B,), -1, dtype=torch.int32, device=dev)
@@ -205,6 +219,44 @@ def mutate_batch_plain(knobs: dict, key: torch.Tensor, guards: dict,
     return kn, hist.sum(0, dtype=torch.int32), last_op
 
 
+# The kernel's tile (csrc/mutate.cu): T lanes a block, GROUP threads a lane
+# while drawing, the tile's knob rows and the guards in shared memory.
+GROUP = 4
+TILES = (128, 64, 32)           # the tiles the kernel takes, largest first
+SMEM_TARGET = 56 * 1024         # the largest tile within this is taken
+                                # (four blocks an SM fit the card's 227 KB)
+
+def mutate_smem(T: int, R: int, D: int, N: int) -> int:
+    """Dynamic shared-memory bytes of a T-lane tile (csrc/mutate.cu
+    `tile_layout`): the four guard lists, val_lo, val_hi, the guard flags,
+    the pool, the draws (48 bytes a lane and thread, the first 16 of which
+    then hold the step's edit values), the lists of randint and of word
+    draws (3 and 2 uint16 a lane and thread), the lane keys (8 bytes a
+    lane), then the tile's row_time, row_node, row_val, row_flag, row_on,
+    dup_src, dup_time and dup_on, each region 16-byte aligned."""
+    return (up16(16 * R) + 2 * up16(4 * R) + up16(R) + up16(R * (N + 1))
+            + 48 * T * GROUP + up16(6 * T * GROUP) + up16(4 * T * GROUP)
+            + 8 * T + 4 * up16(4 * T * R) + up16(T * R)
+            + 2 * up16(4 * T * D) + up16(T * D))
+
+
+def mutate_tile(R: int, D: int, N: int) -> tuple:
+    """(T, shared-memory bytes) of the kernel's tile for a plan: the
+    largest of TILES within SMEM_TARGET, else 32 lanes where they fit the
+    card; a plan no 32-lane tile fits is refused."""
+    for T in TILES:
+        smem = mutate_smem(T, R, D, N)
+        if smem <= SMEM_TARGET:
+            return T, smem
+    smem = mutate_smem(TILES[-1], R, D, N)
+    if smem > SMEM_MAX:
+        raise NotImplementedError(
+            f"mutate: a {TILES[-1]}-lane tile of R={R}, D={D}, N={N} takes "
+            f"{smem} bytes of shared memory; the card gives a block "
+            f"{SMEM_MAX}")
+    return TILES[-1], smem
+
+
 class _Params(ctypes.Structure):
     """csrc/mutate.cu `MutateParams`, field for field."""
     _fields_ = (
@@ -212,7 +264,8 @@ class _Params(ctypes.Structure):
         + [("out_" + n, ctypes.c_void_p) for n in KNOB_KEYS]
         + [(n, ctypes.c_void_p) for n in GUARD_KEYS]
         + [(n, ctypes.c_void_p) for n in ("key", "mask", "hist", "last_op")]
-        + [(n, ctypes.c_int) for n in ("B", "R", "D", "N", "havoc")])
+        + [(n, ctypes.c_int) for n in ("B", "R", "D", "N", "havoc", "tile",
+                                       "smem", "vec")])
 
 
 def _check(name, t, dtype, shape, device):
@@ -248,27 +301,23 @@ def guard_shapes(R: int, N: int) -> dict:
     return out
 
 
-class _MutateBatch:
+class _MutateBatch(CKernel):
     """Callable wrapper: CPU tensors -> `mutate_batch_plain`; CUDA tensors
     -> the kernel. `launches` counts kernel launches (and nothing else);
     `captured` counts launches recorded into a CUDA graph."""
 
     def __init__(self):
-        self.launches = 0
-        self.captured = 0
-        self._fn = None
-
-    def _kernel(self):
-        if self._fn is None:
-            from .kernels import load
-            fn = load("mutate").mutate_launch
-            fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+        super().__init__("mutate", "mutate", _Params)
 
     def __call__(self, knobs: dict, key: torch.Tensor, guards: dict,
                  havoc: int, mask: torch.Tensor | None = None):
+        if on_cpu(knobs["row_time"], "mutate"):
+            self._check(knobs, key, guards, havoc, mask)
+            return mutate_batch_plain(knobs, key, guards, havoc, mask)
+        return self.run(knobs, key, guards, havoc, mask)
+
+    @staticmethod
+    def _check(knobs, key, guards, havoc, mask):
         dev = knobs["row_time"].device
         B, R = knobs["row_time"].shape
         D = knobs["dup_src"].shape[1]
@@ -284,14 +333,21 @@ class _MutateBatch:
             checks.append(("mask", mask, torch.bool, (B,)))
         for name, t, dt, shape in checks:
             _check(name, t, dt, shape, dev)
-        if dev.type == "cpu":
-            return mutate_batch_plain(knobs, key, guards, havoc, mask)
-        if dev.type != "cuda":
-            raise ValueError(f"mutate: unsupported device {dev}")
+        return dev
+
+    def run(self, knobs: dict, key: torch.Tensor, guards: dict, havoc: int,
+            mask: torch.Tensor | None = None):
+        """The kernel's path, on any device (the CPU tests hand it a
+        stand-in launcher)."""
+        dev = self._check(knobs, key, guards, havoc, mask)
+        B, R = knobs["row_time"].shape
+        D = knobs["dup_src"].shape[1]
+        N = guards["pool_ok"].shape[1] - 1
+        tile, smem = mutate_tile(R, D, N)
         out = {n: torch.empty_like(knobs[n]) for n in KNOB_KEYS}
         hist = torch.zeros((N_MUT_OPS,), dtype=torch.int32, device=dev)
         last_op = torch.empty((B,), dtype=torch.int32, device=dev)
-        p = _Params()
+        p = _Params(B=B, R=R, D=D, N=N, havoc=havoc, tile=tile, smem=smem)
         for n in KNOB_KEYS:
             setattr(p, "in_" + n, knobs[n].data_ptr())
             setattr(p, "out_" + n, out[n].data_ptr())
@@ -300,18 +356,10 @@ class _MutateBatch:
         p.key = key.data_ptr()
         p.mask = mask.data_ptr() if mask is not None else None
         p.hist, p.last_op = hist.data_ptr(), last_op.data_ptr()
-        p.B, p.R, p.D, p.N, p.havoc = B, R, D, N, havoc
-        fn = self._kernel()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        with torch.cuda.device(dev):
-            err = fn(ctypes.byref(p), stream)
-        if err != 0:
-            raise RuntimeError(f"mutate: kernel launch failed "
-                               f"(cudaError {err})")
-        if torch.cuda.is_current_stream_capturing():
-            self.captured += 1
-        else:
-            self.launches += 1
+        p.vec = int(all(t.data_ptr() % 16 == 0 for n in _TILED
+                        for t in (knobs[n], out[n])))
+        if B:
+            self._launch(p, dev)
         return out, hist, last_op
 
 

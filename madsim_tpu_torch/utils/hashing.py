@@ -17,7 +17,10 @@ observation-plane fields (TRACE_FIELDS) are left out.
 
 `fingerprint` is a hand-written CUDA kernel (csrc/fingerprint.cu) for
 states on the card and `fingerprint_plain`, the same function in plain
-PyTorch, for states on the CPU; on any other device it raises.
+PyTorch, for states on the CPU; on any other device it raises. The kernel
+takes a tile of T lanes a block (`fp_tile`), each leaf's tile in its
+region of shared memory (`fp_layout`), copied 16, 8 or 4 bytes an access
+as the leaf's address allows (`fp_chunk`).
 `fingerprint.launches` counts kernel launches (a launch recorded into a
 CUDA graph under capture counts in `captured` instead).
 """
@@ -30,6 +33,7 @@ import torch
 
 from ..core.prng import MASK32, to_u64
 from ..core.state import TRACE_FIELDS, SimState
+from ..ops.kernels import SMEM_MAX, CKernel, on_cpu, up16
 
 FNV_OFFSET = 2166136261
 FNV_PRIME = 16777619
@@ -88,48 +92,84 @@ def fingerprint_plain(state: SimState) -> torch.Tensor:
 
 MAX_LEAVES = 192   # leaves of one launch (the kernel's parameter block)
 
-# how the kernel reads a leaf's elements as 32-bit words
+# how the kernel reads a leaf's elements as 32-bit words, and their bytes
 _KIND = {torch.int32: 0, torch.float32: 0, torch.bool: 1, torch.uint8: 1,
          torch.int8: 2, torch.int16: 3}
+_ESIZE = (4, 1, 1, 2)
+
+# The kernel's tile (csrc/fingerprint.cu): T <= 32 lanes a block, the lh
+# table and every leaf's elements of the tile in shared memory.
+TILES = (32, 16, 8, 4, 2, 1)    # largest first
+SMEM_TARGET = 60 * 1024         # the largest tile within this is taken
+
+def fp_layout(leaves, T: int) -> tuple:
+    """(byte offset of each leaf's region, total bytes) of a T-lane tile's
+    shared memory (csrc/fingerprint.cu `layout_ok` checks the same): the
+    lh table (4 bytes a leaf and lane), then each leaf's T * n elements,
+    every region 16-byte aligned. `leaves`: (n, kind) pairs."""
+    off = up16(4 * T * len(leaves))
+    offs = []
+    for n, kind in leaves:
+        offs.append(off)
+        off += up16(T * n * _ESIZE[kind])
+    return offs, off
+
+
+def fp_tile(leaves) -> int:
+    """The kernel's tile for these (n, kind) leaves: the largest of TILES
+    whose layout fits SMEM_TARGET, else the largest that fits the card; a
+    state no one-lane tile fits is refused."""
+    fits = [T for T in TILES if fp_layout(leaves, T)[1] <= SMEM_MAX]
+    if not fits:
+        raise NotImplementedError(
+            f"fingerprint: one lane takes {fp_layout(leaves, 1)[1]} bytes "
+            f"of shared memory; the card gives a block {SMEM_MAX}")
+    within = [T for T in fits if fp_layout(leaves, T)[1] <= SMEM_TARGET]
+    return (within or fits)[0]
+
+
+def fp_chunk(ptr: int, tile_bytes: int) -> int:
+    """The kernel's copy width for a leaf at `ptr` whose tile holds
+    `tile_bytes`: the widest of 16, 8 and 4 bytes dividing both (so every
+    tile's range starts aligned), 0 (an element at a time) if none does."""
+    for c in (16, 8, 4):
+        if ptr % c == 0 and tile_bytes % c == 0:
+            return c
+    return 0
 
 
 class _Leaf(ctypes.Structure):
     """csrc/fingerprint.cu `FpLeaf`, field for field."""
     _fields_ = [("ptr", ctypes.c_void_p), ("n", ctypes.c_int),
-                ("kind", ctypes.c_int)]
+                ("kind", ctypes.c_uint8), ("chunk", ctypes.c_uint8),
+                ("pad", ctypes.c_uint16)]
 
 
 class _Params(ctypes.Structure):
     """csrc/fingerprint.cu `FpParams`, field for field."""
-    _fields_ = [("leaves", _Leaf * MAX_LEAVES), ("out", ctypes.c_void_p),
-                ("B", ctypes.c_int), ("n_leaves", ctypes.c_int)]
+    _fields_ = [("leaves", _Leaf * MAX_LEAVES),
+                ("off", ctypes.c_int * MAX_LEAVES), ("out", ctypes.c_void_p),
+                ("B", ctypes.c_int), ("n_leaves", ctypes.c_int),
+                ("tile", ctypes.c_int), ("smem", ctypes.c_int)]
 
 
-class _Fingerprint:
+class _Fingerprint(CKernel):
     """Callable wrapper: a state on the CPU -> `fingerprint_plain`; on
     CUDA -> the kernel. `launches` counts kernel launches (and nothing
     else); `captured` counts launches recorded into a CUDA graph."""
 
     def __init__(self):
-        self.launches = 0
-        self.captured = 0
-        self._fn = None
-
-    def _kernel(self):
-        if self._fn is None:
-            from ..ops.kernels import load
-            fn = load("fingerprint").fingerprint_launch
-            fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+        super().__init__("fingerprint", "fingerprint", _Params)
 
     def __call__(self, state: SimState) -> torch.Tensor:
-        dev = state.now.device
-        if dev.type == "cpu":
+        if on_cpu(state.now, "fingerprint"):
             return fingerprint_plain(state)
-        if dev.type != "cuda":
-            raise ValueError(f"fingerprint: unsupported device {dev}")
+        return self.run(state)
+
+    def run(self, state: SimState) -> torch.Tensor:
+        """The kernel's path, on any device (the CPU tests hand it a
+        stand-in launcher)."""
+        dev = state.now.device
         B = state.now.shape[0]
         leaves = []
         for t in _leaves(state):
@@ -146,23 +186,21 @@ class _Fingerprint:
                 f"fingerprint: {len(leaves)} leaves; the kernel takes at "
                 f"most {MAX_LEAVES}")
         out = torch.empty((B,), dtype=torch.int64, device=dev)
-        p = _Params()
-        for i, t in enumerate(leaves):
+        if B == 0:
+            return out
+        meta = [(t.numel() // B, _KIND[t.dtype]) for t in leaves]
+        tile = fp_tile(meta)
+        offs, smem = fp_layout(meta, tile)
+        p = _Params(B=B, n_leaves=len(leaves), tile=tile, smem=smem)
+        for i, (t, (n, kind)) in enumerate(zip(leaves, meta)):
             p.leaves[i].ptr = t.data_ptr()
-            p.leaves[i].n = t.numel() // B if B else 0
-            p.leaves[i].kind = _KIND[t.dtype]
-        p.out, p.B, p.n_leaves = out.data_ptr(), B, len(leaves)
-        fn = self._kernel()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        with torch.cuda.device(dev):
-            err = fn(ctypes.byref(p), stream)
-        if err != 0:
-            raise RuntimeError(f"fingerprint: kernel launch failed "
-                               f"(cudaError {err})")
-        if torch.cuda.is_current_stream_capturing():
-            self.captured += 1
-        else:
-            self.launches += 1
+            p.leaves[i].n = n
+            p.leaves[i].kind = kind
+            p.leaves[i].chunk = fp_chunk(t.data_ptr(),
+                                         tile * n * _ESIZE[kind])
+            p.off[i] = offs[i]
+        p.out = out.data_ptr()
+        self._launch(p, dev)
         return out
 
 

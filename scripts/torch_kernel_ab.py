@@ -49,6 +49,16 @@ host falls on both sides. A measurement holds:
                   the traced flagship (trace_cap=64) through run_fused:
                   512 steps to warm and capture, then 1536 steps timed on
                   the host clock to a synchronise
+  fingerprint_ms  the state fingerprint as a CUDA-graph replay (20
+                  launches) on that traced flagship's state at step 2048
+                  (its fingerprinted leaves are the untraced flagship's:
+                  49 leaves, 6,895 bytes a lane)
+  mutate_ms       the havoc mutation as a CUDA-graph replay (20 launches)
+                  on the operands of the flagship fuzzer's first mutated
+                  round at B=100,000, havoc 3 (chip_smoke's
+                  `flagship_round_2`: its parents, key and guards), which
+                  one run of the new tree's fuzzer captures before the
+                  measurements and every measurement loads
 
 It prints one JSON line per measurement, then one line with each
 metric's values by side, and exits nonzero without a CUDA GPU.
@@ -59,6 +69,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 B = 100_000
@@ -216,8 +227,58 @@ def sections_ms(rt, state):
     return cs.section_split(prof, 16)[0]
 
 
-def measure(tree: str) -> dict:
-    """One measurement of the checkout at `tree` (run in a worker)."""
+class _Captured(Exception):
+    """Ends the fuzzer once its first mutation's operands are taken."""
+
+
+def prepare(tree: str, path: str) -> None:
+    """Run the fuzzer of the checkout at `tree` on the flagship as
+    chip_smoke's fuzz_flagship runs it, up to its first mutation, and save
+    that call's operands (on the CPU) to `path`."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+    from madsim_tpu_torch import workloads
+    from madsim_tpu_torch.search import fuzz
+    from madsim_tpu_torch.search import mutate as mutate_mod
+    cs = smoke()
+    real = mutate_mod.mutate_batch
+
+    def spy(knobs, key, guards, havoc, mask=None):
+        torch.save(to_cpu((knobs, key, guards, havoc, mask)), path)
+        raise _Captured
+
+    rt = workloads.flagship_runtime(device=torch.device("cuda"))
+    mutate_mod.mutate_batch = spy
+    try:
+        fuzz(rt, max_steps=cs.FUZZ_STEPS, batch=B, max_rounds=cs.FUZZ_ROUNDS,
+             havoc=cs.FUZZ_HAVOC, chunk=cs.FLAG_CHUNK, fused=True)
+    except _Captured:
+        pass
+    finally:
+        mutate_mod.mutate_batch = real
+    if not os.path.exists(path):
+        raise RuntimeError("prepare: the fuzzer never mutated")
+
+
+def to_device(x, dev):
+    """A tree of tensors copied to `dev`."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.to(dev, copy=True)
+    if isinstance(x, dict):
+        return {k: to_device(v, dev) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(to_device(v, dev) for v in x)
+    return x
+
+
+def to_cpu(x):
+    return to_device(x, "cpu")
+
+
+def measure(tree: str, operands: str) -> dict:
+    """One measurement of the checkout at `tree` (run in a worker);
+    `operands` holds the fuzzer's first mutation's operands."""
     sys.path.insert(0, os.path.abspath(tree))
     import numpy as np
     import torch
@@ -229,6 +290,8 @@ def measure(tree: str) -> dict:
     from madsim_tpu_torch.ops.raft_invariant import raft_invariant_check
     from madsim_tpu_torch.ops.sched_pick import sched_pick
     from madsim_tpu_torch.search import KnobPlan
+    from madsim_tpu_torch.search import mutate as mutate_mod
+    from madsim_tpu_torch.utils.hashing import fingerprint
     dev = torch.device("cuda")
     kernels.build_all(force=True)
     seeds = np.arange(B, dtype=np.uint32)
@@ -290,6 +353,12 @@ def measure(tree: str) -> dict:
     torch.cuda.synchronize()
     fused = (time.perf_counter() - t0) / 1536 * 1e3
     check = not bool(s.crashed.any())
+    fp = min(graph_ms(lambda: fingerprint(s), 20) for _ in range(2))
+    del s, rt
+
+    margs = to_device(torch.load(operands), dev)
+    mut = min(graph_ms(lambda: mutate_mod.mutate_batch(*margs), 20)
+              for _ in range(2))
     return dict(sched_pick_ms=sp, apply_knobs_ms=ak, put_rows_ms=pr,
                 node_gather_ms=ng, k1_keys_ms=k1, k1_key_launches=k1_names,
                 k1_ms=k1_all, k1_launches=k1_all_names,
@@ -297,7 +366,10 @@ def measure(tree: str) -> dict:
                 dup_section_ms=sections["dup"] if sections else None,
                 sections_ms=sections,
                 raft_invariant_ms=ri, raft_invariant_pairwise_ms=rp,
-                run_fused_ms_per_step=fused, no_crash=check)
+                run_fused_ms_per_step=fused, no_crash=check,
+                fingerprint_ms=fp, mutate_ms=mut,
+                mutate_lanes=int(margs[0]["row_time"].shape[0]),
+                mutate_havoc=int(margs[3]))
 
 
 def main() -> int:
@@ -306,14 +378,19 @@ def main() -> int:
     ap.add_argument("new")
     ap.add_argument("--pairs", type=int, default=2)
     ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ap.add_argument("--prepare", help=argparse.SUPPRESS)
+    ap.add_argument("--operands", help=argparse.SUPPRESS)
     a = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("torch_kernel_ab: no CUDA device is available",
               file=sys.stderr)
         return 2
+    if a.prepare:
+        prepare(a.prepare, a.operands)
+        return 0
     if a.worker:
-        print(json.dumps(measure(a.worker)), flush=True)
+        print(json.dumps(measure(a.worker, a.operands)), flush=True)
         return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -325,16 +402,24 @@ def main() -> int:
         order += [("old", a.old), ("new", a.new)] if p % 2 == 0 else \
             [("new", a.new), ("old", a.old)]
     by_side: dict = {"old": [], "new": []}
-    for side, tree in order:
-        out = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), a.old, a.new,
-             "--worker", tree], capture_output=True, text=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        operands = os.path.join(tmp, "mutate_operands.pt")
+        me = [sys.executable, os.path.abspath(__file__), a.old, a.new,
+              "--operands", operands]
+        out = subprocess.run(me + ["--prepare", a.new], capture_output=True,
+                             text=True)
         if out.returncode != 0:
             print(out.stdout, out.stderr, file=sys.stderr)
             return 1
-        m = json.loads(out.stdout.strip().splitlines()[-1])
-        by_side[side].append(m)
-        print(json.dumps(dict(side=side, tree=tree, **m)), flush=True)
+        for side, tree in order:
+            out = subprocess.run(me + ["--worker", tree],
+                                 capture_output=True, text=True)
+            if out.returncode != 0:
+                print(out.stdout, out.stderr, file=sys.stderr)
+                return 1
+            m = json.loads(out.stdout.strip().splitlines()[-1])
+            by_side[side].append(m)
+            print(json.dumps(dict(side=side, tree=tree, **m)), flush=True)
     print(json.dumps({side: {k: [m[k] for m in ms] for k in ms[0]}
                       for side, ms in by_side.items()}), flush=True)
     return 0

@@ -453,6 +453,142 @@ def test_kernel_wrappers_take_the_plain_versions_on_the_cpu():
         mutate_batch(dict(kb, loss=kb["loss"].double()), key, guards, 1)
 
 
+# --------------------------------------------------------------------------
+# The havoc kernel's launch logic, with a stand-in launcher on host memory
+# --------------------------------------------------------------------------
+def _up16(x):
+    return (x + 15) // 16 * 16
+
+
+def _tile_bytes(T, R, D, N):
+    """csrc/mutate.cu `tile_layout`, region by region: the four guard
+    lists, val_lo, val_hi, flags, pool, the draws (48 bytes a lane and
+    drawing thread, four threads a lane), the randint and word draw lists
+    (3 and 2 uint16 a lane and thread), the lane keys (two words a lane),
+    then the tile's four int32 row arrays, row_on, the two int32 dup
+    arrays and dup_on."""
+    items = 4 * T
+    guards = [16 * R, 4 * R, 4 * R, R, R * (N + 1)]
+    draws = [48 * items, 2 * 3 * items, 2 * 2 * items, 8 * T]
+    rows = [4 * T * R] * 4 + [T * R, 4 * T * D, 4 * T * D, T * D]
+    return sum(_up16(x) for x in guards + draws + rows)
+
+
+def _host(ptr, count, dtype):
+    import ctypes
+    size = np.dtype(dtype).itemsize
+    return np.frombuffer((ctypes.c_char * (count * size)).from_address(ptr),
+                         dtype=dtype, count=count)
+
+
+def _mutate_standin(ref, stream, tiles):
+    """csrc/mutate.cu on host memory, read from the parameter block as the
+    kernel reads it: refuses (cudaErrorInvalidValue) what the launcher
+    refuses, then takes one tile of `tile` lanes a block, the last one
+    ragged, each through the plain version with the lanes' own keys of
+    split(key, B); records (first lane, lanes, vec) a block in `tiles`."""
+    from madsim_tpu_torch.core import prng
+    from madsim_tpu_torch.ops import mutate as mu
+    p = ref._obj
+    B, R, D, N, T = p.B, p.R, p.D, p.N, p.tile
+    if not (R >= 1 and D >= 0 and N >= 1 and p.havoc >= 0
+            and 32 <= T <= 128 and T % 32 == 0
+            and p.smem == _tile_bytes(T, R, D, N) <= mu.SMEM_MAX):
+        return 1
+    tiled = [n for n in mu.KNOB_KEYS if n.startswith(("row_", "dup_"))]
+    if p.vec and any(getattr(p, side + n) % 16
+                     for n in tiled for side in ("in_", "out_")):
+        return 1
+    shapes = mu.knob_shapes(B, R, D)
+    np_dt = {torch.int32: np.int32, torch.bool: np.bool_,
+             torch.float32: np.float32}
+
+    def knob(side, n):
+        dt, shape = shapes[n]
+        return _host(getattr(p, side + n), int(np.prod(shape)),
+                     np_dt[dt]).reshape(shape)
+
+    guards = {n: torch.as_tensor(_host(getattr(p, n), int(np.prod(sh)),
+                                       np_dt[dt]).reshape(sh).copy())
+              for n, (dt, sh) in mu.guard_shapes(R, N).items()}
+    key = torch.as_tensor(_host(p.key, 2, np.int32).copy())
+    lane_keys = prng.split(key, B)
+    mask = _host(p.mask, B, np.bool_) if p.mask else None
+    hist = _host(p.hist, 8, np.int32)
+    last_op = _host(p.last_op, B, np.int32)
+    for b0 in range(0, B, T):
+        lanes = slice(b0, min(b0 + T, B))
+        tiles.append((b0, lanes.stop - b0, p.vec))
+        kn = {n: torch.as_tensor(knob("in_", n)[lanes].copy())
+              for n in mu.KNOB_KEYS}
+        out, h, last = mu.mutate_lanes(
+            kn, lane_keys[lanes], guards, p.havoc,
+            None if mask is None else torch.as_tensor(mask[lanes].copy()))
+        for n in mu.KNOB_KEYS:
+            knob("out_", n)[lanes] = out[n].numpy()
+        hist += h.numpy()
+        last_op[lanes] = last.numpy()
+    return 0
+
+
+def test_mutate_tile_and_shared_memory_by_plan():
+    """The tile the launcher takes from R, D and N: 64 lanes for the
+    flagship's plan (R=33, D=2, N=5), 128 for all_knobs' (R=9, D=2, N=4);
+    32 lanes past the 56 KB target while they fit the card; refused where
+    no 32-lane tile fits."""
+    from madsim_tpu_torch.ops.mutate import SMEM_MAX, mutate_tile
+    for name, want in (("flagship", 64), ("faults", 128)):
+        tplan = _plans(name)[3]
+        R, D, N = tplan.R, tplan.D, tplan.N
+        assert mutate_tile(R, D, N) == (want, _tile_bytes(want, R, D, N))
+    assert _tile_bytes(64, 33, 2, 5) == 53488
+    assert mutate_tile(300, 2, 5) == (32, _tile_bytes(32, 300, 2, 5))
+    assert 56 * 1024 < _tile_bytes(32, 300, 2, 5) <= SMEM_MAX
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        mutate_tile(600, 2, 5)
+
+
+@pytest.mark.parametrize("name,B,havoc,masked,offset", [
+    ("flagship", 101, 3, False, False), ("flagship", 101, 3, True, False),
+    ("flagship", 1, 6, False, False), ("faults", 300, 6, True, False),
+    ("faults", 130, 0, False, False), ("flagship", 70, 3, False, True)])
+def test_mutate_launch_tiles_every_lane_once(monkeypatch, name, B, havoc,
+                                             masked, offset):
+    """The kernel's path on the CPU with a stand-in launcher: ceil(B / T)
+    tiles, the last one ragged, cover every lane once, and the result is
+    `mutate_batch_plain`'s; 16-byte copies only where every knob array is
+    16-byte aligned (a row_time one element into its allocation turns
+    them off). One launch."""
+    import chip_smoke
+    from madsim_tpu_torch.ops.mutate import (mutate_batch,
+                                             mutate_batch_plain, mutate_tile)
+    tplan = _plans(name)[3]
+    kb = interop.knobs_to_torch(_knob_batch(name, B), "cpu")
+    kb = {n: v[np.arange(B) % v.shape[0]].contiguous()
+          for n, v in kb.items()}
+    if offset:
+        kb["row_time"] = chip_smoke.unaligned(kb["row_time"])
+    guards, _ = tplan._device_tables("cpu")
+    key = torch.tensor([B, -7], dtype=torch.int32)
+    mask = (torch.as_tensor(np.random.default_rng(B).random(B) < 0.5)
+            if masked else None)
+    tiles = []
+    monkeypatch.setattr(mutate_batch, "_fn",
+                        lambda ref, st: _mutate_standin(ref, st, tiles))
+    before = mutate_batch.launches
+    got = mutate_batch.run(kb, key, guards, havoc, mask)
+    assert mutate_batch.launches == before + 1
+    want = mutate_batch_plain(kb, key, guards, havoc, mask)
+    _equal(interop.knobs_to_numpy(want[0]), interop.knobs_to_numpy(got[0]),
+           "knobs")
+    _equal(want[1].numpy(), got[1].numpy(), "hist")
+    _equal(want[2].numpy(), got[2].numpy(), "last_op")
+    T = mutate_tile(tplan.R, tplan.D, tplan.N)[0]
+    assert [(b0, n) for b0, n, _ in tiles] == [
+        (b0, min(T, B - b0)) for b0 in range(0, B, T)]
+    assert {v for _, _, v in tiles} == {0 if offset else 1}
+
+
 def test_knobs_cross_between_numpy_and_torch():
 
     kb = _knob_batch("faults", 1)

@@ -556,6 +556,167 @@ def test_fingerprint_matches_reference_on_the_flagship():
     assert (got0 != got).all()
 
 
+# The fingerprint kernel's launch logic, with a stand-in launcher on host
+# memory
+_FP_NP = {0: np.uint32, 1: np.uint8, 2: np.int8, 3: np.int16}
+
+
+def _fp_host(ptr, nbytes):
+    import ctypes
+    return np.frombuffer((ctypes.c_char * nbytes).from_address(ptr),
+                         dtype=np.uint8, count=nbytes)
+
+
+def _fp_region_bytes(T, leaves):
+    """csrc/fingerprint.cu's shared memory, region by region: the lh table
+    (4 bytes a leaf and lane), then each leaf's T * n elements, each
+    region rounded up to 16 bytes."""
+    up = lambda x: (x + 15) // 16 * 16                       # noqa: E731
+    size = {0: 4, 1: 1, 2: 1, 3: 2}
+    offs, o = [], up(4 * T * len(leaves))
+    for n, kind in leaves:
+        offs.append(o)
+        o += up(T * n * size[kind])
+    return offs, o
+
+
+def _fp_standin(ref, stream, seen):
+    """csrc/fingerprint.cu on host memory, read from the parameter block as
+    the kernel reads it: refuses (cudaErrorInvalidValue) what the launcher
+    refuses (its layout, a copy width that does not divide a leaf's address
+    and tile bytes), then folds one tile of `tile` lanes a block, the last
+    one ragged, each leaf's words read from its tile's byte range; records
+    each launch's (tile, [chunk a leaf], [(first lane, lanes) a block])."""
+    from madsim_tpu_torch.utils import hashing as hs
+    p = ref._obj
+    T, L = p.tile, p.n_leaves
+    leaves = p.leaves[:L]
+    meta = [(lf.n, lf.kind) for lf in leaves]
+    offs, smem = _fp_region_bytes(T, meta)
+    if not (0 <= L <= hs.MAX_LEAVES and 1 <= T <= 32
+            and list(p.off[:L]) == offs and p.smem == smem <= hs.SMEM_MAX):
+        return 1
+    size = {0: 4, 1: 1, 2: 1, 3: 2}
+    for lf in leaves:
+        c = lf.chunk
+        if c not in (0, 4, 8, 16) or (c and (T * lf.n * size[lf.kind] % c
+                                             or lf.ptr % c)):
+            return 1
+    blocks = []
+    out = np.frombuffer(_fp_host(p.out, 8 * p.B).data, dtype=np.int64)
+    for b0 in range(0, p.B, T):
+        nt = min(T, p.B - b0)
+        blocks.append((b0, nt))
+        h = np.full(nt, hs.FNV_OFFSET, np.uint64)
+        for i, lf in enumerate(leaves):
+            es = size[lf.kind]
+            raw = _fp_host(lf.ptr + b0 * lf.n * es, nt * lf.n * es)
+            w = raw.view(_FP_NP[lf.kind]).astype(np.int64).astype(
+                np.uint64) & np.uint64(0xFFFFFFFF)
+            w = w.reshape(nt, lf.n)
+            mix = (np.arange(lf.n, dtype=np.uint64) * np.uint64(2654435761)
+                   + np.uint64(2 * i + 1)) & np.uint64(0xFFFFFFFF)
+            lh = ((w * mix) & np.uint64(0xFFFFFFFF)).sum(-1) \
+                & np.uint64(0xFFFFFFFF)
+            h = ((h ^ lh) * np.uint64(hs.FNV_PRIME)) & np.uint64(0xFFFFFFFF)
+        out[b0:b0 + nt] = h.astype(np.int64)
+    seen.append((T, [lf.chunk for lf in leaves], blocks))
+    return 0
+
+
+def _fp_state(B, steps=8):
+    rt = workloads.flagship_runtime(device="cpu")
+    s, _ = rt.run(rt.init_batch(np.arange(B, dtype=np.uint32)), steps,
+                  chunk=steps)
+    return s
+
+
+@pytest.mark.parametrize("B", [1, 9, 21, 64])
+def test_fingerprint_launch_tiles_every_lane_once(monkeypatch, B):
+    """The kernel's path on the CPU with a stand-in launcher, on a flagship
+    state: an 8-lane tile (its 49 leaves take 56,784 bytes of shared
+    memory, within the 60 KB target; 16 lanes would take 113,456),
+    ceil(B / 8) blocks, the last one ragged (B = 1, 9 = T + 1, 21), every
+    leaf copied 16 bytes an access where its address and tile bytes allow,
+    8 or 4 where they do not (the one-word bool leaves: 8 bytes a tile);
+    equal to `fingerprint_plain`, one launch."""
+    from madsim_tpu_torch.utils import hashing as hs
+    s = _fp_state(B)
+    seen = []
+    monkeypatch.setattr(fingerprint, "_fn",
+                        lambda ref, st: _fp_standin(ref, st, seen))
+    before = fingerprint.launches
+    got = fingerprint.run(s)
+    assert fingerprint.launches == before + 1
+    assert torch.equal(got, fingerprint_plain(s))
+    (T, chunks, blocks), = seen
+    leaves = hs._leaves(s)
+    meta = [(t.numel() // B, hs._KIND[t.dtype]) for t in leaves]
+    assert len(leaves) == 49 and T == hs.fp_tile(meta) == 8
+    assert _fp_region_bytes(8, meta)[1] == 56784
+    assert _fp_region_bytes(16, meta)[1] == 113456
+    assert blocks == [(b0, min(8, B - b0)) for b0 in range(0, B, 8)]
+    want = [16 if 8 * n * hs._ESIZE[k] % 16 == 0 else 8 for n, k in meta]
+    assert chunks == want and 8 in chunks
+
+
+@pytest.mark.parametrize("how", ["one_element_in", "one_byte_in"])
+def test_fingerprint_launch_takes_the_copy_width_a_leaf_allows(monkeypatch,
+                                                               how):
+    """A leaf that is a view one element past a 16-byte boundary (an int32
+    payload: 4 bytes; a bool leaf: an element at a time) takes the
+    narrower copy its address allows, as chip_smoke's `unaligned` cases
+    do on the card; the other leaves keep theirs. Equal to the plain
+    version."""
+    import chip_smoke
+    from madsim_tpu_torch.utils import hashing as hs
+    s = _fp_state(21)
+    if how == "one_element_in":
+        s = s.replace(t_payload=chip_smoke.unaligned(s.t_payload))
+    else:
+        s = s.replace(halted=chip_smoke.unaligned(s.halted))
+    seen = []
+    monkeypatch.setattr(fingerprint, "_fn",
+                        lambda ref, st: _fp_standin(ref, st, seen))
+    got = fingerprint.run(s)
+    assert torch.equal(got, fingerprint_plain(s))
+    (T, chunks, _), = seen
+    leaves = hs._leaves(s)
+    moved = [i for i, t in enumerate(leaves)
+             if t.data_ptr() == (s.t_payload if how == "one_element_in"
+                                 else s.halted).data_ptr()]
+    assert len(moved) == 1
+    assert chunks[moved[0]] == (4 if how == "one_element_in" else 0)
+    assert all(c in (8, 16) for i, c in enumerate(chunks) if i != moved[0])
+
+
+def test_fingerprint_launch_limits(monkeypatch):
+    """192 leaves go in one launch and 193 are refused; a lane too wide for
+    the card's shared memory is refused; a state past the 60 KB target
+    takes the largest tile that fits the card."""
+    from madsim_tpu_torch.utils import hashing as hs
+    s = _fp_state(5)
+    base = len(hs._leaves(s))
+    seen = []
+    monkeypatch.setattr(fingerprint, "_fn",
+                        lambda ref, st: _fp_standin(ref, st, seen))
+
+    def with_ext(k, n=1, dtype=torch.int16):
+        return s.replace(ext={f"x{i:03d}": torch.full(
+            (5, n), i - 7, dtype=dtype) for i in range(k)})
+
+    wide = with_ext(hs.MAX_LEAVES - base)
+    assert torch.equal(fingerprint.run(wide), fingerprint_plain(wide))
+    assert len(seen[-1][1]) == hs.MAX_LEAVES
+    with pytest.raises(NotImplementedError, match="at most 192"):
+        fingerprint.run(with_ext(hs.MAX_LEAVES - base + 1))
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        fingerprint.run(with_ext(1, n=60_000, dtype=torch.int32))
+    big = with_ext(1, n=16_000, dtype=torch.int32)     # 71 KB a lane
+    assert torch.equal(fingerprint.run(big), fingerprint_plain(big))
+    assert seen[-1][0] == 2
+
+
 # --------------------------------------------------------------------------
 # The wrappers and the step's sections
 # --------------------------------------------------------------------------
