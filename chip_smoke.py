@@ -70,6 +70,34 @@ the frozen golden digests. One JSON object per line, in phases:
                256 steps, through run and run_fused on the card and run
                on the CPU: every leaf equal; the card's eager run launches
                each step kernel its count a step, the CPU run none
+  compacting   the flagship's shapes halting at a commit index of 28 or
+               10 simulated s (workloads.compacting_runtime, a long tail
+               of halts) at B=100,000 through Runtime.run_compacting
+               (chunk 512, min_batch 256): every lane halted, every leaf
+               equal to run_fused of the same seeds (lane_diff and its
+               plain version both find no difference), at least one
+               repack, lane_take twice a repack and lane_put once a part;
+               the widths, repacks, stash bytes, both wall times and the
+               halting distribution
+  detsan       detsan_check on the traced flagship at B=100,000, 2048
+               steps, through run_fused: ok and no difference (lane_take
+               and lane_diff launched once each); planted differences on
+               its final state: `.now` moved in three lanes names exactly
+               those, -0.0 against 0.0 and NaN against NaN in `.loss` are
+               no difference, NaN against a number is; the moved state as
+               the baseline raises DetSanFailure naming the first moved
+               lane's seed
+  minimize     the JAX package's tests/test_minimize.py red case (wal_kv,
+               unsynced WAL, six kill/restart pairs, seed 0):
+               minimize_scenario and a short fuzz(minimize=True) campaign
+               on the card, and on the CPU in a process of its own started
+               after the build: the same minimal script, info and fuzz
+               result (the `minimized` table included)
+  harness_misc  on the flagship: state_at(0, k) for k in 1, 37, 100, 513
+               equal to a direct run of k steps; find_divergence over 512
+               steps finds none; a B=4096 checkpoint saved at step 512,
+               loaded and resumed to 2048 gives the straight run's
+               fingerprints
   kernel       each kernel against its plain version, exactly equal
                (the kernel's time is device time: launches captured in a
                CUDA graph and replayed between events):
@@ -184,7 +212,14 @@ the frozen golden digests. One JSON object per line, in phases:
                section, the handlers' first split and draw, the node
                slice, the node scatter; wal_kv's flush split and draw),
                and a flagship step's K1 launches (step_keys, dup_draws
-               and the handlers' two split_randint) timed together
+               and the handlers' two split_randint) timed together;
+               lane_take, lane_put and lane_diff (run right after the
+               detsan phase) on the traced flagship's final state at
+               B=100,000 and on edge cases (B=1, a non-power-of-two T,
+               repeated take indices, a leaf one element and one byte off
+               a 16-byte boundary, zero-size, bool, uint32 and float32
+               leaves), each timed as one launch replayed in a graph
+               against its bytes and its plain version
   determinism  lanes 0..4095 alone, twice through run (512 steps) and
                twice through run_fused (2048 steps): fingerprints equal
                to each other and to lanes 0..4095 of the B=100,000 eager
@@ -2169,8 +2204,535 @@ def k1k4_kernel_phase(wrappers, cases, main, launches):
     return out
 
 
+# ---- the harness phases (compacting, detsan, minimize, harness_misc) and
+# ---- the lane kernels (K14 lane_take / lane_put, K15 lane_diff) ----------
+COMPACT_STEPS = 4096     # every lane of compacting_runtime halts by ~2600
+COMPACT_MIN_BATCH = 256
+MIN_STEPS, MIN_CHUNK = 60_000, 16   # the minimize phase's runs
+MIN_FUZZ = dict(batch=8, max_rounds=2, chunk=MIN_CHUNK)
+STATE_AT_STEPS = (1, 37, 100, 513)
+DIVERGENCE_STEPS = 512
+CKPT_B, CKPT_AT = 4096, 512
+LANE_KERNELS = ("lane_take", "lane_put", "lane_diff")
+
+
+def minimize_workload(device):
+    """The JAX package's tests/test_minimize.py:24-40 red case: the
+    unsynced-WAL wal_kv (2 clients, 12 ops, wal_cap 64) under six
+    kill/restart pairs of its server; seed 0 loses an acknowledged
+    write."""
+    from madsim_tpu_torch import Scenario, ms
+    from madsim_tpu_torch.models.wal_kv import make_wal_kv_runtime
+    sc = Scenario()
+    for t in range(6):
+        sc.at(ms(150) + ms(250) * t).kill(0)
+        sc.at(ms(210) + ms(250) * t).restart(0)
+    return make_wal_kv_runtime(n_clients=2, n_ops=12, wal_cap=64,
+                               sync_wal=False, scenario=sc, device=device)
+
+
+def minimize_on(device):
+    """The minimize phase's work on one device: minimize_scenario of seed
+    0 and a short fuzz(minimize=True) campaign on minimize_workload, with
+    their seconds."""
+    import torch
+    from madsim_tpu_torch.harness.minimize import minimize_scenario
+    from madsim_tpu_torch.search import fuzz
+    rt = minimize_workload(device)
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    t0 = time.perf_counter()
+    minimal, info = minimize_scenario(rt, 0, MIN_STEPS, MIN_CHUNK)
+    sync()
+    t1 = time.perf_counter()
+    res = fuzz(rt, max_steps=MIN_STEPS, minimize=True, **MIN_FUZZ)
+    sync()
+    return dict(script=minimal.describe(), info=info, fuzz=res,
+                scenario_s=t1 - t0, fuzz_s=time.perf_counter() - t1)
+
+
+def minimize_cpu_main(out_path) -> int:
+    """`chip_smoke.py --minimize-cpu OUT`: the minimize phase's CPU half,
+    run beside the card's phases (it touches no card); its result is
+    pickled to OUT for the main process, which wrote this file."""
+    import pickle
+    import torch
+    torch.set_num_threads(2)
+    res = minimize_on("cpu")
+    with open(out_path, "wb") as f:
+        pickle.dump(res, f)
+    return 0
+
+
+def state_equal(a, b) -> bool:
+    """Every leaf of two states equal in dtype, shape and value."""
+    import torch
+    from madsim_tpu_torch.interop import state_leaves
+    la, lb = state_leaves(a), state_leaves(b)
+    return list(la) == list(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        for x, y in zip(la.values(), lb.values()))
+
+
+def lane_leaves(state):
+    from madsim_tpu_torch.interop import state_leaves
+    return list(state_leaves(state).values())
+
+
+def lane_rows_bytes(state, T) -> int:
+    """The bytes a take or put of T lanes of `state` must move: each
+    lane's row of every leaf read once and written once, and the int64
+    index read once."""
+    B = state.now.shape[0]
+    row = sum(t.numel() // B * t.element_size() for t in lane_leaves(state))
+    return 2 * T * row + 8 * T
+
+
+def lane_diff_bytes(leaves) -> int:
+    """The bytes a diff of two states must move: both read once, one flag
+    byte a leaf and lane written."""
+    B = leaves[0].shape[0]
+    return 2 * sum(t.numel() * t.element_size() for t in leaves) \
+        + len(leaves) * B
+
+
+def lane_rows_ms(kernel, src, idx, put, dst=None, n=20):
+    """Device ms of one lane_rows launch over every non-empty leaf of
+    `src` (one parameter block, captured n times in a graph): a take of
+    lanes idx into fresh rows, or (put) src's rows into dst at idx."""
+    import torch
+    from madsim_tpu_torch.ops.lane_rows import MAX_LEAVES, rows_params
+    dev = src.now.device
+    ls = lane_leaves(src)
+    T = len(idx)
+    if put:
+        ld_ = lane_leaves(dst)
+        B = ld_[0].shape[0]
+    else:
+        B = ls[0].shape[0]
+        ld_ = [torch.empty((T,) + tuple(t.shape[1:]), dtype=t.dtype,
+                           device=dev) for t in ls]
+    pairs = [(s, d) for s, d in zip(ls, ld_) if s.numel()]
+    check(len(pairs) <= MAX_LEAVES, f"lane_rows: {len(pairs)} leaves")
+    ix = torch.as_tensor(idx, dtype=torch.int64, device=dev)
+    p = rows_params(pairs, ix, T, B, put)
+    return graph_ms(lambda: kernel._launch(p, dev), n)
+
+
+def lane_diff_ms(kernel, a, b, n=20):
+    """Device ms of one lane_diff launch over every leaf pair of two
+    states (one parameter block, captured n times in a graph)."""
+    import torch
+    from madsim_tpu_torch.ops.lane_diff import MAX_LEAVES, diff_params
+    la, lb = lane_leaves(a), lane_leaves(b)
+    B = la[0].shape[0]
+    check(len(la) <= MAX_LEAVES, f"lane_diff: {len(la)} leaves")
+    flags = torch.empty((len(la), B), dtype=torch.uint8, device=la[0].device)
+    p = diff_params(list(zip(la, lb)), flags, B)
+    return graph_ms(lambda: kernel._launch(p, la[0].device), n)
+
+
+def lane_kernel_phase(wrappers, a, b, moved, perm, launches, dev):
+    """K14 and K15 against their plain versions, exactly, on the traced
+    flagship's final state `a` at B=100,000 (b: the detsan run's permuted
+    final state; moved: `a` with .now moved in three lanes) and on edge
+    cases: B=1, a non-power-of-two T, repeated take indices, a leaf one
+    element and one byte off a 16-byte boundary, zero-size leaves, bool,
+    uint32 and float32 leaves (the state has them all); then each
+    kernel's device time against its bound and its plain version's time.
+    Returns {kernel: kernels-line numbers}."""
+    import numpy as np
+    import torch
+    from madsim_tpu_torch.core.state import map_state
+    from madsim_tpu_torch.ops.lane_diff import lane_diff_plain
+    from madsim_tpu_torch.ops.lane_rows import lane_put_plain, \
+        lane_take_plain
+    take, put, diff = (wrappers[k] for k in LANE_KERNELS)
+    B = a.now.shape[0]
+    rng = np.random.default_rng(12)
+    align = np.argsort(perm)
+    pay_in = a.replace(t_payload=unaligned(a.t_payload))
+    halt_in = a.replace(halted=unaligned(a.halted))
+    one = slice_lanes(a, 1)
+    odd = B * 7 // 9             # 77,777 at B=100,000: no power of two
+    small = min(4099, B - 2)     # a tile's worth and a few lanes
+    err = {k: 0 for k in LANE_KERNELS}
+    names = {k: [] for k in LANE_KERNELS}
+
+    def ix(i):
+        return torch.as_tensor(i, dtype=torch.int64, device=dev)
+
+    take_cases = {
+        "flagship_align": (b, align),
+        "flagship_repeated": (a, rng.integers(0, B, B)),
+        f"flagship_T_{odd}": (a, rng.choice(B, odd, replace=False)),
+        "flagship_keep_live_then_halted": (a, np.concatenate(
+            [np.arange(1, B, 2), np.arange(0, B, 2)[:small]])),
+        "B1_taken_thrice": (one, np.zeros(3, np.int64)),
+        "payload_one_element_in": (pay_in, rng.permutation(B)[:small]),
+        "halted_one_byte_in": (halt_in, rng.permutation(B)[:small + 2]),
+    }
+    for name, (st, i) in take_cases.items():
+        out_k = take(st, i)
+        out_p = lane_take_plain(st, ix(i))
+        torch.cuda.synchronize()
+        err["lane_take"] = max(err["lane_take"], check_equal(
+            f"lane_take on {name}", lane_leaves(out_k), lane_leaves(out_p)))
+        names["lane_take"].append(name)
+
+    order = rng.permutation(B)
+    put_cases = {
+        # the merge of a compaction: a batch allocated once, two parts
+        "flagship_merge": (map_state(torch.empty_like, a),
+                           [order[:B // 3], order[B // 3:]], a),
+        f"flagship_T_{odd}_into_a_copy": (map_state(torch.clone, moved),
+                                          [order[:odd]], a),
+        "into_payload_one_element_in": (
+            a.replace(t_payload=unaligned(torch.zeros_like(a.t_payload))),
+            [order[:small]], a),
+        "from_halted_one_byte_in": (map_state(torch.clone, a),
+                                    [order[:small + 2]], halt_in),
+        "B1": (map_state(torch.empty_like, one), [np.zeros(1, np.int64)],
+               one),
+    }
+    for name, (out0, parts, src) in put_cases.items():
+        ok, op = clone_layout_state(out0), clone_layout_state(out0)
+        for i in parts:
+            part = lane_take_plain(src, ix(i))
+            check(put(ok, i, part) is ok, f"lane_put on {name}: the "
+                  f"result is not its output batch")
+            lane_put_plain(op, ix(i), part)
+        torch.cuda.synchronize()
+        err["lane_put"] = max(err["lane_put"], check_equal(
+            f"lane_put on {name}", lane_leaves(ok), lane_leaves(op)))
+        names["lane_put"].append(name)
+        if name == "flagship_merge":
+            check(state_equal(ok, a), "lane_put: the merged batch is not "
+                  "the state its parts came from")
+    try:
+        put(map_state(torch.clone, one), np.zeros(2, np.int64),
+            slice_lanes(lane_take_plain(a, ix([0, 0])), 2))
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "lane_put: repeated indices were not refused")
+
+    la = a.replace(loss=a.loss.clone())
+    lf = a.replace(loss=a.loss.clone())
+    la.loss[0], lf.loss[0] = -0.0, 0.0
+    la.loss[1], lf.loss[1] = float("nan"), float("nan")
+    lf.loss[2] = float("nan")
+    pay_moved = pay_in.replace(t_payload=unaligned(pay_in.t_payload))
+    pay_moved.t_payload[small, 95, 7] += 1
+    diff_cases = {
+        "flagship_detsan": (a, lane_take_plain(b, ix(align))),
+        "flagship_moved": (a, moved),
+        "flagship_float_planted": (la, lf),
+        "payload_one_element_in": (pay_in, pay_moved),
+        "halted_one_byte_in": (halt_in, a),
+        "B1": (one, slice_lanes(moved, 1)),
+    }
+    for name, (x, y) in diff_cases.items():
+        lx, ly = lane_leaves(x), lane_leaves(y)
+        out_k = diff(lx, ly)
+        out_p = lane_diff_plain(lx, ly)
+        torch.cuda.synchronize()
+        err["lane_diff"] = max(err["lane_diff"], check_equal(
+            f"lane_diff on {name}", out_k, out_p))
+        names["lane_diff"].append(name)
+        if name == "payload_one_element_in":
+            check(int(out_k.sum()) == 1, "lane_diff: the planted payload "
+                  "word was not the one difference")
+
+    # times on the main operands: the detsan un-permute (a take of every
+    # lane), its put back, and the detsan diff
+    ix_align, ix_order = ix(align), ix(order)
+    part = lane_take_plain(b, ix_align)
+    out = map_state(torch.empty_like, a)
+    times = {
+        "lane_take": (lambda: lane_rows_ms(take, b, align, False),
+                      lambda: lane_take_plain(b, ix_align),
+                      lane_rows_bytes(b, B), "flagship_align"),
+        "lane_put": (lambda: lane_rows_ms(put, part, order, True, out),
+                     lambda: lane_put_plain(out, ix_order, part),
+                     lane_rows_bytes(part, B), "flagship_put_every_lane"),
+        "lane_diff": (lambda: lane_diff_ms(diff, a, part),
+                      lambda: lane_diff_plain(lane_leaves(a),
+                                              lane_leaves(part)),
+                      lane_diff_bytes(lane_leaves(a)), "flagship_detsan"),
+    }
+    res = {}
+    for k, (kern, plain, nbytes, main_case) in times.items():
+        k_ms, p_ms, k_ms2, p_ms2 = kern(), cuda_ms(plain, 3), kern(), \
+            cuda_ms(plain, 3)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        res[k] = dict(ms=min(k_ms, k_ms2), plain_ms=min(p_ms, p_ms2),
+                      bound_ms=bound, bound_by="bytes",
+                      max_abs_err=err[k], library_ms=None)
+        emit(phase="kernel", name=k, cases=names[k], main_case=main_case,
+             batch=B, exact=True, max_abs_err=err[k],
+             launches_on_main_path=launches[k], ms=[k_ms, k_ms2],
+             plain_ms=[p_ms, p_ms2], bound_bytes=nbytes, bound_ms=bound,
+             bound_by="bytes",
+             library="none (one index_select / index_copy_ / ne().any() "
+                     "a leaf)")
+    return res
+
+
+def zero_counts(wrappers):
+    for w in wrappers.values():
+        w.launches = 0
+        w.captured = 0
+
+
+def counts_of(wrappers):
+    return {k: w.launches for k, w in wrappers.items()}
+
+
+def compacting_phase(wrappers, dev):
+    """The compacting phase; returns the lane kernels' launches in its
+    run_compacting call."""
+    import numpy as np
+    import torch
+    from madsim_tpu_torch import workloads
+    from madsim_tpu_torch.ops.lane_diff import lane_diff, lane_diff_plain
+    rt = workloads.compacting_runtime(device=dev)
+    init = rt.init_batch(np.arange(FLAG_B, dtype=np.uint32))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ref = rt.run_fused(init, COMPACT_STEPS, chunk=FLAG_CHUNK)
+    torch.cuda.synchronize()
+    fused_wall = time.perf_counter() - t0
+    fused_steps = rt.steps_run
+    fused_peak = torch.cuda.max_memory_allocated()
+    recs = []
+
+    class Chunks:
+        on_chunk = on_compact = on_done = staticmethod(recs.append)
+
+    zero_counts(wrappers)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = rt.run_compacting(init, COMPACT_STEPS, chunk=FLAG_CHUNK,
+                            min_batch=COMPACT_MIN_BATCH, observer=Chunks())
+    torch.cuda.synchronize()
+    compact_wall = time.perf_counter() - t0
+    # a capture at a new width releases the last graph and its pool: the
+    # peak stays near the first width's graph plus the stash and output
+    memory = dict(run_fused_peak=fused_peak, held_before=held,
+                  run_compacting_peak=torch.cuda.max_memory_allocated(),
+                  held_after=torch.cuda.memory_allocated(),
+                  graphs_kept=len(rt._graphs))
+    launch = counts_of(wrappers)
+    cst = dict(rt.compact_stats)
+    la, lb = lane_leaves(out), lane_leaves(ref)
+    flags_k = lane_diff(la, lb)
+    flags_p = lane_diff_plain(la, lb)
+    halt_steps = out.steps.cpu().numpy()
+    emit(phase="compacting", batch=FLAG_B, chunk=FLAG_CHUNK,
+         min_batch=COMPACT_MIN_BATCH, max_steps=COMPACT_STEPS,
+         widths=cst["widths"], repacks=cst["repacks"], chunks=cst["chunks"],
+         steps=rt.steps_run, graph_captures=cst["captures"],
+         stashed_lanes=cst["stashed_total"], stash_bytes=cst["stash_bytes"],
+         launches={k: launch[k] for k in ("lane_take", "lane_put")},
+         run_compacting_wall_s=compact_wall, run_fused_wall_s=fused_wall,
+         run_fused_steps=fused_steps, memory_bytes=memory,
+         chunk_records=[{k: r[k] for k in ("kind", "steps_done", "batch",
+                                           "lanes_halted") if k in r}
+                        for r in recs],
+         events_when_halted_percentiles={
+             str(q): float(np.percentile(halt_steps, q))
+             for q in (0, 25, 50, 75, 90, 99, 100)},
+         all_halted=bool(out.halted.all()),
+         reference_all_halted=bool(ref.halted.all()),
+         differing_flags_kernel=int(flags_k.sum()),
+         differing_flags_plain=int(flags_p.sum()))
+    check(bool(out.halted.all()) and bool(ref.halted.all()),
+          "compacting: not every lane halted")
+    check(int(flags_k.sum()) == 0 and int(flags_p.sum()) == 0,
+          "compacting: run_compacting differs from run_fused")
+    check(cst["repacks"] >= 1, "compacting: no repack")
+    check(memory["graphs_kept"] == 1, "compacting: graphs of earlier widths "
+          "kept")
+    check(launch["lane_take"] == 2 * cst["repacks"]
+          and launch["lane_put"] == cst["repacks"] + 1,
+          f"compacting: lane_take / lane_put launched "
+          f"{launch['lane_take']} / {launch['lane_put']} times for "
+          f"{cst['repacks']} repacks")
+    return launch
+
+
+def detsan_phase(wrappers, dev, compact_launch):
+    """The detsan phase, then the lane kernels' phase on its states;
+    returns (the lane kernels' launches in its detsan_check call, their
+    kernels-line numbers)."""
+    import numpy as np
+    import torch
+    from madsim_tpu_torch import workloads
+    from madsim_tpu_torch.harness.simtest import (DetSanFailure,
+                                                  detsan_check, diff_states)
+    from madsim_tpu_torch.ops.lane_diff import lane_diff, lane_diff_plain
+    rt = workloads.flagship_runtime(device=dev, trace_cap=64)
+    seeds = np.arange(FLAG_B, dtype=np.uint32)
+    runs = []
+    torch.cuda.synchronize()
+    zero_counts(wrappers)
+    t0 = time.perf_counter()
+    with Spy(rt, "run_fused", after=runs.append) as spy:
+        rep = detsan_check(rt, seeds, FLAG_STEPS, FLAG_CHUNK, fused=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launch = counts_of(wrappers)
+    a, b = runs
+    B = a.now.shape[0]
+    moved_lanes = [11, 4242, B - 1]
+    moved = a.replace(now=a.now.clone())
+    moved.now[moved_lanes] += 1
+    d_moved = diff_states(a, moved)
+    la = a.replace(loss=a.loss.clone())
+    lf = a.replace(loss=a.loss.clone())
+    la.loss[0], lf.loss[0] = -0.0, 0.0
+    la.loss[1], lf.loss[1] = float("nan"), float("nan")
+    d_float_equal = diff_states(la, lf)
+    lf.loss[2] = float("nan")
+    d_float_nan = diff_states(la, lf)
+    plain_agrees = all(
+        torch.equal(lane_diff_plain(lane_leaves(x), lane_leaves(y)),
+                    lane_diff(lane_leaves(x), lane_leaves(y)))
+        for x, y in ((a, moved), (la, lf)))
+    try:
+        detsan_check(rt, seeds, FLAG_STEPS, FLAG_CHUNK, baseline_state=moved)
+        raised = None
+    except DetSanFailure as e:
+        raised = e
+    emit(phase="detsan", batch=B, steps=FLAG_STEPS, trace_cap=64,
+         ok=rep["ok"], diffs=rep["diffs"], leaves=rep["leaves"],
+         wall_s=wall, run_fused_wall_s=spy.seconds,
+         launches={k: launch[k] for k in ("lane_take", "lane_diff")},
+         planted_now=d_moved, planted_float_equal=d_float_equal,
+         planted_float_nan=d_float_nan,
+         baseline_failure_seed=None if raised is None else raised.seed,
+         plain_agrees=plain_agrees)
+    check(rep["ok"] and rep["diffs"] == [] and rep["batch"] == B,
+          f"detsan: the traced flagship is not lane-independent: "
+          f"{rep['diffs'][:4]}")
+    check(launch["lane_diff"] == 1 and launch["lane_take"] == 1,
+          f"detsan: lane_diff / lane_take launched {launch['lane_diff']} / "
+          f"{launch['lane_take']} times, not once each")
+    check(d_moved == [dict(leaf=".now", n_lanes=3, lanes=moved_lanes)],
+          f"detsan: the moved clock gave {d_moved}")
+    check(d_float_equal == [], f"detsan: -0.0 / 0.0 or NaN / NaN counted "
+          f"as a difference: {d_float_equal}")
+    check(d_float_nan == [dict(leaf=".loss", n_lanes=1, lanes=[2])],
+          f"detsan: NaN against a number gave {d_float_nan}")
+    check(plain_agrees, "detsan: lane_diff differs from its plain version")
+    check(raised is not None and raised.seed == int(seeds[moved_lanes[0]]),
+          "detsan: the moved baseline did not raise naming its seed")
+    lane_k = lane_kernel_phase(
+        wrappers, a, b, moved, np.asarray(rep["perm"]),
+        dict(lane_take=compact_launch["lane_take"],
+             lane_put=compact_launch["lane_put"],
+             lane_diff=launch["lane_diff"]), dev)
+    return launch, lane_k
+
+
+def minimize_phase(wrappers, dev, cpu_job, cpu_path):
+    """The minimize phase: the card's half here, the CPU's from the
+    process `cpu_job`, which wrote `cpu_path`."""
+    import pickle
+    zero_counts(wrappers)
+    card = minimize_on(dev)
+    counts = counts_of(wrappers)
+    log, _ = cpu_job.communicate(timeout=900)
+    check(cpu_job.returncode == 0,
+          f"minimize: the CPU half failed:\n{log[-4000:]}")
+    with open(cpu_path, "rb") as f:
+        cpu = pickle.load(f)
+    fz_card, fz_cpu = card["fuzz"], cpu["fuzz"]
+    mins = fz_card.get("minimized", {})
+    emit(phase="minimize", seed=0, max_steps=MIN_STEPS, chunk=MIN_CHUNK,
+         script=card["script"], info=card["info"],
+         minimize_scenario_s_card=card["scenario_s"],
+         minimize_scenario_s_cpu=cpu["scenario_s"],
+         fuzz_s_card=card["fuzz_s"], fuzz_s_cpu=cpu["fuzz_s"],
+         fuzz=MIN_FUZZ, crash_codes=sorted(fz_card["crash_repros"]),
+         minimized={c: {k: v for k, v in m.items() if k != "knobs"}
+                    for c, m in mins.items()},
+         apply_knobs_launches=counts["apply_knobs"],
+         script_equal=card["script"] == cpu["script"],
+         info_equal=same_tree(card["info"], cpu["info"]),
+         fuzz_equal=same_tree(fz_card, fz_cpu))
+    check(card["info"]["crash_code"] == 301 and card["info"]["kept"] <= 6
+          and card["info"]["dropped"] > 0, f"minimize: {card['info']}")
+    check(card["script"] == cpu["script"]
+          and same_tree(card["info"], cpu["info"]),
+          "minimize: minimize_scenario differs between the card and the CPU")
+    check(mins and all("script" in m for m in mins.values()),
+          f"minimize: fuzz(minimize=True) minimized nothing: {mins}")
+    check(same_tree(fz_card, fz_cpu),
+          "minimize: fuzz(minimize=True) differs between the card and the "
+          "CPU")
+
+
+def harness_misc_phase(dev, tmp):
+    """The harness_misc phase: time travel, divergence, checkpoints (the
+    checkpoint file goes under `tmp`)."""
+    import numpy as np
+    from madsim_tpu_torch import workloads
+    from madsim_tpu_torch.harness.determinism import find_divergence
+    from madsim_tpu_torch.runtime import checkpoint
+    rt = workloads.flagship_runtime(device=dev)
+    t0 = time.perf_counter()
+    at_equal = {}
+    for k in STATE_AT_STEPS:
+        got = rt.state_at(0, k)
+        direct, _ = rt.run(rt.init_single(0), k, chunk=k)
+        at_equal[k] = state_equal(got, direct)
+    state_at_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    div = find_divergence(rt, 0, DIVERGENCE_STEPS)
+    div_s = time.perf_counter() - t0
+    s0 = rt.init_batch(np.arange(CKPT_B, dtype=np.uint32))
+    straight = rt.run_fused(s0, FLAG_STEPS, chunk=FLAG_CHUNK)
+    half = rt.run_fused(s0, CKPT_AT, chunk=FLAG_CHUNK)
+    path = os.path.join(tmp, "ckpt.npz")
+    t0 = time.perf_counter()
+    checkpoint.save(path, half)
+    t1 = time.perf_counter()
+    loaded = checkpoint.load(path, rt.init_batch(np.arange(
+        CKPT_B, dtype=np.uint32)))
+    t2 = time.perf_counter()
+    resumed = rt.run_fused(loaded, FLAG_STEPS - CKPT_AT, chunk=FLAG_CHUNK)
+    same_fp = bool((rt.fingerprints(resumed)
+                    == rt.fingerprints(straight)).all())
+    loaded_equal = state_equal(loaded, half)
+    emit(phase="harness_misc", state_at_steps=list(STATE_AT_STEPS),
+         state_at_equal={str(k): v for k, v in at_equal.items()},
+         state_at_and_direct_s=state_at_s, divergence=div,
+         divergence_max_steps=DIVERGENCE_STEPS, divergence_s=div_s,
+         checkpoint_batch=CKPT_B, checkpoint_at=CKPT_AT,
+         checkpoint_bytes=os.path.getsize(path), save_s=t1 - t0,
+         load_s=t2 - t1, loaded_equal=loaded_equal,
+         resumed_fingerprints_equal=same_fp)
+    check(all(at_equal.values()), f"harness_misc: state_at {at_equal}")
+    check(div is None, f"harness_misc: find_divergence found {div}")
+    check(loaded_equal and same_fp,
+          "harness_misc: the checkpoint did not resume to the straight run")
+
+
+def clone_layout_state(state):
+    """map_state of clone_layout: a copy of every leaf laid out as the
+    original is (an offset leaf stays off its boundary)."""
+    from madsim_tpu_torch.core.state import map_state
+    return map_state(clone_layout, state)
+
+
 def main() -> int:
     import torch
+    if len(sys.argv) == 3 and sys.argv[1] == "--minimize-cpu":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return minimize_cpu_main(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -2233,6 +2795,26 @@ def main() -> int:
          kernels=sorted(report), ptxas=ptxas)
     libs = sorted({kernels.library(k) for k in wrappers})
     check(sorted(report) == libs, f"build: {sorted(report)} != {libs}")
+
+    # the minimize phase's CPU half runs beside the card's phases, in a
+    # process of its own that the main process waits for (or stops)
+    import atexit
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    cpu_min_path = os.path.join(tmp, "minimize_cpu.pkl")
+    cpu_min = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--minimize-cpu",
+         cpu_min_path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+    def stop_children():
+        if cpu_min.poll() is None:
+            cpu_min.kill()
+            cpu_min.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    atexit.register(stop_children)
 
     # ---- golden: the frozen digests through both runners --------------------
     with open(os.path.join(here, "tests", "data",
@@ -2753,6 +3335,13 @@ def main() -> int:
     check(all(v == 0 for v in runs["cpu", "run"][0].values()),
           "flagship_same_on_both: a kernel launched on the CPU run")
     del runs, ref, rt, s0, out
+
+    # ---- the harness: compacting, detsan (and the lane kernels), minimize,
+    # ---- harness_misc
+    compact_launch = compacting_phase(wrappers, dev)
+    detsan_launch, lane_k = detsan_phase(wrappers, dev, compact_launch)
+    minimize_phase(wrappers, dev, cpu_min, cpu_min_path)
+    harness_misc_phase(dev, tmp)
 
     # ---- kernel: sched_pick against its plain version -----------------------
     B, C = captured[0][0].shape
@@ -3448,7 +4037,16 @@ def main() -> int:
             ("threefry_keys", "prng.cu", "madsim_tpu/core/prng.py:24"),
             ("threefry_draw", "prng.cu", "madsim_tpu/core/prng.py:28"),
             ("node_gather", "node_rows.cu", "madsim_tpu/ops/select.py:66"),
-            ("put_rows_", "node_rows.cu", "madsim_tpu/ops/select.py:76"))])
+            ("put_rows_", "node_rows.cu", "madsim_tpu/ops/select.py:76"))] + [
+        dict(name=k, route="cuda", source=f"madsim_tpu_torch/csrc/{src}",
+             replaces=where, launches=n, **lane_k[k])
+        for k, src, where, n in (
+            ("lane_take", "lane_rows.cu", "madsim_tpu/runtime/runtime.py:703",
+             compact_launch["lane_take"]),
+            ("lane_put", "lane_rows.cu", "madsim_tpu/runtime/runtime.py:729",
+             compact_launch["lane_put"]),
+            ("lane_diff", "lane_diff.cu", "madsim_tpu/harness/simtest.py:138",
+             detsan_launch["lane_diff"]))])
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

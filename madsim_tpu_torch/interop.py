@@ -46,12 +46,23 @@ def state_leaves(state: SimState) -> dict:
     return out
 
 
+def _u32(path: str) -> bool:
+    return path[1:].split("[", 1)[0] in U32_FIELDS
+
+
 def _to_numpy(path: str, t: torch.Tensor) -> np.ndarray:
     a = t.detach().cpu().numpy()
-    field = path[1:].split("[", 1)[0]
-    if field in U32_FIELDS:
+    if _u32(path):
         a = a.view(np.uint32)
     return a
+
+
+def leaf_dtype(path: str, t: torch.Tensor) -> np.dtype:
+    """The numpy dtype leaf `path` (held in `t`) exports with, read from
+    the tensor's dtype alone (no copy)."""
+    if _u32(path):
+        return np.dtype(np.uint32)
+    return torch.empty(0, dtype=t.dtype).numpy().dtype
 
 
 def state_to_numpy(state: SimState) -> dict:

@@ -40,13 +40,16 @@ SOURCES = {
     "fingerprint": "fingerprint.cu",
     "prng": "prng.cu",
     "node_rows": "node_rows.cu",
+    "lane_rows": "lane_rows.cu",
+    "lane_diff": "lane_diff.cu",
 }
 
 # kernel (wrapper) name -> its library, where the two names differ
 LIBRARY = {"step_keys": "prng", "dup_draws": "prng",
            "split_randint": "prng", "threefry_keys": "prng",
            "threefry_draw": "prng", "node_gather": "node_rows",
-           "put_rows_": "node_rows"}
+           "put_rows_": "node_rows", "lane_take": "lane_rows",
+           "lane_put": "lane_rows"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -199,6 +202,8 @@ def wrappers() -> dict:
     from .apply_super import apply_super
     from .coverage import coverage_digest
     from .emit_write import emit_write
+    from .lane_diff import lane_diff
+    from .lane_rows import lane_put, lane_take
     from .mutate import mutate_batch
     from .node_rows import node_gather, put_rows_
     from .raft_invariant import raft_invariant_check
@@ -214,4 +219,6 @@ def wrappers() -> dict:
             "split_randint": split_randint_kernel,
             "threefry_keys": threefry_keys,
             "threefry_draw": threefry_draw,
-            "node_gather": node_gather, "put_rows_": put_rows_}
+            "node_gather": node_gather, "put_rows_": put_rows_,
+            "lane_take": lane_take, "lane_put": lane_put,
+            "lane_diff": lane_diff}

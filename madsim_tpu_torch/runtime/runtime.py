@@ -6,12 +6,18 @@ per chunk to test whether every lane has halted — the chunk contract of
 `madsim_tpu.runtime.runtime.Runtime.run` — and `run_fused` as a replayed
 CUDA graph with no host sync per block. State lives on one device:
 CUDA by default (the entry points raise when no GPU is present), or the
-CPU when the caller passes `device="cpu"`.
+CPU when the caller passes `device="cpu"`. `run_compacting` repacks the
+live lanes of a long-tailed sweep into narrower batches as lanes halt
+(BASELINE.md config 4), `run_exact` advances exactly a number of steps
+(time travel with `state_at`, divergence bisection), and `derived`
+rebuilds the runtime with config fields replaced.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+import time
 from typing import Any, Callable, Sequence
 
 import numpy as np
@@ -25,6 +31,7 @@ from ..core.extension import build_ext_state
 from ..core.state import SimState, init_state, map_state, tree_map
 from ..core.step import make_step
 from ..interop import state_leaves
+from ..ops.lane_rows import lane_put, lane_take
 from ..ops.select import first_k_free
 from ..utils.hashing import fingerprint
 from .scenario import Scenario
@@ -76,7 +83,10 @@ class FusedGraph:
 
     WARMUP_STEPS = 1
 
-    def __init__(self, step, state: SimState, block: int):
+    def __init__(self, step, state: SimState, block: int,
+                 own: bool = False):
+        """`own`: the caller hands `state` over, and its tensors become
+        the static buffers (no copy); else the buffers are a copy."""
         from ..ops.kernels import wrappers
         self.block = block
         dev = state.now.device
@@ -89,7 +99,7 @@ class FusedGraph:
                     scratch, _ = step(scratch)
             torch.cuda.current_stream(dev).wait_stream(side)
             del scratch
-            self.static = map_state(torch.clone, state)
+            self.static = state if own else map_state(torch.clone, state)
             kernels = wrappers()
             before = {k: w.captured for k, w in kernels.items()}
             self.graph = torch.cuda.CUDAGraph()
@@ -124,10 +134,22 @@ class FusedGraph:
         """Replay from `state` for n_steps (a multiple of the block), or
         until every lane has halted. Returns (a copy of the final state,
         the number of replays)."""
+        self.load(state)
+        replays = self.advance(n_steps)
+        return map_state(torch.clone, self.static), replays
+
+    def load(self, state: SimState) -> None:
+        """Copy `state` into the static buffers (a leaf that IS its
+        buffer is left as it is)."""
         static = state_leaves(self.static)
         for path, t in state_leaves(state).items():
             if t is not static[path]:
                 static[path].copy_(t)
+
+    def advance(self, n_steps: int) -> int:
+        """Replay on the static buffers as they are for n_steps (a
+        multiple of the block), or until every lane has halted; returns
+        the number of replays."""
         flags = [torch.empty((), dtype=torch.bool).pin_memory()
                  for _ in range(2)]
         done = [torch.cuda.Event() for _ in range(2)]
@@ -142,7 +164,7 @@ class FusedGraph:
                 done[(i - 1) % 2].synchronize()
                 if bool(flags[(i - 1) % 2]):
                     break
-        return map_state(torch.clone, self.static), replays
+        return replays
 
 
 class Runtime:
@@ -183,6 +205,8 @@ class Runtime:
             else np.zeros(cfg.n_nodes, np.int32), np.int32)
         self.invariant = invariant
         self.extensions = list(extensions)
+        self._persist = persist          # kept for derived()
+        self._halt_when = halt_when
         self._step = make_step(cfg, self.programs, self.node_prog,
                                state_spec, invariant, persist=persist,
                                halt_when=halt_when,
@@ -206,6 +230,20 @@ class Runtime:
         except Exception:
             self.scenario = old
             raise
+
+    def derived(self, **overrides) -> "Runtime":
+        """A Runtime over the SAME world (programs, state spec,
+        node->program map, scenario, invariant, persistence mask,
+        halt_when, extensions, device) with config fields replaced, e.g.
+        `derived(trace_cap=64)` for a recorded replay of a lean sweep.
+        Replay-domain overrides (n_nodes, time_limit, ...) are legal too
+        but give a different replay domain."""
+        return Runtime(dataclasses.replace(self.cfg, **overrides),
+                       self.programs, self.state_spec,
+                       node_prog=self.node_prog, scenario=self.scenario,
+                       invariant=self.invariant, persist=self._persist,
+                       halt_when=self._halt_when,
+                       extensions=self.extensions, device=self.device)
 
     # ------------------------------------------------------------------
     def _build_template(self) -> SimState:
@@ -347,31 +385,169 @@ class Runtime:
         launch accounting in `self.fused_stats`. On the CPU it is `run()`
         itself. Either way the caller's state is left as it was.
 
-        ckpt_every / ckpt_log (checkpoint harvest at segment boundaries)
-        are not ported yet (ROADMAP P8 / P11.8)."""
+        ckpt_every / ckpt_log (a CheckpointLog harvest at segment
+        boundaries) are not ported yet (ROADMAP P11.8); whole-batch
+        snapshots are `runtime.checkpoint.save` / `load`."""
         if ckpt_every is not None or ckpt_log is not None:
             raise NotImplementedError(
-                "run_fused(ckpt_every=..., ckpt_log=...): checkpoints are "
-                "not ported to madsim_tpu_torch yet (ROADMAP P8/P11.8)")
+                "run_fused(ckpt_every=..., ckpt_log=...): the checkpoint "
+                "log is not ported to madsim_tpu_torch yet (ROADMAP "
+                "P11.8)")
         if state.now.device.type != "cuda":
             state, _ = self.run(state, max_steps, chunk)
             return state
         total = -(-max_steps // chunk) * chunk
         with torch.no_grad():
             block = math.gcd(chunk, FUSED_BLOCK)
-            key = (block, _signature(state))
-            warmup = 0
-            if key not in self._graphs:
-                self._graphs.clear()    # one graph (and its pool) at a time
-                self._graphs[key] = FusedGraph(self._step, state, block)
-                warmup = FusedGraph.WARMUP_STEPS
-            graph = self._graphs[key]
+            graph, warmup = self._fused_graph(state, block)
             state, replays = graph.run(state, total)
         self.steps_run = replays * block
         self.fused_stats = dict(block=block, replays=replays,
                                 steps=self.steps_run, warmup_steps=warmup,
                                 captured=dict(graph.captured))
         return state
+
+    def _fused_graph(self, state: SimState, block: int, own: bool = False):
+        """The captured graph for `state`'s shapes and the warm-up steps
+        its capture took (0 when it was cached): captured once a shape,
+        and only one graph (with its memory pool) is kept at a time, so a
+        capture at a new shape releases the last. `own`: a new capture
+        adopts `state`'s tensors as its static buffers."""
+        key = (block, _signature(state))
+        if key in self._graphs:
+            return self._graphs[key], 0
+        self._graphs.clear()
+        self._graphs[key] = FusedGraph(self._step, state, block, own=own)
+        return self._graphs[key], FusedGraph.WARMUP_STEPS
+
+    def run_compacting(self, state: SimState, max_steps: int,
+                       chunk: int = 512, compact_when: float = 0.5,
+                       min_batch: int = 256, observer=None) -> SimState:
+        """Like run(), with early-exit compaction for long-tailed sweeps
+        (BASELINE.md config 4): when more than `compact_when` of the
+        lanes have halted, the halted ones are stashed and the live ones
+        repacked into a narrower batch, padded with halted lanes to
+        max(min_batch, a power of two), the JAX package's rule. Returns
+        the full batch in the ORIGINAL lane order, equal to `run`'s
+        result (halted lanes are a fixed point of the step).
+
+        On CUDA each chunk replays the graph runner's captured block on
+        the current width's buffers (a capture a width: at most
+        log2(B / min_batch) + 1), the repack and the stash are
+        `lane_take` (the stash stays on the card) and the merge is one
+        `lane_put` a part into a batch allocated once. On the CPU the
+        chunks are the eager step, on a private copy. Either way the
+        caller's state is left as it was.
+
+        observer: `on_chunk` a chunk, `on_compact` a repack (from/to
+        widths) and `on_done`, with the JAX package's records. The
+        widths, repacks, graph captures and the stash's bytes are left in
+        `self.compact_stats`."""
+        B = int(state.halted.shape[0])
+        cuda = state.now.device.type == "cuda"
+        block = math.gcd(chunk, FUSED_BLOCK)
+        orig_idx = np.arange(B)
+        stash: list = []          # (original lanes, their state)
+        done = k = repacks = stashed_total = captures = stash_bytes = 0
+        widths = [B]
+        t0 = time.perf_counter()
+        t_prev = t0
+        with torch.no_grad():
+            if cuda:
+                graph, warm = self._fused_graph(state, block)
+                graph.load(state)
+                captures += warm > 0
+                cur = graph.static
+            else:
+                cur = map_state(torch.clone, state)
+            while done < max_steps:
+                if cuda:
+                    graph.advance(chunk)
+                else:
+                    for _ in range(chunk):
+                        cur, _ = self._step(cur)
+                done += chunk
+                k += 1
+                halted = cur.halted.cpu().numpy()
+                n = halted.shape[0]
+                if observer is not None:
+                    t_now = time.perf_counter()
+                    observer.on_chunk(dict(
+                        kind="chunk", chunk=k, steps_done=done, batch=n,
+                        lanes_halted=int(halted.sum()),
+                        stashed_total=stashed_total, wall_s=t_now - t0,
+                        lane_steps_per_sec=n * chunk / max(t_now - t_prev,
+                                                           1e-9)))
+                    t_prev = t_now
+                if halted.all():
+                    break
+                live = int((~halted).sum())
+                if not (n > min_batch and live / n < (1 - compact_when)):
+                    continue
+                target = max(min_batch, 1 << int(np.ceil(np.log2(live))))
+                if target >= n:
+                    continue
+                # the live lanes, padded with the first halted ones
+                keep = np.concatenate([np.nonzero(~halted)[0],
+                                       np.nonzero(halted)[0][:target - live]])
+                drop = np.setdiff1d(np.arange(n), keep)
+                stash.append((orig_idx[drop], lane_take(cur, drop)))
+                stash_bytes += sum(t.numel() * t.element_size()
+                                   for t in state_leaves(stash[-1][1])
+                                   .values())
+                cur = lane_take(cur, keep)
+                orig_idx = orig_idx[keep]
+                if cuda:
+                    del graph
+                    graph, warm = self._fused_graph(cur, block, own=True)
+                    graph.load(cur)
+                    captures += warm > 0
+                    cur = graph.static
+                repacks += 1
+                stashed_total += len(drop)
+                widths.append(target)
+                if observer is not None:
+                    observer.on_compact(dict(
+                        kind="compact", steps_done=done, from_batch=n,
+                        to_batch=target, stashed=len(drop),
+                        stashed_total=stashed_total,
+                        wall_s=time.perf_counter() - t0))
+            if observer is not None:
+                observer.on_done(dict(
+                    kind="done", steps_done=done, batch=B, chunks=k,
+                    repacks=repacks,
+                    lanes_halted=int(cur.halted.sum()) + stashed_total,
+                    stashed_total=stashed_total,
+                    wall_s=time.perf_counter() - t0))
+            # merge: every part into its original lanes of one batch
+            out = map_state(lambda t: torch.empty(
+                (B,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device),
+                cur)
+            for idx, part in stash + [(orig_idx, cur)]:
+                lane_put(out, idx, part)
+        self.steps_run = done
+        self.compact_stats = dict(widths=widths, repacks=repacks,
+                                  chunks=k, captures=captures,
+                                  stashed_total=stashed_total,
+                                  stash_bytes=stash_bytes)
+        return out
+
+    def run_exact(self, state: SimState, steps: int,
+                  collect_events: bool = False):
+        """Exactly `steps` steps of every lane (a halted lane stays as it
+        is) on a private copy of `state`: (state, events | None). The
+        exact-length runner of `state_at` (obs/timetravel.advance_exact)
+        and `harness.determinism.find_divergence`: the JAX package's
+        chunk runner at chunk length `steps`."""
+        return self.run(state, steps, chunk=steps,
+                        collect_events=collect_events)
+
+    def state_at(self, seed: int, step: int) -> SimState:
+        """Time travel: the exact state of `seed` after `step` events
+        (power-of-two pieces; an all-halted lane stops early)."""
+        from ..obs.timetravel import advance_exact
+        return advance_exact(self, self.init_single(seed), step,
+                             chunk=1 << 30)
 
     def run_single(self, seed: int, max_steps: int, chunk: int = 512,
                    collect_events: bool = True):

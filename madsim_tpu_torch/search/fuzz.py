@@ -19,11 +19,15 @@ one block still running, and the host's corpus work overlaps that block.
 Crashes are harvested, never aborted on: every distinct crash code keeps
 its first full repro handle (seed, knob vector).
 
+With `minimize=True` every harvested crash repro is shrunk to its
+1-minimal fault rows (`harness.minimize.minimize_knobs`) into the
+result's `minimized` table.
+
 Not ported yet, each refused with NotImplementedError: durable campaigns
-(`corpus_dir=`, with `verify_resume`, `sync_every` and the crash buckets:
-ROADMAP P14), the lineage-driven arm (`ldfi=`: ROADMAP P13, with
-search/ldfi.py and obs/support.py) and crash-repro shrinking
-(`minimize=True`: ROADMAP P8, harness/minimize.py).
+(`corpus_dir=`, with `verify_resume`, `sync_every`, the crash buckets
+and the minimized script written into them: ROADMAP P14) and the
+lineage-driven arm (`ldfi=`: ROADMAP P13, with search/ldfi.py and
+obs/support.py).
 """
 
 from __future__ import annotations
@@ -61,9 +65,9 @@ def fuzz(rt, max_steps: int, batch: int = 512, max_rounds: int = 16,
     seed, so a repro is the (seed, knobs) pair. Arguments as the JAX package's
     `fuzz` (dup_slots, havoc, fresh_frac, rng_seed, corpus, div_bonus,
     lat_bonus, burst_bonus, worker_id; observer with `on_round` /
-    `on_done`). corpus_dir, ldfi and minimize=True raise
-    NotImplementedError (see the module doc); sync_every and
-    verify_resume act only on a durable store, as in the reference.
+    `on_done`). corpus_dir and ldfi raise NotImplementedError (see the
+    module doc); sync_every and verify_resume act only on a durable
+    store, as in the reference.
 
     Returns a dict: seeds_run, rounds, distinct_schedules, new_per_round,
     saturated, crash_first_seed_by_code (bootstrap lanes only: seed-alone
@@ -81,11 +85,6 @@ def fuzz(rt, max_steps: int, batch: int = 512, max_rounds: int = 16,
             "fuzz(ldfi=...): lineage-driven fault injection (search/ldfi.py, "
             "obs/support.py) is not ported to madsim_tpu_torch yet "
             "(ROADMAP P13)")
-    if minimize:
-        raise NotImplementedError(
-            "fuzz(minimize=True): crash-repro shrinking (harness/"
-            "minimize.py) is not ported to madsim_tpu_torch yet "
-            "(ROADMAP P8)")
     plan = KnobPlan.from_runtime(rt, dup_slots=dup_slots)
     op_hist = np.zeros(N_MUT_OPS, np.int64)
     # cumulative coverage-yield attribution: admissions credited to the
@@ -230,9 +229,21 @@ def fuzz(rt, max_steps: int, batch: int = 512, max_rounds: int = 16,
                         for i in range(len(YIELD_NAMES))},
         corpus_energy=corpus.energy_summary(),
     )
+    if minimize and repros:
+        from ..harness.minimize import minimize_knobs
+        result["minimized"] = {}
+        for c, rep in repros.items():
+            try:
+                minimal, info = minimize_knobs(rt, plan, rep["knobs"],
+                                               rep["seed"], max_steps,
+                                               chunk)
+                result["minimized"][c] = dict(info, knobs=minimal)
+            except Exception as e:  # noqa: BLE001 - repro handle still stands
+                result["minimized"][c] = dict(error=f"{type(e).__name__}: {e}")
     if observer is not None:
         observer.on_done(dict(
             kind="done", distinct_total=len(seen),
             wall_s=time.perf_counter() - t0,
-            **{k: v for k, v in result.items() if k != "crash_repros"}))
+            **{k: v for k, v in result.items()
+               if k not in ("crash_repros", "minimized")}))
     return result

@@ -6,6 +6,9 @@
                      32, 24 commands per leader stint, 5% packet loss and
                      8 rolling kill / restart / partition / heal cycles;
                      optionally with the flight recorder (trace_cap).
+  compacting_runtime the flagship's shapes with a long tail of halts,
+                     the regime `Runtime.run_compacting` is for: lanes
+                     halt at a commit index of 28 or at 10 simulated s
   pingpong_runtime   the golden pingpong workload with the flight
                      recorder compiled out (trace_cap=0, the default) or
                      in (trace_cap=64: the golden build itself)
@@ -44,13 +47,14 @@ RECORDER_LEAVES = (".ev_prov", ".lamport", ".trace_cap", ".trace_on",
                    ".tr_lamport")
 
 
-def flagship_runtime(device=None, n_nodes: int = 5, trace_cap: int = 0):
+def flagship_runtime(device=None, n_nodes: int = 5, trace_cap: int = 0,
+                     time_limit: int = sec(600), halt_on_commit: int = 0):
     """bench.py's flagship; trace_cap > 0 compiles the flight recorder
     and lineage in (they change no other leaf)."""
     from .models.raft import make_raft_runtime
     n = n_nodes
     cfg = SimConfig(n_nodes=n, event_capacity=max(96, 16 * n),
-                    time_limit=sec(600), payload_words=8,
+                    time_limit=time_limit, payload_words=8,
                     trace_cap=trace_cap,
                     net=NetConfig(packet_loss_rate=0.05))
     sc = Scenario()
@@ -60,7 +64,17 @@ def flagship_runtime(device=None, n_nodes: int = 5, trace_cap: int = 0):
         sc.at(sec(1 + t) + ms(600)).partition([t % n, (t + 1) % n])
         sc.at(sec(1 + t) + ms(900)).heal()
     return make_raft_runtime(n, log_capacity=32, n_cmds=24, scenario=sc,
-                             cfg=cfg, device=device)
+                             cfg=cfg, device=device,
+                             halt_on_commit=halt_on_commit)
+
+
+def compacting_runtime(device=None):
+    """The flagship's shapes (5 Raft nodes, C=96, P=8, 5% loss, 8 chaos
+    cycles) halting when a node commits index 28, else at 10 simulated
+    seconds: the flagship itself never halts early (a 600 s limit, no
+    commit target), and at this target the halts spread over steps
+    ~900-2600, the long tail that early-exit compaction is for."""
+    return flagship_runtime(device, time_limit=sec(10), halt_on_commit=28)
 
 
 def pingpong_runtime(device=None, trace_cap: int = 0):

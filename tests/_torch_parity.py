@@ -13,6 +13,21 @@ import contextlib
 import jax
 import jax.tree_util as jtu
 import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture(scope="module")
+def one_cpu_thread():
+    """torch on one intra-op thread for a module (restored after it): the
+    port's CPU step is a long chain of small ops, faster on one thread,
+    and test workers running side by side then do not oversubscribe the
+    cores. Use as `pytestmark = pytest.mark.usefixtures("one_cpu_thread")`
+    with the fixture imported."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @contextlib.contextmanager

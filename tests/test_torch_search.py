@@ -406,8 +406,7 @@ def test_observer_sees_every_round():
 # The port's boundary
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("kw,item", [
-    (dict(ldfi=object()), "P13"), (dict(corpus_dir="store"), "P14"),
-    (dict(minimize=True), "P8")])
+    (dict(ldfi=object()), "P13"), (dict(corpus_dir="store"), "P14")])
 def test_unported_fuzz_branches_are_refused(kw, item):
     from madsim_tpu_torch.search import fuzz
     rt = workloads.saturating_runtime(device="cpu")
