@@ -98,6 +98,26 @@ the frozen golden digests. One JSON object per line, in phases:
                steps finds none; a B=4096 checkpoint saved at step 512,
                loaded and resumed to 2048 gives the straight run's
                fingerprints
+  planes       the plane flagship (workloads.plane_flagship_runtime: the
+               flagship with the sim profiler and the latency plane,
+               e2e from the leader's propose timer to its append
+               replies, trace_cap=64) at B=100,000 for 2048 steps
+               through run_fused and run: every leaf equal, the
+               fingerprints equal the plane-off flagship's, obs_fold
+               launched once a step, lanes 0, 1, 4099 and 99,999 at
+               step 1024 equal to a CPU run of those seeds (in a process
+               of its own, `chip_smoke.py --planes-cpu OUT`, started
+               after the build), the digests over every lane with
+               completions and no more node dispatches than steps
+               (plane_sums launched four times, lane_p99 once); and
+  planes_profile  the plane-on graph step's device ms and obs_fold's ms
+               a step beside the plane-off traced step's, the eager
+               plane-on step split by section, and sched_pick with and
+               without its occupancy output beside a plain count
+  slo          slo_invariant (harness/slo.py) on a 2-node pingpong whose
+               lanes all miss a 1-tick p99, B=4096: run_fused (the check
+               inside the captured graph) equal to run, every lane
+               CRASH_SLO, lanes 0..7 equal to a CPU run
   kernel       each kernel against its plain version, exactly equal
                (the kernel's time is device time: launches captured in a
                CUDA graph and replayed between events):
@@ -105,7 +125,8 @@ the frozen golden digests. One JSON object per line, in phases:
                B=100,003; C=33 and C=256 with N=32; warp tiles that mix
                nudged, halted, tied, one-candidate, empty and parked
                lanes; every lane halted; tables not 16-byte aligned, which
-               the kernel copies 4 bytes at a time) and on tables captured
+               the kernel copies 4 bytes at a time), each also with its
+               occupancy output (the profiler's), and on tables captured
                from the flagship at steps 0, 512, 2048, from wal_kv at
                B=100,000, C=256, step 40 and from PCT's nudged run, with
                its registers a thread and resident blocks an SM (the
@@ -219,7 +240,22 @@ the frozen golden digests. One JSON object per line, in phases:
                repeated take indices, a leaf one element and one byte off
                a 16-byte boundary, zero-size, bool, uint32 and float32
                leaves), each timed as one launch replayed in a graph
-               against its bytes and its plain version
+               against its bytes and its plain version;
+               obs_fold (K8) at the plane flagship's step-1024 operands
+               and on edge cases (counters at int32 max, latencies at
+               every power of two and its neighbours, both gates off, one
+               plane compiled out, no complete_kinds, N=7, strided
+               operands with plane leaves one element off a 16-byte
+               boundary, B=1), timed as a graph of 20 calls each on its
+               own copy of the plane leaves; emit_write with the plane
+               columns (ev_root_t, tr_qlen, tr_lat, the delay sum) at
+               those operands and on edge cases, beside its plane-off
+               time; plane_sums and lane_p99 (K10) on the plane
+               flagship's final state and on edge cases (counters near
+               int32 max at B=100,000, negative words, masks off, a leaf
+               of 300 columns, B=1, sparse histograms, an unaligned
+               histogram), each against its plain version on the card
+               and lane_p99 also against its plain version on the CPU
   determinism  lanes 0..4095 alone, twice through run (512 steps) and
                twice through run_fused (2048 steps): fingerprints equal
                to each other and to lanes 0..4095 of the B=100,000 eager
@@ -467,6 +503,8 @@ def clone_layout(x):
     fresh allocation laid out as the original is), so a copy of an
     operand that starts off a 16-byte boundary does too."""
     import torch
+    if isinstance(x, dict):
+        return {k: clone_layout(v) for k, v in x.items()}
     if isinstance(x, (tuple, list)):
         return type(x)(clone_layout(v) for v in x)
     if not isinstance(x, torch.Tensor) or not x.numel() \
@@ -648,7 +686,7 @@ def emit_edge_operands(dev, B, C, N, P, E, n_sends, jitter, ring, prov,
             None if rg is None else dev_tree(rg), n_sends, jitter)
 
 
-def emit_bound(tables, em, lane, ring, n_sends, use_jitter):
+def emit_bound(tables, em, lane, ring, n_sends, use_jitter, delay=False):
     """(bytes, operations) of the emission write for these operands.
     bytes: what the write needs, each input byte read once and each byte
     it changes written once, counted for this data:
@@ -662,7 +700,10 @@ def emit_bound(tables, em, lane, ring, n_sends, use_jitter):
     - with the ring: every lane's fired, trace_on, trace_pos, trace_cap
       and new trace_pos; for each recording lane its record operands
       (and now, disp_idx, ev_lamport where not counted above) and its
-      eight-word ring row.
+      eight-word ring row;
+    - with the plane columns: every lane's ev_root (and each written
+      row's root word), its delay sum (delay), and for each recording
+      lane the tr_qlen / tr_lat operand and word.
     Operations: 80 integer operations per threefry block (20 rounds of
     add, rotate, xor plus the key schedule) for the draws masked
     emissions need: a send's loss (3 blocks) and latency (6), and each
@@ -693,6 +734,15 @@ def emit_bound(tables, em, lane, ring, n_sends, use_jitter):
         rec = int((ring["fired"] & ring["trace_on"]).sum())
         extra = 0 if (E > 0 and prov) else 8 if E > 0 else 12
         nbytes += B * (2 + 4 * 3) + rec * (4 * 5 + extra + 8 * 4)
+        plane_cols = sum(ring["cols"].get(k) is not None
+                         and ring["cols"][k].shape[1] > 0
+                         for k in ("tr_qlen", "tr_lat"))
+        nbytes += rec * 8 * plane_cols
+    root = tables.get("ev_root_t")
+    if E > 0 and root is not None and root.shape[1] > 0:
+        nbytes += B * 4 + written * 4
+    if E > 0 and delay:
+        nbytes += B * 4
     return nbytes, ops
 
 
@@ -1076,7 +1126,7 @@ def coverage_edge_hashes(dev):
 
 
 SECTIONS = ("select", "dup", "super", "handlers", "scatter", "emit",
-            "stats", "invariant", "end")
+            "stats", "obs", "invariant", "end")
 
 
 STEP_RANGE, HANDLER_RANGE = "live_step.", "live_handler."
@@ -1097,7 +1147,7 @@ def is_range(name):
 # device-side annotation spans its start
 OWN_KERNELS = ("sched_pick", "apply_super", "emit_write", "raft_invariant",
                "step_keys", "dup_draws", "split_randint", "threefry_keys",
-               "threefry_draw", "node_gather", "put_rows")
+               "threefry_draw", "node_gather", "put_rows", "obs_fold")
 
 
 def section_split(prof, steps):
@@ -2216,6 +2266,137 @@ CKPT_B, CKPT_AT = 4096, 512
 LANE_KERNELS = ("lane_take", "lane_put", "lane_diff")
 
 
+# the d values a log2 bucket must place exactly: 0, every power of two
+# and its neighbours, int32 max, and negatives (bucket 0)
+def bucket_probes():
+    vals = {0, -1, -5, 2**31 - 1}
+    for j in range(31):
+        vals |= {(1 << j) - 1, 1 << j, (1 << j) + 1}
+    return sorted(v for v in vals if -2**31 <= v < 2**31)
+
+
+FOLD_CASES = ("random", "int32_max", "buckets", "all_masked", "pf_only",
+              "lh_only", "no_cpl", "n7", "strided_unaligned", "B1")
+
+
+def fold_edge_operands(dev, B, N, LB, seed, case="random"):
+    """obs_fold operands for one edge case: (plan, planes, ops, has_cpl).
+    random: counters below 1000, ~10% invalid lanes, gates ~80% on, acting
+    nodes one either side of [0, N); int32_max: every counter within 3
+    of int32 max and busy, delay and latencies up to int32 max; buckets:
+    the latencies at every power of two and its neighbours; all_masked:
+    both gates off; pf_only / lh_only: one plane compiled out; no_cpl:
+    no complete_kinds; n7: N = 7; strided_unaligned: every [B] operand a
+    view of stride 2 and every plane leaf one element off a 16-byte
+    boundary (ROADMAP F19); B1: one lane."""
+    import numpy as np
+    import torch
+    from madsim_tpu_torch.core.state import N_EV_KINDS
+    from madsim_tpu_torch.ops.obs_fold import FoldPlan
+    rng = np.random.default_rng(seed)
+    K = N_EV_KINDS
+    if case == "n7":
+        N = 7
+    if case == "B1":
+        B = 1
+    I32 = 2**31 - 1
+
+    def ints(lo, hi, shape):
+        return torch.as_tensor(
+            rng.integers(lo, hi, size=shape, dtype=np.int64)
+            .astype(np.int32), device=dev)
+
+    def bools(p, shape):
+        return torch.as_tensor(rng.random(shape) < p, device=dev)
+
+    nP = 0 if case == "lh_only" else N
+    nL = 0 if case == "pf_only" else N
+    lo, hi = (I32 - 3, I32 + 1) if case == "int32_max" else (0, 1000)
+    planes = dict(
+        pf_dispatch=ints(lo, hi, (B, nP, K)), pf_busy=ints(lo, hi, (B, nP)),
+        pf_kill=ints(lo, hi, (B, nP)), pf_restart=ints(lo, hi, (B, nP)),
+        pf_qmax=ints(0, 200, (B,)), pf_drop=ints(lo, hi, (B,)),
+        pf_delay=ints(lo, hi, (B,)), lh_sojourn=ints(lo, hi, (B, nL, LB)),
+        lh_e2e=ints(lo, hi, (B, nL, LB)), lh_slo_miss=ints(lo, hi, (B, nL)))
+    big = I32 if case == "int32_max" else 1 << 20
+    if case == "buckets":
+        probes = np.asarray(bucket_probes(), np.int64)
+        lat = [torch.as_tensor(rng.choice(probes, B).astype(np.int32),
+                               device=dev) for _ in range(2)]
+    else:
+        lat = [ints(0, big, (B,)) for _ in range(2)]
+    valid = bools(0.9, (B,))
+    ops = dict(
+        valid=valid, pf_on=bools(0.8, (B,)), lh_on=bools(0.8, (B,)),
+        reset_mask=bools(0.4, (B,)), dropped=bools(0.2, (B,)),
+        is_complete=bools(0.5, (B,)) & valid,
+        act_node=ints(-1, N + 1, (B,)), cpl_node=ints(0, N, (B,)),
+        ev_kind=ints(0, K, (B,)), op=ints(0, 20, (B,)),
+        now_delta=ints(0, big, (B,)), occ_disp=ints(0, 97, (B,)),
+        high_water=ints(0, 97, (B,)), delivered_drop=ints(0, 9, (B,)),
+        delay_acc=ints(0, big, (B,)), lat_sojourn=lat[0], lat_e2e=lat[1],
+        slo_target=ints(0, 1 << 16, (B,)))
+    if case == "all_masked":
+        ops["pf_on"] = torch.zeros_like(ops["pf_on"])
+        ops["lh_on"] = torch.zeros_like(ops["lh_on"])
+    if case == "strided_unaligned":
+        ops = {k: torch.stack([v, v], -1)[:, 0] for k, v in ops.items()}
+        planes = {k: unaligned(v) for k, v in planes.items()}
+    return (FoldPlan(N, K, LB, dev), planes, ops, case != "no_cpl")
+
+
+DIGEST_CASES = ("random", "int32_max", "negative", "all_masked", "wide",
+                "B1", "sparse")
+
+
+def digest_edge_operands(dev, B, N, LB, seed, case="random"):
+    """plane_sums and lane_p99 operands for one edge case: (leaves,
+    masks, hist). The leaves stand for both digests' counters (the lane
+    count, [B, N, 4], [B, N], [B], [B, N, LB] and [B, N] leaves under two
+    masks); hist is an [B, N, LB] e2e histogram. random: counts below
+    2^20 and ~half the lanes empty; int32_max: counters near int32 max
+    (the hi sums wrap at B=100,000, as the JAX int32 sums do); negative:
+    int32 values of either sign; all_masked: both masks off; wide: a
+    leaf of 300 columns (more than a block's threads); B1: one lane;
+    sparse: one sample in a few lanes (p99 at bucket 0 and 1)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    if case == "B1":
+        B = 1
+    I32 = 2**31 - 1
+
+    def ints(lo, hi, shape):
+        return torch.as_tensor(
+            rng.integers(lo, hi, size=shape, dtype=np.int64)
+            .astype(np.int32), device=dev)
+
+    lo, hi = {"int32_max": (I32 - 1000, I32 + 1),
+              "negative": (-2**31, 2**31)}.get(case, (0, 1 << 20))
+    masks = tuple(torch.as_tensor(rng.random(B) < 0.7, device=dev)
+                  for _ in range(2))
+    if case == "all_masked":
+        masks = tuple(torch.zeros_like(m) for m in masks)
+    leaves = [(None, 0), (ints(lo, hi, (B, N, 4)), 0),
+              (ints(lo, hi, (B, N)), 0), (ints(lo, hi, (B,)), 0),
+              (None, 1), (ints(lo, hi, (B, N, LB)), 1),
+              (ints(lo, hi, (B, N)), 1)]
+    if case == "wide":
+        leaves.append((ints(lo, hi, (B, 300)), 1))
+    if case == "sparse":
+        hist = torch.zeros((B, N, LB), dtype=torch.int32, device=dev)
+        lanes = rng.choice(B, max(1, B // 50), replace=False)
+        hist[torch.as_tensor(lanes, device=dev),
+             torch.as_tensor(rng.integers(0, N, len(lanes)), device=dev),
+             torch.as_tensor(rng.integers(0, 2, len(lanes)), device=dev)] = 1
+    else:
+        hist = ints(lo, hi, (B, N, LB)) if case != "random" else ints(
+            0, 4, (B, N, LB)) * (ints(0, 2, (B, 1, 1)))
+        if case == "negative":
+            hist = hist.abs()
+    return leaves, masks, hist
+
+
 def minimize_workload(device):
     """The JAX package's tests/test_minimize.py:24-40 red case: the
     unsynced-WAL wal_kv (2 clients, 12 ops, wal_cap 64) under six
@@ -2721,6 +2902,52 @@ def harness_misc_phase(dev, tmp):
           "harness_misc: the checkpoint did not resume to the straight run")
 
 
+def slo_phase(dev):
+    """`harness.slo.slo_invariant` as a Runtime invariant on the card: a
+    2-node pingpong whose every lane misses a 1-tick p99 (the JAX
+    package's tests/test_latency.py case) at B=4096 through run_fused
+    (the check captured in the graph) and run: every leaf equal, every
+    lane crashed with CRASH_SLO, and lanes 0..7 equal to a CPU run."""
+    import numpy as np
+    import torch
+    import madsim_tpu_torch as P
+    from madsim_tpu_torch import interop
+    from madsim_tpu_torch.core.types import CRASH_SLO
+    from madsim_tpu_torch.harness.slo import slo_invariant
+    from madsim_tpu_torch.models.pingpong import PingPong, state_spec
+
+    def runtime(device):
+        cfg = P.SimConfig(n_nodes=2, time_limit=P.sec(5), latency_hist=24,
+                          complete_kinds=((P.EV_MSG, 1),),
+                          net=P.NetConfig(send_latency_min=P.ms(1),
+                                          send_latency_max=P.ms(4)))
+        return P.Runtime(cfg, [PingPong(2, target=40)], state_spec(),
+                         invariant=slo_invariant(p99_le=1, min_count=4),
+                         device=device)
+    seeds = np.arange(EDGE_B, dtype=np.uint32)
+    rt = runtime(dev)
+    t0 = time.perf_counter()
+    f = rt.run_fused(rt.init_batch(seeds), 256, chunk=64)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    e, _ = rt.run(rt.init_batch(seeds), 256, chunk=64)
+    cpu_rt = runtime("cpu")
+    c, _ = cpu_rt.run(cpu_rt.init_batch(seeds[:8]), 256, chunk=64)
+    lanes = interop.state_to_numpy(state_lanes(f, list(range(8))))
+    cpu = interop.state_to_numpy(c)
+    differ = [k for k in cpu if not (cpu[k] == lanes[k]).all()]
+    codes = f.crash_code.cpu().numpy()
+    emit(phase="slo", batch=EDGE_B, steps=256, run_fused_s=t1 - t0,
+         run_equals_run_fused=state_equal(f, e),
+         crash_slo_lanes=int((codes == CRASH_SLO).sum()),
+         crash_steps=[int(np.min(f.steps.cpu().numpy())),
+                      int(np.max(f.steps.cpu().numpy()))],
+         cpu_leaves_differ=differ)
+    check(state_equal(f, e), "slo: run and run_fused differ")
+    check((codes == CRASH_SLO).all(), "slo: a lane did not crash CRASH_SLO")
+    check(not differ, f"slo: lanes 0..7 differ from the CPU in {differ}")
+
+
 def clone_layout_state(state):
     """map_state of clone_layout: a copy of every leaf laid out as the
     original is (an offset leaf stays off its boundary)."""
@@ -2728,11 +2955,469 @@ def clone_layout_state(state):
     return map_state(clone_layout, state)
 
 
+# ---- the observation planes (the profiler and latency planes, K8 obs_fold,
+# ---- K10 plane_sums / lane_p99, K5's plane columns) ------------------------
+# lanes of the plane flagship that a CPU run (a process of its own) repeats
+PLANE_CPU_LANES = (0, 1, 4099, 99_999)
+PLANE_CPU_STEPS = 1024
+
+
+def planes_cpu_main(out_path) -> int:
+    """`chip_smoke.py --planes-cpu OUT`: the planes phase's CPU half, the
+    plane flagship's PLANE_CPU_LANES seeds for PLANE_CPU_STEPS steps on
+    the CPU, run beside the card's phases (it touches no card); its
+    leaves are pickled to OUT for the main process."""
+    import pickle
+    import numpy as np
+    import torch
+    from madsim_tpu_torch import interop, workloads
+    torch.set_num_threads(2)
+    rt = workloads.plane_flagship_runtime(device="cpu")
+    s, _ = rt.run(rt.init_batch(np.asarray(PLANE_CPU_LANES, np.uint32)),
+                  PLANE_CPU_STEPS, chunk=FLAG_CHUNK)
+    with open(out_path, "wb") as f:
+        pickle.dump(interop.state_to_numpy(s), f)
+    return 0
+
+
+def state_lanes(state, lanes):
+    """The given lanes of a state (a gather: new tensors)."""
+    import torch
+    from madsim_tpu_torch.core.state import map_state
+    idx = torch.as_tensor(lanes, dtype=torch.int64, device=state.now.device)
+    return map_state(lambda t: t[idx], state)
+
+
+def planes_phase(wrappers, dev, names, every, flag_fp, prof_off, cpu_job,
+                 cpu_path, counts):
+    """The plane flagship (workloads.plane_flagship_runtime: the flagship
+    with profile=True, latency_hist=24, e2e from the leader's propose
+    timer to its append replies, trace_cap=64) at B=100,000 for 2048
+    steps through run_fused and the eager run: every leaf equal, the
+    fingerprints the plane-off flagship's (`flag_fp`), obs_fold launched
+    once a step, lanes PLANE_CPU_LANES at step 1024 equal to the CPU run
+    of `cpu_job`, the digests sane (every lane counted, completions, every
+    dispatch counted once); a graph profile of the plane-on step beside
+    the plane-off one (`prof_off`). `counts` is (reset, read) of the
+    launch counters. Returns what the kernel phase needs."""
+    import pickle
+    import numpy as np
+    import torch
+    import madsim_tpu_torch.core.step as step_mod
+    from madsim_tpu_torch import interop, workloads
+    from madsim_tpu_torch.parallel import stats
+    reset_counts, read_counts = counts
+    plane_every = list(every) + ["obs_fold"]
+    rt = workloads.plane_flagship_runtime(device=dev)
+    init = rt.init_batch(np.arange(FLAG_B, dtype=np.uint32))
+    per = step_launches(wrappers, rt, init)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    s = rt.run_fused(init, PLANE_CPU_STEPS, chunk=FLAG_CHUNK)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = fused_launches(rt, read_counts(), plane_every)
+    steps_run = rt.steps_run
+    warm = rt.fused_stats["warmup_steps"]
+    half = interop.state_to_numpy(state_lanes(s, PLANE_CPU_LANES))
+    fold_ops = step_operands(rt, s, step_mod, "obs_fold")
+    emit_ops = step_operands(rt, s, step_mod, "emit_write")
+    torch.cuda.synchronize()
+    reset_counts()
+    t2 = time.perf_counter()
+    s = rt.run_fused(s, FLAG_STEPS - PLANE_CPU_STEPS, chunk=FLAG_CHUNK)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    more = fused_launches(rt, read_counts(), plane_every)
+    launches = {k: launches[k] + more[k] for k in plane_every}
+    steps_run += rt.steps_run
+    check(steps_run == FLAG_STEPS, f"planes: {steps_run} steps")
+    check_once_per_step("planes run_fused", launches, steps_run + warm,
+                        names, per)
+    check(launches["obs_fold"] == steps_run + warm,
+          f"planes run_fused: obs_fold launched {launches['obs_fold']} "
+          f"times in {steps_run + warm} steps")
+    peak = torch.cuda.max_memory_allocated()
+    # the eager runner on the same seeds
+    reset_counts()
+    t4 = time.perf_counter()
+    e, _ = rt.run(init, FLAG_STEPS, chunk=FLAG_CHUNK)
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    eager = read_counts()
+    check_once_per_step("planes run", eager, rt.steps_run, names, per)
+    check(eager["obs_fold"] == rt.steps_run,
+          f"planes run: obs_fold launched {eager['obs_fold']} times in "
+          f"{rt.steps_run} steps")
+    same_runners = state_equal(s, e)
+    del e, init
+    fps = fingerprints_once(rt, s, "planes")
+    same_fp = bool((fps == flag_fp).all())
+    # the CPU run of a few lanes
+    log, _ = cpu_job.communicate(timeout=900)
+    check(cpu_job.returncode == 0, f"planes: the CPU run failed:\n{log}")
+    with open(cpu_path, "rb") as f:
+        cpu = pickle.load(f)
+    cpu_diff = [k for k in half if not (half[k].shape == cpu[k].shape
+                                        and (half[k] == cpu[k]).all())]
+    # the digests (K10)
+    reset_counts()
+    pc = stats.profile_counters(s)
+    lc = stats.latency_counters(s)
+    p99 = stats.lane_e2e_p99(s)
+    brief = stats.latency_brief(s)
+    torch.cuda.synchronize()
+    digest_launch = {k: wrappers[k].launches
+                     for k in ("plane_sums", "lane_p99")}
+    completions = int(lc["e2e_hist"].sum())
+    dispatched = int(pc["dispatch"].sum())
+    expect = dict({k: 1 for k in names}, **per, obs_fold=1)
+    prof = profile_steps(lambda st, n: rt.run_fused(st, n, chunk=n), s,
+                         FLAG_B, expect)
+    # the eager plane-on step split by section, from a fresh batch (the
+    # profile phase's plane-off window: steps 16-32)
+    prof_e = profile_steps(lambda st, n: rt.run(st, n, chunk=n)[0],
+                           rt.init_batch(np.arange(FLAG_B, dtype=np.uint32)),
+                           FLAG_B, expect)
+    # the profiler's pre-pop queue depth, an output of sched_pick: the
+    # select with and without it, and the plain count it replaces, at the
+    # step-2048 operands
+    from madsim_tpu_torch.ops.sched_pick import sched_pick
+    sel = select_inputs(s)
+    occ_ms = dict(
+        sched_pick=[graph_ms(lambda: sched_pick(*sel), 20)
+                    for _ in range(2)],
+        sched_pick_with_occupancy=[graph_ms(
+            lambda: sched_pick(*sel, True), 20) for _ in range(2)],
+        plain_count=graph_ms(
+            lambda: (sel[0] != 0).sum(-1, dtype=torch.int32), 20))
+    emit(phase="planes", runner="run_fused and run", batch=FLAG_B,
+         steps=steps_run, chunk=FLAG_CHUNK, trace_cap=64,
+         config=dict(profile=True, latency_hist=24,
+                     complete_kinds="(EV_MSG, AER)",
+                     root_kinds="(EV_TIMER, T_PROPOSE)"),
+         launches=launches, eager_launches={k: eager[k] for k in
+                                            plane_every},
+         warmup_steps=warm, first_half_s=t1 - t0,
+         steady_s=t3 - t2,
+         ms_per_step=(t3 - t2) / (FLAG_STEPS - PLANE_CPU_STEPS) * 1e3,
+         eager_ms_per_step=(t5 - t4) / FLAG_STEPS * 1e3,
+         max_memory_allocated=peak,
+         run_equals_run_fused=same_runners,
+         fingerprints_equal_plane_off=same_fp,
+         cpu_lanes=list(PLANE_CPU_LANES), cpu_steps=PLANE_CPU_STEPS,
+         cpu_leaves_differ=cpu_diff, digest_launches=digest_launch,
+         profiled_lanes=pc["lanes"], latency_lanes=lc["lanes"],
+         dispatches=dispatched, steps_sum=pc["steps_sum"],
+         completions=completions, e2e_p50=lc["e2e_p50"],
+         e2e_p99=lc["e2e_p99"], e2e_p999=lc["e2e_p999"],
+         sojourn_p99=lc["sojourn_p99"], slo_miss=lc["slo_miss"],
+         lane_p99_max=int(p99.max()), lane_p99_zero=int((p99 == 0).sum()),
+         queue_max=pc["qmax_max"], kills=int(pc["kill"].sum()),
+         brief=brief)
+    check(same_runners, "planes: run and run_fused differ")
+    check(same_fp, "planes: fingerprints differ from the plane-off "
+          "flagship's (the planes changed another leaf)")
+    check(not cpu_diff, f"planes: lanes {PLANE_CPU_LANES} differ from the "
+          f"CPU run in {cpu_diff}")
+    check(pc["lanes"] == FLAG_B and lc["lanes"] == FLAG_B,
+          f"planes: digests over {pc['lanes']} / {lc['lanes']} lanes")
+    check(completions > 0 and lc["e2e_p99"] > 0, "planes: no completion")
+    # a dispatch whose acting node is out of range (an op with no
+    # target) is in no node's count
+    check(0 < dispatched <= pc["steps_sum"],
+          f"planes: {dispatched} dispatches counted, {pc['steps_sum']} "
+          f"steps taken")
+    check(p99.shape == (FLAG_B,) and (p99 > 0).any(),
+          "planes: lane_e2e_p99 is empty")
+    check(digest_launch == {"plane_sums": 4, "lane_p99": 1},
+          f"planes: digest launches {digest_launch}")
+    emit(phase="planes_profile", runner="run_fused", batch=FLAG_B,
+         plane_on=prof, plane_off_device_busy_ms_per_step=prof_off.get(
+             "device_busy_ms_per_step"),
+         plane_on_device_busy_ms_per_step=prof.get(
+             "device_busy_ms_per_step"),
+         obs_fold_ms_per_step=prof["kernel_ms_per_step"]["obs_fold"]
+         if prof["kernel_ms_per_step"] else None,
+         emit_write_ms_per_step=dict(plane_on=prof.get(
+             "emit_write_ms_per_step"), plane_off=prof_off.get(
+             "emit_write_ms_per_step")), occ_disp_ms=occ_ms,
+         eager_plane_on=dict(
+             (k, prof_e.get(k)) for k in (
+                 "device_busy_ms_per_step", "device_kernels_per_step",
+                 "section_ms_per_step", "sections_ms_per_step",
+                 "kernel_ms_per_step", "kernel_launches")))
+    for what, pr in (("graph", prof), ("eager", prof_e)):
+        check(pr["kernel_launches"] is None or pr["kernel_launches"]
+              == {k: PROF_STEPS * n for k, n in expect.items()},
+              f"planes profile ({what}): traced launches "
+              f"{pr['kernel_launches']} in {PROF_STEPS} steps")
+    busy = prof_e.get("device_busy_ms_per_step")
+    check(busy is None or abs(prof_e["sections_ms_per_step"] - busy)
+          <= 0.02 * busy, f"planes profile (eager): the sections hold "
+          f"{prof_e.get('sections_ms_per_step')} of {busy} device ms")
+    return dict(launches=launches, digest_launch=digest_launch,
+                fold_ops=fold_ops, emit_ops=emit_ops, state=s, prof=prof)
+
+
+def fold_bound(planes, ops, has_cpl) -> int:
+    """The bytes the fold must move for these operands: every lane's 18
+    operands (6 bytes of bools, 12 int32) read once, and for each counter
+    element it changes (this data's recording lanes and completions) the
+    word read and written; pf_qmax, pf_drop and pf_delay of a profiled
+    lane count as changed."""
+    B = ops["valid"].shape[0]
+    nbytes = B * (6 + 4 * 12)
+    pf = planes["pf_busy"].shape[1] > 0
+    lh = planes["lh_sojourn"].shape[1] > 0
+    N = planes["pf_busy"].shape[1] or planes["lh_sojourn"].shape[1]
+    act_ok = (ops["act_node"] >= 0) & (ops["act_node"] < N)
+    words = 0
+    if pf:
+        rec = ops["valid"] & ops["pf_on"]
+        rm, op = ops["reset_mask"], ops["op"]
+        words += int((rec & act_ok).sum()) * 2 + 3 * int(rec.sum())
+        words += int((rec & act_ok & rm & ((op == 2) | (op == 3))).sum())
+        words += int((rec & act_ok & rm & ((op == 1) | (op == 3))).sum())
+    if lh:
+        words += int((ops["valid"] & ops["lh_on"] & act_ok).sum())
+        if has_cpl:
+            done = ops["is_complete"] & ops["lh_on"]
+            words += int(done.sum())
+            words += int((done & (ops["slo_target"] > 0)
+                          & (ops["lat_e2e"] > ops["slo_target"])).sum())
+    return nbytes + 8 * words
+
+
+def fold_ms(args, n=20, reps=3):
+    """Device ms of one obs_fold launch (in place): n calls captured as
+    one CUDA graph, each on its own copy of the plane leaves, the copies
+    restored outside the timed replay; the least of `reps` replays."""
+    import torch
+    from madsim_tpu_torch.ops.obs_fold import obs_fold
+    plan, planes, ops, has_cpl = args
+    ops = {k: v.contiguous() for k, v in ops.items()}
+    copies = [{k: v.clone() for k, v in planes.items()} for _ in range(n)]
+
+    def restore():
+        for c in copies:
+            for k, v in c.items():
+                v.copy_(planes[k])
+    obs_fold(plan, copies[0], ops, has_cpl)          # warm: build, load
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for c in copies:
+            obs_fold(plan, c, ops, has_cpl)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps + 1):           # the first replay warms the graph
+        restore()
+        torch.cuda.synchronize()
+        t0.record()
+        graph.replay()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1) / n)
+    del graph
+    return min(times[1:])
+
+
+def digest_leaves(state):
+    """Both digests' plane_sums leaves and masks of a plane state, as
+    parallel/stats.py hands them to the kernel (one launch here)."""
+    return ([(None, 0), (state.pf_dispatch, 0), (state.pf_busy, 0),
+             (state.pf_kill, 0), (state.pf_restart, 0), (state.pf_drop, 0),
+             (state.pf_delay, 0), (state.now, 0), (state.steps, 0),
+             (None, 1), (state.lh_sojourn, 1), (state.lh_e2e, 1),
+             (state.lh_slo_miss, 1)], (state.pf_on, state.lh_on))
+
+
+def sums_bound(leaves, masks) -> int:
+    """The bytes plane_sums must move: each leaf and each mask read once,
+    the [2, M] int32 output of each leaf written once."""
+    B = masks[0].shape[0]
+    nbytes = sum(m.numel() for m in masks if m is not None)
+    for x, _ in leaves:
+        M = 1 if x is None else x.numel() // B
+        nbytes += 8 * M + (0 if x is None else x.numel() * 4)
+    return nbytes
+
+
+def emit_plane_operands(args, seed):
+    """An emit_write edge case with the plane columns added (a copy):
+    random ev_root_t rows and ev_root, occ_disp and lat_ring operands
+    (-1 in a third of the lanes) and the tr_qlen / tr_lat ring columns,
+    with the delay sum on."""
+    import numpy as np
+    import torch
+    tables, em, lane, ring, n_sends, jit = clone_tree(args)[:6]
+    rng = np.random.default_rng(seed)
+    B, C = tables["t_kind"].shape
+    dev = tables["t_kind"].device
+
+    def ints(lo, hi, shape):
+        return torch.as_tensor(rng.integers(lo, hi, shape).astype(np.int32),
+                               device=dev)
+    tables["ev_root_t"] = ints(-1, 1 << 20, (B, C))
+    lat = ints(0, 1 << 20, (B,))
+    lane.update(ev_root=ints(-1, 1 << 20, (B,)), occ_disp=ints(0, C + 1,
+                                                                (B,)),
+                lat_ring=torch.where(ints(0, 3, (B,)) == 0, -1, lat))
+    if ring is not None:
+        TC = ring["cols"]["tr_now"].shape[1]
+        ring["cols"]["tr_qlen"] = ints(0, 100, (B, TC))
+        ring["cols"]["tr_lat"] = ints(-1, 100, (B, TC))
+    return (tables, em, lane, ring, n_sends, jit, True)
+
+
+def plane_kernel_phase(wrappers, dev, planes_out, emit_off_ms):
+    """K8 obs_fold, K5 emit_write with its plane columns and K10
+    plane_sums / lane_p99 against their plain versions, exactly: at the
+    plane flagship's step-1024 operands and its final state (B=100,000),
+    and on edge cases (fold: counters at int32 max, latencies at every
+    power of two and its neighbours, both gates off, one plane compiled
+    out, no complete_kinds, N=7, strided operands and plane leaves one
+    element off a 16-byte boundary, B=1; digests: counters near int32
+    max (the hi sums wrap at B=100,000), negative words, masks off, a
+    leaf of 300 columns, B=1, sparse histograms; emit_write's edge cases
+    with random plane columns). The fold and the write run on copies
+    (F21). Returns each kernel's numbers for the kernels line."""
+    import torch
+    from madsim_tpu_torch.ops.emit_write import (emit_write,
+                                                 emit_write_plain)
+    from madsim_tpu_torch.ops.obs_fold import obs_fold, obs_fold_plain
+    from madsim_tpu_torch.ops.plane_digest import (lane_p99,
+                                                   lane_p99_plain,
+                                                   plane_sums,
+                                                   plane_sums_plain)
+    state = planes_out["state"]
+    # ---- K8 obs_fold
+    fold_cases = {"plane_flagship_step_1024": planes_out["fold_ops"]}
+    for i, case in enumerate(FOLD_CASES):
+        fold_cases[case] = fold_edge_operands(dev, FLAG_B if case ==
+                                              "int32_max" else EDGE_B, 5,
+                                              24, 100 + i, case)
+    err_f = 0
+    for name, (plan, planes, ops, has_cpl) in fold_cases.items():
+        a, b = clone_layout(planes), clone_layout(planes)
+        obs_fold(plan, a, ops, has_cpl)
+        obs_fold_plain(plan, b, ops, has_cpl)
+        torch.cuda.synchronize()
+        err_f = max(err_f, check_equal(f"obs_fold on {name}", a, b))
+    main_f = fold_cases["plane_flagship_step_1024"]
+    fk, fk2 = fold_ms(main_f), fold_ms(main_f)
+    live = clone_tree(main_f[1])
+    fp_ms = cuda_ms(lambda: obs_fold_plain(main_f[0], live, main_f[2],
+                                           main_f[3]), 5)
+    f_bytes = fold_bound(*main_f[1:])
+    fold = dict(ms=min(fk, fk2), plain_ms=fp_ms,
+                bound_ms=f_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                max_abs_err=err_f, library_ms=None)
+    emit(phase="kernel", name="obs_fold", cases={
+        k: int(v[2]["valid"].shape[0]) for k, v in fold_cases.items()},
+         exact=True, max_abs_err=err_f,
+         launches_on_main_path=planes_out["launches"]["obs_fold"],
+         ms=[fk, fk2], plain_ms=fp_ms, bound_bytes=f_bytes,
+         bound_ms=fold["bound_ms"], bound_by="bytes",
+         ms_in_plane_graph=planes_out["prof"]["kernel_ms_per_step"][
+             "obs_fold"] if planes_out["prof"]["kernel_ms_per_step"]
+         else None, library="none")
+    del fold_cases, live
+    # ---- K5 emit_write with the plane columns
+    emit_cases = {"plane_flagship_step_1024": planes_out["emit_ops"]}
+    for C_e, E_e, ns_e, jit_e in ((96, 12, 7, True), (96, 0, 0, False),
+                                  (256, 5, 0, True)):
+        base = emit_edge_operands(dev, 4096, C_e, 5, 8, E_e, ns_e, jit_e,
+                                  True, True, seed=C_e + E_e)
+        emit_cases[f"edges_C{C_e}_E{E_e}_planes"] = emit_plane_operands(
+            base, C_e + E_e)
+    err_e = 0
+    for name, args in emit_cases.items():
+        a, b = clone_tree(args), clone_tree(args)
+        out_k = emit_write(*a)
+        out_p = emit_write_plain(*b)
+        torch.cuda.synchronize()
+        check("delay_acc" in out_k[1], f"emit_write on {name}: no delay")
+        err_e = max(err_e, check_equal(f"emit_write (planes) on {name}",
+                                       (a[0], a[3], out_k),
+                                       (b[0], b[3], out_p)))
+    main_e = emit_cases["plane_flagship_step_1024"]
+    live = clone_tree(main_e)
+    restores = [(live[0][k], main_e[0][k]) for k in main_e[0]] + [
+        (live[3]["cols"][k], main_e[3]["cols"][k]) for k in main_e[3]["cols"]]
+
+    def restore():
+        for dst, src in restores:
+            dst.copy_(src)
+    ek = [graph_ms(lambda: (restore(), emit_write(*live)), 20)
+          - graph_ms(restore, 20) for _ in range(2)]
+    e_bytes, e_ops = emit_bound(*main_e)
+    emit(phase="kernel", name="emit_write", planes=True,
+         cases=sorted(emit_cases), exact=True, max_abs_err=err_e,
+         ms=ek, plane_off_ms=emit_off_ms, bound_bytes=e_bytes,
+         bound_ms=max(e_bytes / HBM_BYTES_PER_S, e_ops / INT32_OPS_PER_S)
+         * 1e3, launches_on_main_path=planes_out["launches"]["emit_write"])
+    del emit_cases, live, restores
+    # ---- K10 plane_sums and lane_p99
+    leaves, masks = digest_leaves(state)
+    sum_cases = {"plane_flagship_step_2048": (leaves, masks)}
+    p99_cases = {"plane_flagship_step_2048": state.lh_e2e}
+    for i, case in enumerate(DIGEST_CASES):
+        B = FLAG_B if case in ("int32_max", "random") else EDGE_B
+        lv, ms_, hist = digest_edge_operands(dev, B, 5, 24, 200 + i, case)
+        sum_cases[case] = (lv, ms_)
+        p99_cases[case] = hist
+    p99_cases["unaligned"] = unaligned(state.lh_e2e)
+    err_s = err_p = 0
+    for name, (lv, ms_) in sum_cases.items():
+        err_s = max(err_s, check_equal(f"plane_sums on {name}",
+                                       plane_sums(lv, ms_),
+                                       plane_sums_plain(lv, ms_)))
+    for name, hist in p99_cases.items():
+        err_p = max(err_p, check_equal(f"lane_p99 on {name}", lane_p99(hist),
+                                       lane_p99(hist.cpu()).to(dev)))
+        err_p = max(err_p, check_equal(
+            f"lane_p99 on {name} (plain on the card)", lane_p99(hist),
+            lane_p99_plain(hist, lane_p99.q(dev))))
+    sk = [graph_ms(lambda: plane_sums(leaves, masks), 20) for _ in range(2)]
+    sp = cuda_ms(lambda: plane_sums_plain(leaves, masks), 5)
+    s_bytes = sums_bound(leaves, masks)
+    hist = state.lh_e2e
+    pk = [graph_ms(lambda: lane_p99(hist), 20) for _ in range(2)]
+    q = lane_p99.q(dev)
+    pp = cuda_ms(lambda: lane_p99_plain(hist, q), 5)
+    p_bytes = hist.numel() * 4 + hist.shape[0] * 4
+    sums = dict(ms=min(sk), plain_ms=sp,
+                bound_ms=s_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                max_abs_err=err_s, library_ms=None)
+    p99 = dict(ms=min(pk), plain_ms=pp,
+               bound_ms=p_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               max_abs_err=err_p, library_ms=None)
+    emit(phase="kernel", name="plane_sums", cases=sorted(sum_cases),
+         exact=True, max_abs_err=err_s, leaves=len(leaves), ms=sk,
+         plain_ms=sp, bound_bytes=s_bytes, bound_ms=sums["bound_ms"],
+         bound_by="bytes", launches_on_main_path=planes_out[
+             "digest_launch"]["plane_sums"], library="none")
+    emit(phase="kernel", name="lane_p99", cases=sorted(p99_cases),
+         exact=True, max_abs_err=err_p, ms=pk, plain_ms=pp,
+         bound_bytes=p_bytes, bound_ms=p99["bound_ms"], bound_by="bytes",
+         launches_on_main_path=planes_out["digest_launch"]["lane_p99"],
+         library="none")
+    return dict(obs_fold=fold, plane_sums=sums, lane_p99=p99)
+
+
 def main() -> int:
     import torch
     if len(sys.argv) == 3 and sys.argv[1] == "--minimize-cpu":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return minimize_cpu_main(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--planes-cpu":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return planes_cpu_main(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -2807,11 +3492,18 @@ def main() -> int:
         [sys.executable, os.path.abspath(__file__), "--minimize-cpu",
          cpu_min_path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True)
+    # and so does the planes phase's (a few lanes of the plane flagship)
+    cpu_planes_path = os.path.join(tmp, "planes_cpu.pkl")
+    cpu_planes = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--planes-cpu",
+         cpu_planes_path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
 
     def stop_children():
-        if cpu_min.poll() is None:
-            cpu_min.kill()
-            cpu_min.wait()
+        for child in (cpu_min, cpu_planes):
+            if child.poll() is None:
+                child.kill()
+                child.wait()
         shutil.rmtree(tmp, ignore_errors=True)
 
     atexit.register(stop_children)
@@ -3343,6 +4035,12 @@ def main() -> int:
     minimize_phase(wrappers, dev, cpu_min, cpu_min_path)
     harness_misc_phase(dev, tmp)
 
+    # ---- planes: the profiler and latency planes on the flagship ----------
+    planes_out = planes_phase(wrappers, dev, names, every, flag_fp,
+                              prof_fused, cpu_planes, cpu_planes_path,
+                              (reset_counts, read_counts))
+    slo_phase(dev)
+
     # ---- kernel: sched_pick against its plain version -----------------------
     B, C = captured[0][0].shape
     N = captured[0][5].shape[1]
@@ -3379,6 +4077,14 @@ def main() -> int:
             max_err = max(max_err, err)
             check(torch.equal(a, b),
                   f"sched_pick != sched_pick_plain on {name}: {field}")
+        # with the profiler's occupancy count (an optional output)
+        occ_k = sched_pick(*args, True)
+        occ_p = sched_pick_plain(*args, True)
+        torch.cuda.synchronize()
+        check(len(occ_k) == len(occ_p) == 10
+              and all(torch.equal(a, b) for a, b in zip(occ_k, out_k))
+              and torch.equal(occ_k[9], occ_p[9]),
+              f"sched_pick with the occupancy on {name}: differs")
     main_args = captured[FLAG_CHUNK]
     # timed in turns (kernel, plain, kernel, plain): the kernel as device
     # time (graph_ms), the plain version's many small eager launches
@@ -3483,6 +4189,12 @@ def main() -> int:
          bound_operations=e_ops, bound_ms=e_bound_ms, bound_by=e_bound_by,
          library="none")
     del emit_cases, main_e, live, restores
+
+    # ---- kernel: K8 obs_fold, K5's plane columns, K10 -----------------------
+    plane_k = plane_kernel_phase(wrappers, dev, planes_out, ew["ms"])
+    plane_launch = dict(obs_fold=planes_out["launches"]["obs_fold"],
+                        **planes_out["digest_launch"])
+    del planes_out
 
     # ---- kernel: the search kernels against their plain versions ----------
     from madsim_tpu_torch.ops.apply_knobs import TABLE_COLS as APPLY_COLS
@@ -4046,7 +4758,18 @@ def main() -> int:
             ("lane_put", "lane_rows.cu", "madsim_tpu/runtime/runtime.py:729",
              compact_launch["lane_put"]),
             ("lane_diff", "lane_diff.cu", "madsim_tpu/harness/simtest.py:138",
-             detsan_launch["lane_diff"]))])
+             detsan_launch["lane_diff"]))] + [
+        dict(name=k, route="cuda", source=f"madsim_tpu_torch/csrc/{src}",
+             replaces=where, launches=n, **plane_k[k])
+        for k, src, where, n in (
+            ("obs_fold", "obs_fold.cu", "madsim_tpu/core/step.py:673",
+             plane_launch["obs_fold"]),
+            ("plane_sums", "plane_digest.cu",
+             "madsim_tpu/parallel/stats.py:169",
+             plane_launch["plane_sums"]),
+            ("lane_p99", "plane_digest.cu",
+             "madsim_tpu/parallel/stats.py:465",
+             plane_launch["lane_p99"]))])
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

@@ -21,10 +21,16 @@ Every branch runs for every lane and masks decide what commits, as in the
 JAX package; the PRNG is split in the same static order, so a seed gives
 the same trajectory, leaf for leaf, in both packages. With
 `cfg.trace_cap > 0` the flight recorder and causal lineage ride along
-(the ring, `ev_prov`, `lamport`); they consume no randomness and touch no
-other leaf. The other observation planes (profiler, latency, spans,
-sketch, series) are not ported yet: `Runtime` refuses configs that
-enable them.
+(the ring, `ev_prov`, `lamport`); with `cfg.profile` the sim profiler's
+counters (`pf_*`, the ring's `tr_qlen`) and with `cfg.latency_hist > 0`
+the latency plane (`lh_*`, the root column `ev_root_t`, the ring's
+`tr_lat`): their captures are taken in the select and dup sections,
+`emit_write` writes their table and ring columns, and one `obs_fold`
+launch (ops/obs_fold.py) folds both planes after the stats, before the
+end checks, so an invariant (`harness.slo.slo_invariant`) sees this
+dispatch's completion. They consume no randomness and touch no other
+leaf. The other observation planes (spans, sketch, series) are not
+ported yet: `Runtime` refuses configs that enable them.
 
 The step's threefry draws outside those kernels go through
 `ops/threefry.py`: its own keys (the select's 5-way split, the
@@ -43,7 +49,9 @@ node vectors, the link matrix, the lane's network scalars and a booted
 node's protocol-state rows), with the recorder the acting node's Lamport
 clock, the acting node's protocol-state rows (the scatter, `put_rows_`),
 and the event table and ring (section 4, `emit_write`: the rows
-emissions take and the one ring row). Every other leaf of its result is
+emissions take and the one ring row), and the profiler and latency
+leaves (`obs_fold`: the one element of each counter a dispatch selects).
+Every other leaf of its result is
 a new tensor or one the step did not touch. So the step must own its
 input: the runners step a private copy of the caller's state
 (runtime/runtime.py `run`, and `run_fused`'s static buffers), and a
@@ -68,12 +76,15 @@ from ..ops import node_rows as nr
 from ..ops import select as sel
 from ..ops import threefry as tf
 from ..ops.apply_super import SuperPlan, apply_super
-from ..ops.emit_write import RING_COLS, TABLE_COLS, drift, emit_write
+from ..ops.emit_write import (PLANE_RING_COLS, PLANE_TABLE_COLS, RING_COLS,
+                              TABLE_COLS, drift, emit_write)
+from ..ops.obs_fold import LEAVES as FOLD_LEAVES
+from ..ops.obs_fold import FoldPlan, obs_fold
 from ..ops.sched_pick import sched_pick
 from . import types as T
 from .api import Ctx, Program
 from .device import resolve_device
-from .state import SimState, tree_map
+from .state import N_EV_KINDS, SimState, tree_map
 
 _I32 = torch.int32
 
@@ -160,6 +171,16 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
     n_ext = 1 + max(len(extensions), 1)
     n_ext_read = n_ext if extensions else 1
     super_plan = SuperPlan(cfg, spec_default, persist_mask)
+    profile = cfg.profile
+    lh = cfg.latency_hist > 0
+    has_cpl = lh and bool(cfg.complete_kinds)
+    fold_plan = (FoldPlan(N, N_EV_KINDS, cfg.latency_hist, device)
+                 if profile or lh else None)
+
+    def kinds_match(pairs, ev_kind, ev_tag):
+        """Whether the dispatched (kind, tag) is one of `pairs`."""
+        return functools.reduce(torch.logical_or, [
+            (ev_kind == k) & (ev_tag == t) for k, t in pairs])
 
     def live_step(s: SimState):
         B = s.now.shape[0]
@@ -171,14 +192,22 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
             (key, k_sched, k_handler, k_net, k_dupf, k_dupd,
              *ext_keys) = tf.step_keys(s.key, s.halted, dup_words, n_ext,
                                        n_ext_read)
-            # ev_node_raw may be NODE_RANDOM
+            # ev_node_raw may be NODE_RANDOM; with the profiler the select
+            # also counts the occupied rows before the pop (its queue depth
+            # at dispatch, so the dispatched row counts)
             (idx, dmin, valid, any_ev, sched_hash, ev_kind, ev_node_raw,
-             ev_src, ev_tag) = sched_pick(
+             ev_src, ev_tag, *occ) = sched_pick(
                 s.t_kind, s.t_node, s.t_deadline, s.t_tag, s.t_src,
                 s.alive, s.paused, s.prio_nudge, s.halted, k_sched,
-                s.sched_hash)
+                s.sched_hash, *((True,) if profile else ()))
             ev_node = torch.clamp(ev_node_raw, 0, N - 1)
             ev_payload = sel.take_row(s.t_payload, idx)
+            if profile:
+                (occ_disp,) = occ
+            # the latency plane's root read, before the pop and emissions
+            # (this dispatch may reuse its own row)
+            if lh:
+                root_raw = sel.take1(s.ev_root_t, idx)
 
             # causal lineage (recorder plane): the dispatched row's
             # provenance — the dispatch that enqueued it (-1: external) and
@@ -196,6 +225,29 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
             now, time_over, _, deadline, free = tf.dup_draws(
                 k_dupf, k_dupd, valid, ev_kind, ev_node, s.dup_rate, s.now,
                 dmin, s.lat_lo, s.lat_hi, s.tlimit)
+            if profile:
+                now_delta = now - s.now        # >= 0; 0 when not valid
+            if lh:
+                # the root a row with an unset root (-1: an external
+                # cause) mints at dispatch; a completion measures against
+                # the inherited root, emissions carry the post-mint one
+                # (a root kind re-mints on an inherited chain)
+                inherit = valid & (root_raw >= 0)
+                root_measured = torch.where(inherit, root_raw, now)
+                if cfg.root_kinds:
+                    inherit = inherit & ~kinds_match(cfg.root_kinds,
+                                                     ev_kind, ev_tag)
+                ev_root = torch.where(inherit, root_raw, now)
+                lat_sojourn = torch.clamp(
+                    torch.where(valid, now - dmin, 0), min=0)
+                if has_cpl:
+                    is_complete = valid & kinds_match(cfg.complete_kinds,
+                                                      ev_kind, ev_tag)
+                    lat_e2e = torch.clamp(now - root_measured, min=0)
+                    # the ring's latency value: a completion's e2e, else -1
+                    lat_ring = torch.where(is_complete, lat_e2e, -1)
+                else:
+                    lat_ring = torch.full_like(now, -1)
             # pop the slot, or re-arm it at the redelivery
             t_kind, t_deadline = nr.put_rows_([
                 (s.t_kind, idx, T.EV_FREE, free),
@@ -339,6 +391,10 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
                             clog_node=s.clog_node, clog_link=s.clog_link,
                             disp_idx=disp_idx if trace else zi,
                             ev_lamport=ev_lamport if trace else zi)
+                if profile:
+                    lane["occ_disp"] = occ_disp
+                if lh:
+                    lane.update(ev_root=ev_root, lat_ring=lat_ring)
                 ring = None
                 if trace:
                     ring = dict(fired=valid, trace_on=s.trace_on,
@@ -347,17 +403,22 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
                                 kind=ev_kind.contiguous(), node=ev_node,
                                 src=ev_src.contiguous(),
                                 tag=ev_tag.contiguous(), parent=ev_parent,
-                                cols={k: getattr(s, k) for k in RING_COLS})
+                                cols={k: getattr(s, k)
+                                      for k in RING_COLS + PLANE_RING_COLS})
                 # the tables and ring columns are written in place
+                # (the delay sum, a seventh operand, only with the
+                # profiler)
                 _, st, ring = emit_write(
-                    {k: getattr(s, k) for k in TABLE_COLS}, em, lane, ring,
-                    n_sends, use_jitter)
+                    {k: getattr(s, k) for k in TABLE_COLS + PLANE_TABLE_COLS},
+                    em, lane, ring, n_sends, use_jitter,
+                    *((True,) if profile else ()))
                 if ring is not None:
                     s = s.replace(trace_pos=ring["trace_pos"])
                 sent, delivered_drop = st["sent"], st["delivered_drop"]
                 overflow, high_water = st["overflow"], st["high_water"]
+                delay_acc = st.get("delay_acc", zi)
             else:
-                sent = delivered_drop = high_water = zi
+                sent = delivered_drop = high_water = delay_acc = zi
                 overflow = zb
 
         with _section("stats"):
@@ -374,6 +435,26 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
                 | torch.where(s.now > int(T.T_INF) - 64 * T.TICKS_PER_SEC,
                               T.OOPS_TIME_OVERFLOW, 0).to(_I32),
                 steps=s.steps + valid.to(_I32))
+
+        # ---- the profiler and latency folds (the obs_fold kernel), in
+        # place, before the end checks
+        if fold_plan is not None:
+            with _section("obs"):
+                act = torch.where(is_super, reset_target, ev_node)
+                obs_fold(fold_plan, {k: getattr(s, k) for k in FOLD_LEAVES},
+                         dict(valid=valid, pf_on=s.pf_on, lh_on=s.lh_on,
+                              reset_mask=reset_mask, dropped=dropped,
+                              is_complete=is_complete if has_cpl else zb,
+                              act_node=act, cpl_node=ev_node,
+                              ev_kind=ev_kind, op=op,
+                              now_delta=now_delta if profile else zi,
+                              occ_disp=occ_disp if profile else zi,
+                              high_water=high_water,
+                              delivered_drop=delivered_drop,
+                              delay_acc=delay_acc,
+                              lat_sojourn=lat_sojourn if lh else zi,
+                              lat_e2e=lat_e2e if has_cpl else zi,
+                              slo_target=s.slo_target), has_cpl)
 
         # ---- 5. end conditions -------------------------------------------
         with _section("end"):

@@ -5,8 +5,10 @@
 // (madsim_tpu/core/step.py `live_step` section 4, lines 476-655:
 // ops/select.py `first_k_free`, the per-send network fault model, the
 // per-timer skew stretch, the one-pass column write and the lineage
-// provenance write) and the ring-row write (lines 941-1001), with jax's
-// threefry2x32 draws (madsim_tpu/core/prng.py) inlined from threefry.cuh.
+// provenance write, and the latency plane's root column at lines 629-641)
+// and the ring-row write (lines 941-1001, with the plane columns tr_qlen
+// and tr_lat at 966-976), with jax's threefry2x32 draws
+// (madsim_tpu/core/prng.py) inlined from threefry.cuh.
 // Per lane b, with E staged emissions (sends first, then timers):
 //
 //   free rows      ranked in row order; emission e takes the e-th free
@@ -23,11 +25,20 @@
 //                  (+ jitter); written where m & slot_ok
 //   writes         every written emission sets its row's deadline, kind,
 //                  node, src (the acting node), tag and payload, and with
-//                  the lineage plane ev_prov = (disp_idx, ev_lamport)
-//   outputs        sent, delivered_drop, overflow, high_water per lane
+//                  the lineage plane ev_prov = (disp_idx, ev_lamport),
+//                  and with the latency plane ev_root_t = ev_root
+//   outputs        sent, delivered_drop, overflow, high_water per lane;
+//                  with the profiler (delay_acc != nullptr) the int32 sum
+//                  of the latencies of the delivered (ok) sends
 //   ring (TC > 0)  where fired & trace_on, the row at trace_pos mod
 //                  trace_cap of the eight tr_* columns takes this step's
-//                  record; trace_pos counts it (a new [B] output)
+//                  record, and of tr_qlen / tr_lat (when compiled in)
+//                  occ_disp / lat_ring; trace_pos counts it (a new [B]
+//                  output)
+//
+// The plane columns are null pointers when their plane is compiled out:
+// the kernel then does no plane work (a uniform branch per launch, and
+// the delay sum's shuffles are skipped whole), as before the planes.
 //
 // The JAX function returns new tables. This kernel writes the rows that
 // emissions take, and the one ring row, straight into the tensors it is
@@ -124,6 +135,13 @@ struct EmitParams {
   const int32_t* rec_parent;
   int32_t* tr[kRingCols];
   int32_t* o_trace_pos;
+  int32_t* ev_root_t;         // [B, C] or nullptr (latency plane)
+  const int32_t* ev_root;
+  int32_t* tr_qlen;           // [B, TC] or nullptr (profiler + ring)
+  const int32_t* occ_disp;
+  int32_t* tr_lat;            // [B, TC] or nullptr (latency + ring)
+  const int32_t* lat_ring;
+  int32_t* delay_acc;         // [B] or nullptr (profiler)
   int B, C, P, N, E, n_sends, use_jitter, has_prov, TC;
 };
 
@@ -219,6 +237,7 @@ emit_write_kernel(const EmitParams p, const int log_epad) {
 
     // ---- emission e of lane b: its draws and decision, in registers
     bool m = false, write = false, ovf = false, bad_send = false;
+    int32_t lat_ok = 0;               // this send's latency if delivered
     int32_t dl = 0, ekind = 0, enode = 0, etag = 0, h = 0;
     const bool is_send = e < p.n_sends;
     if (lane_ok && e < E) {
@@ -256,6 +275,7 @@ emit_write_kernel(const EmitParams p, const int log_epad) {
               threefry::randint(t0, t1, p.lat_lo[b], p.lat_hi[b]), jit);
           const bool ok = !clogged && !lost;
           bad_send = !ok;
+          lat_ok = ok ? lat : 0;
           write = ok && slot_ok;
           ovf = ok && !slot_ok;
           dl = add32(add32(now, lat), dlat);
@@ -279,6 +299,15 @@ emit_write_kernel(const EmitParams p, const int log_epad) {
     const uint32_t ovfs = __ballot_sync(kFull, ovf);
     const uint32_t mine = epad == 32 ? kFull
         : ((1u << epad) - 1u) << (g * epad);
+    if (p.delay_acc != nullptr) {     // launch-uniform
+      // the lane's delivered latencies summed over its epad threads
+      // (xor offsets below epad stay inside the lane's group; every
+      // thread of the warp runs each shuffle)
+      int32_t acc = lat_ok;
+      for (int off = 1; off < epad; off <<= 1)
+        acc = add32(acc, __shfl_xor_sync(kFull, acc, off));
+      if (lane_ok && e == 0) p.delay_acc[b] = acc;
+    }
     if (lane_ok && e == 0) {
       p.sent[b] = __popc(sends & mine);
       p.delivered_drop[b] = __popc(drops & mine);
@@ -309,6 +338,13 @@ emit_write_kernel(const EmitParams p, const int log_epad) {
             p.em_payload[(bs * E + (s & (epad - 1))) * P + word];
       }
     }
+    if (p.ev_root_t != nullptr) {
+      // the root column: one word a taken row, thread s for slot s
+      if ((wrote >> lane) & 1u) {
+        const int64_t bs = b0 + (lane >> log_epad);
+        p.ev_root_t[bs * C + slot[w][lane]] = p.ev_root[bs];
+      }
+    }
     if (p.has_prov) {
       for (int i = lane; i < 64; i += 32) {
         const int s = i >> 1;
@@ -335,8 +371,14 @@ emit_write_kernel(const EmitParams p, const int log_epad) {
     }
     if (slot_r >= 0 && slot_r < p.TC) {
       const int64_t i = b * p.TC + slot_r;
-      for (int c = e; c < kRingCols; c += epad)
-        p.tr[c][i] = ring_value(p, c, b, now);
+      for (int c = e; c < kRingCols + 2; c += epad) {
+        if (c < kRingCols)
+          p.tr[c][i] = ring_value(p, c, b, now);
+        else if (c == kRingCols && p.tr_qlen != nullptr)
+          p.tr_qlen[i] = p.occ_disp[b];
+        else if (c == kRingCols + 1 && p.tr_lat != nullptr)
+          p.tr_lat[i] = p.lat_ring[b];
+      }
     }
     if (e == 0) p.o_trace_pos[b] = add32(pos, rec ? 1 : 0);
   }

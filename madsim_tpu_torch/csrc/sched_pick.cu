@@ -20,6 +20,10 @@
 //   sched_hash  = valid ? (h ^ mix(kind, node, src, tag)) * fold : h
 //   ev_*        = the picked row's kind (0 unless valid), node (unclipped),
 //                 src and tag, which the step goes on to dispatch
+//   occ         = the count of rows with t_kind != EV_FREE (the sim
+//                 profiler's pre-pop queue depth, step.py:187-188), written
+//                 only when occ_out is not null: a launch-uniform branch,
+//                 so a step without the profiler runs no part of it
 //
 // Every value is an integer, so the kernel must equal its plain PyTorch
 // version (madsim_tpu_torch/ops/sched_pick.py `sched_pick_plain`) exactly.
@@ -119,6 +123,12 @@ __device__ __forceinline__ int32_t half_max(int32_t v) {
   return v;
 }
 
+__device__ __forceinline__ int half_sum(int v) {
+#pragma unroll
+  for (int s = 8; s > 0; s >>= 1) v += __shfl_xor_sync(kFull, v, s);
+  return v;
+}
+
 __device__ __forceinline__ unsigned long long half_max_u64(
     unsigned long long v) {
 #pragma unroll
@@ -148,6 +158,7 @@ sched_pick_kernel(const int32_t* __restrict__ t_kind,
                   uint8_t* __restrict__ any_out,
                   uint32_t* __restrict__ hash_out,
                   int32_t* __restrict__ ev_out,
+                  int32_t* __restrict__ occ_out,
                   int B, int C, int N, int vec16) {
   constexpr int S = kStages;
   constexpr int RT = 2 * NCH;                 // rows a thread reduces
@@ -250,7 +261,9 @@ sched_pick_kernel(const int32_t* __restrict__ t_kind,
 
   // what the owner thread keeps of its lane
   int32_t my_idx = 0, my_dmin = kTInf, my_kind = kEvFree, my_node = 0;
+  int32_t my_occ = 0;
   bool my_picked = false, my_node_staged = false;
+  const bool count_occ = occ_out != nullptr;   // launch-uniform
 
   const int steps = nl < 16 ? nl : 16;
   for (int i = 0; i < steps; ++i) {
@@ -267,6 +280,7 @@ sched_pick_kernel(const int32_t* __restrict__ t_kind,
     int32_t dl[RT];
     bool el[RT];
     int32_t local_min = kTInf;
+    int occ = 0;
 #pragma unroll
     for (int k = 0; k < RT; ++k) {
       const int r = (k << 4) + u;
@@ -283,9 +297,11 @@ sched_pick_kernel(const int32_t* __restrict__ t_kind,
         }
         el[k] = kind != kEvFree && !park;
         if (el[k] && dl[k] < local_min) local_min = dl[k];
+        if (count_occ) occ += kind != kEvFree;
       }
     }
     const int32_t dmin = half_min(local_min);
+    if (count_occ) occ = half_sum(occ);
 
     uint32_t at[RT];
     int cnt = 0;
@@ -353,6 +369,7 @@ sched_pick_kernel(const int32_t* __restrict__ t_kind,
       my_kind = st[idx];
       my_node_staged = pj != 0 || nj != 0;
       if (my_node_staged) my_node = st[2 * CP + idx];
+      my_occ = occ;
     }
     __syncwarp();  // the stage is read before the next issue refills it
   }
@@ -389,6 +406,7 @@ sched_pick_kernel(const int32_t* __restrict__ t_kind,
     ev_out[4 * b + 1] = ev_node;
     ev_out[4 * b + 2] = ev_src;
     ev_out[4 * b + 3] = ev_tag;
+    if (count_occ) occ_out[b] = my_occ;
   }
 }
 
@@ -397,7 +415,7 @@ using KernelFn = void (*)(const int32_t*, const int32_t*, const int32_t*,
                           const uint8_t*, const int32_t*, const uint8_t*,
                           const uint32_t*, const uint32_t*, int32_t*,
                           int32_t*, uint8_t*, uint8_t*, uint32_t*, int32_t*,
-                          int, int, int, int);
+                          int32_t*, int, int, int, int);
 
 // the instantiation for C rows (NCH = ceil(C / 32): 2 NCH rows a thread)
 KernelFn kernel_for(int C) {
@@ -442,13 +460,14 @@ cudaError_t prepare(int C, KernelFn* fn) {
 
 // Plain C entry point (loaded with ctypes). Launches on `stream` and
 // returns cudaGetLastError() (0 = launched). Requires C <= 256, N <= 32.
+// occ_out may be null (no occupancy count).
 extern "C" int sched_pick_launch(
     const void* t_kind, const void* t_node, const void* t_deadline,
     const void* t_tag, const void* t_src, const void* alive,
     const void* paused, const void* prio_nudge, const void* halted,
     const void* k_sched, const void* hash_in, void* idx_out,
     void* dmin_out, void* valid_out, void* any_out, void* hash_out,
-    void* ev_out, int B, int C, int N, void* stream) {
+    void* ev_out, void* occ_out, int B, int C, int N, void* stream) {
   if (B <= 0) return 0;
   if (C < 1 || C > 32 * kMaxChunks || N < 1 || N > 32)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -478,8 +497,8 @@ extern "C" int sched_pick_launch(
       static_cast<const uint32_t*>(hash_in),
       static_cast<int32_t*>(idx_out), static_cast<int32_t*>(dmin_out),
       static_cast<uint8_t*>(valid_out), static_cast<uint8_t*>(any_out),
-      static_cast<uint32_t*>(hash_out), static_cast<int32_t*>(ev_out), B, C,
-      N, vec16);
+      static_cast<uint32_t*>(hash_out), static_cast<int32_t*>(ev_out),
+      static_cast<int32_t*>(occ_out), B, C, N, vec16);
   return static_cast<int>(cudaGetLastError());
 }
 

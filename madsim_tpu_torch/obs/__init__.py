@@ -1,0 +1,41 @@
+"""Observability layer: flight-recorder rings, trace export, causal
+lineage and the profiler and latency reports (the counterpart of
+`madsim_tpu.obs`).
+
+  * rings.py    — read the on-device flight-recorder ring
+                  (cfg.trace_cap): the last events of each sampled lane.
+  * trace.py    — export ring contents or `collect_events` streams as
+                  Chrome-trace/Perfetto JSON.
+  * causal.py   — the WHY layer over the ring: happens-before edges,
+                  `explain_crash` and the crash fingerprints.
+  * profiler.py — the WHERE and HOW-LONG layers: reports and Perfetto
+                  counter tracks over the `cfg.profile` and
+                  `cfg.latency_hist` planes.
+  * timetravel.py — exact-step advance (`Runtime.state_at`).
+
+The series, span, support, dashboard, metrics and progress modules and
+the rest of time travel wait for their planes (ROADMAP P11, P13, P14).
+"""
+
+from .causal import (causal_fingerprint, code_fingerprint, explain_crash,
+                     fingerprints_match, happens_before, sketch_divergence,
+                     walk_lineage)
+from .profiler import (attribution_summary, counter_track_events,
+                       curve_brief, export_profile_trace,
+                       format_attribution, format_latency, format_profile,
+                       latency_histogram_rows, latency_summary,
+                       profile_summary)
+from .rings import ring_records, sampled_lanes
+from .trace import export_chrome_trace, to_chrome_events
+
+__all__ = [
+    "ring_records", "sampled_lanes", "to_chrome_events",
+    "export_chrome_trace",
+    "explain_crash", "happens_before", "sketch_divergence",
+    "causal_fingerprint", "code_fingerprint", "fingerprints_match",
+    "walk_lineage",
+    "profile_summary", "format_profile", "counter_track_events",
+    "export_profile_trace",
+    "latency_summary", "format_latency", "latency_histogram_rows",
+    "attribution_summary", "format_attribution", "curve_brief",
+]

@@ -3,7 +3,8 @@
 
 Only `advance_exact` is ported, the loop behind `Runtime.state_at`. The
 rest of the JAX module (CheckpointLog, lane checkpoints, window replay,
-`divergence_report`, `explain_crash`) waits for ROADMAP P11.8.
+`divergence_report`, the replay behind `explain_crash(replay=True)`)
+waits for ROADMAP P11.8.
 """
 
 from __future__ import annotations

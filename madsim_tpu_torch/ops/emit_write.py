@@ -8,11 +8,16 @@ each lane's free event-table rows, put every send through the network
 fault model (clog, loss and latency draws, micro-jitter, disk delay) and
 every timer through the clock-skew stretch, and write the emissions that
 survive into their rows — with the lineage plane, their provenance pair
-too. Its epilogue is the flight-recorder ring write (lines 941-1001):
-where the step dispatched an event in a sampled lane, the ring row at
-`trace_pos mod trace_cap` takes the event's record. Every value is an
-integer or the exact float32 compare of a Bernoulli draw, so kernel and
-plain version agree exactly.
+too, and with the latency plane their root-birth time (`ev_root_t`,
+lines 629-641). Its epilogue is the flight-recorder ring write (lines
+941-1001): where the step dispatched an event in a sampled lane, the
+ring row at `trace_pos mod trace_cap` takes the event's record, with the
+profiler's queue-depth column (`tr_qlen`) and the latency plane's e2e
+column (`tr_lat`) when those planes are compiled in. With `delay=True`
+(the profiler) it also sums the latency imposed on delivered sends
+(`delay_acc`, lines 485 and 528-532). Every value is an integer or the
+exact float32 compare of a Bernoulli draw, so kernel and plain version
+agree exactly.
 
 Unlike the JAX function, which returns new tables, both versions write IN
 PLACE: the rows emissions take (every table column, the payload words,
@@ -27,7 +32,8 @@ Operands, all with a leading [B] lane axis (int32 unless noted):
 
   tables  t_deadline, t_kind, t_node, t_src, t_tag [B, C], t_payload
           [B, C, P], ev_prov [B, C, 2] ([B, 0, 2] with the lineage plane
-          compiled out: then it is returned as it is)
+          compiled out: then it is returned as it is); optional ev_root_t
+          [B, C] ([B, 0], or absent, with the latency plane compiled out)
   em      the staged emissions, sends first: m bool [B, E], a [B, E] (a
           send's destination, a timer's delay), tag [B, E], payload
           [B, E, P]; E may be 0
@@ -35,16 +41,21 @@ Operands, all with a leading [B] lane axis (int32 unless noted):
           and disk delay), loss float32, lat_lo, lat_hi, jitter, k_net
           [B, 2] (the step's network key, int32 bit patterns), clog_node
           bool [B, N], clog_link bool [B, N, N], disp_idx (this dispatch's
-          index) and ev_lamport (its Lamport clock)
+          index) and ev_lamport (its Lamport clock); with ev_root_t, ev_root
+          (the dispatch's post-mint root); with tr_qlen, occ_disp (the
+          table's pre-pop occupancy); with tr_lat, lat_ring (the
+          completion's e2e latency, or -1)
   ring    None (recorder compiled out) or fired bool, trace_on bool,
           trace_pos, trace_cap, kind, node, src, tag, parent [B] and the
           columns tr_now, tr_step, tr_kind, tr_node, tr_src, tr_tag,
-          tr_parent, tr_lamport [B, TC]
+          tr_parent, tr_lamport [B, TC], and the optional tr_qlen and
+          tr_lat [B, TC] ([B, 0], or absent, when compiled out)
 
 Returns (tables, stats, ring): a dict of the very table tensors it was
 given, written in place; stats = sent, delivered_drop int32, overflow
-bool, high_water int32 [B]; and the ring (None without one): a new
-trace_pos [B] and the very column tensors it was given, written in place.
+bool, high_water int32 [B] (and with delay=True delay_acc int32 [B]); and
+the ring (None without one): a new trace_pos [B] and the very column
+tensors it was given, written in place.
 
 `emit_write` takes the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises. `emit_write.launches`
@@ -71,6 +82,11 @@ TABLE_COLS = ("t_deadline", "t_kind", "t_node", "t_src", "t_tag",
               "t_payload", "ev_prov")
 RING_COLS = ("tr_now", "tr_step", "tr_kind", "tr_node", "tr_src", "tr_tag",
              "tr_parent", "tr_lamport")
+# the plane columns: optional, zero-size when their plane is compiled out
+PLANE_TABLE_COLS = ("ev_root_t",)
+PLANE_RING_COLS = ("tr_qlen", "tr_lat")
+# each plane ring column's lane operand
+_PLANE_RING_VALS = dict(tr_qlen="occ_disp", tr_lat="lat_ring")
 _I32 = torch.int32
 
 
@@ -78,6 +94,13 @@ def drift(t, sk):
     """(t * sk) >> 10 in exact int32-safe pieces — the clock-skew fold;
     identically 0 at sk == 0."""
     return (t >> 10) * sk + (((t & 1023) * sk) >> 10)
+
+
+def _present(cols, name) -> bool:
+    """Whether an optional plane column is compiled in (there and not
+    zero-size)."""
+    t = cols.get(name)
+    return t is not None and t.shape[1] > 0
 
 
 def _ring_plain(lane, ring):
@@ -91,13 +114,16 @@ def _ring_plain(lane, ring):
                 tr_kind=ring["kind"], tr_node=ring["node"],
                 tr_src=ring["src"], tr_tag=ring["tag"],
                 tr_parent=ring["parent"], tr_lamport=lane["ev_lamport"])
-    for k in RING_COLS:
+    for k, v in _PLANE_RING_VALS.items():
+        if _present(cols, k):
+            vals[k] = lane[v]
+    for k in vals:
         cols[k].index_put_((lanes, rows), vals[k][lanes].to(cols[k].dtype))
     return dict(trace_pos=ring["trace_pos"] + rec_w.to(_I32), cols=cols)
 
 
 def emit_write_plain(tables, em, lane, ring, n_sends: int,
-                     use_jitter: bool):
+                     use_jitter: bool, delay: bool = False):
     """Plain PyTorch form of the emission write, in place (operands and
     results in the module doc)."""
     t_kind = tables["t_kind"]
@@ -108,6 +134,8 @@ def emit_write_plain(tables, em, lane, ring, n_sends: int,
     stats = dict(sent=zi, delivered_drop=zi,
                  overflow=torch.zeros(B, dtype=torch.bool, device=dev),
                  high_water=zi)
+    if delay:
+        stats["delay_acc"] = zi
     out = dict(tables)
     if E > 0:
         n_timers = E - n_sends
@@ -144,6 +172,11 @@ def emit_write_plain(tables, em, lane, ring, n_sends: int,
             ok = m_s & ~clogged & ~lost
             stats["sent"] = m_s.sum(-1, dtype=_I32)
             stats["delivered_drop"] = (m_s & ~ok).sum(-1, dtype=_I32)
+            if delay:
+                # the latency imposed on delivered sends (a dropped send
+                # imposes a drop, not a delay); int32, wrapping
+                stats["delay_acc"] = torch.where(ok, latency, 0).sum(
+                    -1).to(_I32)
             writes.append(ok & slot_ok[:, :n_sends])
             overflow = overflow | (ok & ~slot_ok[:, :n_sends]).any(-1)
             deadlines.append(now[:, None] + latency + dlat_h[:, None])
@@ -184,6 +217,9 @@ def emit_write_plain(tables, em, lane, ring, n_sends: int,
             # enqueued by this dispatch, at the acting node's clock
             prov = torch.stack([lane["disp_idx"], lane["ev_lamport"]], -1)
             put(tables["ev_prov"], prov[:, None, :].expand(B, E, 2))
+        if _present(tables, "ev_root_t"):
+            # every emission inherits the dispatch's post-mint root
+            put(tables["ev_root_t"], lane["ev_root"][:, None].expand(B, E))
     return out, stats, (None if ring is None else _ring_plain(lane, ring))
 
 
@@ -200,6 +236,9 @@ class _Params(ctypes.Structure):
             "rec_tag", "rec_parent")]
         + [("tr", ctypes.c_void_p * len(RING_COLS)),
            ("o_trace_pos", ctypes.c_void_p)]
+        + [(n, ctypes.c_void_p) for n in (
+            "ev_root_t", "ev_root", "tr_qlen", "occ_disp", "tr_lat",
+            "lat_ring", "delay_acc")]
         + [(n, ctypes.c_int) for n in (
             "B", "C", "P", "N", "E", "n_sends", "use_jitter", "has_prov",
             "TC")])
@@ -239,7 +278,7 @@ class _EmitWrite:
         return self._fn
 
     def __call__(self, tables, em, lane, ring, n_sends: int,
-                 use_jitter: bool):
+                 use_jitter: bool, delay: bool = False):
         dev = tables["t_kind"].device
         if dev.type not in ("cpu", "cuda"):
             raise ValueError(f"emit_write: unsupported device {dev}")
@@ -277,7 +316,12 @@ class _EmitWrite:
         if prov_rows not in (0, C):
             raise ValueError(f"emit_write: ev_prov has {prov_rows} rows, "
                              f"expected 0 or {C}")
+        has_root = _present(tables, "ev_root_t")
+        if has_root:
+            checks += [("ev_root_t", tables["ev_root_t"], i32, (B, C)),
+                       ("ev_root", lane["ev_root"], i32, (B,))]
         TC = 0
+        plane_ring = []
         if ring is not None:
             TC = ring["cols"]["tr_now"].shape[1]
             checks += [(n, ring[n], b8, (B,)) for n in ("fired", "trace_on")]
@@ -285,20 +329,27 @@ class _EmitWrite:
                 "trace_pos", "trace_cap", "kind", "node", "src", "tag",
                 "parent")]
             checks += [(n, ring["cols"][n], i32, (B, TC)) for n in RING_COLS]
+            plane_ring = [n for n in PLANE_RING_COLS
+                          if _present(ring["cols"], n)]
+            for n in plane_ring:
+                v = _PLANE_RING_VALS[n]
+                checks += [(n, ring["cols"][n], i32, (B, TC)),
+                           (v, lane[v], i32, (B,))]
         # the CPU checks shapes and layout (what the kernel would be
         # handed), the CUDA path dtypes too
         for name, t, dt, shape in checks:
             _check(name, t, dt if cuda else t.dtype, shape, dev)
         if not cuda:
             return emit_write_plain(tables, em, lane, ring, n_sends,
-                                    use_jitter)
+                                    use_jitter, delay)
 
         # with no emission the kernel writes no statistic: they are 0
         alloc = torch.empty if E > 0 else torch.zeros
         stats = {n: alloc((B,), dtype=b8 if n == "overflow" else i32,
                           device=dev)
                  for n in ("sent", "delivered_drop", "overflow",
-                           "high_water")}
+                           "high_water") + (("delay_acc",) if delay
+                                            else ())}
         if E == 0 and ring is None:       # nothing to write: the identity
             return dict(tables), stats, None
         p = _Params()
@@ -324,6 +375,13 @@ class _EmitWrite:
             for i, n in enumerate(RING_COLS):
                 p.tr[i] = ring["cols"][n].data_ptr()
             p.o_trace_pos = ring_out["trace_pos"].data_ptr()
+            for n in plane_ring:
+                setattr(p, n, ring["cols"][n].data_ptr())
+                v = _PLANE_RING_VALS[n]
+                setattr(p, v, lane[v].data_ptr())
+        if has_root:
+            p.ev_root_t = tables["ev_root_t"].data_ptr()
+            p.ev_root = lane["ev_root"].data_ptr()
         p.B, p.C, p.P, p.N, p.E = B, C, P, N, E
         p.n_sends, p.use_jitter = n_sends, int(bool(use_jitter))
         p.has_prov, p.TC = int(prov_rows > 0), TC

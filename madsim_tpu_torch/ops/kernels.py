@@ -42,6 +42,8 @@ SOURCES = {
     "node_rows": "node_rows.cu",
     "lane_rows": "lane_rows.cu",
     "lane_diff": "lane_diff.cu",
+    "obs_fold": "obs_fold.cu",
+    "plane_digest": "plane_digest.cu",
 }
 
 # kernel (wrapper) name -> its library, where the two names differ
@@ -49,7 +51,8 @@ LIBRARY = {"step_keys": "prng", "dup_draws": "prng",
            "split_randint": "prng", "threefry_keys": "prng",
            "threefry_draw": "prng", "node_gather": "node_rows",
            "put_rows_": "node_rows", "lane_take": "lane_rows",
-           "lane_put": "lane_rows"}
+           "lane_put": "lane_rows", "plane_sums": "plane_digest",
+           "lane_p99": "plane_digest"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -206,6 +209,8 @@ def wrappers() -> dict:
     from .lane_rows import lane_put, lane_take
     from .mutate import mutate_batch
     from .node_rows import node_gather, put_rows_
+    from .obs_fold import obs_fold
+    from .plane_digest import lane_p99, plane_sums
     from .raft_invariant import raft_invariant_check
     from .sched_pick import sched_pick
     from .threefry import (dup_draws_kernel, split_randint_kernel,
@@ -221,4 +226,5 @@ def wrappers() -> dict:
             "threefry_draw": threefry_draw,
             "node_gather": node_gather, "put_rows_": put_rows_,
             "lane_take": lane_take, "lane_put": lane_put,
-            "lane_diff": lane_diff}
+            "lane_diff": lane_diff, "obs_fold": obs_fold,
+            "plane_sums": plane_sums, "lane_p99": lane_p99}

@@ -6,7 +6,10 @@ It replaces the XLA-lowered select of the JAX package's step
 (`madsim_tpu/core/step.py` `live_step` section 1, lines 141-232): pick
 each lane's next event — the earliest eligible deadline, ties broken by a
 threefry draw or, where `prio_nudge != 0`, by a priority hash — and fold
-the picked event into the lane's two-word `sched_hash`. Every value is an
+the picked event into the lane's two-word `sched_hash`. With
+`occupancy=True` (the sim profiler) it also counts each lane's occupied
+rows before the pop (`madsim_tpu/core/step.py:187-188` `occ_disp`), which
+the kernel does from the rows it already stages. Every value is an
 integer, so kernel and plain version agree exactly.
 
 `sched_pick` takes the plain version only for tensors on the CPU; for
@@ -49,14 +52,15 @@ def eligible_min(t_kind, t_node, t_deadline, alive, paused):
 
 
 def sched_pick_plain(t_kind, t_node, t_deadline, t_tag, t_src, alive,
-                     paused, prio_nudge, halted, k_sched, sched_hash):
+                     paused, prio_nudge, halted, k_sched, sched_hash,
+                     occupancy: bool = False):
     """Plain PyTorch form of the select. Shapes: tables [B, C]; alive,
     paused [B, N]; prio_nudge, halted [B]; k_sched, sched_hash [B, 2]
     (uint32 bit patterns in int32). Returns (idx, dmin, valid, any_ev,
     sched_hash, ev_kind, ev_node, ev_src, ev_tag): idx/dmin int32 [B],
     valid/any_ev bool [B], the new sched_hash int32 [B, 2], and the picked
     row's kind (EV_FREE unless valid), node (unclipped), src and tag, int32
-    [B]."""
+    [B]; with `occupancy`, then the count of occupied rows, int32 [B]."""
     N = alive.shape[1]
     C = t_kind.shape[1]
     dmin, at_min, any_ev = eligible_min(t_kind, t_node, t_deadline, alive,
@@ -87,8 +91,11 @@ def sched_pick_plain(t_kind, t_node, t_deadline, t_tag, t_src, alive,
                                  0x27D4EB2F, 0xC2B2AE3D, 0x9E3779B1,
                                  0x85EBCA77)) * u32(0x85EBCA6B)], dim=-1)
     new_hash = torch.where(valid[:, None], folded, sched_hash)
-    return idx, dmin, valid, any_ev, new_hash, ev_kind, ev_node, ev_src, \
-        ev_tag
+    out = (idx, dmin, valid, any_ev, new_hash, ev_kind, ev_node, ev_src,
+           ev_tag)
+    if occupancy:
+        out += ((t_kind != T.EV_FREE).sum(-1, dtype=torch.int32),)
+    return out
 
 
 def _check(name, t, dtype, shape, device):
@@ -119,7 +126,7 @@ class _SchedPick:
         if self._fn is None:
             from .kernels import load
             fn = load("sched_pick").sched_pick_launch
-            fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 3 \
+            fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 3 \
                 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             self._fn = fn
@@ -144,11 +151,12 @@ class _SchedPick:
                          "blocks_per_sm"), (v.value for v in vals)))
 
     def __call__(self, t_kind, t_node, t_deadline, t_tag, t_src, alive,
-                 paused, prio_nudge, halted, k_sched, sched_hash):
+                 paused, prio_nudge, halted, k_sched, sched_hash,
+                 occupancy: bool = False):
         if t_kind.device.type == "cpu":
             return sched_pick_plain(t_kind, t_node, t_deadline, t_tag,
                                     t_src, alive, paused, prio_nudge,
-                                    halted, k_sched, sched_hash)
+                                    halted, k_sched, sched_hash, occupancy)
         if t_kind.device.type != "cuda":
             raise ValueError(f"sched_pick: unsupported device "
                              f"{t_kind.device}")
@@ -183,6 +191,7 @@ class _SchedPick:
         any_ev = torch.empty((B,), dtype=b8, device=dev)
         new_hash = torch.empty((B, 2), dtype=i32, device=dev)
         ev = torch.empty((B, 4), dtype=i32, device=dev)
+        occ = torch.empty((B,), dtype=i32, device=dev) if occupancy else None
         fn = self._kernel()
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
@@ -193,7 +202,8 @@ class _SchedPick:
                      k_sched.data_ptr(), sched_hash.data_ptr(),
                      idx.data_ptr(), dmin.data_ptr(), valid.data_ptr(),
                      any_ev.data_ptr(), new_hash.data_ptr(), ev.data_ptr(),
-                     B, C, N, stream)
+                     None if occ is None else occ.data_ptr(), B, C, N,
+                     stream)
         if err != 0:
             raise RuntimeError(f"sched_pick: kernel launch failed "
                                f"(cudaError {err})")
@@ -201,7 +211,8 @@ class _SchedPick:
             self.captured += 1
         else:
             self.launches += 1
-        return (idx, dmin, valid, any_ev, new_hash) + ev.unbind(1)
+        out = (idx, dmin, valid, any_ev, new_hash) + ev.unbind(1)
+        return out if occ is None else out + (occ,)
 
 
 sched_pick = _SchedPick()

@@ -1,23 +1,30 @@
 """Batch analytics: what the supervisor reads back from a seed sweep.
 
 The counterpart of `madsim_tpu.parallel.stats`, for the reductions the
-search entry points read: the per-trajectory schedule hashes
-(`sched_hash_u64`), the on-device distinct-schedule reduction explore()
-asks for every round (`coverage_digest`, through the kernel of
-ops/coverage.py) with its host half (`digest_hashes`,
-`distinct_schedules`), and the host-side first-divergence slots the
-corpus reads from prefix sketches. The per-lane latency and burst signals
-(`lane_e2e_p99`, `latency_brief`, `lane_burst`) return None when their
-observation plane is compiled out, as the JAX functions do; this port
-has not ported those planes yet (ROADMAP P11.3, P11.5), so a state that
-carries one is refused.
+search entry points and the observation planes read: the per-trajectory
+schedule hashes (`sched_hash_u64`), the on-device distinct-schedule
+reduction explore() asks for every round (`coverage_digest`, through the
+kernel of ops/coverage.py) with its host half (`digest_hashes`,
+`distinct_schedules`), the host-side first-divergence slots the corpus
+reads from prefix sketches, and the profiler and latency digests
+(`profile_digest` / `profile_counters`, `latency_digest` /
+`latency_counters`, `lane_e2e_p99`, `latency_brief`), whose batch sums
+and per-lane p99 are the K10 kernels of ops/plane_digest.py. The
+per-window burst signal (`lane_burst`) returns None when the series
+plane is compiled out; that plane is not ported yet (ROADMAP P11.5), so a
+state that carries one is refused.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
+
 import numpy as np
+import torch
 
 from ..ops.coverage import coverage_digest as _coverage_digest
+from ..ops.plane_digest import lane_p99 as _lane_p99_kernel
+from ..ops.plane_digest import plane_sums
 
 
 def coverage_digest(state):
@@ -66,26 +73,284 @@ def first_divergence_slots(sketches, consensus=None) -> np.ndarray:
     return np.where(differs.any(1), differs.argmax(1), S).astype(np.int64)
 
 
-def _refuse_latency_plane(state) -> None:
-    lh = state.lh_e2e
-    if lh.ndim == 3 and lh.shape[1] > 0 and lh.shape[2] > 0:
-        raise NotImplementedError(
-            "the latency plane is not ported to madsim_tpu_torch yet "
-            "(ROADMAP P11.3)")
+I32_MAX = 2**31 - 1
+
+
+def _masked_lane_pcts(x, on, n, qs=(50, 90, 100)):
+    """Per-lane percentiles of an int32 [B] metric over the masked-ON
+    lanes: sort with masked lanes pushed to int32 max and index at the
+    on-lane count; an all-masked batch reads 0 (q=100 = max). Plain
+    PyTorch (ROADMAP §2: the sort is K10 work still to do)."""
+    v = torch.sort(torch.where(on, x, I32_MAX)).values
+    B = x.shape[0]
+    out = [v[min(max((max(n, 1) - 1) * q // 100, 0), B - 1)] for q in qs]
+    return torch.stack(out) if n > 0 else torch.zeros(
+        len(qs), dtype=x.dtype, device=x.device)
+
+# the profiler digest's counter leaves, in the order its sums come back
+_PF_SUMS = ("dispatch", "busy", "kill", "restart", "drop", "delay",
+            "now_sum", "steps_sum")
+
+
+def _profile_digest(state) -> dict:
+    """Device-side reduction of the sim-profiler counter plane: batch
+    sums over the profiled lanes (one `plane_sums` launch: the lane count
+    and the wide hi/lo sums of every counter) and per-lane percentiles
+    (plain PyTorch), as the JAX package's `_profile_digest`."""
+    on = state.pf_on
+    sums = plane_sums(
+        [(None, 0), (state.pf_dispatch, 0), (state.pf_busy, 0),
+         (state.pf_kill, 0), (state.pf_restart, 0), (state.pf_drop, 0),
+         (state.pf_delay, 0), (state.now, 0), (state.steps, 0)],
+        (on, None))
+    n = int(_wide(sums[0]))
+    busy = state.pf_busy.float()
+    total = busy[:, 0]
+    for k in range(1, busy.shape[1]):     # node 0 first
+        total = total + busy[:, k]
+    busy_total = torch.clamp(total, 0, float(2**31 - 256)).to(torch.int32)
+    out = dict(lanes=torch.tensor(n, dtype=torch.int32),
+               **dict(zip(_PF_SUMS, sums[1:])))
+    out.update(qmax_pct=_masked_lane_pcts(state.pf_qmax, on, n),
+               steps_pct=_masked_lane_pcts(state.steps, on, n),
+               now_pct=_masked_lane_pcts(state.now, on, n),
+               busy_total_pct=_masked_lane_pcts(busy_total, on, n))
+    return out
+
+
+def _compiled_in(leaf, ndim: int) -> bool:
+    """Whether a batched plane leaf is there (not zero-size)."""
+    return (leaf is not None and leaf.ndim == ndim
+            and all(d > 0 for d in leaf.shape[1:]))
+
+
+def profile_digest(state):
+    """Launch the device-side profiler reduction over a batched state;
+    returns a dict of device tensors, or None when the counter plane is
+    compiled out (cfg.profile=False) or the state is unbatched."""
+    if not _compiled_in(getattr(state, "pf_busy", None), 2):
+        return None
+    return _profile_digest(state)
+
+
+# confirmed-digest memo: (digest name, (leaf id, leaf version)...) ->
+# (leaf refs, result). The held references keep the ids from being
+# reused and the version counters change with every in-place write, so a
+# hit is the same tensors with the same contents; bounded LRU.
+_DIGEST_MEMO: OrderedDict = OrderedDict()
+_DIGEST_MEMO_CAP = 8
+
+
+def _agree_twice(first, again, key_of, what: str):
+    """`first` confirmed by a second agreeing invocation of `again` (a
+    third breaks a tie; three distinct results raise) — the JAX package's
+    utils/verify.agree_twice."""
+    second = again()
+    if key_of(second) == key_of(first):
+        return first
+    third = again()
+    if key_of(third) != key_of(second):
+        raise RuntimeError(f"{what} does not replay deterministically — "
+                           "three invocations disagree")
+    return second
+
+
+def _confirmed_digest(digest, state, leaves) -> dict | None:
+    """A digest materialized on the host, confirmed by two agreeing
+    invocations and memoized on the identity and version of its input
+    leaves, as the JAX package's `_confirmed_digest`."""
+    key = (getattr(digest, "__name__", str(digest)),
+           tuple((id(t), t._version) for t in leaves))
+    hit = _DIGEST_MEMO.get(key)
+    if hit is not None:
+        _DIGEST_MEMO.move_to_end(key)
+        return hit[1]
+    d = digest(state)
+    if d is None:
+        return None
+
+    def host(dd):
+        return {k: v.cpu().numpy() for k, v in dd.items()}
+
+    out = _agree_twice(
+        host(d), lambda: host(digest(state)),
+        key_of=lambda r: tuple((k, r[k].tobytes()) for k in sorted(r)),
+        what="masked-digest reduction")
+    _DIGEST_MEMO[key] = (tuple(leaves), out)
+    while len(_DIGEST_MEMO) > _DIGEST_MEMO_CAP:
+        _DIGEST_MEMO.popitem(last=False)
+    return out
+
+
+def _wide(a) -> np.ndarray:
+    """hi * 2^16 + lo of a [2, ...] half-sum pair, exact in int64."""
+    a = np.asarray(a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+                   ).astype(np.int64)
+    return a[0] * 65536 + a[1]
+
+
+def profile_counters(state) -> dict | None:
+    """`profile_digest` on the host: plain numpy / int values (the
+    16-bit half-sums recombined into exact int64s), None when the plane
+    is compiled out. Run-twice confirmed and memoized."""
+    if not _compiled_in(getattr(state, "pf_busy", None), 2):
+        return None
+    d = _confirmed_digest(
+        profile_digest, state,
+        (state.pf_dispatch, state.pf_busy, state.pf_kill,
+         state.pf_restart, state.pf_qmax, state.pf_drop,
+         state.pf_delay, state.pf_on, state.steps, state.now))
+    if d is None:
+        return None
+    return dict(
+        lanes=int(d["lanes"]),
+        dispatch=_wide(d["dispatch"]),
+        busy=_wide(d["busy"]), kill=_wide(d["kill"]),
+        restart=_wide(d["restart"]),
+        drop=int(_wide(d["drop"])), delay=int(_wide(d["delay"])),
+        now_sum=int(_wide(d["now_sum"])),
+        steps_sum=int(_wide(d["steps_sum"])),
+        qmax_p50=int(d["qmax_pct"][0]), qmax_p90=int(d["qmax_pct"][1]),
+        qmax_max=int(d["qmax_pct"][2]),
+        steps_p50=int(d["steps_pct"][0]), steps_p90=int(d["steps_pct"][1]),
+        steps_max=int(d["steps_pct"][2]),
+        now_p50=int(d["now_pct"][0]), now_p90=int(d["now_pct"][1]),
+        now_max=int(d["now_pct"][2]),
+        busy_total_p50=int(d["busy_total_pct"][0]),
+        busy_total_p90=int(d["busy_total_pct"][1]),
+        busy_total_max=int(d["busy_total_pct"][2]),
+    )
+
+
+# latency-plane bucket edges: bucket j of a cfg.latency_hist histogram
+# holds latencies in [edge(j), edge(j+1)) ticks with edge(0) = 0,
+# edge(j) = 2^(j-1) (the step's exact integer bucketing rule)
+def latency_bucket_edges(buckets: int) -> np.ndarray:
+    """Lower edge of each log2 latency bucket, in ticks (int64)."""
+    return np.asarray([0] + [1 << j for j in range(buckets - 1)], np.int64)
+
+
+def bucket_lower_edge(b: torch.Tensor) -> torch.Tensor:
+    """Lower edge (ticks) of log2 bucket index `b` (int32 tensor): 0 for
+    bucket 0, 2^(b-1) otherwise. The one encoding of the bucket->edge
+    rule: `_hist_quantiles` and `harness.slo` both use it."""
+    return torch.where(b == 0, 0, torch.ones_like(b) << torch.clamp(
+        b - 1, min=0))
+
+
+def _hist_quantiles(hist_f: torch.Tensor, qs) -> torch.Tensor:
+    """Bucket-CDF quantile estimates for a [..., LB] float32 histogram:
+    for each q the lower edge of the bucket holding the ceil(q·total)-th
+    sample (a lower bound on the true quantile); an empty histogram reads
+    0. int32 [..., Q]. Plain PyTorch (ROADMAP §2: K10 work still to
+    do)."""
+    cdf = torch.cumsum(hist_f, -1)
+    total = cdf[..., -1:]
+    out = []
+    for q in qs:
+        need = torch.ceil(total * torch.tensor(q, dtype=torch.float32,
+                                               device=hist_f.device))
+        b = torch.argmax((cdf >= torch.clamp(need, min=1.0)).to(
+            torch.int32), -1).to(torch.int32)
+        out.append(torch.where(total[..., 0] > 0, bucket_lower_edge(b), 0))
+    return torch.stack(out, -1).to(torch.int32)
+
+
+_LAT_QS = (0.50, 0.90, 0.99, 0.999)
+_LAT_QNAMES = ("p50", "p90", "p99", "p999")
+
+
+def _latency_digest(state) -> dict:
+    """Device-side reduction of the SLO latency plane: the merged
+    histograms' exact wide sums over the recorded lanes (one
+    `plane_sums` launch) and the quantile estimates of the merged bucket
+    CDFs, as the JAX package's `_latency_digest`. The CDFs are float32
+    of the exact merged counts (the JAX package's float32 lane sums give
+    the same counts wherever they are exact, below 2^24)."""
+    on = state.lh_on
+    sums = plane_sums([(None, 0), (state.lh_sojourn, 0), (state.lh_e2e, 0),
+                       (state.lh_slo_miss, 0)], (on, None))
+    n, soj, e2e, miss = sums
+
+    def merged(pair):        # exact [N, LB] merged counts as float32
+        hi, lo = pair[0].to(torch.int64), pair[1].to(torch.int64)
+        return hi * 65536 + lo
+
+    soj_m, e2e_m = merged(soj), merged(e2e)
+    return dict(
+        lanes=(n[0].to(torch.int64) * 65536 + n[1]).to(torch.int32),
+        sojourn=soj, e2e=e2e, slo_miss=miss,
+        sojourn_q=_hist_quantiles(soj_m.sum(0).float(), _LAT_QS),
+        e2e_q=_hist_quantiles(e2e_m.sum(0).float(), _LAT_QS),
+        e2e_p99_by_node=_hist_quantiles(e2e_m.float(), (0.99,))[..., 0])
+
+
+def _latency_on(state) -> bool:
+    return _compiled_in(getattr(state, "lh_e2e", None), 3)
+
+
+def latency_digest(state):
+    """Launch the device-side latency reduction over a batched state;
+    returns a dict of device tensors, or None when the plane is compiled
+    out (cfg.latency_hist == 0) or the state is unbatched."""
+    return _latency_digest(state) if _latency_on(state) else None
+
+
+def latency_counters(state) -> dict | None:
+    """`latency_digest` on the host: exact merged histograms (int64
+    [N, LB]), total SLO misses, and the quantile estimates in ticks. None
+    when the plane is compiled out. Run-twice confirmed and memoized."""
+    if not _latency_on(state):
+        return None
+    d = _confirmed_digest(
+        latency_digest, state,
+        (state.lh_sojourn, state.lh_e2e, state.lh_slo_miss, state.lh_on))
+    if d is None:
+        return None
+    out = dict(
+        lanes=int(d["lanes"]),
+        sojourn_hist=_wide(d["sojourn"]),
+        e2e_hist=_wide(d["e2e"]),
+        slo_miss_by_node=_wide(d["slo_miss"]).tolist(),
+        slo_miss=int(_wide(d["slo_miss"]).sum()),
+        e2e_p99_by_node=d["e2e_p99_by_node"].tolist(),
+    )
+    for i, nm in enumerate(_LAT_QNAMES):
+        out[f"sojourn_{nm}"] = int(d["sojourn_q"][i])
+        out[f"e2e_{nm}"] = int(d["e2e_q"][i])
+    return out
+
+
+def _lane_e2e_p99(lh_e2e: torch.Tensor) -> torch.Tensor:
+    """Per-lane p99 estimate of each lane's own e2e histogram (nodes
+    folded): int32 [B] bucket lower edges, 0 for a lane with no
+    completion — the `lane_p99` kernel on CUDA."""
+    return _lane_p99_kernel(lh_e2e)
 
 
 def lane_e2e_p99(state) -> np.ndarray | None:
-    """Per-lane end-to-end p99 off the latency plane; None when the plane
-    is compiled out."""
-    _refuse_latency_plane(state)
-    return None
+    """Host-side per-lane p99 (ticks) off the latency plane, the tail
+    signal the fuzzer's corpus energy reads (search/corpus.py
+    lat_bonus); None when the plane is compiled out."""
+    if not _latency_on(state):
+        return None
+    return _lane_e2e_p99(state.lh_e2e).cpu().numpy()
 
 
 def latency_brief(state) -> dict | None:
-    """The latency rollup of observer records; None when the plane is
-    compiled out."""
-    _refuse_latency_plane(state)
-    return None
+    """The small latency rollup observer records carry: cluster
+    p50/p99/p999, sojourn p99, SLO misses, the target and the
+    completions. None when the plane is compiled out."""
+    c = latency_counters(state)
+    if c is None:
+        return None
+    return dict(lanes=c["lanes"],
+                e2e_p50=c["e2e_p50"], e2e_p99=c["e2e_p99"],
+                e2e_p999=c["e2e_p999"], sojourn_p99=c["sojourn_p99"],
+                slo_miss=c["slo_miss"],
+                slo_target=int(np.asarray(
+                    state.slo_target.cpu().numpy()).max()),
+                completions=int(c["e2e_hist"].sum()))
 
 
 def lane_burst(state) -> np.ndarray | None:

@@ -40,9 +40,6 @@ from .scenario import Scenario
 # observation planes of the JAX package that this port does not have yet,
 # with the ROADMAP item that ports each
 _UNPORTED_PLANES = (
-    ("profile", lambda c: c.profile, "the sim profiler (ROADMAP P11.2)"),
-    ("latency_hist", lambda c: c.latency_hist > 0,
-     "the latency plane (ROADMAP P11.3)"),
     ("sketch_slots", lambda c: c.sketch_slots > 0,
      "the coverage sketch (ROADMAP P11.4)"),
     ("series_windows", lambda c: c.series_windows > 0,
@@ -299,35 +296,66 @@ class Runtime:
                          t_src=col(src, s.t_src), t_tag=col(tag, s.t_tag),
                          t_payload=col(payload, s.t_payload))
 
-    def init_batch(self, seeds, trace_lanes=None) -> SimState:
+    @staticmethod
+    def _lane_mask(lanes, B: int, what: str) -> np.ndarray:
+        """A lane-selection argument (int index array or bool[B] mask) as
+        a bool[B] mask."""
+        lanes = np.asarray(lanes)
+        if lanes.dtype == bool:
+            if lanes.shape != (B,):
+                raise ValueError(
+                    f"bool {what} mask shape {lanes.shape} != "
+                    f"batch ({B},)")
+            return lanes
+        mask = np.zeros(B, bool)
+        mask[lanes.astype(np.int64)] = True
+        return mask
+
+    def init_batch(self, seeds, trace_lanes=None, profile_lanes=None,
+                   latency_lanes=None) -> SimState:
         """Initial batched state for an array of seeds; seed i always
         reproduces the same trajectory, whatever the batch around it.
 
         trace_lanes: which LANES the flight-recorder ring records when
         cfg.trace_cap > 0 (None = all; an int index array or a bool[B]
         mask narrows it). Lanes, not seeds: obs/rings.py readers take
-        lane indices too."""
+        lane indices too.
+
+        profile_lanes: which lanes the sim profiler counts when
+        cfg.profile (None = all; same forms).
+
+        latency_lanes: which lanes the latency plane histograms when
+        cfg.latency_hist > 0 (None = all; same forms). The root column
+        ev_root_t is kept on every lane regardless; only the histogram
+        folds are gated. A runtime whose `invariant=` is
+        harness.slo.slo_invariant should keep every lane on: a masked
+        lane never folds, so its SLO can never fire."""
         seeds = np.atleast_1d(np.asarray(seeds)).astype(np.int64) \
             & 0xFFFFFFFF
         B = seeds.shape[0]
         keys = prng.seed_key(torch.as_tensor(seeds, device=self.device))
         s = map_state(lambda a: _lanes_of(a, B), self._template)
         s = s.replace(key=keys, hash_base=keys.clone())
-        if trace_lanes is not None:
-            if self.cfg.trace_cap == 0:
-                raise ValueError(
-                    "trace_lanes given but cfg.trace_cap == 0 — the ring "
-                    "is compiled out; set SimConfig(trace_cap=...) > 0")
-            lanes = np.asarray(trace_lanes)
-            if lanes.dtype == bool:
-                if lanes.shape != (B,):
-                    raise ValueError(f"bool trace_lanes mask shape "
-                                     f"{lanes.shape} != batch ({B},)")
-                mask = lanes
-            else:
-                mask = np.zeros(B, bool)
-                mask[lanes.astype(np.int64)] = True
-            s = s.replace(trace_on=torch.as_tensor(mask, device=self.device))
+        cfg = self.cfg
+        for lanes, field, compiled, what in (
+                (trace_lanes, "trace_on", cfg.trace_cap > 0,
+                 "trace_lanes given but cfg.trace_cap == 0 — the ring "
+                 "is compiled out; set SimConfig(trace_cap=...) > 0"),
+                (profile_lanes, "pf_on", cfg.profile,
+                 "profile_lanes given but cfg.profile is False — the "
+                 "counter plane is compiled out; set "
+                 "SimConfig(profile=True)"),
+                (latency_lanes, "lh_on", cfg.latency_hist > 0,
+                 "latency_lanes given but cfg.latency_hist == 0 — the "
+                 "latency plane is compiled out; set "
+                 "SimConfig(latency_hist=...) > 0")):
+            if lanes is None:
+                continue
+            if not compiled:
+                raise ValueError(what)
+            mask = self._lane_mask(lanes, B, what.split()[0])
+            s = s.replace(**{field: torch.as_tensor(mask,
+                                                    device=self.device)})
         return s
 
     def init_single(self, seed: int) -> SimState:
@@ -335,7 +363,7 @@ class Runtime:
 
     # ------------------------------------------------------------------
     def run(self, state: SimState, max_steps: int, chunk: int = 512,
-            collect_events: bool = False):
+            collect_events: bool = False, observer=None):
         """Advance until every lane halts or ~max_steps events each
         (rounded up to whole chunks). Returns (state, events | None).
 
@@ -345,12 +373,18 @@ class Runtime:
         lanes that halted keep emitting records with fired=False. The
         number of steps executed is left in `self.steps_run`.
 
+        observer: `on_chunk` a chunk and `on_done` at the end, with the
+        JAX package's records (the done record carries the latency
+        plane's lat_p50 / lat_p99 / slo_miss when it is compiled in).
+
         The step writes its input in place, so the run steps a private
         copy of `state` (one clone per call): the caller's state is left
         as it was."""
         events = [] if collect_events else None
-        done = 0
+        done = k = 0
+        B = int(state.halted.shape[0])
         state = map_state(torch.clone, state)
+        t0 = t_prev = time.perf_counter()
         with torch.no_grad():
             while done < max_steps:
                 for _ in range(chunk):
@@ -359,8 +393,26 @@ class Runtime:
                         events.append({k: v.cpu().numpy()
                                        for k, v in rec.items()})
                 done += chunk
-                if bool(state.halted.all()):
+                k += 1
+                all_halted = bool(state.halted.all())
+                if observer is not None:
+                    t_now = time.perf_counter()
+                    observer.on_chunk(dict(
+                        kind="chunk", chunk=k, steps_done=done, batch=B,
+                        lanes_halted=int(state.halted.sum()),
+                        wall_s=t_now - t0,
+                        lane_steps_per_sec=B * chunk / max(t_now - t_prev,
+                                                           1e-9)))
+                    t_prev = t_now
+                if all_halted:
                     break
+        if observer is not None:
+            wall = time.perf_counter() - t0
+            rec = dict(kind="done", steps_done=done, batch=B, chunks=k,
+                       lanes_halted=int(state.halted.sum()), wall_s=wall,
+                       lane_steps_per_sec=B * done / max(wall, 1e-9))
+            rec.update(self._latency_fields(state))
+            observer.on_done(rec)
         self.steps_run = done
         if collect_events:
             events = {k: np.stack([e[k] for e in events])
@@ -440,7 +492,10 @@ class Runtime:
         caller's state is left as it was.
 
         observer: `on_chunk` a chunk, `on_compact` a repack (from/to
-        widths) and `on_done`, with the JAX package's records. The
+        widths) and `on_done`, with the JAX package's records; the done
+        record also carries the whole batch's latency rollup (lat_p50,
+        lat_p99, slo_miss) when the latency plane is compiled in, as the
+        JAX package's chunked runner's does. The
         widths, repacks, graph captures and the stash's bytes are left in
         `self.compact_stats`."""
         B = int(state.halted.shape[0])
@@ -513,24 +568,40 @@ class Runtime:
                         stashed_total=stashed_total,
                         wall_s=time.perf_counter() - t0))
             if observer is not None:
-                observer.on_done(dict(
+                done_rec = dict(
                     kind="done", steps_done=done, batch=B, chunks=k,
                     repacks=repacks,
                     lanes_halted=int(cur.halted.sum()) + stashed_total,
                     stashed_total=stashed_total,
-                    wall_s=time.perf_counter() - t0))
+                    wall_s=time.perf_counter() - t0)
             # merge: every part into its original lanes of one batch
             out = map_state(lambda t: torch.empty(
                 (B,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device),
                 cur)
             for idx, part in stash + [(orig_idx, cur)]:
                 lane_put(out, idx, part)
+            if observer is not None:
+                # the whole batch's latency rollup, read off the merge
+                done_rec.update(self._latency_fields(out))
+                observer.on_done(done_rec)
         self.steps_run = done
         self.compact_stats = dict(widths=widths, repacks=repacks,
                                   chunks=k, captures=captures,
                                   stashed_total=stashed_total,
                                   stash_bytes=stash_bytes)
         return out
+
+    def _latency_fields(self, state: SimState) -> dict:
+        """The done record's latency rollup (lat_p50, lat_p99, slo_miss),
+        empty when the latency plane is compiled out."""
+        if self.cfg.latency_hist == 0:
+            return {}
+        from ..parallel.stats import latency_brief
+        lb = latency_brief(state)
+        if lb is None:
+            return {}
+        return dict(lat_p50=lb["e2e_p50"], lat_p99=lb["e2e_p99"],
+                    slo_miss=lb["slo_miss"])
 
     def run_exact(self, state: SimState, steps: int,
                   collect_events: bool = False):
@@ -586,6 +657,10 @@ class Runtime:
             # clock 0): the reused row must not keep its previous
             # occupant's provenance
             lineage["ev_prov"] = put(state.ev_prov, [-1, 0])
+        if cfg.latency_hist > 0:
+            # and the latency plane's: the injected op mints its root at
+            # its own dispatch (-1 = unset), not the slot's last occupant's
+            lineage["ev_root_t"] = put(state.ev_root_t, -1)
         return state.replace(
             **lineage,
             t_deadline=torch.where(hit, state.now[:, None], state.t_deadline),
@@ -621,6 +696,17 @@ class Runtime:
         return state.replace(
             tlimit=torch.full_like(state.tlimit, int(limit)),
             t_deadline=torch.where(auto, int(limit), state.t_deadline))
+
+    def set_slo_target(self, state: SimState, target: int) -> SimState:
+        """Retune every lane's SLO target (ticks; 0 disables the miss
+        counter): slo_target is a state leaf like tlimit. Requires the
+        latency plane compiled in (cfg.latency_hist > 0)."""
+        if self.cfg.latency_hist == 0:
+            raise ValueError(
+                "set_slo_target needs cfg.latency_hist > 0 — the latency "
+                "plane is compiled out")
+        return state.replace(
+            slo_target=torch.full_like(state.slo_target, int(target)))
 
     # ------------------------------------------------------------------
     def fingerprints(self, state: SimState) -> np.ndarray:

@@ -7,8 +7,8 @@ and can filter records before a virtual instant (MADSIM_LOG_TIME_START,
 runtime/mod.rs:349-358). Here the engine emits a structured event record
 per step when run with collect_events=True (numpy arrays shaped
 [steps, B, ...]); this module renders one seed's stream the same way,
-line for line as the JAX package renders it. The Perfetto export
-(`obs/trace.py`) is not ported yet (ROADMAP P11.7).
+line for line as the JAX package renders it. The Perfetto export of the
+same records is `obs/trace.py`.
 """
 
 from __future__ import annotations

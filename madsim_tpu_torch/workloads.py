@@ -6,6 +6,14 @@
                      32, 24 commands per leader stint, 5% packet loss and
                      8 rolling kill / restart / partition / heal cycles;
                      optionally with the flight recorder (trace_cap).
+  plane_flagship_runtime the flagship with the sim profiler and the
+                     latency plane compiled in (profile=True,
+                     latency_hist=24), e2e measured from the leader's
+                     propose timer to its append replies, and the
+                     flight recorder (trace_cap=64)
+  crashrich_wal_kv_runtime  bench.py `_make_crashrich_runtime("wal_kv")`:
+                     WAL-KV with an unsynced WAL under six kill/restart
+                     pairs of its server, whose lanes really crash
   compacting_runtime the flagship's shapes with a long tail of halts,
                      the regime `Runtime.run_compacting` is for: lanes
                      halt at a commit index of 28 or at 10 simulated s
@@ -48,15 +56,17 @@ RECORDER_LEAVES = (".ev_prov", ".lamport", ".trace_cap", ".trace_on",
 
 
 def flagship_runtime(device=None, n_nodes: int = 5, trace_cap: int = 0,
-                     time_limit: int = sec(600), halt_on_commit: int = 0):
+                     time_limit: int = sec(600), halt_on_commit: int = 0,
+                     **planes):
     """bench.py's flagship; trace_cap > 0 compiles the flight recorder
-    and lineage in (they change no other leaf)."""
+    and lineage in, `planes` other observation-plane fields of SimConfig
+    (they change no other leaf)."""
     from .models.raft import make_raft_runtime
     n = n_nodes
     cfg = SimConfig(n_nodes=n, event_capacity=max(96, 16 * n),
                     time_limit=time_limit, payload_words=8,
                     trace_cap=trace_cap,
-                    net=NetConfig(packet_loss_rate=0.05))
+                    net=NetConfig(packet_loss_rate=0.05), **planes)
     sc = Scenario()
     for t in range(8):  # rolling chaos, one cycle per simulated second
         sc.at(sec(1 + t)).kill_random()
@@ -66,6 +76,45 @@ def flagship_runtime(device=None, n_nodes: int = 5, trace_cap: int = 0,
     return make_raft_runtime(n, log_capacity=32, n_cmds=24, scenario=sc,
                              cfg=cfg, device=device,
                              halt_on_commit=halt_on_commit)
+
+
+# the plane flagship's latency config: a request starts at the leader's
+# propose timer and completes at each append reply
+# (madsim_tpu/models/raft.py:35-37 tags)
+def plane_config() -> dict:
+    from .core.types import EV_MSG, EV_TIMER
+    from .models.raft import AER, T_PROPOSE
+    return dict(profile=True, latency_hist=24,
+                complete_kinds=((EV_MSG, AER),),
+                root_kinds=((EV_TIMER, T_PROPOSE),))
+
+
+def plane_flagship_runtime(device=None, n_nodes: int = 5,
+                           trace_cap: int = 64):
+    """The flagship with the profiler and the latency plane on every
+    lane and the flight recorder (its ring's tr_qlen and tr_lat columns
+    too)."""
+    return flagship_runtime(device, n_nodes=n_nodes, trace_cap=trace_cap,
+                            **plane_config())
+
+
+def crashrich_wal_kv_runtime(device=None, trace_cap: int = 0):
+    """bench.py `_make_crashrich_runtime("wal_kv")`: an unsynced WAL
+    under six kill/restart pairs of the server, so acknowledged writes
+    are lost across crashes and the clients' read-your-writes checks
+    crash their lanes."""
+    from .models.wal_kv import make_wal_kv_runtime
+    sc = Scenario()
+    for t in range(6):
+        sc.at(ms(150) + ms(250) * t).kill(0)
+        sc.at(ms(210) + ms(250) * t).restart(0)
+    cfg = SimConfig(n_nodes=3, event_capacity=256, payload_words=8,
+                    time_limit=sec(10), trace_cap=trace_cap,
+                    net=NetConfig(send_latency_min=ms(1),
+                                  send_latency_max=ms(8)))
+    return make_wal_kv_runtime(n_clients=2, n_ops=12, wal_cap=64,
+                               sync_wal=False, scenario=sc, cfg=cfg,
+                               device=device)
 
 
 def compacting_runtime(device=None):

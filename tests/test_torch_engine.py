@@ -621,8 +621,7 @@ def test_runtime_runs_on_cuda_unless_cpu_is_asked_for():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("profile", True), ("latency_hist", 4), ("sketch_slots", 2),
-    ("series_windows", 2), ("span_attr", True)])
+    ("sketch_slots", 2), ("series_windows", 2), ("span_attr", True)])
 def test_unported_planes_are_refused(field, value):
     import madsim_tpu_torch as P
     from madsim_tpu_torch.models import pingpong as tpp
@@ -634,3 +633,24 @@ def test_unported_planes_are_refused(field, value):
         P.Runtime(cfg, [tpp.PingPong(2)], tpp.state_spec(), device="cpu")
 
 
+@pytest.mark.parametrize("field,value", [
+    ("profile", True), ("latency_hist", 4)])
+def test_ported_planes_build(field, value):
+    """The profiler and the latency plane are ported: a config with either
+    builds, and its plane leaves have the JAX package's shapes."""
+    import madsim_tpu_torch as P
+    from madsim_tpu_torch.models import pingpong as tpp
+    cfg = P.SimConfig(n_nodes=2, trace_cap=8, **{field: value})
+    rt = P.Runtime(cfg, [tpp.PingPong(2)], tpp.state_spec(), device="cpu")
+    s = rt.init_batch([1, 2, 3])
+    if field == "profile":
+        assert tuple(s.pf_dispatch.shape) == (3, 2, 4)
+        assert tuple(s.tr_qlen.shape) == (3, 8)
+        assert s.pf_on.all()
+    else:
+        assert tuple(s.lh_e2e.shape) == (3, 2, 4)
+        assert tuple(s.ev_root_t.shape) == (3, cfg.event_capacity)
+        assert (s.ev_root_t == -1).all() and (s.tr_lat == -1).all()
+        assert s.lh_on.all()
+    s, _ = rt.run(s, 64, chunk=64)
+    assert int(s.steps.min()) > 0

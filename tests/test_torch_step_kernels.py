@@ -768,15 +768,20 @@ def test_wrapper_takes_the_plain_version_on_the_cpu_and_refuses_meta(name):
 
 
 @pytest.mark.parametrize("build,sections", [
-    ("flagship", chip_smoke.SECTIONS),
-    ("pingpong", tuple(k for k in chip_smoke.SECTIONS if k != "invariant"))])
+    ("flagship", tuple(k for k in chip_smoke.SECTIONS if k != "obs")),
+    ("pingpong", tuple(k for k in chip_smoke.SECTIONS
+                       if k not in ("invariant", "obs"))),
+    ("plane_flagship", chip_smoke.SECTIONS)])
 def test_every_section_of_the_step_is_a_profiler_range(build, sections):
     """One step under torch.profiler opens the `live_step.<section>`
     ranges chip_smoke splits the device time by (pingpong has no
-    invariant), and their host ops hold the step's ops."""
+    invariant; only a step with the profiler or the latency plane has the
+    obs section), and their host ops hold the step's ops."""
     from torch.profiler import ProfilerActivity, profile
-    rt = (workloads.flagship_runtime(device="cpu") if build == "flagship"
-          else workloads.pingpong_runtime(device="cpu"))
+    rt = dict(flagship=workloads.flagship_runtime,
+              pingpong=workloads.pingpong_runtime,
+              plane_flagship=workloads.plane_flagship_runtime)[build](
+                  device="cpu")
     s = rt.init_batch(np.arange(4))
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         rt._step(s)
