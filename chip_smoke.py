@@ -118,6 +118,26 @@ the frozen golden digests. One JSON object per line, in phases:
                lanes all miss a 1-tick p99, B=4096: run_fused (the check
                inside the captured graph) equal to run, every lane
                CRASH_SLO, lanes 0..7 equal to a CPU run
+  planes_all   the all-planes flagship (workloads.
+               all_planes_flagship_runtime: the plane flagship with the
+               prefix sketch, 16 series windows of 625 ms and the span
+               plane, at an SLO target some completions miss) at
+               B=100,000 for 2048 steps through run_fused and run: every
+               leaf equal, the plane-off fingerprints, obs_fold once a
+               step, lanes 0, 1, 4099 and 99,999 at step 1024 equal to
+               the CPU child's run, the series, attribution and sketch
+               digests over every lane (plane_sums four launches,
+               lane_burst one), and a set_window_len between two
+               run_fused calls reaching the captured graph; with
+               planes_all_profile, its graph step beside the plane-off
+               one and its eager step by section (the span capture's
+               `spans` section among them)
+  recovery     recovery_invariant (harness/recovery.py) on four pingpong
+               recipes (RECOVERY_RECIPES: a clog healed and a
+               set_latency never healed, each judged so that every
+               lane crashes, and so that none or some do), B=4096:
+               run_fused equal to run, the expected CRASH_RECOVERY
+               lanes, lanes 0..7 equal to a CPU run
   kernel       each kernel against its plain version, exactly equal
                (the kernel's time is device time: launches captured in a
                CUDA graph and replayed between events):
@@ -255,7 +275,18 @@ the frozen golden digests. One JSON object per line, in phases:
                int32 max at B=100,000, negative words, masks off, a leaf
                of 300 columns, B=1, sparse histograms, an unaligned
                histogram), each against its plain version on the card
-               and lane_p99 also against its plain version on the CPU
+               and lane_p99 also against its plain version on the CPU;
+               then obs_fold with its sketch, series and span groups at
+               the all-planes flagship's step-1024 operands and on
+               FOLD_PLANE_CASES (saturation, window boundaries and the
+               clamp, every gate off, sketch_every=1, empty spans, the
+               groups without the profiler and latency planes, strided
+               and unaligned operands, B=1), emit_write with the span
+               columns (ev_span, tr_qw) there and on edge cases,
+               plane_sums with its max and or leaves on the series and
+               attribution digests of the final state and on
+               SERIES_DIGEST_CASES, and lane_burst (K10) on the final
+               sr_lat and those cases, on the card and on the CPU
   determinism  lanes 0..4095 alone, twice through run (512 steps) and
                twice through run_fused (2048 steps): fingerprints equal
                to each other and to lanes 0..4095 of the B=100,000 eager
@@ -322,6 +353,8 @@ DET_B = 4096
 DET_EAGER_STEPS = FLAG_CHUNK   # the eager determinism passes (host-bound)
 PROF_STEPS = 16
 PROF_WINDOWS = 3     # traced windows at most, when records go missing
+PROF_SETTLE_STEPS = 8  # traced steps before the window, left out of it
+SETTLE_RANGE = "chip_smoke.settle"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 # H100 SXM float32 peak outside the tensor cores (data sheet), taken as
 # the rate of the kernels' 32-bit integer operations: the card's int32
@@ -702,8 +735,9 @@ def emit_bound(tables, em, lane, ring, n_sends, use_jitter, delay=False):
       (and now, disp_idx, ev_lamport where not counted above) and its
       eight-word ring row;
     - with the plane columns: every lane's ev_root (and each written
-      row's root word), its delay sum (delay), and for each recording
-      lane the tr_qlen / tr_lat operand and word.
+      row's root word), its span_new words (and each written row's six
+      ev_span words), its delay sum (delay), and for each recording
+      lane the tr_qlen / tr_lat / tr_qw operand and word.
     Operations: 80 integer operations per threefry block (20 rounds of
     add, rotate, xor plus the key schedule) for the draws masked
     emissions need: a send's loss (3 blocks) and latency (6), and each
@@ -736,11 +770,14 @@ def emit_bound(tables, em, lane, ring, n_sends, use_jitter, delay=False):
         nbytes += B * (2 + 4 * 3) + rec * (4 * 5 + extra + 8 * 4)
         plane_cols = sum(ring["cols"].get(k) is not None
                          and ring["cols"][k].shape[1] > 0
-                         for k in ("tr_qlen", "tr_lat"))
+                         for k in ("tr_qlen", "tr_lat", "tr_qw"))
         nbytes += rec * 8 * plane_cols
     root = tables.get("ev_root_t")
     if E > 0 and root is not None and root.shape[1] > 0:
         nbytes += B * 4 + written * 4
+    span = tables.get("ev_span")
+    if E > 0 and span is not None and span.shape[1] > 0:
+        nbytes += B * 24 + written * 24
     if E > 0 and delay:
         nbytes += B * 4
     return nbytes, ops
@@ -848,58 +885,91 @@ def profile_steps(run, state, batch, expect):
     short, in no pattern). A window in which a kernel of `expect` has
     fewer events than it launched is traced again, up to PROF_WINDOWS
     times; `short_windows` keeps the counts of the windows set aside.
-    More events than launches is never set aside: it fails the run."""
+    More events than launches is never set aside: it fails the run. On
+    the plain K3/K11 path the trace's first step lacked its first
+    `step_keys` and `sched_pick` records in every window, whatever its
+    length (F13), so each trace opens with PROF_SETTLE_STEPS steps in a
+    range of their own, synchronized, and only host events after that
+    range and device events from the window's first step on
+    (`window_start`: not the copies the runner makes of its input first)
+    count; `device_busy_ms_per_step_with_copies` is the same window
+    counted from the end of the settle range, copies included (the
+    reading of the profiles before the settle range)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     state = run(state, PROF_STEPS)                # warm
     short = []
+    steps = PROF_STEPS
     for _ in range(PROF_WINDOWS):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            # the trace's first steps can lack device records (F13): a
+            # settle range of PROF_SETTLE_STEPS steps, synchronized,
+            # comes first, and only what starts after it is the window
+            with record_function(SETTLE_RANGE):
+                state = run(state, PROF_SETTLE_STEPS)
+                torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state = run(state, PROF_STEPS)
+            state = run(state, steps)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
+        after = max(e.time_range.end for e in prof.events()
+                    if e.name == SETTLE_RANGE and e.device_type
+                    == torch.autograd.DeviceType.CPU)
+        dev_after = window_start(prof, after)
         dev_events = [e for e in prof.events()
                       if e.device_type == torch.autograd.DeviceType.CUDA
-                      and not is_range(e.name)]
+                      and not is_range(e.name) and e.name != SETTLE_RANGE
+                      and e.time_range.start >= dev_after]
         traced = {k: sum(k in e.name for e in dev_events) for k in expect}
-        want = {k: PROF_STEPS * n for k, n in expect.items()}
+        want = {k: steps * n for k, n in expect.items()}
         check(all(traced[k] <= want[k] for k in expect),
-              f"profile: traced launches {traced} in {PROF_STEPS} steps")
+              f"profile: traced launches {traced} in {steps} steps")
         if not dev_events or traced == want:
             break
-        short.append(traced)
+        # which launches the trace lacks: each counted kernel's device
+        # start times (us after the window's first device event)
+        t_first = min(e.time_range.start for e in dev_events)
+        short.append(dict(traced, steps=steps, starts_us={
+            k: [round(e.time_range.start - t_first, 1) for e in dev_events
+                if k in e.name][:4] for k in expect if expect[k]}))
     launches = [e for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CPU
-                and "LaunchKernel" in e.name]
+                and "LaunchKernel" in e.name and e.time_range.start >= after]
     if not dev_events:
-        return dict(steps=PROF_STEPS, batch=batch,
-                    wall_ms_per_step=wall_us / PROF_STEPS / 1e3,
+        return dict(steps=steps, batch=batch,
+                    wall_ms_per_step=wall_us / steps / 1e3,
                     device_busy_share=None, device_kernels_per_step=None,
-                    host_launches_per_step=len(launches) / PROF_STEPS,
+                    host_launches_per_step=len(launches) / steps,
                     kernel_launches=None)
     by_name: dict = {}
     for e in dev_events:     # a device event's span is its kernel time
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy_us = sum(by_name.values())
+    copies_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not is_range(e.name) and e.name != SETTLE_RANGE
+                    and after <= e.time_range.start < dev_after)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
 
     def kernel_ms(tag):
         return sum(t for n, t in by_name.items() if tag in n) \
-            / PROF_STEPS / 1e3
+            / steps / 1e3
 
     # the eager step's ranges (a graph replay has none: the ranges are
     # host-side and a replay runs no host code)
-    sections, handler_split, outside = section_split(prof, PROF_STEPS)
+    sections, handler_split, outside = section_split(prof, steps, after,
+                                                     dev_after)
     return dict(
-        steps=PROF_STEPS, batch=batch, short_windows=short,
-        wall_ms_per_step=wall_us / PROF_STEPS / 1e3,
-        device_busy_ms_per_step=busy_us / PROF_STEPS / 1e3,
+        steps=steps, batch=batch, short_windows=short,
+        wall_ms_per_step=wall_us / steps / 1e3,
+        device_busy_ms_per_step=busy_us / steps / 1e3,
+        device_busy_ms_per_step_with_copies=(busy_us + copies_us) / steps
+        / 1e3,
         device_busy_share=busy_us / wall_us,
-        device_kernels_per_step=len(dev_events) / PROF_STEPS,
-        host_launches_per_step=len(launches) / PROF_STEPS,
+        device_kernels_per_step=len(dev_events) / steps,
+        host_launches_per_step=len(launches) / steps,
         sched_pick_ms_per_step=kernel_ms("sched_pick"),
         emit_write_ms_per_step=kernel_ms("emit_write"),
         raft_invariant_ms_per_step=kernel_ms("raft_invariant"),
@@ -913,7 +983,7 @@ def profile_steps(run, state, batch, expect):
                                    if handler_split else None),
         own_kernels_outside_annotations=outside,
         kernel_launches=traced,
-        top_kernels_ms_per_step=[[n[:80], t / PROF_STEPS / 1e3]
+        top_kernels_ms_per_step=[[n[:80], t / steps / 1e3]
                                  for n, t in top])
 
 
@@ -1125,8 +1195,8 @@ def coverage_edge_hashes(dev):
             for k, v in sets.items()}
 
 
-SECTIONS = ("select", "dup", "super", "handlers", "scatter", "emit",
-            "stats", "obs", "invariant", "end")
+SECTIONS = ("select", "dup", "super", "spans", "handlers", "scatter",
+            "emit", "stats", "obs", "invariant", "end")
 
 
 STEP_RANGE, HANDLER_RANGE = "live_step.", "live_handler."
@@ -1150,7 +1220,25 @@ OWN_KERNELS = ("sched_pick", "apply_super", "emit_write", "raft_invariant",
                "threefry_draw", "node_gather", "put_rows", "obs_fold")
 
 
-def section_split(prof, steps):
+def window_start(prof, after):
+    """Where the window's device work starts (the trace's clock, us): the
+    device-side annotation of its first step's select range (the eager
+    step), else its first `step_keys` kernel (a graph replay has no
+    annotation), among the device events after `after`. The runners'
+    copies of their input before the first step are not the steps'
+    work."""
+    import torch
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.time_range.start >= after]
+    starts = [e.time_range.start for e in dev
+              if e.name == STEP_RANGE + "select"]
+    if not starts:
+        starts = [e.time_range.start for e in dev if "step_keys" in e.name]
+    return min(starts) if starts else after
+
+
+def section_split(prof, steps, after=None, dev_after=None):
     """(sections, handler split, outside): device ms a step of each
     section of the step (`live_step.<name>` profiler ranges, core/step.py)
     and of each handler range inside the handlers section
@@ -1160,13 +1248,20 @@ def section_split(prof, steps):
     the innermost one, spans the kernel's start. A hand-written kernel
     that no annotation spans goes to the last annotation begun before it;
     `outside` counts those. None where the trace holds no range (a graph
-    replay)."""
+    replay). With `after` (and `dev_after` for device events), only
+    events that start at or after it (the trace's clock, us) count."""
     import torch
     out = {k: 0.0 for k in SECTIONS}
     sub: dict = {}
     notes, own = [], []
     ranges = 0
+    if dev_after is None:
+        dev_after = after
     for e in prof.events():
+        first = (dev_after if e.device_type == torch.autograd.DeviceType.CUDA
+                 else after)
+        if first is not None and e.time_range.start < first:
+            continue
         if e.device_type == torch.autograd.DeviceType.CPU and is_range(
                 e.name):
             dev_us = sum(k.duration for k in e.kernels
@@ -2277,6 +2372,11 @@ def bucket_probes():
 
 FOLD_CASES = ("random", "int32_max", "buckets", "all_masked", "pf_only",
               "lh_only", "no_cpl", "n7", "strided_unaligned", "B1")
+# the cases with the sketch, series and span groups compiled in too
+FOLD_PLANE_CASES = ("planes_random", "planes_int32_max", "planes_windows",
+                    "planes_every_1", "planes_masked", "planes_no_spans",
+                    "planes_series_only", "planes_unaligned", "planes_B1")
+FOLD_S, FOLD_W = 5, 6       # the edge cases' sketch slots and windows
 
 
 def fold_edge_operands(dev, B, N, LB, seed, case="random"):
@@ -2288,7 +2388,19 @@ def fold_edge_operands(dev, B, N, LB, seed, case="random"):
     both gates off; pf_only / lh_only: one plane compiled out; no_cpl:
     no complete_kinds; n7: N = 7; strided_unaligned: every [B] operand a
     view of stride 2 and every plane leaf one element off a 16-byte
-    boundary (ROADMAP F19); B1: one lane."""
+    boundary (ROADMAP F19); B1: one lane. Those cases have the sketch,
+    series and span groups compiled out (their operands are drawn after
+    the others, so the other operands are those the profiler and
+    latency fold alone were checked on). The planes_* cases compile
+    them in (FOLD_S slots, FOLD_W windows): planes_random; planes_int32_max
+    (every counter near int32 max); planes_windows (now on window
+    boundaries, one tick either side, past the last window and
+    negative); planes_every_1 (sketch_every = 1); planes_masked (every
+    gate off); planes_no_spans (no completion: empty spans);
+    planes_series_only (the sketch and series groups without the
+    profiler and latency planes);
+    planes_unaligned (strided operands, leaves off a 16-byte boundary);
+    planes_B1."""
     import numpy as np
     import torch
     from madsim_tpu_torch.core.state import N_EV_KINDS
@@ -2297,9 +2409,11 @@ def fold_edge_operands(dev, B, N, LB, seed, case="random"):
     K = N_EV_KINDS
     if case == "n7":
         N = 7
-    if case == "B1":
+    if case in ("B1", "planes_B1"):
         B = 1
     I32 = 2**31 - 1
+    new = case.startswith("planes_")
+    S, W = (FOLD_S, FOLD_W) if new else (0, 0)
 
     def ints(lo, hi, shape):
         return torch.as_tensor(
@@ -2309,16 +2423,17 @@ def fold_edge_operands(dev, B, N, LB, seed, case="random"):
     def bools(p, shape):
         return torch.as_tensor(rng.random(shape) < p, device=dev)
 
-    nP = 0 if case == "lh_only" else N
-    nL = 0 if case == "pf_only" else N
-    lo, hi = (I32 - 3, I32 + 1) if case == "int32_max" else (0, 1000)
+    nP = 0 if case in ("lh_only", "planes_series_only") else N
+    nL = 0 if case in ("pf_only", "planes_series_only") else N
+    lo, hi = ((I32 - 3, I32 + 1) if case in ("int32_max", "planes_int32_max")
+              else (0, 1000))
     planes = dict(
         pf_dispatch=ints(lo, hi, (B, nP, K)), pf_busy=ints(lo, hi, (B, nP)),
         pf_kill=ints(lo, hi, (B, nP)), pf_restart=ints(lo, hi, (B, nP)),
         pf_qmax=ints(0, 200, (B,)), pf_drop=ints(lo, hi, (B,)),
         pf_delay=ints(lo, hi, (B,)), lh_sojourn=ints(lo, hi, (B, nL, LB)),
         lh_e2e=ints(lo, hi, (B, nL, LB)), lh_slo_miss=ints(lo, hi, (B, nL)))
-    big = I32 if case == "int32_max" else 1 << 20
+    big = I32 if case in ("int32_max", "planes_int32_max") else 1 << 20
     if case == "buckets":
         probes = np.asarray(bucket_probes(), np.int64)
         lat = [torch.as_tensor(rng.choice(probes, B).astype(np.int32),
@@ -2336,13 +2451,51 @@ def fold_edge_operands(dev, B, N, LB, seed, case="random"):
         high_water=ints(0, 97, (B,)), delivered_drop=ints(0, 9, (B,)),
         delay_acc=ints(0, big, (B,)), lat_sojourn=lat[0], lat_e2e=lat[1],
         slo_target=ints(0, 1 << 16, (B,)))
-    if case == "all_masked":
-        ops["pf_on"] = torch.zeros_like(ops["pf_on"])
-        ops["lh_on"] = torch.zeros_like(ops["lh_on"])
-    if case == "strided_unaligned":
-        ops = {k: torch.stack([v, v], -1)[:, 0] for k, v in ops.items()}
+    # the sketch, series and span groups' leaves and operands
+    span = new and nL > 0
+    nS, nW_L = (N if span else 0), (W if nL else 0)
+    planes.update(
+        cov_sketch=ints(-2**31, 2**31, (B, S)),
+        sr_dispatch=ints(lo, hi, (B, W, N)), sr_busy=ints(lo, hi, (B, W, N)),
+        sr_qhw=ints(0, 200, (B, W)), sr_drop=ints(lo, hi, (B, W)),
+        sr_dup=ints(lo, hi, (B, W)), sr_complete=ints(lo, hi, (B, W)),
+        sr_slo_miss=ints(lo, hi, (B, W)),
+        sr_lat=ints(lo, hi, (B, nW_L, LB if nL else 0)),
+        sr_fault=ints(0, 128, (B, W)),
+        sa_tail=ints(lo, hi, (B, nS, 4)), sa_bottleneck=ints(lo, hi, (B, nS)))
+    every = ints(1, 9, (B,))
+    wl = ints(1, 1000, (B,))
+    ops.update(
+        sr_on=bools(0.8, (B,)), sp_on=bools(0.8, (B,)),
+        dup_fire=bools(0.3, (B,)) & valid,
+        steps=ints(0, 3 * S * 9 + 2, (B,)), sketch_every=every,
+        window_len=wl, now=ints(0, (W + 2) * 1000, (B,)),
+        meas_sq=ints(0, big, (B,)), meas_sn=ints(0, big, (B,)),
+        meas_sh=ints(0, 1 << 12, (B,)), meas_dnode=ints(-1, N + 2, (B,)),
+        sched_hash=ints(-2**31, 2**31, (B, 2)))
+    if new:
+        # a third of the lanes on a sketch checkpoint exactly
+        ck = ints(1, S + 2, (B,))
+        on_ck = bools(0.35, (B,))
+        ops["steps"] = torch.where(on_ck, ck * every, ops["steps"])
+    if case == "planes_windows":
+        k = ints(-1, W + 3, (B,))
+        ops["now"] = k * wl + ints(-1, 2, (B,))
+    if case == "planes_every_1":
+        ops["sketch_every"] = torch.ones_like(every)
+        ops["steps"] = ints(0, S + 3, (B,))
+    if case in ("all_masked", "planes_masked"):
+        for g in ("pf_on", "lh_on", "sr_on", "sp_on"):
+            ops[g] = torch.zeros_like(ops[g])
+    if case == "planes_no_spans":
+        ops["is_complete"] = torch.zeros_like(ops["is_complete"])
+    if case in ("strided_unaligned", "planes_unaligned"):
+        ops = {k: (torch.stack([v, v], -1)[:, 0] if v.ndim == 1
+                   else torch.stack([v, v], 1)[:, 0])
+               for k, v in ops.items()}
         planes = {k: unaligned(v) for k, v in planes.items()}
-    return (FoldPlan(N, K, LB, dev), planes, ops, case != "no_cpl")
+    plan = FoldPlan(N, K, LB, dev, sketch_slots=S, windows=W, span=span)
+    return (plan, planes, ops, case != "no_cpl")
 
 
 DIGEST_CASES = ("random", "int32_max", "negative", "all_masked", "wide",
@@ -2395,6 +2548,68 @@ def digest_edge_operands(dev, B, N, LB, seed, case="random"):
         if case == "negative":
             hist = hist.abs()
     return leaves, masks, hist
+
+
+SERIES_DIGEST_CASES = ("random", "negative", "int32_max", "all_masked",
+                       "B1", "sparse", "unaligned")
+
+
+def series_digest_operands(dev, B, W, N, LB, seed, case="random"):
+    """plane_sums operands of the series and attribution digests with
+    their max and or leaves, and a lane_burst histogram, for one edge
+    case: (leaves, masks, sr_lat). The leaves stand for
+    parallel/stats.py `_series_digest` (mask 0: the lane count,
+    window_len max, six [B, W(, N)] sums, sr_qhw max, sr_fault or,
+    sr_lat [B, W, LB]) and `_attribution_digest` (mask 1: the lane
+    count, slo_target max, sa_tail [B, N, 4], sa_bottleneck [B, N]).
+    random: counters below 2^20, ~half the windows empty; negative:
+    int32 words of either sign (the max of where(mask, x, 0) and the OR
+    of sign bits); int32_max: counters near int32 max; all_masked: both
+    masks off; B1: one lane; sparse: one completion in a few lanes
+    (p99 at buckets 0 and 1); unaligned: every leaf one element off a
+    16-byte boundary (lane_burst's 4-byte copy)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    if case == "B1":
+        B = 1
+    I32 = 2**31 - 1
+
+    def ints(lo, hi, shape):
+        return torch.as_tensor(
+            rng.integers(lo, hi, size=shape, dtype=np.int64)
+            .astype(np.int32), device=dev)
+
+    lo, hi = {"int32_max": (I32 - 1000, I32 + 1),
+              "negative": (-2**31, 2**31)}.get(case, (0, 1 << 20))
+    masks = tuple(torch.as_tensor(rng.random(B) < 0.7, device=dev)
+                  for _ in range(2))
+    if case == "all_masked":
+        masks = tuple(torch.zeros_like(m) for m in masks)
+    if case == "sparse":
+        lat = torch.zeros((B, W, LB), dtype=torch.int32, device=dev)
+        lanes = rng.choice(B, max(1, B // 50), replace=False)
+        lat[torch.as_tensor(lanes, device=dev),
+            torch.as_tensor(rng.integers(0, W, len(lanes)), device=dev),
+            torch.as_tensor(rng.integers(0, 2, len(lanes)), device=dev)] = 1
+    elif case in ("int32_max", "negative"):
+        lat = ints(lo, hi, (B, W, LB)).abs()
+    else:
+        lat = ints(0, 4, (B, W, LB)) * ints(0, 2, (B, W, 1))
+    leaves = [(None, 0), (ints(lo, hi, (B,)), 0, "max"),
+              (ints(lo, hi, (B, W, N)), 0), (ints(lo, hi, (B, W, N)), 0),
+              (ints(lo, hi, (B, W)), 0), (ints(lo, hi, (B, W)), 0),
+              (ints(lo, hi, (B, W)), 0), (ints(lo, hi, (B, W)), 0),
+              (ints(lo, hi, (B, W)), 0, "max"),
+              (ints(lo, hi, (B, W)) if case == "negative"
+               else ints(0, 128, (B, W)), 0, "or"),
+              (lat, 0), (None, 1), (ints(lo, hi, (B,)), 1, "max"),
+              (ints(lo, hi, (B, N, 4)), 1), (ints(lo, hi, (B, N)), 1)]
+    if case == "unaligned":
+        leaves = [(None,) + lf[1:] if lf[0] is None
+                  else (unaligned(lf[0]),) + lf[1:] for lf in leaves]
+        lat = unaligned(lat)
+    return leaves, masks, lat
 
 
 def minimize_workload(device):
@@ -2963,20 +3178,27 @@ PLANE_CPU_STEPS = 1024
 
 
 def planes_cpu_main(out_path) -> int:
-    """`chip_smoke.py --planes-cpu OUT`: the planes phase's CPU half, the
-    plane flagship's PLANE_CPU_LANES seeds for PLANE_CPU_STEPS steps on
-    the CPU, run beside the card's phases (it touches no card); its
-    leaves are pickled to OUT for the main process."""
+    """`chip_smoke.py --planes-cpu OUT`: the CPU half of the planes and
+    planes_all phases, the PLANE_CPU_LANES seeds of the plane flagship
+    and of the all-planes flagship for PLANE_CPU_STEPS steps each on the
+    CPU, run beside the card's phases (it touches no card); their leaves
+    are pickled to OUT for the main process ({"planes": ...,
+    "planes_all": ...})."""
     import pickle
     import numpy as np
     import torch
     from madsim_tpu_torch import interop, workloads
     torch.set_num_threads(2)
-    rt = workloads.plane_flagship_runtime(device="cpu")
-    s, _ = rt.run(rt.init_batch(np.asarray(PLANE_CPU_LANES, np.uint32)),
-                  PLANE_CPU_STEPS, chunk=FLAG_CHUNK)
+    out = {}
+    for name, build in (("planes", workloads.plane_flagship_runtime),
+                        ("planes_all",
+                         workloads.all_planes_flagship_runtime)):
+        rt = build(device="cpu")
+        s, _ = rt.run(rt.init_batch(np.asarray(PLANE_CPU_LANES, np.uint32)),
+                      PLANE_CPU_STEPS, chunk=FLAG_CHUNK)
+        out[name] = interop.state_to_numpy(s)
     with open(out_path, "wb") as f:
-        pickle.dump(interop.state_to_numpy(s), f)
+        pickle.dump(out, f)
     return 0
 
 
@@ -3059,7 +3281,8 @@ def planes_phase(wrappers, dev, names, every, flag_fp, prof_off, cpu_job,
     log, _ = cpu_job.communicate(timeout=900)
     check(cpu_job.returncode == 0, f"planes: the CPU run failed:\n{log}")
     with open(cpu_path, "rb") as f:
-        cpu = pickle.load(f)
+        cpu_all = pickle.load(f)
+    cpu = cpu_all["planes"]
     cpu_diff = [k for k in half if not (half[k].shape == cpu[k].shape
                                         and (half[k] == cpu[k]).all())]
     # the digests (K10)
@@ -3139,6 +3362,9 @@ def planes_phase(wrappers, dev, names, every, flag_fp, prof_off, cpu_job,
              "device_busy_ms_per_step"),
          plane_on_device_busy_ms_per_step=prof.get(
              "device_busy_ms_per_step"),
+         with_copies=dict(plane_off=prof_off.get(
+             "device_busy_ms_per_step_with_copies"), plane_on=prof.get(
+             "device_busy_ms_per_step_with_copies")),
          obs_fold_ms_per_step=prof["kernel_ms_per_step"]["obs_fold"]
          if prof["kernel_ms_per_step"] else None,
          emit_write_ms_per_step=dict(plane_on=prof.get(
@@ -3151,25 +3377,314 @@ def planes_phase(wrappers, dev, names, every, flag_fp, prof_off, cpu_job,
                  "kernel_ms_per_step", "kernel_launches")))
     for what, pr in (("graph", prof), ("eager", prof_e)):
         check(pr["kernel_launches"] is None or pr["kernel_launches"]
-              == {k: PROF_STEPS * n for k, n in expect.items()},
+              == {k: pr["steps"] * n for k, n in expect.items()},
               f"planes profile ({what}): traced launches "
-              f"{pr['kernel_launches']} in {PROF_STEPS} steps")
+              f"{pr['kernel_launches']} in {pr['steps']} steps")
     busy = prof_e.get("device_busy_ms_per_step")
     check(busy is None or abs(prof_e["sections_ms_per_step"] - busy)
           <= 0.02 * busy, f"planes profile (eager): the sections hold "
           f"{prof_e.get('sections_ms_per_step')} of {busy} device ms")
     return dict(launches=launches, digest_launch=digest_launch,
+                fold_ops=fold_ops, emit_ops=emit_ops, state=s, prof=prof,
+                cpu_all=cpu_all["planes_all"])
+
+
+# the all-planes flagship: the plane flagship with the sketch, series and
+# span planes too (workloads.all_planes_flagship_runtime)
+RETUNE_STEPS = 64
+RETUNE_WINDOW = 100_000       # ticks a window after the retune (100 ms)
+
+
+def planes_all_phase(wrappers, dev, names, every, flag_fp, prof_off, cpu,
+                     counts):
+    """The all-planes flagship at B=100,000 for 2048 steps through
+    run_fused and the eager run: every leaf equal, the fingerprints the
+    plane-off flagship's (`flag_fp`), obs_fold once a step, lanes
+    PLANE_CPU_LANES at step 1024 equal to the CPU child's run (`cpu`),
+    the series, attribution and sketch digests over every lane with
+    plane_sums and lane_burst launched their counts, `summarize`, and a
+    set_window_len between two run_fused calls changing what the captured
+    graph records (no new capture; equal to the eager run); a graph and
+    an eager profile of the all-planes step beside the plane-off one
+    (`prof_off`). Returns what the kernel phase needs."""
+    import numpy as np
+    import torch
+    import madsim_tpu_torch.core.step as step_mod
+    from madsim_tpu_torch import interop, workloads
+    from madsim_tpu_torch.parallel import stats
+    reset_counts, read_counts = counts
+    plane_every = list(every) + ["obs_fold"]
+    t_phase = time.perf_counter()
+    rt = workloads.all_planes_flagship_runtime(device=dev)
+    init = rt.init_batch(np.arange(FLAG_B, dtype=np.uint32))
+    per = step_launches(wrappers, rt, init)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    s = rt.run_fused(init, PLANE_CPU_STEPS, chunk=FLAG_CHUNK)
+    launches = fused_launches(rt, read_counts(), plane_every)
+    steps_run = rt.steps_run
+    warm = rt.fused_stats["warmup_steps"]
+    half = interop.state_to_numpy(state_lanes(s, PLANE_CPU_LANES))
+    fold_ops = step_operands(rt, s, step_mod, "obs_fold")
+    emit_ops = step_operands(rt, s, step_mod, "emit_write")
+    torch.cuda.synchronize()
+    reset_counts()
+    t2 = time.perf_counter()
+    s = rt.run_fused(s, FLAG_STEPS - PLANE_CPU_STEPS, chunk=FLAG_CHUNK)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    more = fused_launches(rt, read_counts(), plane_every)
+    launches = {k: launches[k] + more[k] for k in plane_every}
+    steps_run += rt.steps_run
+    check(steps_run == FLAG_STEPS, f"planes_all: {steps_run} steps")
+    check_once_per_step("planes_all run_fused", launches, steps_run + warm,
+                        names, per)
+    check(launches["obs_fold"] == steps_run + warm,
+          f"planes_all run_fused: obs_fold launched {launches['obs_fold']} "
+          f"times in {steps_run + warm} steps")
+    peak = torch.cuda.max_memory_allocated()
+    reset_counts()
+    t4 = time.perf_counter()
+    e, _ = rt.run(init, FLAG_STEPS, chunk=FLAG_CHUNK)
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    eager = read_counts()
+    check_once_per_step("planes_all run", eager, rt.steps_run, names, per)
+    check(eager["obs_fold"] == rt.steps_run,
+          f"planes_all run: obs_fold launched {eager['obs_fold']} times in "
+          f"{rt.steps_run} steps")
+    same_runners = state_equal(s, e)
+    del e
+    fps = fingerprints_once(rt, s, "planes_all")
+    same_fp = bool((fps == flag_fp).all())
+    cpu_diff = [k for k in half if not (half[k].shape == cpu[k].shape
+                                        and (half[k] == cpu[k]).all())]
+    # the digests (K10): two confirmed plane_sums launches a digest, one
+    # lane_burst
+    reset_counts()
+    sc = stats.series_counters(s)
+    ac = stats.attribution_counters(s)
+    burst = stats.lane_burst(s)
+    torch.cuda.synchronize()
+    digest_launch = {k: wrappers[k].launches
+                     for k in ("plane_sums", "lane_burst")}
+    div = stats.divergence_profile(s)
+    summary = stats.summarize(rt, s)
+    completions = int(sum(sc["complete"]))
+    misses = int(sum(sc["slo_miss"]))
+    # set_window_len between two run_fused calls: the same captured graph
+    # records the new windows (F7)
+    a = rt.run_fused(init, RETUNE_STEPS, chunk=FLAG_CHUNK)
+    b = rt.run_fused(rt.set_window_len(a, RETUNE_WINDOW), RETUNE_STEPS,
+                     chunk=FLAG_CHUNK)
+    recaptured = rt.fused_stats["warmup_steps"]
+    c = rt.run_fused(a, RETUNE_STEPS, chunk=FLAG_CHUNK)
+    d, _ = rt.run(rt.set_window_len(a, RETUNE_WINDOW), RETUNE_STEPS,
+                  chunk=FLAG_CHUNK)
+    retune_changed = bool((b.sr_dispatch != c.sr_dispatch).any())
+    retune_eager_equal = state_equal(b, d)
+    retune_windows = int((b.window_len == RETUNE_WINDOW).sum())
+    del a, b, c, d, init
+    expect = dict({k: 1 for k in names}, **per, obs_fold=1)
+    prof = profile_steps(lambda st, n: rt.run_fused(st, n, chunk=n), s,
+                         FLAG_B, expect)
+    prof_e = profile_steps(lambda st, n: rt.run(st, n, chunk=n)[0],
+                           rt.init_batch(np.arange(FLAG_B, dtype=np.uint32)),
+                           FLAG_B, expect)
+    leaf_bytes = {k: getattr(s, k).element_size() * getattr(s, k).numel()
+                  for k in ("ev_span", "sr_lat", "sr_dispatch", "sr_busy",
+                            "sr_qhw", "sr_drop", "sr_dup", "sr_complete",
+                            "sr_slo_miss", "sr_fault", "tr_qw",
+                            "cov_sketch", "sa_tail", "sa_bottleneck")}
+    emit(phase="planes_all", runner="run_fused and run", batch=FLAG_B,
+         steps=steps_run, chunk=FLAG_CHUNK, trace_cap=64,
+         config=dict(profile=True, latency_hist=24, sketch_slots=32,
+                     sketch_every=64, series_windows=16,
+                     window_len=workloads.all_planes_config()["window_len"],
+                     span_attr=True,
+                     slo_target=workloads.ALL_PLANES_SLO),
+         launches=launches, eager_launches={k: eager[k] for k in
+                                            plane_every},
+         warmup_steps=warm, steady_s=t3 - t2,
+         ms_per_step=(t3 - t2) / (FLAG_STEPS - PLANE_CPU_STEPS) * 1e3,
+         eager_ms_per_step=(t5 - t4) / FLAG_STEPS * 1e3,
+         max_memory_allocated=peak, new_leaf_bytes=leaf_bytes,
+         run_equals_run_fused=same_runners,
+         fingerprints_equal_plane_off=same_fp,
+         cpu_lanes=list(PLANE_CPU_LANES), cpu_steps=PLANE_CPU_STEPS,
+         cpu_leaves_differ=cpu_diff, digest_launches=digest_launch,
+         series_lanes=sc["lanes"], attribution_lanes=ac["lanes"],
+         completions=completions, slo_miss=misses,
+         miss_share=misses / max(completions, 1),
+         series_qhw_peak=max(sc["qhw"]), fault_windows=sc["fault"],
+         e2e_p99_by_window=sc.get("e2e_p99_by_window"),
+         tails=int(ac["tail"][:, 0].sum()),
+         bottleneck=ac["bottleneck"], burst_max=int(burst.max()),
+         burst_zero=int((burst == 0).sum()), divergence=div,
+         summary={k: summary[k] for k in (
+             "halted", "crashed", "distinct_outcomes", "distinct_schedules",
+             "first_divergence", "series", "attribution")},
+         retune=dict(steps=RETUNE_STEPS, window_len=RETUNE_WINDOW,
+                     changed=retune_changed, recaptured_warmup=recaptured,
+                     equals_eager=retune_eager_equal),
+         phase_s=time.perf_counter() - t_phase)
+    check(same_runners, "planes_all: run and run_fused differ")
+    check(same_fp, "planes_all: fingerprints differ from the plane-off "
+          "flagship's (a plane changed another leaf)")
+    check(not cpu_diff, f"planes_all: lanes {PLANE_CPU_LANES} differ from "
+          f"the CPU run in {cpu_diff}")
+    check(sc["lanes"] == FLAG_B and ac["lanes"] == FLAG_B,
+          f"planes_all: digests over {sc['lanes']} / {ac['lanes']} lanes")
+    check(0 < misses < completions, f"planes_all: {misses} of "
+          f"{completions} completions miss the SLO (want some, not all)")
+    check(int(ac["tail"][:, 0].sum()) == misses,
+          "planes_all: the tails are not the series plane's misses")
+    check(burst.shape == (FLAG_B,) and (burst > 0).any(),
+          "planes_all: lane_burst is empty")
+    check(div is not None and div["batch"] == FLAG_B,
+          f"planes_all: divergence profile {div}")
+    check(digest_launch == {"plane_sums": 4, "lane_burst": 1},
+          f"planes_all: digest launches {digest_launch}")
+    check(retune_changed and recaptured == 0 and retune_eager_equal
+          and retune_windows == FLAG_B,
+          "planes_all: set_window_len did not reach the captured graph")
+    emit(phase="planes_all_profile", runner="run_fused", batch=FLAG_B,
+         plane_off_device_busy_ms_per_step=prof_off.get(
+             "device_busy_ms_per_step"),
+         all_planes_device_busy_ms_per_step=prof.get(
+             "device_busy_ms_per_step"),
+         with_copies=dict(plane_off=prof_off.get(
+             "device_busy_ms_per_step_with_copies"), all_planes=prof.get(
+             "device_busy_ms_per_step_with_copies")),
+         all_planes_kernels_per_step=prof.get("device_kernels_per_step"),
+         plane_off_kernels_per_step=prof_off.get("device_kernels_per_step"),
+         obs_fold_ms_per_step=prof["kernel_ms_per_step"]["obs_fold"]
+         if prof["kernel_ms_per_step"] else None,
+         emit_write_ms_per_step=prof.get("emit_write_ms_per_step"),
+         eager=dict((k, prof_e.get(k)) for k in (
+             "device_busy_ms_per_step", "device_kernels_per_step",
+             "section_ms_per_step", "sections_ms_per_step",
+             "kernel_ms_per_step", "kernel_launches")))
+    for what, pr in (("graph", prof), ("eager", prof_e)):
+        check(pr["kernel_launches"] is None or pr["kernel_launches"]
+              == {k: pr["steps"] * n for k, n in expect.items()},
+              f"planes_all profile ({what}): traced launches "
+              f"{pr['kernel_launches']} in {pr['steps']} steps")
+    busy = prof_e.get("device_busy_ms_per_step")
+    check(busy is None or abs(prof_e["sections_ms_per_step"] - busy)
+          <= 0.02 * busy, f"planes_all profile (eager): the sections hold "
+          f"{prof_e.get('sections_ms_per_step')} of {busy} device ms")
+    return dict(launches=launches, digest_launch=digest_launch,
                 fold_ops=fold_ops, emit_ops=emit_ops, state=s, prof=prof)
 
 
-def fold_bound(planes, ops, has_cpl) -> int:
+# recovery_runtime's recipes: (fault, the invariant's arguments, which
+# lanes crash: "all", "some" or "none")
+RECOVERY_RECIPES = {
+    "heal": ("heal", dict(qhw_le=3, within=2), "all"),
+    "noheal": ("noheal", dict(p99_le=400_000, within=2, min_count=2),
+               "all"),
+    # the heal judged at the queue high-water its healed windows reach
+    "healed": ("heal", dict(qhw_le=4, within=2), "none"),
+    # the p99 judged only in windows of 9 completions or more, which
+    # some lanes' windows reach and some do not
+    "noheal_some": ("noheal", dict(p99_le=400_000, within=2, min_count=9),
+                    "some")}
+
+
+def recovery_runtime(recipe, device):
+    """bench.py `_make_recovery_runtime`'s two recipes on a 2-node
+    pingpong at a fifth of their time scale (tests/test_torch_series.py
+    `_recovery_rt`): windows of 125 ms, the fault at 240 ms in window 1;
+    heal: clog node 0, unclog it at 520 ms; noheal: set_latency(30, 60
+    ms) never healed; each judged as RECOVERY_RECIPES[recipe] says (p99
+    thresholds in ticks of 1 us)."""
+    import madsim_tpu_torch as P
+    from madsim_tpu_torch.harness.recovery import recovery_invariant
+    from madsim_tpu_torch.models.pingpong import PingPong, state_spec
+    fault, inv, _ = RECOVERY_RECIPES[recipe]
+    sc = P.Scenario()
+    if fault == "heal":
+        sc.at(P.ms(240)).clog_node(0)
+        sc.at(P.ms(520)).unclog_node(0)
+    else:
+        sc.at(P.ms(240)).set_latency(P.ms(30), P.ms(60))
+    inv = recovery_invariant(**inv)
+    cfg = P.SimConfig(n_nodes=2, time_limit=P.sec(2), latency_hist=24,
+                      series_windows=8, window_len=P.ms(125),
+                      complete_kinds=((P.EV_MSG, 1),),
+                      net=P.NetConfig(send_latency_min=P.ms(1),
+                                      send_latency_max=P.ms(4)))
+    return P.Runtime(cfg, [PingPong(2, target=1200)], state_spec(),
+                     scenario=sc, invariant=inv, device=device)
+
+
+RECOVERY_STEPS = 256
+
+
+def recovery_phase(dev):
+    """`harness.recovery.recovery_invariant` as a Runtime invariant on the
+    card, on the two pingpong recipes (`recovery_runtime`) at B=4096
+    through run_fused (the check captured in the graph) and run: every
+    leaf equal, CRASH_RECOVERY on every lane, some or none as the
+    recipe says, and lanes 0..7 equal to a CPU run."""
+    import numpy as np
+    import torch
+    from madsim_tpu_torch import interop
+    from madsim_tpu_torch.core.types import CRASH_RECOVERY
+    seeds = np.arange(EDGE_B, dtype=np.uint32)
+    out = {}
+    for recipe, (_, _, crashes) in RECOVERY_RECIPES.items():
+        rt = recovery_runtime(recipe, dev)
+        t0 = time.perf_counter()
+        f = rt.run_fused(rt.init_batch(seeds), RECOVERY_STEPS, chunk=128)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        e, _ = rt.run(rt.init_batch(seeds), RECOVERY_STEPS, chunk=128)
+        cpu_rt = recovery_runtime(recipe, "cpu")
+        c, _ = cpu_rt.run(cpu_rt.init_batch(seeds[:8]), RECOVERY_STEPS,
+                          chunk=128)
+        lanes = interop.state_to_numpy(state_lanes(f, list(range(8))))
+        cpu = interop.state_to_numpy(c)
+        differ = [k for k in cpu if not (cpu[k] == lanes[k]).all()]
+        codes = f.crash_code.cpu().numpy()
+        rec = codes == CRASH_RECOVERY
+        steps = f.steps.cpu().numpy()
+        out[recipe] = dict(
+            run_fused_s=t1 - t0, run_equals_run_fused=state_equal(f, e),
+            crash_recovery_lanes=int(rec.sum()),
+            crash_steps=([int(steps[rec].min()), int(steps[rec].max())]
+                         if rec.any() else None),
+            other_codes=sorted({int(x) for x in codes[~rec]}),
+            cpu_leaves_differ=differ)
+        check(state_equal(f, e), f"recovery {recipe}: run and run_fused "
+              "differ")
+        check({"all": rec.all(), "some": rec.any() and not rec.all(),
+               "none": not rec.any()}[crashes], f"recovery {recipe}: "
+              f"{int(rec.sum())} of {rec.size} lanes crashed "
+              f"CRASH_RECOVERY (want {crashes})")
+        check(not differ, f"recovery {recipe}: lanes 0..7 differ from the "
+              f"CPU in {differ}")
+    emit(phase="recovery", batch=EDGE_B, steps=RECOVERY_STEPS, **out)
+
+
+def fold_bound(planes, ops, has_cpl, plan=None) -> int:
     """The bytes the fold must move for these operands: every lane's 18
-    operands (6 bytes of bools, 12 int32) read once, and for each counter
-    element it changes (this data's recording lanes and completions) the
-    word read and written; pf_qmax, pf_drop and pf_delay of a profiled
-    lane count as changed."""
+    operands of the profiler and latency groups (6 bytes of bools, 12
+    int32) read once, and for each counter element it changes (this
+    data's recording lanes and completions) the word read and written;
+    pf_qmax, pf_drop and pf_delay of a profiled lane count as changed.
+    With the plan's sketch, series and span groups: their operands too
+    (steps, sketch_every and the two sched_hash words; sr_on, dup_fire,
+    window_len and now; sp_on and the four meas words), each sketch
+    checkpoint's word written, and each series and span word a
+    recording lane changes read and written."""
     B = ops["valid"].shape[0]
     nbytes = B * (6 + 4 * 12)
+    if plan is not None:
+        nbytes += _fold_plane_bytes(plan, ops, has_cpl and (
+            planes["lh_sojourn"].shape[1] > 0))
     pf = planes["pf_busy"].shape[1] > 0
     lh = planes["lh_sojourn"].shape[1] > 0
     N = planes["pf_busy"].shape[1] or planes["lh_sojourn"].shape[1]
@@ -3189,6 +3704,47 @@ def fold_bound(planes, ops, has_cpl) -> int:
             words += int((done & (ops["slo_target"] > 0)
                           & (ops["lat_e2e"] > ops["slo_target"])).sum())
     return nbytes + 8 * words
+
+
+def _fold_plane_bytes(plan, ops, has_cpl) -> int:
+    """fold_bound's share for the sketch, series and span groups."""
+    import torch
+    B = ops["valid"].shape[0]
+    valid = ops["valid"]
+    nbytes = 0
+    if plan.S > 0:
+        period = torch.clamp(ops["sketch_every"], min=1)
+        ck = torch.div(ops["steps"], period, rounding_mode="floor")
+        at = valid & (ops["steps"] == ck * period) & (ck >= 1) \
+            & (ck <= plan.S)
+        nbytes += B * 16 + 4 * int(at.sum())
+    if plan.W > 0:
+        nbytes += B * 10
+        rec = valid & ops["sr_on"]
+        wl = torch.clamp(ops["window_len"], min=1)
+        w_ok = torch.div(ops["now"], wl, rounding_mode="floor") >= 0
+        rec = rec & w_ok
+        act_ok = (ops["act_node"] >= 0) & (ops["act_node"] < plan.N)
+        words = 2 * int((rec & act_ok).sum()) + 2 * int(rec.sum())
+        words += int((rec & ops["dup_fire"]).sum())
+        from madsim_tpu_torch.ops.obs_fold import fault_bits
+        words += int((rec & (fault_bits(ops["op"], ops["reset_mask"])
+                             != 0)).sum())
+        if has_cpl:
+            done = rec & ops["is_complete"]
+            miss = done & (ops["slo_target"] > 0) \
+                & (ops["lat_e2e"] > ops["slo_target"])
+            words += 2 * int(done.sum()) + int(miss.sum())
+        nbytes += 8 * words
+    if plan.span:
+        nbytes += B * 17
+        tail = (ops["is_complete"] & ops["sp_on"] & (ops["slo_target"] > 0)
+                & (ops["lat_e2e"] > ops["slo_target"]))
+        cpl_ok = (ops["cpl_node"] >= 0) & (ops["cpl_node"] < plan.N)
+        words = 4 * int((tail & cpl_ok).sum())
+        words += int((tail & (ops["meas_dnode"] >= 0)).sum())
+        nbytes += 8 * words
+    return nbytes
 
 
 def fold_ms(args, n=20, reps=3):
@@ -3236,22 +3792,13 @@ def digest_leaves(state):
              (state.lh_slo_miss, 1)], (state.pf_on, state.lh_on))
 
 
-def sums_bound(leaves, masks) -> int:
-    """The bytes plane_sums must move: each leaf and each mask read once,
-    the [2, M] int32 output of each leaf written once."""
-    B = masks[0].shape[0]
-    nbytes = sum(m.numel() for m in masks if m is not None)
-    for x, _ in leaves:
-        M = 1 if x is None else x.numel() // B
-        nbytes += 8 * M + (0 if x is None else x.numel() * 4)
-    return nbytes
-
-
-def emit_plane_operands(args, seed):
+def emit_plane_operands(args, seed, span=False):
     """An emit_write edge case with the plane columns added (a copy):
     random ev_root_t rows and ev_root, occ_disp and lat_ring operands
     (-1 in a third of the lanes) and the tr_qlen / tr_lat ring columns,
-    with the delay sum on."""
+    with the delay sum on; with `span` the span plane's columns too:
+    random ev_span rows and span_new (a dispatch's span vector), the
+    tr_qw ring column and its lat_sojourn operand."""
     import numpy as np
     import torch
     tables, em, lane, ring, n_sends, jit = clone_tree(args)[:6]
@@ -3271,6 +3818,12 @@ def emit_plane_operands(args, seed):
         TC = ring["cols"]["tr_now"].shape[1]
         ring["cols"]["tr_qlen"] = ints(0, 100, (B, TC))
         ring["cols"]["tr_lat"] = ints(-1, 100, (B, TC))
+    if span:
+        tables["ev_span"] = ints(-1, 1 << 20, (B, C, 6))
+        lane.update(span_new=ints(-1, 1 << 20, (B, 6)),
+                    lat_sojourn=ints(0, 1 << 20, (B,)))
+        if ring is not None:
+            ring["cols"]["tr_qw"] = ints(0, 100, (B, TC))
     return (tables, em, lane, ring, n_sends, jit, True)
 
 
@@ -3408,6 +3961,168 @@ def plane_kernel_phase(wrappers, dev, planes_out, emit_off_ms):
          launches_on_main_path=planes_out["digest_launch"]["lane_p99"],
          library="none")
     return dict(obs_fold=fold, plane_sums=sums, lane_p99=p99)
+
+
+def sums_bound(leaves, masks) -> int:
+    """The bytes plane_sums must move: each leaf and each mask read once,
+    a sum leaf's [2, M] int32 output and a max or or leaf's [M] written
+    once."""
+    B = masks[0].shape[0]
+    nbytes = sum(m.numel() for m in masks if m is not None)
+    for lf in leaves:
+        x = lf[0]
+        M = 1 if x is None else x.numel() // B
+        nbytes += (8 if len(lf) == 2 or lf[2] == "sum" else 4) * M
+        nbytes += 0 if x is None else x.numel() * 4
+    return nbytes
+
+
+def planes_all_kernel_phase(wrappers, dev, pa):
+    """K8 obs_fold with its sketch, series and span groups, K5 emit_write
+    with the span columns, K10 plane_sums with its max and or leaves and
+    the new lane_burst, against their plain versions, exactly: at the
+    all-planes flagship's step-1024 operands and its final state
+    (B=100,000), and on edge cases (fold: FOLD_PLANE_CASES, saturation,
+    window boundaries and the clamp, every lane masked, sketch_every=1,
+    empty spans; emit_write: the edge cases with span columns; digests:
+    SERIES_DIGEST_CASES). Returns each kernel's numbers for the kernels
+    line."""
+    import torch
+    from madsim_tpu_torch.ops.emit_write import (emit_write,
+                                                 emit_write_plain)
+    from madsim_tpu_torch.ops.obs_fold import obs_fold, obs_fold_plain
+    from madsim_tpu_torch.ops.plane_digest import (lane_burst,
+                                                   lane_burst_plain,
+                                                   lane_p99, plane_sums,
+                                                   plane_sums_plain)
+    state = pa["state"]
+    # ---- K8 obs_fold, every group
+    fold_cases = {"all_planes_step_1024": pa["fold_ops"]}
+    for i, case in enumerate(FOLD_PLANE_CASES):
+        fold_cases[case] = fold_edge_operands(
+            dev, FLAG_B if case == "planes_int32_max" else EDGE_B, 5, 24,
+            300 + i, case)
+    err_f = 0
+    for name, (plan, planes, ops, has_cpl) in fold_cases.items():
+        a, b = clone_layout(planes), clone_layout(planes)
+        obs_fold(plan, a, ops, has_cpl)
+        obs_fold_plain(plan, b, ops, has_cpl)
+        torch.cuda.synchronize()
+        err_f = max(err_f, check_equal(f"obs_fold (all planes) on {name}",
+                                       a, b))
+    main_f = fold_cases["all_planes_step_1024"]
+    fk = [fold_ms(main_f) for _ in range(2)]
+    live = clone_tree(main_f[1])
+    fp_ms = cuda_ms(lambda: obs_fold_plain(main_f[0], live, main_f[2],
+                                           main_f[3]), 5)
+    f_bytes = fold_bound(*main_f[1:], main_f[0])
+    fold = dict(ms=min(fk), plain_ms=fp_ms,
+                bound_ms=f_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                max_abs_err=err_f, library_ms=None)
+    emit(phase="kernel", name="obs_fold", planes="all", cases={
+        k: int(v[2]["valid"].shape[0]) for k, v in fold_cases.items()},
+         exact=True, max_abs_err=err_f,
+         launches_on_main_path=pa["launches"]["obs_fold"], ms=fk,
+         plain_ms=fp_ms, bound_bytes=f_bytes, bound_ms=fold["bound_ms"],
+         bound_by="bytes", ms_in_all_planes_graph=pa["prof"][
+             "kernel_ms_per_step"]["obs_fold"]
+         if pa["prof"]["kernel_ms_per_step"] else None, library="none")
+    del fold_cases, live
+    # ---- K5 emit_write with the span columns
+    emit_cases = {"all_planes_step_1024": pa["emit_ops"]}
+    for C_e, E_e, ns_e, jit_e in ((96, 12, 7, True), (96, 0, 0, False),
+                                  (256, 5, 0, True)):
+        base = emit_edge_operands(dev, 4096, C_e, 5, 8, E_e, ns_e, jit_e,
+                                  True, True, seed=C_e + E_e + 1)
+        emit_cases[f"edges_C{C_e}_E{E_e}_spans"] = emit_plane_operands(
+            base, C_e + E_e + 1, span=True)
+    err_e = 0
+    for name, args in emit_cases.items():
+        a, b = clone_tree(args), clone_tree(args)
+        out_k = emit_write(*a)
+        out_p = emit_write_plain(*b)
+        torch.cuda.synchronize()
+        err_e = max(err_e, check_equal(f"emit_write (spans) on {name}",
+                                       (a[0], a[3], out_k),
+                                       (b[0], b[3], out_p)))
+    main_e = emit_cases["all_planes_step_1024"]
+    check(main_e[0]["ev_span"].shape[1] > 0,
+          "emit_write: the all-planes operands carry no ev_span")
+    live = clone_tree(main_e)
+    restores = [(live[0][k], main_e[0][k]) for k in main_e[0]] + [
+        (live[3]["cols"][k], main_e[3]["cols"][k]) for k in main_e[3]["cols"]]
+
+    def restore():
+        for dst, src in restores:
+            dst.copy_(src)
+    ek = [graph_ms(lambda: (restore(), emit_write(*live)), 20)
+          - graph_ms(restore, 20) for _ in range(2)]
+    e_bytes, e_ops = emit_bound(*main_e)
+    emit(phase="kernel", name="emit_write", planes="all",
+         cases=sorted(emit_cases), exact=True, max_abs_err=err_e, ms=ek,
+         bound_bytes=e_bytes, bound_ms=max(e_bytes / HBM_BYTES_PER_S,
+                                           e_ops / INT32_OPS_PER_S) * 1e3,
+         launches_on_main_path=pa["launches"]["emit_write"],
+         ms_in_all_planes_graph=pa["prof"].get("emit_write_ms_per_step"))
+    del emit_cases, live, restores
+    # ---- K10 plane_sums (sum, max, or) and lane_burst
+    from madsim_tpu_torch.parallel.stats import (attribution_leaves,
+                                                 series_leaves)
+    series, s_masks = series_leaves(state)
+    attribution, a_masks = attribution_leaves(state)
+    sum_cases = {"series_step_2048": (series, s_masks),
+                 "attribution_step_2048": (attribution, a_masks)}
+    burst_cases = {"all_planes_step_2048": state.sr_lat,
+                   "unaligned_step_2048": unaligned(state.sr_lat)}
+    for i, case in enumerate(SERIES_DIGEST_CASES):
+        B = FLAG_B if case in ("int32_max", "random") else EDGE_B
+        lv, ms_, lat = series_digest_operands(dev, B, 16, 5, 24, 400 + i,
+                                              case)
+        sum_cases[case] = (lv, ms_)
+        burst_cases[case] = lat
+    err_s = err_b = 0
+    for name, (lv, ms_) in sum_cases.items():
+        err_s = max(err_s, check_equal(f"plane_sums (ops) on {name}",
+                                       plane_sums(lv, ms_),
+                                       plane_sums_plain(lv, ms_)))
+    q = lane_p99.q(dev)
+    for name, lat in burst_cases.items():
+        err_b = max(err_b, check_equal(f"lane_burst on {name}",
+                                       lane_burst(lat),
+                                       lane_burst_plain(lat, q)))
+        err_b = max(err_b, check_equal(f"lane_burst on {name} (the CPU)",
+                                       lane_burst(lat),
+                                       lane_burst(lat.cpu()).to(dev)))
+    sk = [graph_ms(lambda: plane_sums(series, s_masks), 20)
+          for _ in range(2)]
+    ak = [graph_ms(lambda: plane_sums(attribution, a_masks), 20)
+          for _ in range(2)]
+    sp = cuda_ms(lambda: plane_sums_plain(series, s_masks), 5)
+    s_bytes = sums_bound(series, s_masks)
+    a_bytes = sums_bound(attribution, a_masks)
+    lat = state.sr_lat
+    bk = [graph_ms(lambda: lane_burst(lat), 20) for _ in range(2)]
+    bp = cuda_ms(lambda: lane_burst_plain(lat, q), 5)
+    b_bytes = lat.numel() * 4 + lat.shape[0] * 4
+    sums = dict(ms=min(sk), plain_ms=sp,
+                bound_ms=s_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                max_abs_err=err_s, library_ms=None)
+    burst = dict(ms=min(bk), plain_ms=bp,
+                 bound_ms=b_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                 max_abs_err=err_b, library_ms=None)
+    emit(phase="kernel", name="plane_sums", planes="series and attribution",
+         cases=sorted(sum_cases), exact=True, max_abs_err=err_s,
+         series_leaves=len(series), ms=sk, plain_ms=sp, bound_bytes=s_bytes,
+         bound_ms=sums["bound_ms"], attribution_ms=ak,
+         attribution_bound_ms=a_bytes / HBM_BYTES_PER_S * 1e3,
+         bound_by="bytes", launches_on_main_path=pa["digest_launch"][
+             "plane_sums"], library="none")
+    emit(phase="kernel", name="lane_burst", cases=sorted(burst_cases),
+         exact=True, max_abs_err=err_b, ms=bk, plain_ms=bp,
+         bound_bytes=b_bytes, bound_ms=burst["bound_ms"], bound_by="bytes",
+         launches_on_main_path=pa["digest_launch"]["lane_burst"],
+         library="none")
+    return dict(obs_fold=fold, plane_sums=sums, lane_burst=burst)
 
 
 def main() -> int:
@@ -3739,9 +4454,11 @@ def main() -> int:
     prof_fused = profile_steps(
         lambda st, n: rt.run_fused(st, n, chunk=n), s, FLAG_B, expect_tr)
     check(prof_fused["kernel_launches"]
-          == {k: PROF_STEPS * n for k, n in expect_tr.items()},
+          == {k: prof_fused["steps"] * n
+              for k, n in expect_tr.items()},
           f"profile run_fused: traced launches "
-          f"{prof_fused['kernel_launches']} in {PROF_STEPS} steps")
+          f"{prof_fused['kernel_launches']} in {prof_fused['steps']} "
+          "steps")
     del s, rt
 
     # ---- fused_wal_kv: batch independence at full width ---------------------
@@ -4040,6 +4757,11 @@ def main() -> int:
                               prof_fused, cpu_planes, cpu_planes_path,
                               (reset_counts, read_counts))
     slo_phase(dev)
+    # ---- planes_all: every observation plane on the flagship; recovery
+    all_out = planes_all_phase(wrappers, dev, names, every, flag_fp,
+                               prof_fused, planes_out.pop("cpu_all"),
+                               (reset_counts, read_counts))
+    recovery_phase(dev)
 
     # ---- kernel: sched_pick against its plain version -----------------------
     B, C = captured[0][0].shape
@@ -4192,9 +4914,24 @@ def main() -> int:
 
     # ---- kernel: K8 obs_fold, K5's plane columns, K10 -----------------------
     plane_k = plane_kernel_phase(wrappers, dev, planes_out, ew["ms"])
-    plane_launch = dict(obs_fold=planes_out["launches"]["obs_fold"],
-                        **planes_out["digest_launch"])
+    p99_launch = planes_out["digest_launch"]["lane_p99"]
+    planes_out_launch = dict(
+        obs_fold=planes_out["launches"]["obs_fold"],
+        plane_sums=planes_out["digest_launch"]["plane_sums"])
     del planes_out
+    all_k = planes_all_kernel_phase(wrappers, dev, all_out)
+    # the pf + lh rows as PR 13 took them; the all-planes numbers in rows
+    # of their own
+    plane_k.update(obs_fold_all=all_k["obs_fold"],
+                   plane_sums_series=all_k["plane_sums"],
+                   lane_burst=all_k["lane_burst"])
+    plane_launch = dict(
+        obs_fold=planes_out_launch["obs_fold"],
+        plane_sums=planes_out_launch["plane_sums"], lane_p99=p99_launch,
+        obs_fold_all=all_out["launches"]["obs_fold"],
+        plane_sums_series=all_out["digest_launch"]["plane_sums"],
+        lane_burst=all_out["digest_launch"]["lane_burst"])
+    del all_out
 
     # ---- kernel: the search kernels against their plain versions ----------
     from madsim_tpu_torch.ops.apply_knobs import TABLE_COLS as APPLY_COLS
@@ -4690,9 +5427,9 @@ def main() -> int:
              dict({k: 1 for k in names}, **{k: 0 for k in K1K4})),
             ("plain K3/K11", prof_plain, expect_plain)):
         check(prof["kernel_launches"]
-              == {k: PROF_STEPS * n for k, n in want.items()},
+              == {k: prof["steps"] * n for k, n in want.items()},
               f"profile run ({what}): traced launches "
-              f"{prof['kernel_launches']} in {PROF_STEPS} steps")
+              f"{prof['kernel_launches']} in {prof['steps']} steps")
         busy = prof["device_busy_ms_per_step"]
         check(prof["section_ms_per_step"] is not None,
               f"profile run ({what}): no section range in the trace")
@@ -4760,16 +5497,18 @@ def main() -> int:
             ("lane_diff", "lane_diff.cu", "madsim_tpu/harness/simtest.py:138",
              detsan_launch["lane_diff"]))] + [
         dict(name=k, route="cuda", source=f"madsim_tpu_torch/csrc/{src}",
-             replaces=where, launches=n, **plane_k[k])
-        for k, src, where, n in (
-            ("obs_fold", "obs_fold.cu", "madsim_tpu/core/step.py:673",
-             plane_launch["obs_fold"]),
+             replaces=where, launches=plane_launch[k], **plane_k[k])
+        for k, src, where in (
+            ("obs_fold", "obs_fold.cu", "madsim_tpu/core/step.py:673"),
+            ("obs_fold_all", "obs_fold.cu", "madsim_tpu/core/step.py:770"),
             ("plane_sums", "plane_digest.cu",
-             "madsim_tpu/parallel/stats.py:169",
-             plane_launch["plane_sums"]),
+             "madsim_tpu/parallel/stats.py:169"),
+            ("plane_sums_series", "plane_digest.cu",
+             "madsim_tpu/parallel/stats.py:509"),
             ("lane_p99", "plane_digest.cu",
-             "madsim_tpu/parallel/stats.py:465",
-             plane_launch["lane_p99"]))])
+             "madsim_tpu/parallel/stats.py:465"),
+            ("lane_burst", "plane_digest.cu",
+             "madsim_tpu/parallel/stats.py:609"))])
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

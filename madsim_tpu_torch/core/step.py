@@ -24,13 +24,17 @@ the same trajectory, leaf for leaf, in both packages. With
 (the ring, `ev_prov`, `lamport`); with `cfg.profile` the sim profiler's
 counters (`pf_*`, the ring's `tr_qlen`) and with `cfg.latency_hist > 0`
 the latency plane (`lh_*`, the root column `ev_root_t`, the ring's
-`tr_lat`): their captures are taken in the select and dup sections,
-`emit_write` writes their table and ring columns, and one `obs_fold`
-launch (ops/obs_fold.py) folds both planes after the stats, before the
-end checks, so an invariant (`harness.slo.slo_invariant`) sees this
-dispatch's completion. They consume no randomness and touch no other
-leaf. The other observation planes (spans, sketch, series) are not
-ported yet: `Runtime` refuses configs that enable them.
+`tr_lat`), with `cfg.sketch_slots > 0` the prefix-coverage sketch
+(`cov_sketch`), with `cfg.series_windows > 0` the windowed series
+(`sr_*`) and with `cfg.span_attr` the span plane (the carried column
+`ev_span`, the ring's `tr_qw`, the tail attribution `sa_*`): their
+captures are taken in the select and dup sections (the span plane's
+carried read and accumulation in its own `spans` section, plain
+PyTorch), `emit_write` writes their table and ring columns, and one
+`obs_fold` launch (ops/obs_fold.py) folds every plane after the stats,
+before the end checks, so an invariant (`harness.slo.slo_invariant`,
+`harness.recovery.recovery_invariant`) sees this dispatch's completion
+and window. They consume no randomness and touch no other leaf.
 
 The step's threefry draws outside those kernels go through
 `ops/threefry.py`: its own keys (the select's 5-way split, the
@@ -49,8 +53,9 @@ node vectors, the link matrix, the lane's network scalars and a booted
 node's protocol-state rows), with the recorder the acting node's Lamport
 clock, the acting node's protocol-state rows (the scatter, `put_rows_`),
 and the event table and ring (section 4, `emit_write`: the rows
-emissions take and the one ring row), and the profiler and latency
-leaves (`obs_fold`: the one element of each counter a dispatch selects).
+emissions take and the one ring row), and the observation planes'
+leaves (`obs_fold`: the one element of each counter a dispatch
+selects).
 Every other leaf of its result is
 a new tensor or one the step did not touch. So the step must own its
 input: the runners step a private copy of the caller's state
@@ -174,8 +179,20 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
     profile = cfg.profile
     lh = cfg.latency_hist > 0
     has_cpl = lh and bool(cfg.complete_kinds)
-    fold_plan = (FoldPlan(N, N_EV_KINDS, cfg.latency_hist, device)
-                 if profile or lh else None)
+    series = cfg.series_windows > 0
+    span = cfg.span_attr
+    # the queue depth at dispatch and the clock advance: the profiler's
+    # and the series plane's captures
+    occ_on = profile or series
+    fold_plan = (FoldPlan(N, N_EV_KINDS, cfg.latency_hist, device,
+                          sketch_slots=cfg.sketch_slots,
+                          windows=cfg.series_windows, span=span)
+                 if profile or lh or cfg.sketch_slots > 0 or series
+                 or span else None)
+    # a row's carried span vector with nothing inherited (SP_QWAIT,
+    # SP_NET, SP_HOPS, SP_DOM_NODE, SP_DOM_MAG, SP_EMIT_T)
+    span_none = torch.tensor([0, 0, 0, -1, 0, -1], dtype=_I32,
+                             device=device)
 
     def kinds_match(pairs, ev_kind, ev_tag):
         """Whether the dispatched (kind, tag) is one of `pairs`."""
@@ -199,10 +216,10 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
              ev_src, ev_tag, *occ) = sched_pick(
                 s.t_kind, s.t_node, s.t_deadline, s.t_tag, s.t_src,
                 s.alive, s.paused, s.prio_nudge, s.halted, k_sched,
-                s.sched_hash, *((True,) if profile else ()))
+                s.sched_hash, *((True,) if occ_on else ()))
             ev_node = torch.clamp(ev_node_raw, 0, N - 1)
             ev_payload = sel.take_row(s.t_payload, idx)
-            if profile:
+            if occ_on:
                 (occ_disp,) = occ
             # the latency plane's root read, before the pop and emissions
             # (this dispatch may reuse its own row)
@@ -222,10 +239,10 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
         # (the dup_draws kernel: the clock, the end of time, the Bernoulli
         # and the redelivery's latency draw in one launch)
         with _section("dup"):
-            now, time_over, _, deadline, free = tf.dup_draws(
+            now, time_over, dup_fire, deadline, free = tf.dup_draws(
                 k_dupf, k_dupd, valid, ev_kind, ev_node, s.dup_rate, s.now,
                 dmin, s.lat_lo, s.lat_hi, s.tlimit)
-            if profile:
+            if occ_on:
                 now_delta = now - s.now        # >= 0; 0 when not valid
             if lh:
                 # the root a row with an unset root (-1: an external
@@ -281,6 +298,40 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
                 (lamport,) = nr.put_rows_([(s.lamport, lam_node, ev_lamport,
                                             valid)])
                 s = s.replace(lamport=lamport)
+
+        # ---- the span plane's carried read and accumulation (plain
+        # PyTorch): the dispatched row's carried vector (only emissions
+        # write ev_span, so the pop and the op left it as it was), the
+        # incoming edge's transit, and this hop folded into the chain
+        if span:
+            with _section("spans"):
+                # the carried vector follows the root's split: the
+                # completion measures the inherited chain (pre-mint),
+                # emissions carry the post-mint one
+                inherit_sp = valid & (root_raw >= 0)
+                in_sq, in_sn, in_sh, in_dnode, in_dmag, in_emit = \
+                    torch.where(inherit_sp[:, None],
+                                sel.take_row(s.ev_span, idx),
+                                span_none).unbind(1)
+                net_seg = torch.where(inherit_sp & (in_emit >= 0),
+                                      torch.clamp(dmin - in_emit, min=0), 0)
+                act_sp = torch.where(is_super, reset_target, ev_node)
+                meas_sq = torch.where(inherit_sp, in_sq + lat_sojourn, 0)
+                meas_sn = torch.where(inherit_sp, in_sn + net_seg, 0)
+                meas_sh = in_sh
+                seg_sp = net_seg + lat_sojourn          # this hop's cost
+                dom_up = inherit_sp & (seg_sp > in_dmag)     # strict >
+                meas_dnode = torch.where(dom_up, act_sp, in_dnode)
+                meas_dmag = torch.where(dom_up, seg_sp, in_dmag)
+                # what this dispatch's emissions carry: a re-minted root
+                # restarts at zero, the hop index is this one's plus one,
+                # every emission is stamped with this dispatch's `now`
+                span_new = torch.stack([
+                    torch.where(inherit, meas_sq, 0),
+                    torch.where(inherit, meas_sn, 0),
+                    torch.where(inherit, meas_sh, 0) + 1,
+                    torch.where(inherit, meas_dnode, -1),
+                    torch.where(inherit, meas_dmag, 0), s.now], -1)
 
         # ---- 3. protocol handler dispatch -------------------------------
         with _section("handlers"):
@@ -395,6 +446,8 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
                     lane["occ_disp"] = occ_disp
                 if lh:
                     lane.update(ev_root=ev_root, lat_ring=lat_ring)
+                if span:
+                    lane.update(span_new=span_new, lat_sojourn=lat_sojourn)
                 ring = None
                 if trace:
                     ring = dict(fired=valid, trace_on=s.trace_on,
@@ -436,8 +489,9 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
                               T.OOPS_TIME_OVERFLOW, 0).to(_I32),
                 steps=s.steps + valid.to(_I32))
 
-        # ---- the profiler and latency folds (the obs_fold kernel), in
-        # place, before the end checks
+        # ---- the observation folds (the obs_fold kernel), in place,
+        # before the end checks; the sketch reads the post-select hash and
+        # the incremented step count
         if fold_plan is not None:
             with _section("obs"):
                 act = torch.where(is_super, reset_target, ev_node)
@@ -445,16 +499,25 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
                          dict(valid=valid, pf_on=s.pf_on, lh_on=s.lh_on,
                               reset_mask=reset_mask, dropped=dropped,
                               is_complete=is_complete if has_cpl else zb,
+                              sr_on=s.sr_on, sp_on=s.sp_on,
+                              dup_fire=dup_fire,
                               act_node=act, cpl_node=ev_node,
                               ev_kind=ev_kind, op=op,
-                              now_delta=now_delta if profile else zi,
-                              occ_disp=occ_disp if profile else zi,
+                              now_delta=now_delta if occ_on else zi,
+                              occ_disp=occ_disp if occ_on else zi,
                               high_water=high_water,
                               delivered_drop=delivered_drop,
                               delay_acc=delay_acc,
                               lat_sojourn=lat_sojourn if lh else zi,
                               lat_e2e=lat_e2e if has_cpl else zi,
-                              slo_target=s.slo_target), has_cpl)
+                              slo_target=s.slo_target, steps=s.steps,
+                              sketch_every=s.sketch_every,
+                              window_len=s.window_len, now=s.now,
+                              meas_sq=meas_sq if span else zi,
+                              meas_sn=meas_sn if span else zi,
+                              meas_sh=meas_sh if span else zi,
+                              meas_dnode=meas_dnode if span else zi,
+                              sched_hash=s.sched_hash), has_cpl)
 
         # ---- 5. end conditions -------------------------------------------
         with _section("end"):

@@ -5,9 +5,10 @@
 // (madsim_tpu/core/step.py `live_step` section 4, lines 476-655:
 // ops/select.py `first_k_free`, the per-send network fault model, the
 // per-timer skew stretch, the one-pass column write and the lineage
-// provenance write, and the latency plane's root column at lines 629-641)
-// and the ring-row write (lines 941-1001, with the plane columns tr_qlen
-// and tr_lat at 966-976), with jax's threefry2x32 draws
+// provenance write, the latency plane's root column at lines 629-641 and
+// the span plane's carried column at 642-653) and the ring-row write
+// (lines 941-1001, with the plane columns tr_qlen and tr_lat at 966-976
+// and tr_qw at 977-981), with jax's threefry2x32 draws
 // (madsim_tpu/core/prng.py) inlined from threefry.cuh.
 // Per lane b, with E staged emissions (sends first, then timers):
 //
@@ -26,15 +27,16 @@
 //   writes         every written emission sets its row's deadline, kind,
 //                  node, src (the acting node), tag and payload, and with
 //                  the lineage plane ev_prov = (disp_idx, ev_lamport),
-//                  and with the latency plane ev_root_t = ev_root
+//                  with the latency plane ev_root_t = ev_root, and with
+//                  the span plane its six ev_span words = span_new
 //   outputs        sent, delivered_drop, overflow, high_water per lane;
 //                  with the profiler (delay_acc != nullptr) the int32 sum
 //                  of the latencies of the delivered (ok) sends
 //   ring (TC > 0)  where fired & trace_on, the row at trace_pos mod
 //                  trace_cap of the eight tr_* columns takes this step's
-//                  record, and of tr_qlen / tr_lat (when compiled in)
-//                  occ_disp / lat_ring; trace_pos counts it (a new [B]
-//                  output)
+//                  record, and of tr_qlen / tr_lat / tr_qw (when compiled
+//                  in) occ_disp / lat_ring / lat_sojourn; trace_pos
+//                  counts it (a new [B] output)
 //
 // The plane columns are null pointers when their plane is compiled out:
 // the kernel then does no plane work (a uniform branch per launch, and
@@ -81,6 +83,8 @@ constexpr int kMaxC = 256;
 constexpr int kMaxE = 32;                // one emission per thread
 constexpr int kBatch = 8;                // t_kind reads issued together
 constexpr int kRingCols = 8;
+constexpr int kPlaneRingCols = 3;        // tr_qlen, tr_lat, tr_qw
+constexpr int kSpanWords = 6;
 constexpr int32_t kEvFree = 0;
 constexpr int32_t kEvMsg = 1;
 constexpr int32_t kEvTimer = 2;
@@ -142,6 +146,10 @@ struct EmitParams {
   int32_t* tr_lat;            // [B, TC] or nullptr (latency + ring)
   const int32_t* lat_ring;
   int32_t* delay_acc;         // [B] or nullptr (profiler)
+  int32_t* ev_span;           // [B, C, 6] or nullptr (span plane)
+  const int32_t* span_new;    // [B, 6]
+  int32_t* tr_qw;             // [B, TC] or nullptr (span plane + ring)
+  const int32_t* lat_sojourn;
   int B, C, P, N, E, n_sends, use_jitter, has_prov, TC;
 };
 
@@ -345,6 +353,19 @@ emit_write_kernel(const EmitParams p, const int log_epad) {
         p.ev_root_t[bs * C + slot[w][lane]] = p.ev_root[bs];
       }
     }
+    if (p.ev_span != nullptr) {       // launch-uniform
+      // the span vectors: six words a taken row, consecutive threads on
+      // consecutive words
+      for (int i = lane; i < 32 * kSpanWords; i += 32) {
+        const int s = i / kSpanWords;
+        if ((wrote >> s) & 1u) {
+          const int64_t bs = b0 + (s >> log_epad);
+          const int word = i - s * kSpanWords;
+          p.ev_span[(bs * C + slot[w][s]) * kSpanWords + word] =
+              p.span_new[bs * kSpanWords + word];
+        }
+      }
+    }
     if (p.has_prov) {
       for (int i = lane; i < 64; i += 32) {
         const int s = i >> 1;
@@ -371,13 +392,15 @@ emit_write_kernel(const EmitParams p, const int log_epad) {
     }
     if (slot_r >= 0 && slot_r < p.TC) {
       const int64_t i = b * p.TC + slot_r;
-      for (int c = e; c < kRingCols + 2; c += epad) {
+      for (int c = e; c < kRingCols + kPlaneRingCols; c += epad) {
         if (c < kRingCols)
           p.tr[c][i] = ring_value(p, c, b, now);
         else if (c == kRingCols && p.tr_qlen != nullptr)
           p.tr_qlen[i] = p.occ_disp[b];
         else if (c == kRingCols + 1 && p.tr_lat != nullptr)
           p.tr_lat[i] = p.lat_ring[b];
+        else if (c == kRingCols + 2 && p.tr_qw != nullptr)
+          p.tr_qw[i] = p.lat_sojourn[b];
       }
     }
     if (e == 0) p.o_trace_pos[b] = add32(pos, rec ? 1 : 0);

@@ -10,11 +10,16 @@ lineage and the profiler and latency reports (the counterpart of
                   `explain_crash` and the crash fingerprints.
   * profiler.py — the WHERE and HOW-LONG layers: reports and Perfetto
                   counter tracks over the `cfg.profile` and
-                  `cfg.latency_hist` planes.
+                  `cfg.latency_hist` planes, and the span plane's tail
+                  attribution report.
+  * series.py   — the WHEN layer: per-window reports and counter tracks
+                  over the `cfg.series_windows` plane.
+  * spans.py    — per-hop critical paths of requests over the
+                  `cfg.span_attr` plane (`explain_latency`).
   * timetravel.py — exact-step advance (`Runtime.state_at`).
 
-The series, span, support, dashboard, metrics and progress modules and
-the rest of time travel wait for their planes (ROADMAP P11, P13, P14).
+The support, dashboard, metrics and progress modules and the rest of
+time travel wait for their slices (ROADMAP P11.8, P13, P14).
 """
 
 from .causal import (causal_fingerprint, code_fingerprint, explain_crash,
@@ -26,6 +31,10 @@ from .profiler import (attribution_summary, counter_track_events,
                        latency_histogram_rows, latency_summary,
                        profile_summary)
 from .rings import ring_records, sampled_lanes
+from .series import (fault_names, format_series, lane_series,
+                     series_counter_track_events, series_summary)
+from .spans import (explain_latency, format_span, request_span,
+                    request_spans)
 from .trace import export_chrome_trace, to_chrome_events
 
 __all__ = [
@@ -38,4 +47,7 @@ __all__ = [
     "export_profile_trace",
     "latency_summary", "format_latency", "latency_histogram_rows",
     "attribution_summary", "format_attribution", "curve_brief",
+    "series_summary", "format_series", "lane_series",
+    "series_counter_track_events", "fault_names",
+    "request_span", "request_spans", "explain_latency", "format_span",
 ]

@@ -1,5 +1,6 @@
-"""Sim-profiler reports and Perfetto counter tracks over the counter and
-latency planes (the counterpart of `madsim_tpu.obs.profiler`).
+"""Sim-profiler reports and Perfetto counter tracks over the counter,
+latency, series and span planes (the counterpart of
+`madsim_tpu.obs.profiler`).
 
 The ring answers *what happened* and the lineage *why*; this module
 answers *where the simulated cluster spends its effort* (the
@@ -19,12 +20,12 @@ answers *where the simulated cluster spends its effort* (the
     per-node e2e p99 (the `tr_lat` ring column) and the lane's
     divergence-from-consensus step off the prefix sketch.
     `export_profile_trace` writes one document with instants, flows and
-    counters on one virtual-time axis.
-
-The series plane's tracks (ROADMAP P11.5) and the span plane's
-attribution report (ROADMAP P11.6) are not ported yet: a state that
-carries either plane is refused, one without them reads as the JAX
-package's does (no series tracks, no attribution report).
+    counters on one virtual-time axis. With the series plane compiled in
+    the queue-depth, busy% and e2e p99 tracks come from its windows
+    instead (obs/series.py), covering the whole run.
+  * `attribution_summary` / `format_attribution`: where SLO-missing
+    requests spent their time, off the span plane's
+    `parallel.stats.attribution_digest` (one K10 launch).
 """
 
 from __future__ import annotations
@@ -33,8 +34,9 @@ import json
 
 import numpy as np
 
-from ..parallel.stats import (latency_bucket_edges, latency_counters,
-                              profile_counters)
+from ..parallel.stats import (SA_COUNT, SA_HOPS, SA_NET, SA_QWAIT,
+                              attribution_counters, latency_bucket_edges,
+                              latency_counters, profile_counters)
 from .rings import ring_records
 from .trace import _doc, to_chrome_events
 
@@ -178,17 +180,34 @@ def format_latency(summary: dict, node_names=None) -> str:
 
 
 def attribution_summary(state) -> dict | None:
-    """The tail-attribution report of the span plane (where SLO-missing
-    requests spent their time). None when the plane is compiled out
-    (cfg.span_attr False), as the JAX package returns; the plane itself
-    is not ported yet (ROADMAP P11.6), so a state that carries it is
-    refused."""
-    sa = getattr(state, "sa_tail", None)
-    if sa is None or sa.ndim != 3 or sa.shape[1] == 0:
+    """The tail-attribution report for a batched state: where SLO-missing
+    requests spent their time, off the device-side
+    `parallel.stats.attribution_digest` reduction (O(N) transfer). Per
+    completion node: the tail count and that cohort's queue-wait,
+    transit and hop totals; and the bottleneck-node histogram (which
+    node owned each tail's dominant segment). None when the plane is
+    compiled out (cfg.span_attr False) or the state is unbatched."""
+    c = attribution_counters(state)
+    if c is None:
         return None
-    raise NotImplementedError(
-        "attribution_summary: the span plane is not ported to "
-        "madsim_tpu_torch yet (ROADMAP P11.6)")
+    t = np.asarray(c["tail"], np.int64)                 # [N, 4]
+    bn = c["bottleneck"]
+    tails = int(t[:, SA_COUNT].sum())
+    qwait = int(t[:, SA_QWAIT].sum())
+    net = int(t[:, SA_NET].sum())
+    return dict(
+        lanes=c["lanes"], slo_target=c["slo_target"], tails=tails,
+        qwait_us=qwait, net_us=net,
+        wait_share=(round(qwait / (qwait + net), 4)
+                    if qwait + net else None),
+        hops_mean=(round(int(t[:, SA_HOPS].sum()) / tails, 2)
+                   if tails else None),
+        tails_by_node=t[:, SA_COUNT].tolist(),
+        qwait_by_node=t[:, SA_QWAIT].tolist(),
+        net_by_node=t[:, SA_NET].tolist(),
+        bottleneck_by_node=bn,
+        bottleneck_node=(int(np.argmax(bn)) if tails else None),
+    )
 
 
 def format_attribution(summary: dict, node_names=None) -> str:
@@ -305,13 +324,9 @@ def counter_track_events(state, lane: int = 0, node_names=None,
     p99) when the plane is off or the lane is series-masked; the
     cov_divergence track is ring/sketch-based either way.
     """
-    sq = getattr(state, "sr_qhw", None)
-    if sq is not None and sq.ndim == 2 and sq.shape[1] > 0:
-        raise NotImplementedError(
-            "counter_track_events: the series plane's tracks are not "
-            "ported to madsim_tpu_torch yet (ROADMAP P11.5)")
-    out = []                     # the series plane is compiled out
-    from_series = False
+    from .series import series_counter_track_events
+    out = series_counter_track_events(state, lane, node_names=node_names)
+    from_series = bool(out)
     if recs is None:
         if from_series:
             # series-only build: the ring may be compiled out entirely —

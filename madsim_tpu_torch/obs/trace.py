@@ -17,8 +17,8 @@ sources with lineage columns also render message causality: every
 resolvable happens-before edge becomes a Perfetto flow arrow (`ph:"s"` at
 the enqueuing dispatch, `ph:"f"` at the child), and instant args carry
 step/lamport/parent. Rings of the span plane (marked by the `qw`
-queue-wait column) would add request duration spans; that plane is not
-ported yet (ROADMAP P11.6), so its branch reads only what the ring holds.
+queue-wait column) also render each recorded completion as a request
+duration span (an async `b`/`e` pair from its root to its completion).
 
 Export contract: `export_chrome_trace` returns the INSTANT count only;
 flow arrows and request spans ride in the document but are never counted.

@@ -8,12 +8,14 @@ each lane's free event-table rows, put every send through the network
 fault model (clog, loss and latency draws, micro-jitter, disk delay) and
 every timer through the clock-skew stretch, and write the emissions that
 survive into their rows — with the lineage plane, their provenance pair
-too, and with the latency plane their root-birth time (`ev_root_t`,
-lines 629-641). Its epilogue is the flight-recorder ring write (lines
-941-1001): where the step dispatched an event in a sampled lane, the
-ring row at `trace_pos mod trace_cap` takes the event's record, with the
-profiler's queue-depth column (`tr_qlen`) and the latency plane's e2e
-column (`tr_lat`) when those planes are compiled in. With `delay=True`
+too, with the latency plane their root-birth time (`ev_root_t`,
+lines 629-641), and with the span plane their carried span vector
+(`ev_span`, lines 642-653). Its epilogue is the flight-recorder ring
+write (lines 941-1001): where the step dispatched an event in a sampled
+lane, the ring row at `trace_pos mod trace_cap` takes the event's
+record, with the profiler's queue-depth column (`tr_qlen`), the latency
+plane's e2e column (`tr_lat`) and the span plane's queue-wait column
+(`tr_qw`, lines 977-981) when those planes are compiled in. With `delay=True`
 (the profiler) it also sums the latency imposed on delivered sends
 (`delay_acc`, lines 485 and 528-532). Every value is an integer or the
 exact float32 compare of a Bernoulli draw, so kernel and plain version
@@ -34,6 +36,8 @@ Operands, all with a leading [B] lane axis (int32 unless noted):
           [B, C, P], ev_prov [B, C, 2] ([B, 0, 2] with the lineage plane
           compiled out: then it is returned as it is); optional ev_root_t
           [B, C] ([B, 0], or absent, with the latency plane compiled out)
+          and ev_span [B, C, 6] ([B, 0, 6], or absent, with the span
+          plane compiled out)
   em      the staged emissions, sends first: m bool [B, E], a [B, E] (a
           send's destination, a timer's delay), tag [B, E], payload
           [B, E, P]; E may be 0
@@ -42,14 +46,16 @@ Operands, all with a leading [B] lane axis (int32 unless noted):
           [B, 2] (the step's network key, int32 bit patterns), clog_node
           bool [B, N], clog_link bool [B, N, N], disp_idx (this dispatch's
           index) and ev_lamport (its Lamport clock); with ev_root_t, ev_root
-          (the dispatch's post-mint root); with tr_qlen, occ_disp (the
-          table's pre-pop occupancy); with tr_lat, lat_ring (the
-          completion's e2e latency, or -1)
+          (the dispatch's post-mint root); with ev_span, span_new [B, 6]
+          (the span vector its emissions carry); with tr_qlen, occ_disp
+          (the table's pre-pop occupancy); with tr_lat, lat_ring (the
+          completion's e2e latency, or -1); with tr_qw, lat_sojourn (the
+          dispatch's queue-wait)
   ring    None (recorder compiled out) or fired bool, trace_on bool,
           trace_pos, trace_cap, kind, node, src, tag, parent [B] and the
           columns tr_now, tr_step, tr_kind, tr_node, tr_src, tr_tag,
-          tr_parent, tr_lamport [B, TC], and the optional tr_qlen and
-          tr_lat [B, TC] ([B, 0], or absent, when compiled out)
+          tr_parent, tr_lamport [B, TC], and the optional tr_qlen, tr_lat
+          and tr_qw [B, TC] ([B, 0], or absent, when compiled out)
 
 Returns (tables, stats, ring): a dict of the very table tensors it was
 given, written in place; stats = sent, delivered_drop int32, overflow
@@ -83,10 +89,12 @@ TABLE_COLS = ("t_deadline", "t_kind", "t_node", "t_src", "t_tag",
 RING_COLS = ("tr_now", "tr_step", "tr_kind", "tr_node", "tr_src", "tr_tag",
              "tr_parent", "tr_lamport")
 # the plane columns: optional, zero-size when their plane is compiled out
-PLANE_TABLE_COLS = ("ev_root_t",)
-PLANE_RING_COLS = ("tr_qlen", "tr_lat")
+PLANE_TABLE_COLS = ("ev_root_t", "ev_span")
+PLANE_RING_COLS = ("tr_qlen", "tr_lat", "tr_qw")
+SPAN_WORDS = 6
 # each plane ring column's lane operand
-_PLANE_RING_VALS = dict(tr_qlen="occ_disp", tr_lat="lat_ring")
+_PLANE_RING_VALS = dict(tr_qlen="occ_disp", tr_lat="lat_ring",
+                        tr_qw="lat_sojourn")
 _I32 = torch.int32
 
 
@@ -220,6 +228,10 @@ def emit_write_plain(tables, em, lane, ring, n_sends: int,
         if _present(tables, "ev_root_t"):
             # every emission inherits the dispatch's post-mint root
             put(tables["ev_root_t"], lane["ev_root"][:, None].expand(B, E))
+        if _present(tables, "ev_span"):
+            # and the span vector carried through this dispatch
+            put(tables["ev_span"], lane["span_new"][:, None, :].expand(
+                B, E, SPAN_WORDS))
     return out, stats, (None if ring is None else _ring_plain(lane, ring))
 
 
@@ -238,7 +250,8 @@ class _Params(ctypes.Structure):
            ("o_trace_pos", ctypes.c_void_p)]
         + [(n, ctypes.c_void_p) for n in (
             "ev_root_t", "ev_root", "tr_qlen", "occ_disp", "tr_lat",
-            "lat_ring", "delay_acc")]
+            "lat_ring", "delay_acc", "ev_span", "span_new", "tr_qw",
+            "lat_sojourn")]
         + [(n, ctypes.c_int) for n in (
             "B", "C", "P", "N", "E", "n_sends", "use_jitter", "has_prov",
             "TC")])
@@ -320,6 +333,11 @@ class _EmitWrite:
         if has_root:
             checks += [("ev_root_t", tables["ev_root_t"], i32, (B, C)),
                        ("ev_root", lane["ev_root"], i32, (B,))]
+        has_span = _present(tables, "ev_span")
+        if has_span:
+            checks += [("ev_span", tables["ev_span"], i32,
+                        (B, C, SPAN_WORDS)),
+                       ("span_new", lane["span_new"], i32, (B, SPAN_WORDS))]
         TC = 0
         plane_ring = []
         if ring is not None:
@@ -382,6 +400,9 @@ class _EmitWrite:
         if has_root:
             p.ev_root_t = tables["ev_root_t"].data_ptr()
             p.ev_root = lane["ev_root"].data_ptr()
+        if has_span:
+            p.ev_span = tables["ev_span"].data_ptr()
+            p.span_new = lane["span_new"].data_ptr()
         p.B, p.C, p.P, p.N, p.E = B, C, P, N, E
         p.n_sends, p.use_jitter = n_sends, int(bool(use_jitter))
         p.has_prov, p.TC = int(prov_rows > 0), TC

@@ -52,7 +52,7 @@ LIBRARY = {"step_keys": "prng", "dup_draws": "prng",
            "threefry_draw": "prng", "node_gather": "node_rows",
            "put_rows_": "node_rows", "lane_take": "lane_rows",
            "lane_put": "lane_rows", "plane_sums": "plane_digest",
-           "lane_p99": "plane_digest"}
+           "lane_p99": "plane_digest", "lane_burst": "plane_digest"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -210,7 +210,7 @@ def wrappers() -> dict:
     from .mutate import mutate_batch
     from .node_rows import node_gather, put_rows_
     from .obs_fold import obs_fold
-    from .plane_digest import lane_p99, plane_sums
+    from .plane_digest import lane_burst, lane_p99, plane_sums
     from .raft_invariant import raft_invariant_check
     from .sched_pick import sched_pick
     from .threefry import (dup_draws_kernel, split_randint_kernel,
@@ -227,4 +227,5 @@ def wrappers() -> dict:
             "node_gather": node_gather, "put_rows_": put_rows_,
             "lane_take": lane_take, "lane_put": lane_put,
             "lane_diff": lane_diff, "obs_fold": obs_fold,
-            "plane_sums": plane_sums, "lane_p99": lane_p99}
+            "plane_sums": plane_sums, "lane_p99": lane_p99,
+            "lane_burst": lane_burst}

@@ -1,18 +1,17 @@
 """Batch analytics: what the supervisor reads back from a seed sweep.
 
-The counterpart of `madsim_tpu.parallel.stats`, for the reductions the
-search entry points and the observation planes read: the per-trajectory
+The counterpart of `madsim_tpu.parallel.stats`: the per-trajectory
 schedule hashes (`sched_hash_u64`), the on-device distinct-schedule
 reduction explore() asks for every round (`coverage_digest`, through the
 kernel of ops/coverage.py) with its host half (`digest_hashes`,
-`distinct_schedules`), the host-side first-divergence slots the corpus
-reads from prefix sketches, and the profiler and latency digests
-(`profile_digest` / `profile_counters`, `latency_digest` /
-`latency_counters`, `lane_e2e_p99`, `latency_brief`), whose batch sums
-and per-lane p99 are the K10 kernels of ops/plane_digest.py. The
-per-window burst signal (`lane_burst`) returns None when the series
-plane is compiled out; that plane is not ported yet (ROADMAP P11.5), so a
-state that carries one is refused.
+`distinct_schedules`), the prefix sketches' consensus and first
+divergence (`consensus_allreduce`, `first_divergence_slots`,
+`divergence_profile`), the plane digests (`profile_counters`,
+`latency_counters`, `series_counters`, `attribution_counters` and their
+briefs), whose lane reductions are one `plane_sums` launch a digest
+(K10, ops/plane_digest.py), the per-lane tail signals the fuzzer reads
+(`lane_e2e_p99`, the `lane_p99` kernel; `lane_burst`, the `lane_burst`
+kernel), and the fleet report `summarize`.
 """
 
 from __future__ import annotations
@@ -23,6 +22,7 @@ import numpy as np
 import torch
 
 from ..ops.coverage import coverage_digest as _coverage_digest
+from ..ops.plane_digest import lane_burst as _lane_burst_kernel
 from ..ops.plane_digest import lane_p99 as _lane_p99_kernel
 from ..ops.plane_digest import plane_sums
 
@@ -55,6 +55,32 @@ def sched_hash_u64(state) -> np.ndarray:
     return (h[..., 0] << np.uint64(32)) | h[..., 1]
 
 
+def _consensus_modal(sketches: torch.Tensor) -> torch.Tensor:
+    """Per-slot modal value of a [B, S] sketch batch held as int32 bits,
+    ties to the smallest uint32 value (the JAX package's
+    `_consensus_modal`: a sort of each slot column and run lengths from
+    searchsorted). int64 [S] uint32 values. Plain PyTorch (ROADMAP §2:
+    K10 work still to do)."""
+    v = torch.sort((sketches.to(torch.int64) & 0xFFFFFFFF), 0).values.T
+    v = v.contiguous()                                     # [S, B]
+    counts = (torch.searchsorted(v, v, right=True)
+              - torch.searchsorted(v, v, right=False))
+    # the first maximal count: v ascends, so it is the smallest modal
+    return v.gather(1, torch.argmax(counts, 1, keepdim=True))[:, 0]
+
+
+def consensus_allreduce(sketches) -> np.ndarray:
+    """The batch-global per-slot modal value of a [B, S] prefix-sketch
+    batch (ties to the smallest), computed where the sketches lie:
+    bit-compatible with `first_divergence_slots(consensus=None)`. Takes
+    the state's int32-bit tensor or uint32 values; returns uint32 [S]."""
+    if isinstance(sketches, torch.Tensor):
+        sk = sketches
+    else:
+        sk = torch.as_tensor(np.asarray(sketches, np.uint32).view(np.int32))
+    return _consensus_modal(sk).cpu().numpy().astype(np.uint32)
+
+
 def first_divergence_slots(sketches, consensus=None) -> np.ndarray:
     """Per-lane first-divergence slot of a [B, S] prefix-sketch array: the
     first slot where a lane's sketch differs from the consensus prefix —
@@ -71,6 +97,33 @@ def first_divergence_slots(sketches, consensus=None) -> np.ndarray:
             consensus[j] = vals[np.argmax(counts)]
     differs = sk != np.asarray(consensus)[None, :]
     return np.where(differs.any(1), differs.argmax(1), S).astype(np.int64)
+
+
+def divergence_profile(state) -> dict | None:
+    """First-divergence-step percentiles across a sweep, from the prefix
+    sketches (cfg.sketch_slots > 0): when the batch's schedules split.
+    None when the sketch is compiled out or the state is unbatched.
+    Steps are upper bounds: a lane whose first divergent slot is j
+    matched the consensus through (j) * sketch_every dispatches."""
+    sk = getattr(state, "cov_sketch", None)
+    if sk is None or sk.ndim != 2 or sk.shape[1] == 0:
+        return None
+    sk = sk.cpu().numpy().view(np.uint32)
+    every = int(np.atleast_1d(state.sketch_every.cpu().numpy())
+                .reshape(-1)[0])
+    first = first_divergence_slots(sk)
+    S = sk.shape[1]
+    div = first < S
+    out = dict(slots=S, every=every, batch=int(len(first)),
+               diverged=int(div.sum()))
+    if div.any():
+        steps = (first[div] + 1) * every
+        out.update(
+            p10=int(np.percentile(steps, 10)),
+            p50=int(np.percentile(steps, 50)),
+            p90=int(np.percentile(steps, 90)),
+            mean=round(float(steps.mean()), 1))
+    return out
 
 
 I32_MAX = 2**31 - 1
@@ -353,12 +406,290 @@ def latency_brief(state) -> dict | None:
                 completions=int(c["e2e_hist"].sum()))
 
 
+# series-plane fault-marker bits a digest reports (core/types.py SRF_*:
+# 7 bits today; the JAX digest ORs 8)
+_SRF_BITS = 8
+
+
+def series_leaves(state):
+    """The series digest's `plane_sums` operands (leaves, masks): the
+    lane count, the dominant window_len (max), the per-window sums, the
+    sr_qhw max, the sr_fault OR and, with the latency plane, sr_lat."""
+    leaves = [(None, 0), (state.window_len, 0, "max"),
+              (state.sr_dispatch, 0), (state.sr_busy, 0),
+              (state.sr_drop, 0), (state.sr_dup, 0), (state.sr_complete, 0),
+              (state.sr_slo_miss, 0), (state.sr_qhw, 0, "max"),
+              (state.sr_fault, 0, "or")]
+    if _compiled_in(getattr(state, "sr_lat", None), 3):
+        leaves.append((state.sr_lat, 0))
+    return leaves, (state.sr_on, None)
+
+
+def _series_digest(state) -> dict:
+    """Device-side reduction of the windowed series plane: one
+    `plane_sums` launch over the recording lanes (`series_leaves`), and
+    the per-window p99 of the merged latency histograms (plain,
+    [W, LB]), as the JAX package's `_series_digest`. The p99 reads
+    float32 of the exact merged counts (the JAX float32 lane sums give
+    the same counts wherever they are exact, below 2^24)."""
+    has_lat = _compiled_in(getattr(state, "sr_lat", None), 3)
+    r = plane_sums(*series_leaves(state))
+    out = dict(lanes=(r[0][0].to(torch.int64) * 65536 + r[0][1]).to(
+        torch.int32), window_len=r[1], dispatch=r[2], busy=r[3], drop=r[4],
+        dup=r[5], complete=r[6], slo_miss=r[7], qhw=r[8],
+        fault=r[9] & ((1 << _SRF_BITS) - 1))
+    if has_lat:
+        lat = r[10][0].to(torch.int64) * 65536 + r[10][1]
+        out["lat"] = r[10]
+        out["e2e_p99_by_window"] = _hist_quantiles(lat.float(),
+                                                   (0.99,))[..., 0]
+    return out
+
+
+def _series_on(state) -> bool:
+    return _compiled_in(getattr(state, "sr_qhw", None), 2)
+
+
+def series_digest(state):
+    """Launch the device-side series reduction over a batched state;
+    returns a dict of device tensors, or None when the plane is compiled
+    out (cfg.series_windows == 0) or the state is unbatched."""
+    return _series_digest(state) if _series_on(state) else None
+
+
+def series_counters(state) -> dict | None:
+    """`series_digest` on the host: exact per-window int64 series, the
+    batch-OR fault words and the per-window p99 estimates in ticks. None
+    when the plane is compiled out. Run-twice confirmed and memoized."""
+    if not _series_on(state):
+        return None
+    d = _confirmed_digest(
+        series_digest, state,
+        (state.sr_dispatch, state.sr_busy, state.sr_qhw, state.sr_drop,
+         state.sr_dup, state.sr_complete, state.sr_slo_miss, state.sr_lat,
+         state.sr_fault, state.sr_on, state.window_len))
+    if d is None:
+        return None
+    out = dict(
+        lanes=int(d["lanes"]),
+        windows=int(state.sr_qhw.shape[1]),
+        window_len=int(d["window_len"]),
+        dispatch=_wide(d["dispatch"]),                    # int64 [W, N]
+        busy=_wide(d["busy"]),                            # int64 [W, N]
+        drop=_wide(d["drop"]).tolist(),
+        dup=_wide(d["dup"]).tolist(),
+        complete=_wide(d["complete"]).tolist(),
+        slo_miss=_wide(d["slo_miss"]).tolist(),
+        qhw=d["qhw"].tolist(),
+        fault=d["fault"].tolist(),
+    )
+    if "lat" in d:
+        out["lat"] = _wide(d["lat"])                      # int64 [W, LB]
+        out["e2e_p99_by_window"] = d["e2e_p99_by_window"].tolist()
+    return out
+
+
+def _lane_burst_lat(sr_lat: torch.Tensor) -> torch.Tensor:
+    """Per-lane deepest per-window p99 (windows kept apart, then the max
+    over them): int32 [B] bucket lower edges — the `lane_burst` kernel
+    on CUDA."""
+    return _lane_burst_kernel(sr_lat)
+
+
+def _lane_burst_qhw(sr_qhw: torch.Tensor) -> torch.Tensor:
+    """Per-lane deepest per-window queue high-water. Plain PyTorch
+    (ROADMAP §2: K10 work still to do)."""
+    return sr_qhw.amax(-1)
+
+
 def lane_burst(state) -> np.ndarray | None:
-    """Per-lane deepest per-window spike off the series plane; None when
-    the plane is compiled out."""
-    sq = state.sr_qhw
-    if sq.ndim == 2 and sq.shape[1] > 0:
-        raise NotImplementedError(
-            "the series plane is not ported to madsim_tpu_torch yet "
-            "(ROADMAP P11.5)")
-    return None
+    """Host-side per-lane burst metric off the series plane: the deepest
+    per-window p99 spike a lane hit (the per-window queue high-water when
+    the latency plane is compiled out), the transient signal the
+    fuzzer's burst_bonus hunts. None when the series plane is compiled
+    out. One [B] int32 transfer."""
+    if not _series_on(state):
+        return None
+    if _compiled_in(getattr(state, "sr_lat", None), 3):
+        return _lane_burst_lat(state.sr_lat).cpu().numpy()
+    return _lane_burst_qhw(state.sr_qhw).cpu().numpy()
+
+
+def series_brief(state) -> dict | None:
+    """The small JSON-able series rollup `summarize()` carries: window
+    geometry, the peak window's dispatch volume and queue high-water,
+    the worst per-window p99, and which windows saw faults. None when the
+    plane is compiled out."""
+    c = series_counters(state)
+    if c is None:
+        return None
+    disp_w = c["dispatch"].sum(-1)                        # [W] totals
+    out = dict(lanes=c["lanes"], windows=c["windows"],
+               window_len=c["window_len"],
+               dispatch_peak=int(disp_w.max(initial=0)),
+               dispatch_peak_window=int(disp_w.argmax()) if len(disp_w)
+               else 0,
+               qhw_peak=int(max(c["qhw"], default=0)),
+               drops=int(sum(c["drop"])), dups=int(sum(c["dup"])),
+               fault_windows=[i for i, f in enumerate(c["fault"]) if f])
+    if "e2e_p99_by_window" in c:
+        p99w = c["e2e_p99_by_window"]
+        out["e2e_p99_peak"] = int(max(p99w, default=0))
+        out["slo_miss"] = int(sum(c["slo_miss"]))
+    return out
+
+
+def attribution_leaves(state):
+    """The attribution digest's `plane_sums` operands (leaves, masks):
+    the lane count, the dominant slo_target (max), the wide sums of
+    sa_tail and sa_bottleneck over the attributing lanes."""
+    return ([(None, 0), (state.slo_target, 0, "max"), (state.sa_tail, 0),
+             (state.sa_bottleneck, 0)], (state.sp_on, None))
+
+
+def _attribution_digest(state) -> dict:
+    """Device-side reduction of the span plane's tail attribution: one
+    `plane_sums` launch (`attribution_leaves`), as the JAX package's
+    `_attribution_digest`."""
+    r = plane_sums(*attribution_leaves(state))
+    return dict(lanes=(r[0][0].to(torch.int64) * 65536 + r[0][1]).to(
+        torch.int32), slo_target=r[1], tail=r[2], bottleneck=r[3])
+
+
+def _span_on(state) -> bool:
+    return _compiled_in(getattr(state, "sa_tail", None), 3)
+
+
+def attribution_digest(state):
+    """Launch the device-side attribution reduction over a batched state;
+    returns a dict of device tensors, or None when the plane is compiled
+    out (cfg.span_attr False) or the state is unbatched."""
+    return _attribution_digest(state) if _span_on(state) else None
+
+
+def attribution_counters(state) -> dict | None:
+    """`attribution_digest` on the host: exact int64 tail component sums
+    per completion node ([N, 4]: count, qwait, net, hops) and the
+    bottleneck-node histogram ([N]). None when the plane is compiled
+    out. Run-twice confirmed and memoized."""
+    if not _span_on(state):
+        return None
+    d = _confirmed_digest(
+        attribution_digest, state,
+        (state.sa_tail, state.sa_bottleneck, state.sp_on,
+         state.slo_target))
+    if d is None:
+        return None
+    return dict(
+        lanes=int(d["lanes"]),
+        slo_target=int(d["slo_target"]),
+        tail=_wide(d["tail"]),                            # int64 [N, 4]
+        bottleneck=_wide(d["bottleneck"]).tolist(),
+    )
+
+
+# sa_tail's components (core/state.py SA_*)
+SA_COUNT, SA_QWAIT, SA_NET, SA_HOPS = range(4)
+
+
+def attribution_brief(state) -> dict | None:
+    """The small JSON-able attribution rollup `summarize()` carries: how
+    many requests blew the SLO, where their time went (queue-wait against
+    transit, and the wait share), their mean hop depth, and which node
+    owned the dominant segment most often. None when the plane is
+    compiled out."""
+    c = attribution_counters(state)
+    if c is None:
+        return None
+    t = c["tail"]
+    tails = int(t[:, SA_COUNT].sum())
+    qwait = int(t[:, SA_QWAIT].sum())
+    net = int(t[:, SA_NET].sum())
+    hops = int(t[:, SA_HOPS].sum())
+    bn = c["bottleneck"]
+    out = dict(lanes=c["lanes"], slo_target=c["slo_target"],
+               tails=tails, qwait_us=qwait, net_us=net,
+               wait_share=(round(qwait / (qwait + net), 4)
+                           if qwait + net else None),
+               hops_mean=round(hops / tails, 2) if tails else None,
+               tails_by_node=t[:, SA_COUNT].tolist(),
+               bottleneck_by_node=bn)
+    if tails:
+        out["bottleneck_node"] = int(np.argmax(bn))
+        out["bottleneck_share"] = round(max(bn) / sum(bn), 4) if sum(bn) \
+            else None
+    return out
+
+
+def schedule_representatives(state, seeds) -> dict:
+    """{sched_hash: first seed that produced it}: one replayable
+    representative a distinct interleaving class. `seeds` must be the
+    exact seed array the batch was initialized with."""
+    hashes = sched_hash_u64(state)
+    seeds = np.asarray(seeds)
+    uniq, idx = np.unique(hashes, return_index=True)
+    return dict(zip(uniq.tolist(), seeds[idx].tolist()))
+
+
+def _profile_brief(state) -> dict | None:
+    c = profile_counters(state)
+    if c is None:
+        return None
+    return dict(
+        lanes=c["lanes"],
+        dispatch_by_node=c["dispatch"].sum(-1).tolist(),
+        busy_by_node=c["busy"].tolist(),
+        kills=int(c["kill"].sum()), restarts=int(c["restart"].sum()),
+        drops=c["drop"], delay_ticks=c["delay"],
+        qmax_p50=c["qmax_p50"], qmax_max=c["qmax_max"])
+
+
+def summarize(rt, state, seeds=None) -> dict:
+    """One-call fleet report for a (finished or running) batched state,
+    the JAX package's `summarize`: crash histogram and first seed a code,
+    virtual time, traffic, distinct outcomes and schedules, the first
+    divergence, and the plane briefs (None for a plane compiled out).
+    Without `seeds` the *_seed fields are lane indices, and
+    `seed_labels` says so."""
+    halted = state.halted.cpu().numpy()
+    crashed = state.crashed.cpu().numpy()
+    codes = state.crash_code.cpu().numpy()
+    now = state.now.cpu().numpy()
+    B = halted.shape[0]
+    seed_labels = "seed" if seeds is not None else "lane_index"
+    seeds = np.asarray(seeds) if seeds is not None else np.arange(B)
+    crash_hist: dict[int, int] = {}
+    first_seed_by_code: dict[int, int] = {}
+    for i in np.nonzero(crashed)[0]:
+        c = int(codes[i])
+        crash_hist[c] = crash_hist.get(c, 0) + 1
+        first_seed_by_code.setdefault(c, int(seeds[i]))
+    fps = rt.fingerprints(state)
+    stats_on = rt.cfg.collect_stats
+    return dict(
+        batch=B,
+        seed_labels=seed_labels,
+        halted=int(halted.sum()),
+        crashed=int(crashed.sum()),
+        crash_histogram=crash_hist,
+        first_seed_by_code=first_seed_by_code,
+        first_crash_seed=(int(seeds[np.argmax(crashed)])
+                          if crashed.any() else None),
+        virtual_time_mean_us=float(now.mean()),
+        virtual_time_max_us=int(now.max()),
+        events_total=int(state.steps.cpu().numpy().sum()),
+        msgs_sent=(int(state.msg_sent.cpu().numpy().sum())
+                   if stats_on else None),
+        msgs_dropped=(int(state.msg_dropped.cpu().numpy().sum())
+                      if stats_on else None),
+        ev_peak_max=(int(state.ev_peak.cpu().numpy().max())
+                     if stats_on else None),
+        distinct_outcomes=int(len(np.unique(fps))),
+        distinct_schedules=distinct_schedules(state),
+        first_divergence=divergence_profile(state),
+        profile=_profile_brief(state),
+        latency=latency_brief(state),
+        series=series_brief(state),
+        attribution=attribution_brief(state),
+        oops=int((state.oops.cpu().numpy() != 0).sum()),
+    )

@@ -37,17 +37,6 @@ from ..utils.hashing import fingerprint
 from .scenario import Scenario
 
 
-# observation planes of the JAX package that this port does not have yet,
-# with the ROADMAP item that ports each
-_UNPORTED_PLANES = (
-    ("sketch_slots", lambda c: c.sketch_slots > 0,
-     "the coverage sketch (ROADMAP P11.4)"),
-    ("series_windows", lambda c: c.series_windows > 0,
-     "the series plane (ROADMAP P11.5)"),
-    ("span_attr", lambda c: c.span_attr, "the span plane (ROADMAP P11.6)"),
-)
-
-
 def _lanes_of(x, B):
     return x.unsqueeze(0).expand((B,) + tuple(x.shape)).clone()
 
@@ -188,11 +177,6 @@ class Runtime:
                  invariant: Callable | None = None, persist: Any = None,
                  halt_when: Callable | None = None,
                  extensions: Sequence = (), device=None):
-        for field, enabled, what in _UNPORTED_PLANES:
-            if enabled(cfg):
-                raise NotImplementedError(
-                    f"SimConfig.{field}: {what} is not ported to "
-                    f"madsim_tpu_torch yet")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.programs = list(programs)
@@ -312,7 +296,8 @@ class Runtime:
         return mask
 
     def init_batch(self, seeds, trace_lanes=None, profile_lanes=None,
-                   latency_lanes=None) -> SimState:
+                   latency_lanes=None, series_lanes=None,
+                   span_lanes=None) -> SimState:
         """Initial batched state for an array of seeds; seed i always
         reproduces the same trajectory, whatever the batch around it.
 
@@ -329,7 +314,17 @@ class Runtime:
         ev_root_t is kept on every lane regardless; only the histogram
         folds are gated. A runtime whose `invariant=` is
         harness.slo.slo_invariant should keep every lane on: a masked
-        lane never folds, so its SLO can never fire."""
+        lane never folds, so its SLO can never fire.
+
+        series_lanes: which lanes the windowed series records when
+        cfg.series_windows > 0 (None = all; same forms). A runtime whose
+        `invariant=` is harness.recovery.recovery_invariant should keep
+        every lane on: a masked lane never fills a window.
+
+        span_lanes: which lanes the span plane attributes when
+        cfg.span_attr (None = all; same forms). Like ev_root_t, the
+        carried ev_span column is kept on every lane; only the sa_*
+        folds are gated."""
         seeds = np.atleast_1d(np.asarray(seeds)).astype(np.int64) \
             & 0xFFFFFFFF
         B = seeds.shape[0]
@@ -348,7 +343,15 @@ class Runtime:
                 (latency_lanes, "lh_on", cfg.latency_hist > 0,
                  "latency_lanes given but cfg.latency_hist == 0 — the "
                  "latency plane is compiled out; set "
-                 "SimConfig(latency_hist=...) > 0")):
+                 "SimConfig(latency_hist=...) > 0"),
+                (series_lanes, "sr_on", cfg.series_windows > 0,
+                 "series_lanes given but cfg.series_windows == 0 — the "
+                 "windowed telemetry plane is compiled out; set "
+                 "SimConfig(series_windows=...) > 0"),
+                (span_lanes, "sp_on", cfg.span_attr,
+                 "span_lanes given but cfg.span_attr is False — the "
+                 "attribution plane is compiled out; set "
+                 "SimConfig(span_attr=True)")):
             if lanes is None:
                 continue
             if not compiled:
@@ -661,6 +664,10 @@ class Runtime:
             # and the latency plane's: the injected op mints its root at
             # its own dispatch (-1 = unset), not the slot's last occupant's
             lineage["ev_root_t"] = put(state.ev_root_t, -1)
+        if cfg.span_attr:
+            # and the span plane's: a fresh chain, nothing accumulated, no
+            # dominant segment, no emitter stamp
+            lineage["ev_span"] = put(state.ev_span, [0, 0, 0, -1, 0, -1])
         return state.replace(
             **lineage,
             t_deadline=torch.where(hit, state.now[:, None], state.t_deadline),
@@ -707,6 +714,21 @@ class Runtime:
                 "plane is compiled out")
         return state.replace(
             slo_target=torch.full_like(state.slo_target, int(target)))
+
+    def set_window_len(self, state: SimState, ticks: int) -> SimState:
+        """Retune every lane's series window length (ticks a window):
+        window_len is a state leaf like slo_target, so a captured graph
+        picks the new value up. Requires the series plane compiled in
+        (cfg.series_windows > 0). A retune mid-run re-buckets only later
+        dispatches: windows already folded keep their old bounds."""
+        if self.cfg.series_windows == 0:
+            raise ValueError(
+                "set_window_len needs cfg.series_windows > 0 — the "
+                "windowed telemetry plane is compiled out")
+        if int(ticks) < 1:
+            raise ValueError("window_len must be >= 1 tick")
+        return state.replace(
+            window_len=torch.full_like(state.window_len, int(ticks)))
 
     # ------------------------------------------------------------------
     def fingerprints(self, state: SimState) -> np.ndarray:

@@ -11,6 +11,11 @@
                      latency_hist=24), e2e measured from the leader's
                      propose timer to its append replies, and the
                      flight recorder (trace_cap=64)
+  all_planes_flagship_runtime  the plane flagship with every other
+                     observation plane compiled in too: the prefix
+                     sketch (32 slots at the default sketch_every=64),
+                     the series plane (16 windows of 625 ms) and the span
+                     plane, at an SLO target that some completions miss
   crashrich_wal_kv_runtime  bench.py `_make_crashrich_runtime("wal_kv")`:
                      WAL-KV with an unsynced WAL under six kill/restart
                      pairs of its server, whose lanes really crash
@@ -96,6 +101,27 @@ def plane_flagship_runtime(device=None, n_nodes: int = 5,
     too)."""
     return flagship_runtime(device, n_nodes=n_nodes, trace_cap=trace_cap,
                             **plane_config())
+
+
+# the all-planes flagship's extra planes: 32 sketch slots witness 2048
+# steps at sketch_every=64, 16 windows of 625 ms cover the 9.9 simulated
+# s of a 2048-step run, and the SLO target sits inside the e2e
+# distribution (PERF.md gives the share of completions it misses)
+ALL_PLANES_SLO = 5_000_000
+
+
+def all_planes_config() -> dict:
+    return dict(plane_config(), sketch_slots=32, series_windows=16,
+                window_len=ms(625), span_attr=True,
+                slo_target=ALL_PLANES_SLO)
+
+
+def all_planes_flagship_runtime(device=None, n_nodes: int = 5,
+                                trace_cap: int = 64):
+    """The plane flagship with the sketch, series and span planes on
+    every lane too (the ring's tr_qw column with them)."""
+    return flagship_runtime(device, n_nodes=n_nodes, trace_cap=trace_cap,
+                            **all_planes_config())
 
 
 def crashrich_wal_kv_runtime(device=None, trace_cap: int = 0):

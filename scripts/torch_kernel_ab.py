@@ -12,6 +12,14 @@ host falls on both sides. A measurement holds:
   sched_pick_ms   the event select as a CUDA-graph replay (50 launches) on
                   the operands of step 512 of bench.py's flagship at
                   B=100,000 (eager runner, recorder off)
+  emit_write_ms   the emission write (in place) on the operands of the
+                  same step 512: a CUDA graph of 20 restore-then-write
+                  calls less one of the 20 restores alone (chip_smoke's
+                  way), the least of two
+  emit_write_traced_ms
+                  the same on the operands of step 512 of the traced
+                  flagship (trace_cap=64, through run_fused): the write
+                  with its ring epilogue, chip_smoke's plane-off K5 row
   apply_knobs_ms  the knob write as a CUDA-graph replay (20 launches) of
                   the flagship plan's base knobs into a fresh init batch
                   of B=100,000 lanes
@@ -188,6 +196,24 @@ def step_calls(rt, state):
             supers[0])
 
 
+def emit_ms(args):
+    """Device ms of one emit_write call on `args` (it writes its tables
+    in place: each call restores them first, and the restores alone are
+    subtracted)."""
+    from madsim_tpu_torch.ops.emit_write import emit_write
+    live = clone(args)
+    pairs = [(live[0][k], args[0][k]) for k in args[0]]
+    if args[3] is not None:
+        pairs += [(live[3]["cols"][k], args[3]["cols"][k])
+                  for k in args[3]["cols"]]
+
+    def restore():
+        for dst, src in pairs:
+            dst.copy_(src)
+    return min(graph_ms(lambda: (restore(), emit_write(*live)), 20)
+               - graph_ms(restore, 20) for _ in range(2))
+
+
 def super_ms(args):
     """{operands: ms} of the tree's supervisor op at `args` (the step's
     call) with no op lane, as it is, and with every lane a RESTART: each
@@ -300,6 +326,8 @@ def measure(tree: str, operands: str) -> dict:
     s, _ = rt.run(rt.init_batch(seeds), 512, chunk=512)
     scatter, raft_args, gather, key_calls, draw_calls, super_args = \
         step_calls(rt, s)
+    import madsim_tpu_torch.core.step as step_mod
+    ew = emit_ms(smoke().step_operands(rt, s, step_mod, "emit_write"))
     pr = min(graph_ms(lambda: put_rows_(scatter), 50) for _ in range(2))
     gw, _, gargs, _ = gather
     ng = min(graph_ms(lambda: gw.run(*gargs), 50) for _ in range(2))
@@ -347,6 +375,7 @@ def measure(tree: str, operands: str) -> dict:
 
     rt = workloads.flagship_runtime(device=dev, trace_cap=64)
     s = rt.run_fused(rt.init_batch(seeds), 512, chunk=512)
+    ew_tr = emit_ms(smoke().step_operands(rt, s, step_mod, "emit_write"))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     s = rt.run_fused(s, 1536, chunk=512)
@@ -359,7 +388,9 @@ def measure(tree: str, operands: str) -> dict:
     margs = to_device(torch.load(operands), dev)
     mut = min(graph_ms(lambda: mutate_mod.mutate_batch(*margs), 20)
               for _ in range(2))
-    return dict(sched_pick_ms=sp, apply_knobs_ms=ak, put_rows_ms=pr,
+    return dict(sched_pick_ms=sp, emit_write_ms=ew,
+                emit_write_traced_ms=ew_tr, apply_knobs_ms=ak,
+                put_rows_ms=pr,
                 node_gather_ms=ng, k1_keys_ms=k1, k1_key_launches=k1_names,
                 k1_ms=k1_all, k1_launches=k1_all_names,
                 apply_super_ms=asup,

@@ -77,3 +77,32 @@ def first_difference(ref: dict, got: dict, keys=None):
 def assert_same(ref: dict, got: dict, keys=None, what: str = ""):
     msg = first_difference(ref, got, keys)
     assert msg is None, f"{what}: {msg}" if what else msg
+
+
+def equal_results(a, b, where=""):
+    """Deep equality of two readers' results (dicts, lists, numpy arrays,
+    scalars), type for type: a report equal to the JAX package's."""
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and sorted(a) == sorted(b), \
+            (where, sorted(a), sorted(b))
+        for k in a:
+            equal_results(a[k], b[k], f"{where}.{k}")
+    elif isinstance(a, (list, tuple)):
+        assert isinstance(b, (list, tuple)) and len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            equal_results(x, y, f"{where}[{i}]")
+    elif isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape, \
+            (where, a.dtype, b.dtype, a.shape, b.shape)
+        np.testing.assert_array_equal(a, b, err_msg=where)
+    else:
+        assert type(a) is type(b) and a == b, (where, a, b)
+
+
+def jax_state_like(like, leaves: dict):
+    """A JAX SimState with `like`'s structure and the given {keystr path:
+    numpy} leaves (a port state's `interop.state_to_numpy`)."""
+    paths, treedef = jtu.tree_flatten_with_path(like)
+    return jtu.tree_unflatten(treedef, [jax.numpy.asarray(
+        leaves[jtu.keystr(p)]) for p, _ in paths])

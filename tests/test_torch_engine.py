@@ -623,14 +623,41 @@ def test_runtime_runs_on_cuda_unless_cpu_is_asked_for():
 @pytest.mark.parametrize("field,value", [
     ("sketch_slots", 2), ("series_windows", 2), ("span_attr", True)])
 def test_unported_planes_are_refused(field, value):
+    """The sketch, series and span planes were refused before they were
+    ported; now a config with each builds and runs, its plane leaves have
+    the JAX package's shapes and fill, and every other leaf equals the
+    plane-off run's."""
+    import madsim_tpu as J
     import madsim_tpu_torch as P
+    from madsim_tpu_torch import interop
+    from madsim_tpu_torch.core.state import TRACE_FIELDS
     from madsim_tpu_torch.models import pingpong as tpp
     # the span plane needs the latency plane and completion kinds with it
-    needs = (dict(latency_hist=4, complete_kinds=((P.EV_MSG, 1),))
-             if field == "span_attr" else {})
-    cfg = P.SimConfig(n_nodes=2, **{field: value}, **needs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.Runtime(cfg, [tpp.PingPong(2)], tpp.state_spec(), device="cpu")
+    needs = (dict(latency_hist=4, complete_kinds=((P.EV_MSG, 1),),
+                  slo_target=1) if field == "span_attr" else {})
+    cfg = P.SimConfig(n_nodes=2, sketch_every=4, window_len=P.ms(5),
+                      **{field: value}, **needs)
+    rt = P.Runtime(cfg, [tpp.PingPong(2)], tpp.state_spec(), device="cpu")
+    jcfg = J.SimConfig(n_nodes=2, sketch_every=4, window_len=J.ms(5),
+                       **{field: value}, **needs)
+    from madsim_tpu.core.state import init_state as jinit
+    jstate = jinit(jcfg, jnp.zeros(2, jnp.uint32), {})
+    jshapes = {k: np.asarray(getattr(jstate, k)).shape
+               for k in ("cov_sketch", "sr_dispatch", "sr_lat", "sr_fault",
+                         "ev_span", "sa_tail", "sa_bottleneck", "tr_qw")}
+    s = rt.init_batch([1, 2])
+    assert {k: tuple(getattr(s, k).shape[1:]) for k in jshapes} == jshapes
+    s, _ = rt.run(s, 48, 16)
+    leaf = dict(sketch_slots="cov_sketch", series_windows="sr_dispatch",
+                span_attr="sa_tail")[field]
+    assert getattr(s, leaf).ne(0).any(), leaf
+    off = P.Runtime(P.SimConfig(n_nodes=2, **needs), [tpp.PingPong(2)],
+                    tpp.state_spec(), device="cpu")
+    o, _ = off.run(off.init_batch([1, 2]), 48, 16)
+    a, b = interop.state_to_numpy(o), interop.state_to_numpy(s)
+    for k in a:
+        if k[1:].split("[")[0] not in TRACE_FIELDS:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 @pytest.mark.parametrize("field,value", [

@@ -230,6 +230,12 @@ def test_profiler_outputs_are_not_empty(profiler):
 
 
 def test_reports_of_compiled_out_planes_and_unported_branches():
+    """The reports of planes compiled out read None; a state carrying the
+    series or the span plane (once refused here, before those planes were
+    ported) gets the JAX package's series tracks and attribution report."""
+    from _torch_parity import jax_state_like
+    from madsim_tpu.obs import profiler as jprofiler
+    from madsim_tpu_torch import interop
     from madsim_tpu_torch.obs import profiler
     rt = workloads.pingpong_runtime(device="cpu", trace_cap=8)
     s, _ = rt.run(rt.init_batch([1, 2]), 32, 32)
@@ -239,9 +245,38 @@ def test_reports_of_compiled_out_planes_and_unported_branches():
     assert profiler.format_profile(None).startswith("profiler compiled out")
     assert not [e for e in profiler.counter_track_events(s, 0)
                 if e["name"].startswith(("queue_depth", "e2e_p99"))]
-    series = s.replace(sr_qhw=s.sr_qhw.new_zeros((2, 4)))
-    with pytest.raises(NotImplementedError, match="P11.5"):
-        profiler.counter_track_events(series, 0)
-    spans = s.replace(sa_tail=s.sa_tail.new_zeros((2, 4, 4)))
-    with pytest.raises(NotImplementedError, match="P11.6"):
-        profiler.attribution_summary(spans)
+    fault = s.sr_fault.new_zeros((2, 4))
+    fault[:, 1] = 4
+    series = s.replace(sr_qhw=s.sr_qhw.new_full((2, 4), 3),
+                       sr_dispatch=s.sr_dispatch.new_ones((2, 4, 3)),
+                       sr_busy=s.sr_busy.new_full((2, 4, 3), 7),
+                       sr_drop=s.sr_drop.new_zeros((2, 4)),
+                       sr_dup=s.sr_dup.new_zeros((2, 4)),
+                       sr_complete=s.sr_complete.new_zeros((2, 4)),
+                       sr_slo_miss=s.sr_slo_miss.new_zeros((2, 4)),
+                       sr_fault=fault,
+                       sr_on=s.sr_on.new_ones((2,)))
+    spans = s.replace(sa_tail=s.sa_tail.new_ones((2, 3, 4)),
+                      sa_bottleneck=s.sa_bottleneck.new_ones((2, 3)),
+                      sp_on=s.sp_on.new_ones((2,)))
+    with reference_stream():
+        want_tracks = jprofiler.counter_track_events(
+            jax_state_like(_jax_zeros(series),
+                           interop.state_to_numpy(series)), 0)
+        want_att = jprofiler.attribution_summary(
+            jax_state_like(_jax_zeros(spans), interop.state_to_numpy(spans)))
+    got_tracks = profiler.counter_track_events(series, 0)
+    assert {e["name"] for e in got_tracks} >= {"queue_depth", "fault"}
+    _equal(want_tracks, got_tracks, "series tracks")
+    _equal(want_att, profiler.attribution_summary(spans), "attribution")
+
+
+def _jax_zeros(state):
+    """A JAX SimState of the port state's structure and leaf shapes (a
+    template for `jax_state_like`)."""
+    import jax.numpy as jnp
+    from madsim_tpu.core.state import SimState as JState
+    from madsim_tpu_torch.core.state import SimState, tree_map
+    return JState(**{f: tree_map(lambda t: jnp.zeros(tuple(t.shape)),
+                                 getattr(state, f))
+                     for f in SimState.field_names()})

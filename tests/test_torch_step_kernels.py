@@ -768,20 +768,25 @@ def test_wrapper_takes_the_plain_version_on_the_cpu_and_refuses_meta(name):
 
 
 @pytest.mark.parametrize("build,sections", [
-    ("flagship", tuple(k for k in chip_smoke.SECTIONS if k != "obs")),
+    ("flagship", tuple(k for k in chip_smoke.SECTIONS
+                       if k not in ("obs", "spans"))),
     ("pingpong", tuple(k for k in chip_smoke.SECTIONS
-                       if k not in ("invariant", "obs"))),
-    ("plane_flagship", chip_smoke.SECTIONS)])
+                       if k not in ("invariant", "obs", "spans"))),
+    ("plane_flagship", tuple(k for k in chip_smoke.SECTIONS
+                             if k != "spans")),
+    ("all_planes_flagship", chip_smoke.SECTIONS)])
 def test_every_section_of_the_step_is_a_profiler_range(build, sections):
     """One step under torch.profiler opens the `live_step.<section>`
     ranges chip_smoke splits the device time by (pingpong has no
-    invariant; only a step with the profiler or the latency plane has the
-    obs section), and their host ops hold the step's ops."""
+    invariant; only a step with an observation plane has the obs
+    section, and only one with the span plane the spans section), and
+    their host ops hold the step's ops."""
     from torch.profiler import ProfilerActivity, profile
     rt = dict(flagship=workloads.flagship_runtime,
               pingpong=workloads.pingpong_runtime,
-              plane_flagship=workloads.plane_flagship_runtime)[build](
-                  device="cpu")
+              plane_flagship=workloads.plane_flagship_runtime,
+              all_planes_flagship=workloads.all_planes_flagship_runtime)[
+                  build](device="cpu")
     s = rt.init_batch(np.arange(4))
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         rt._step(s)
