@@ -138,6 +138,41 @@ the frozen golden digests. One JSON object per line, in phases:
                lane crashes, and so that none or some do), B=4096:
                run_fused equal to run, the expected CRASH_RECOVERY
                lanes, lanes 0..7 equal to a CPU run
+  timetravel_flagship  the flagship at B=100,000 through
+               run_fused(2048 steps, ckpt_every=1024): the plane-off
+               fingerprints (a harvest never perturbs), snapshots at
+               steps 0 and 1024 with each harvest's host seconds and
+               bytes; lane 4099's checkpoint at 1024 through
+               seed_batch_from(ck, 100,000) (one lane_take of 100,000
+               repeats, equal to its plain version, every leaf owning
+               its memory) and run_fused for the last 1024 steps: every
+               lane ends on lane 4099's parent fingerprint, and the
+               fork's lane 0 checkpointed on the card equals the
+               parent's; at B=4096 run(ckpt_every=512) and
+               run_fused(ckpt_every=512) harvest equal snapshots
+  timetravel_explain  the crash-rich wal_kv with a 4-slot ring (24
+               seeds, run(ckpt_every=32)): explain_crash(replay=True)
+               of its first wrap-truncated crash returns a whole chain,
+               divergence_report on a knob pair and a nudge pair with
+               their pair traces, a LaneCheckpoint saved and loaded,
+               each equal to a CPU run of the same seeds (in a process
+               of its own, `chip_smoke.py --tt-cpu OUT`, started after
+               the build), the traces byte for byte
+  echo         BASELINE.md config 3 (workloads.echo_config3_runtime) at
+               50,000 seeds, 20,000 steps at most, through run_fused and
+               run: every leaf equal, lanes 0, 1, 25,000 and 49,999
+               equal to the CPU child's, no crash, every client acked 10,
+               each step kernel its count a step; the graph runner's
+               seed-events/s, steps to halt, device ms a step, and the
+               eager step's handlers section
+  tpc_gossip   two_phase_commit under loss and two coordinator
+               kill/restarts, its early_decide_quorum=2 bug variant, and
+               gossip through a partition and heal, each at B=16,384
+               through run_fused and run, leaf for leaf, four lanes equal
+               to the CPU child's, the bug variant's crash verdicts on
+               its first 512 lanes equal to the CPU's; each graph step's
+               device ms and the eager step's handlers and invariant
+               sections
   kernel       each kernel against its plain version, exactly equal
                (the kernel's time is device time: launches captured in a
                CUDA graph and replayed between events):
@@ -307,7 +342,10 @@ the frozen golden digests. One JSON object per line, in phases:
   handler_split  the handlers section's ranges (the slice, each program's
                init / on_message / on_timer, the merge), kernels and
                plain K1/K4 paths, outside the 2% sum
-  kernels      one line naming every kernel with its numbers
+  kernels      one line naming every kernel with its numbers (K14
+               lane_take also as lane_take_fork, the 100,000-repeat
+               take of seed_batch_from, and lane_take_lane, the one-lane
+               take of checkpoint_lane)
 
 Each main path runs with every kernel's launch count set to 0 just before
 and read just after; a kernel of the path that was not launched once per
@@ -3036,15 +3074,10 @@ def detsan_phase(wrappers, dev, compact_launch):
 def minimize_phase(wrappers, dev, cpu_job, cpu_path):
     """The minimize phase: the card's half here, the CPU's from the
     process `cpu_job`, which wrote `cpu_path`."""
-    import pickle
     zero_counts(wrappers)
     card = minimize_on(dev)
     counts = counts_of(wrappers)
-    log, _ = cpu_job.communicate(timeout=900)
-    check(cpu_job.returncode == 0,
-          f"minimize: the CPU half failed:\n{log[-4000:]}")
-    with open(cpu_path, "rb") as f:
-        cpu = pickle.load(f)
+    cpu = wait_child(cpu_job, cpu_path, "minimize")
     fz_card, fz_cpu = card["fuzz"], cpu["fuzz"]
     mins = fz_card.get("minimized", {})
     emit(phase="minimize", seed=0, max_steps=MIN_STEPS, chunk=MIN_CHUNK,
@@ -3222,7 +3255,6 @@ def planes_phase(wrappers, dev, names, every, flag_fp, prof_off, cpu_job,
     dispatch counted once); a graph profile of the plane-on step beside
     the plane-off one (`prof_off`). `counts` is (reset, read) of the
     launch counters. Returns what the kernel phase needs."""
-    import pickle
     import numpy as np
     import torch
     import madsim_tpu_torch.core.step as step_mod
@@ -3278,10 +3310,7 @@ def planes_phase(wrappers, dev, names, every, flag_fp, prof_off, cpu_job,
     fps = fingerprints_once(rt, s, "planes")
     same_fp = bool((fps == flag_fp).all())
     # the CPU run of a few lanes
-    log, _ = cpu_job.communicate(timeout=900)
-    check(cpu_job.returncode == 0, f"planes: the CPU run failed:\n{log}")
-    with open(cpu_path, "rb") as f:
-        cpu_all = pickle.load(f)
+    cpu_all = wait_child(cpu_job, cpu_path, "planes")
     cpu = cpu_all["planes"]
     cpu_diff = [k for k in half if not (half[k].shape == cpu[k].shape
                                         and (half[k] == cpu[k]).all())]
@@ -4125,6 +4154,565 @@ def planes_all_kernel_phase(wrappers, dev, pa):
     return dict(obs_fold=fold, plane_sums=sums, lane_burst=burst)
 
 
+# ---- time travel and the first net-layer models ----------------------------
+TT_EVERY = 1024              # timetravel_flagship: a harvest every 1024
+FORK_LANE = 4099             # the lane the prefix fork clones
+TT_SMALL_B, TT_SMALL_EVERY = 4096, 512   # run against run_fused harvests
+TT_SEEDS = 24                # timetravel_explain: the JAX test's 24 seeds
+TT_STEPS, TT_CHUNK, TT_CKPT = 30_000, 16, 32
+TT_KNOB_SHIFT = 20_000       # ticks the knob pair's lane B moves its rows
+TT_NUDGE = 12345
+ECHO_B, ECHO_STEPS, ECHO_CHUNK = 50_000, 20_000, 512
+ECHO_LANES = (0, 1, 25_000, 49_999)
+MODEL_B, MODEL_CHUNK = 16_384, 512
+MODEL_LANES = (0, 1, 8_191, 16_383)
+BUG_CPU_LANES = 512          # lanes of the 2PC bug variant the CPU runs
+
+
+def tpc_runtime(device, bug=False):
+    """The JAX package's tests/test_two_phase_commit.py:40 (10% loss, two
+    coordinator kill/restarts, 30 s) or, with `bug`, :55
+    (early_decide_quorum=2, p_yes 0.6, 15% loss, 30 s)."""
+    from madsim_tpu_torch import NetConfig, Scenario, SimConfig, ms, sec
+    from madsim_tpu_torch.models.two_phase_commit import make_tpc_runtime
+    cfg = SimConfig(n_nodes=5, event_capacity=128, time_limit=sec(30),
+                    net=NetConfig(packet_loss_rate=0.15 if bug else 0.1,
+                                  send_latency_min=ms(1),
+                                  send_latency_max=ms(10)))
+    if bug:
+        return make_tpc_runtime(5, 6, early_decide_quorum=2, p_yes=0.6,
+                                cfg=cfg, device=device)
+    sc = Scenario()
+    sc.at(ms(100)).kill(0)
+    sc.at(ms(600)).restart(0)
+    sc.at(ms(900)).kill(0)
+    sc.at(ms(1400)).restart(0)
+    return make_tpc_runtime(5, 6, scenario=sc, cfg=cfg, device=device)
+
+
+def gossip_runtime(device):
+    """The JAX package's tests/test_gossip.py:27: 8 nodes, 20% loss, the
+    origin cut off at t=0 and healed at 2 s."""
+    from madsim_tpu_torch import NetConfig, Scenario, SimConfig, ms, sec
+    from madsim_tpu_torch.models.gossip import make_gossip_runtime
+    cfg = SimConfig(n_nodes=8, event_capacity=192, time_limit=sec(20),
+                    net=NetConfig(packet_loss_rate=0.2))
+    sc = Scenario()
+    sc.at(ms(0)).partition([0])
+    sc.at(sec(2)).heal()
+    return make_gossip_runtime(n_nodes=8, n_rumors=4, scenario=sc, cfg=cfg,
+                               device=device)
+
+
+# name: (runtime maker, max_steps), the tpc_gossip phase's three runtimes
+MODEL_CASES = {
+    "tpc_coordinator_crash": (lambda d: tpc_runtime(d), 60_000),
+    "tpc_early_decide_bug": (lambda d: tpc_runtime(d, bug=True), 60_000),
+    "gossip_partition_heal": (gossip_runtime, 40_000),
+}
+
+
+def knob_pair(rt):
+    """The divergence microscope's knob vector: every scenario row of the
+    base plan TT_KNOB_SHIFT ticks later."""
+    from madsim_tpu_torch.search.mutate import KnobPlan
+    kb = KnobPlan.from_runtime(rt).base_knobs()
+    return dict(kb, row_time=kb["row_time"] + TT_KNOB_SHIFT)
+
+
+def tt_explain_on(device, tmp) -> dict:
+    """The timetravel_explain phase's work on one device: the crash-rich
+    wal_kv with a 4-slot ring (the JAX package's tests/test_timetravel.py
+    specimen) over TT_SEEDS seeds through run(ckpt_every=TT_CKPT), then
+    explain_crash(replay=True) of its first wrap-truncated crash with the
+    window trace, divergence_report on a knob pair and a nudge pair with
+    their pair traces, and that lane's checkpoint saved and loaded. Times
+    under `seconds`; every other entry is compared across devices."""
+    import numpy as np
+    import torch
+    from madsim_tpu_torch import (CheckpointLog, LaneCheckpoint, interop,
+                                  workloads)
+    from madsim_tpu_torch.obs import divergence_report, explain_crash
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    secs = {}
+    rt = workloads.crashrich_wal_kv_runtime(device=device, trace_cap=4)
+    log = CheckpointLog()
+    t0 = time.perf_counter()
+    s, _ = rt.run(rt.init_batch(np.arange(TT_SEEDS, dtype=np.uint32)),
+                  TT_STEPS, TT_CHUNK, ckpt_every=TT_CKPT, ckpt_log=log)
+    sync()
+    secs["run"] = time.perf_counter() - t0
+    steps = s.steps.cpu().numpy()
+    lane = live = None
+    for b in np.nonzero(s.crashed.cpu().numpy())[0]:
+        exp = explain_crash(s, int(b))
+        if exp["truncated"] and steps[b] > 40:
+            lane, live = int(b), exp
+            break
+    out = dict(lane=lane, live=live, snapshots=len(log),
+               fingerprints=rt.fingerprints(s),
+               lane_steps=log.lane_steps(lane) if lane is not None else None)
+    if lane is None:
+        return dict(out, seconds=secs)
+    path = os.path.join(tmp, f"window_{device}.json")
+    t0 = time.perf_counter()
+    full = explain_crash(s, lane, replay=True, rt=rt, ckpts=log,
+                         chunk=TT_CHUNK, export_trace=path)
+    sync()
+    secs["explain_replay"] = time.perf_counter() - t0
+    full.pop("trace_path")
+    with open(path, "rb") as f:
+        out["window_trace"] = f.read()
+    out["full"] = full
+    again = explain_crash(s, lane, replay=True, rt=rt, ckpts=log,
+                          chunk=TT_CHUNK)
+    out["again_equal"] = again["chain"] == full["chain"]
+    for shape, args in (("knobs", dict(knobs_b=knob_pair(rt))),
+                        ("nudge", dict(nudge_b=TT_NUDGE))):
+        p = os.path.join(tmp, f"pair_{shape}_{device}.json")
+        t0 = time.perf_counter()
+        r = divergence_report(rt, 3, max_steps=2048, chunk=64,
+                              export_trace=p, **args)
+        sync()
+        secs[f"divergence_{shape}"] = time.perf_counter() - t0
+        r.pop("trace_path")
+        with open(p, "rb") as f:
+            out[f"divergence_{shape}"] = (r, f.read())
+    ck = log.nearest(lane)
+    p = os.path.join(tmp, f"lane_{device}.npz")
+    ck.save(p)
+    back = LaneCheckpoint.load(p, rt)
+    out["ckpt"] = (ck.steps, back.steps, back.signature,
+                   interop.state_to_numpy(back.state),
+                   interop.state_to_numpy(ck.state))
+    return dict(out, seconds=secs)
+
+
+def models_cpu_lanes() -> dict:
+    """The CPU halves of the echo and tpc_gossip phases: config 3's
+    ECHO_LANES seeds, each model case's MODEL_LANES seeds, and the 2PC
+    bug variant's first BUG_CPU_LANES seeds (its crash verdicts)."""
+    import numpy as np
+    from madsim_tpu_torch import interop, workloads
+    out = {}
+    rt = workloads.echo_config3_runtime(device="cpu")
+    s, _ = rt.run(rt.init_batch(np.asarray(ECHO_LANES, np.uint32)),
+                  ECHO_STEPS, ECHO_CHUNK)
+    out["echo"] = interop.state_to_numpy(s)
+    for name, (build, max_steps) in MODEL_CASES.items():
+        rt = build("cpu")
+        s, _ = rt.run(rt.init_batch(np.asarray(MODEL_LANES, np.uint32)),
+                      max_steps, MODEL_CHUNK)
+        out[name] = interop.state_to_numpy(s)
+    rt = MODEL_CASES["tpc_early_decide_bug"][0]("cpu")
+    s, _ = rt.run(rt.init_batch(np.arange(BUG_CPU_LANES, dtype=np.uint32)),
+                  MODEL_CASES["tpc_early_decide_bug"][1], MODEL_CHUNK)
+    out["bug_verdicts"] = (s.crashed.numpy(), s.crash_code.numpy())
+    return out
+
+
+def tt_cpu_main(out_path) -> int:
+    """`chip_smoke.py --tt-cpu OUT`: the CPU halves of the
+    timetravel_explain, echo and tpc_gossip phases, run beside the card's
+    phases (it touches no card); pickled to OUT for the main process."""
+    import pickle
+    import tempfile
+    import torch
+    torch.set_num_threads(1)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tt_") as tmp:
+        out = dict(explain=tt_explain_on("cpu", tmp))
+    out.update(models=models_cpu_lanes())
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def wait_child(job, path, what):
+    """The pickled result of a CPU child (`job` writing `path`)."""
+    import pickle
+    log, _ = job.communicate(timeout=900)
+    check(job.returncode == 0,
+          f"{what}: the CPU child failed ({job.returncode}):\n"
+          f"{log[-4000:]}")
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def numpy_lanes(state, lanes) -> dict:
+    from madsim_tpu_torch import interop
+    return interop.state_to_numpy(state_lanes(state, lanes))
+
+
+def numpy_equal(a: dict, b: dict) -> list:
+    """The leaves of two {path: array} dicts that differ (dtype, shape or
+    value)."""
+    import numpy as np
+    return [k for k in a if k not in b or a[k].dtype != b[k].dtype
+            or a[k].shape != b[k].shape or not np.array_equal(a[k], b[k])]
+
+
+def one_lane_bytes(state) -> int:
+    B = state.now.shape[0]
+    return sum(t.numel() // B * t.element_size() for t in lane_leaves(state))
+
+
+def timetravel_flagship_phase(wrappers, dev, names, every, flag_fp, counts):
+    """The flagship at B=100,000 through run_fused(FLAG_STEPS,
+    ckpt_every=TT_EVERY): the plane-off fingerprints, two snapshots (steps
+    0 and 1024) with each harvest's host seconds and bytes; FORK_LANE's
+    checkpoint at 1024 through seed_batch_from(ck, B) (one lane_take, held
+    to its plain version on the same operands) and run_fused for the
+    last 1024 steps: every lane on FORK_LANE's parent fingerprint, and
+    its lane checkpoint at 2048 (checkpoint_lane on the card) equal to
+    the parent's; and at B=4096 run(ckpt_every=512) and
+    run_fused(ckpt_every=512) harvesting equal snapshots. Returns the
+    K14 rows for the kernels line."""
+    import numpy as np
+    import torch
+    from madsim_tpu_torch import (checkpoint_lane, seed_batch_from,
+                                  workloads)
+    from madsim_tpu_torch.core.state import map_state, packed_copy
+    from madsim_tpu_torch.obs.timetravel import CheckpointLog
+    from madsim_tpu_torch.ops.lane_rows import lane_take_plain
+    reset_counts, read_counts = counts
+    take = wrappers["lane_take"]
+
+    class TimedLog(CheckpointLog):
+        """A CheckpointLog that times each harvest (the device work
+        before it finished first) and counts its bytes."""
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.seconds, self.nbytes = [], []
+
+        def harvest(self, state, steps_done=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super().harvest(state, steps_done)
+            self.seconds.append(time.perf_counter() - t0)
+            self.nbytes.append(sum(t.numel() * t.element_size()
+                                   for t in lane_leaves(state)))
+
+    rt = workloads.flagship_runtime(device=dev)
+    s0 = rt.init_batch(np.arange(FLAG_B, dtype=np.uint32))
+    per = step_launches(wrappers, rt, s0)
+    log = TimedLog()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = rt.run_fused(s0, FLAG_STEPS, chunk=FLAG_CHUNK, ckpt_every=TT_EVERY,
+                       ckpt_log=log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_launches(rt, read_counts(), every)
+    steps = rt.steps_run + rt.fused_stats["warmup_steps"]
+    check(rt.steps_run == FLAG_STEPS,
+          f"timetravel_flagship: {rt.steps_run} steps")
+    check_once_per_step("timetravel_flagship", launches, steps, names, per)
+    fp = rt.fingerprints(out)
+    same_fp = bool((fp == flag_fp).all())
+    done = [sn["steps_done"] for sn in log.snaps]
+    check(same_fp, "timetravel_flagship: the harvested run's fingerprints "
+          "differ from the plane-off flagship's")
+    check(done == [0, TT_EVERY], f"timetravel_flagship: snapshots at {done}")
+    ck = log.nearest(FORK_LANE)
+    check(ck is not None and ck.steps == TT_EVERY,
+          f"timetravel_flagship: lane {FORK_LANE}'s checkpoint is at step "
+          f"{None if ck is None else ck.steps}")
+    # the fork: one lane_take of B repeats of the checkpointed lane
+    del s0
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    child = seed_batch_from(ck, FLAG_B, rt=rt)
+    torch.cuda.synchronize()
+    fork_s = time.perf_counter() - t0
+    fork_launch = read_counts()["lane_take"]
+    check(fork_launch == 1, f"timetravel_flagship: seed_batch_from launched "
+          f"lane_take {fork_launch} times")
+    one = map_state(lambda t: t.unsqueeze(0), packed_copy(ck.state, dev))
+    ix0 = np.zeros(FLAG_B, np.int64)
+    ix0_t = torch.as_tensor(ix0, device=dev)
+    plain = lane_take_plain(one, ix0_t)
+    err = check_equal("lane_take fork", lane_leaves(child),
+                      lane_leaves(plain))
+    owns = all(t.stride(0) != 0 for t in lane_leaves(child) if t.numel())
+    del plain
+    check(owns, "timetravel_flagship: a forked leaf has a stride-0 lane "
+          "axis")
+    fork_bytes = FLAG_B * (one_lane_bytes(child) + 8) + one_lane_bytes(child)
+    fork_ms = [lane_rows_ms(take, one, ix0, False) for _ in range(2)]
+    fork_plain = [cuda_ms(lambda: lane_take_plain(one, ix0_t), 3)
+                  for _ in range(2)]
+    reset_counts()
+    t0 = time.perf_counter()
+    child = rt.run_fused(child, FLAG_STEPS - TT_EVERY, chunk=FLAG_CHUNK)
+    torch.cuda.synchronize()
+    child_wall = time.perf_counter() - t0
+    child_launch = fused_launches(rt, read_counts(), every)
+    check_once_per_step("timetravel_flagship fork", child_launch,
+                        rt.steps_run + rt.fused_stats["warmup_steps"], names,
+                        per)
+    child_fp = rt.fingerprints(child)
+    on_parent = int((child_fp == flag_fp[FORK_LANE]).sum())
+    check(on_parent == FLAG_B, f"timetravel_flagship: {on_parent} of "
+          f"{FLAG_B} forked lanes end on lane {FORK_LANE}'s fingerprint")
+    # a lane checkpoint on the card: the fork's lane 0 against the parent's
+    reset_counts()
+    ck_child = checkpoint_lane(child, 0)
+    ck_parent = checkpoint_lane(out, FORK_LANE)
+    lane_launch = read_counts()["lane_take"]
+    check(lane_launch == 2, f"timetravel_flagship: checkpoint_lane launched "
+          f"lane_take {lane_launch} times for two checkpoints")
+    check(state_equal(ck_child.state, ck_parent.state),
+          "timetravel_flagship: the fork's lane 0 at step 2048 differs "
+          "from its parent lane")
+    ix1 = torch.as_tensor([FORK_LANE], device=dev)
+    err1 = check_equal("lane_take one lane",
+                       lane_leaves(map_state(lambda t: t.unsqueeze(0),
+                                             ck_parent.state)),
+                       [t.cpu() for t in lane_leaves(
+                           lane_take_plain(out, ix1))])
+    lane_bytes = lane_rows_bytes(out, 1)
+    lane_ms = [lane_rows_ms(take, out, [FORK_LANE], False)
+               for _ in range(2)]
+    lane_plain = [cuda_ms(lambda: lane_take_plain(out, ix1), 3)
+                  for _ in range(2)]
+    emit(phase="timetravel_flagship", batch=FLAG_B, steps=FLAG_STEPS,
+         ckpt_every=TT_EVERY, run_fused_wall_s=wall,
+         fingerprints_equal_plane_off=same_fp, snapshots_at=done,
+         harvest_s=log.seconds, harvest_bytes=log.nbytes,
+         harvest_gb_per_s=[b / s / 1e9 for b, s in
+                           zip(log.nbytes, log.seconds)],
+         fork_lane=FORK_LANE, fork_seed_batch_from_s=fork_s,
+         fork_lane_take_launches=fork_launch, fork_run_fused_wall_s=
+         child_wall, fork_lanes_on_parent=on_parent,
+         fork_leaves_own_memory=owns, lane_take_fork_ms=fork_ms,
+         lane_take_fork_plain_ms=fork_plain, lane_take_fork_bytes=fork_bytes,
+         lane_take_fork_bound_ms=fork_bytes / HBM_BYTES_PER_S * 1e3,
+         checkpoint_lane_launches=lane_launch, lane_take_one_ms=lane_ms,
+         lane_take_one_plain_ms=lane_plain, lane_take_one_bytes=lane_bytes,
+         launches=launches)
+    rows = {
+        "fork": dict(ms=min(fork_ms), plain_ms=min(fork_plain),
+                     bound_ms=fork_bytes / HBM_BYTES_PER_S * 1e3,
+                     bound_by="bytes", max_abs_err=err, library_ms=None,
+                     launches=fork_launch),
+        "lane": dict(ms=min(lane_ms), plain_ms=min(lane_plain),
+                     bound_ms=lane_bytes / HBM_BYTES_PER_S * 1e3,
+                     bound_by="bytes", max_abs_err=err1, library_ms=None,
+                     launches=lane_launch)}
+    del out, child, one, ck, log
+
+    # run and run_fused harvest the same snapshots
+    s0 = rt.init_batch(np.arange(TT_SMALL_B, dtype=np.uint32))
+    logs = {}
+    for runner in ("run", "run_fused"):
+        logs[runner] = CheckpointLog()
+        t0 = time.perf_counter()
+        if runner == "run":
+            end, _ = rt.run(s0, FLAG_STEPS, chunk=FLAG_CHUNK,
+                            ckpt_every=TT_SMALL_EVERY,
+                            ckpt_log=logs[runner])
+        else:
+            end = rt.run_fused(s0, FLAG_STEPS, chunk=FLAG_CHUNK,
+                               ckpt_every=TT_SMALL_EVERY,
+                               ckpt_log=logs[runner])
+        torch.cuda.synchronize()
+        logs[runner + "_s"] = time.perf_counter() - t0
+        logs[runner + "_end"] = end
+    a, b = logs["run"], logs["run_fused"]
+    done_a = [sn["steps_done"] for sn in a.snaps]
+    done_b = [sn["steps_done"] for sn in b.snaps]
+    equal = [state_equal(x["state"], y["state"])
+             for x, y in zip(a.snaps, b.snaps)]
+    ends = state_equal(logs["run_end"], logs["run_fused_end"])
+    emit(phase="timetravel_flagship", batch=TT_SMALL_B, steps=FLAG_STEPS,
+         ckpt_every=TT_SMALL_EVERY, run_snapshots_at=done_a,
+         run_fused_snapshots_at=done_b, snapshots_equal=equal,
+         final_states_equal=ends, run_s=logs["run_s"],
+         run_fused_s=logs["run_fused_s"])
+    check(done_a == done_b == list(range(0, FLAG_STEPS, TT_SMALL_EVERY)),
+          f"timetravel_flagship: snapshots at {done_a} and {done_b}")
+    check(all(equal) and ends, "timetravel_flagship: run and run_fused "
+          "harvested different snapshots")
+    return rows
+
+
+def timetravel_explain_phase(dev, tmp, cpu):
+    """explain_crash(replay=True), divergence_report on a knob pair and a
+    nudge pair and a LaneCheckpoint save/load on the crash-rich wal_kv
+    (tt_explain_on) on the card, each equal to the CPU child's, record
+    for record, and the traces byte for byte."""
+    got = tt_explain_on(dev, tmp)
+    want = cpu["explain"]
+    secs = got.pop("seconds")
+    want.pop("seconds")
+    check(got["lane"] is not None, "timetravel_explain: no wrap-truncated "
+          "crash among the seeds")
+    full = got["full"]
+    ck_steps, back_steps, sig, back, orig = got["ckpt"]
+    ckpt_ok = (ck_steps == back_steps and not numpy_equal(orig, back)
+               and not numpy_equal(want["ckpt"][3], back))
+    diff = [k for k in want if k != "ckpt" and not same_tree(got[k],
+                                                               want[k])]
+    emit(phase="timetravel_explain", seeds=TT_SEEDS, lane=got["lane"],
+         snapshots=got["snapshots"], replayed=full["replayed"],
+         truncated=full["truncated"], chain=len(full["chain"]),
+         live_chain=len(got["live"]["chain"]), from_step=full["from_step"],
+         replay_again_equal=got["again_equal"],
+         divergence_first={k: got[f"divergence_{k}"][0]["first"]
+                           for k in ("knobs", "nudge")},
+         window_trace_bytes=len(got["window_trace"]),
+         ckpt_steps=ck_steps, ckpt_roundtrip_equal=ckpt_ok,
+         differs_from_cpu=diff, seconds=secs)
+    check(full["replayed"] and not full["truncated"],
+          "timetravel_explain: the replayed chain is truncated")
+    check(got["again_equal"], "timetravel_explain: a second replay gave "
+          "another chain")
+    check(all(got[f"divergence_{k}"][0]["first"] is not None
+              for k in ("knobs", "nudge")),
+          "timetravel_explain: a pair named no first divergent dispatch")
+    check(ckpt_ok, "timetravel_explain: the lane checkpoint did not come "
+          "back equal from its file")
+    check(not diff, f"timetravel_explain: the card differs from the CPU in "
+          f"{diff}")
+
+
+def model_phase(wrappers, dev, names, every, counts, name, build, max_steps,
+                batch, chunk, lanes, cpu_lanes, profile_eager=True):
+    """One model runtime at `batch` lanes through run_fused and run: every
+    leaf equal, each step kernel launched its count a step, `lanes` equal
+    to the CPU's; the graph step's device ms and the eager step's
+    handlers and invariant sections (profile_steps). Returns (final
+    state, numbers)."""
+    import numpy as np
+    import torch
+    reset_counts, read_counts = counts
+    rt = build(dev)
+    s0 = rt.init_batch(np.arange(batch, dtype=np.uint32))
+    per = step_launches(wrappers, rt, s0)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    f = rt.run_fused(s0, max_steps, chunk=chunk)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_launches(rt, read_counts(), every)
+    steps_fused = rt.steps_run
+    on = check_once_per_step(f"{name} run_fused", launches,
+                             steps_fused + rt.fused_stats["warmup_steps"],
+                             names, per)
+    reset_counts()
+    t0 = time.perf_counter()
+    e, _ = rt.run(s0, max_steps, chunk=chunk)
+    torch.cuda.synchronize()
+    eager_wall = time.perf_counter() - t0
+    steps_eager = rt.steps_run
+    on |= check_once_per_step(f"{name} run", read_counts(), steps_eager,
+                              names, per)
+    same = state_equal(f, e)
+    check(same, f"{name}: run_fused and run differ")
+    diff = numpy_equal(cpu_lanes, numpy_lanes(f, lanes))
+    check(not diff, f"{name}: lanes {lanes} differ from the CPU's in "
+          f"{diff[:4]}")
+    expect = dict({k: 1 for k in names}, **per)
+    prof = profile_steps(lambda st, n: rt.run_fused(st, n, chunk=n), s0,
+                         batch, expect)
+    nums = dict(batch=batch, steps_run=steps_fused, wall_s=wall,
+                eager_steps_run=steps_eager, eager_wall_s=eager_wall,
+                steps_to_halt=int(f.steps.max()),
+                seed_events_per_s=batch * steps_fused / wall,
+                dispatched_events_per_s=int(f.steps.sum()) / wall,
+                k1k4_per_step=per, launches=launches,
+                run_fused_equal_run=same, cpu_lanes=list(lanes),
+                graph_device_ms_per_step=prof.get("device_busy_ms_per_step"),
+                graph_device_busy_share=prof.get("device_busy_share"),
+                graph_kernels_per_step=prof.get("device_kernels_per_step"))
+    if profile_eager:
+        pe = profile_steps(lambda st, n: rt.run(st, n, chunk=n)[0], s0,
+                           batch, expect)
+        sec = pe.get("section_ms_per_step") or {}
+        nums.update(eager_device_ms_per_step=pe.get(
+            "device_busy_ms_per_step"),
+            handlers_ms_per_step=sec.get("handlers"),
+            invariant_ms_per_step=sec.get("invariant"),
+            eager_section_ms_per_step=sec)
+    return f, nums, on
+
+
+def echo_phase(wrappers, dev, names, every, counts, cpu):
+    """BASELINE.md config 3 (workloads.echo_config3_runtime) at ECHO_B
+    seeds, ECHO_STEPS steps at most: run_fused = run, ECHO_LANES equal to
+    the CPU's, no lane crashed, every client acked 10, every lane at its
+    6 s limit; the graph runner's seed-events/s, its steps to halt and
+    its device ms a step."""
+    import numpy as np
+    from madsim_tpu_torch import sec, workloads
+    f, nums, on = model_phase(
+        wrappers, dev, names, every, counts, "echo",
+        workloads.echo_config3_runtime, ECHO_STEPS, ECHO_B, ECHO_CHUNK,
+        ECHO_LANES, cpu["models"]["echo"])
+    crashed = int(f.crashed.sum())
+    acked = f.node_state["acked"][:, 1:].cpu().numpy()
+    at_limit = bool((f.now == sec(6)).all())
+    emit(phase="echo", config="BASELINE.md config 3", crashed=crashed,
+         clients_acked_10=int((acked == 10).all(1).sum()),
+         all_at_time_limit=at_limit, **nums)
+    check(crashed == 0, f"echo: {crashed} lanes crashed")
+    check(bool((acked == 10).all()), "echo: a client did not ack 10 calls")
+    check(at_limit and bool(f.halted.all()),
+          "echo: a lane did not halt at its 6 s limit")
+    return on
+
+
+def tpc_gossip_phase(wrappers, dev, names, every, counts, cpu):
+    """MODEL_CASES at MODEL_B lanes through run_fused and run, leaf for
+    leaf, MODEL_LANES equal to the CPU's; the 2PC cases atomic, the bug
+    variant crashing with the reference's codes on the same lanes as the
+    CPU (its first BUG_CPU_LANES lanes), gossip fully disseminated."""
+    import numpy as np
+    from madsim_tpu_torch.models import two_phase_commit as tpc
+    on = set()
+    for name, (build, max_steps) in MODEL_CASES.items():
+        f, nums, on_case = model_phase(
+            wrappers, dev, names, every, counts, name, build, max_steps,
+            MODEL_B, MODEL_CHUNK, MODEL_LANES, cpu["models"][name])
+        on |= on_case
+        crashed = f.crashed.cpu().numpy()
+        codes = f.crash_code.cpu().numpy()
+        extra = {}
+        if name == "tpc_early_decide_bug":
+            want_c, want_code = cpu["models"]["bug_verdicts"]
+            n = len(want_c)
+            same = (np.array_equal(crashed[:n], want_c)
+                    and np.array_equal(codes[:n], want_code))
+            extra = dict(crashed=int(crashed.sum()),
+                         crash_codes=sorted(set(codes[crashed].tolist())),
+                         cpu_lanes_compared=n, same_verdicts_as_cpu=same)
+            check(crashed.any() and set(codes[crashed].tolist()) <= {
+                tpc.CRASH_DIVERGED, tpc.CRASH_NO_VOTE_COMMIT},
+                f"{name}: crashes {extra}")
+            check(same, f"{name}: crash verdicts differ from the CPU's on "
+                  f"lanes 0..{n - 1}")
+        elif name.startswith("tpc"):
+            dec = f.node_state["decided"][:, 1:].cpu().numpy()
+            both = ((dec == tpc.COMMIT).any(1)
+                    & (dec == tpc.ABORT).any(1)).any()
+            extra = dict(crashed=int(crashed.sum()), atomic=not both)
+            check(not crashed.any() and not both,
+                  f"{name}: {extra}")
+        else:
+            have = f.node_state["have"].cpu().numpy()
+            extra = dict(crashed=int(crashed.sum()),
+                         all_infected=bool((have == 15).all()))
+            check(not crashed.any() and bool((have == 15).all()),
+                  f"{name}: {extra}")
+        check(bool(f.halted.all()), f"{name}: a lane did not halt")
+        emit(phase="tpc_gossip", case=name, **nums, **extra)
+    return on
+
+
 def main() -> int:
     import torch
     if len(sys.argv) == 3 and sys.argv[1] == "--minimize-cpu":
@@ -4133,6 +4721,9 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--planes-cpu":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return planes_cpu_main(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--tt-cpu":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return tt_cpu_main(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -4214,8 +4805,15 @@ def main() -> int:
          cpu_planes_path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True)
 
+    # and so do the time-travel and model phases' (their CPU results)
+    cpu_tt_path = os.path.join(tmp, "tt_cpu.pkl")
+    cpu_tt = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tt-cpu",
+         cpu_tt_path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
     def stop_children():
-        for child in (cpu_min, cpu_planes):
+        for child in (cpu_min, cpu_planes, cpu_tt):
             if child.poll() is None:
                 child.kill()
                 child.wait()
@@ -4762,6 +5360,17 @@ def main() -> int:
                                prof_fused, planes_out.pop("cpu_all"),
                                (reset_counts, read_counts))
     recovery_phase(dev)
+
+    # ---- time travel and the first net-layer models -----------------------
+    tt_k = timetravel_flagship_phase(wrappers, dev, names, every, flag_fp,
+                                     (reset_counts, read_counts))
+    cpu_tt_out = wait_child(cpu_tt, cpu_tt_path, "timetravel_explain")
+    timetravel_explain_phase(dev, tmp, cpu_tt_out)
+    on_path |= echo_phase(wrappers, dev, no_raft, every,
+                          (reset_counts, read_counts), cpu_tt_out)
+    on_path |= tpc_gossip_phase(wrappers, dev, no_raft, every,
+                                (reset_counts, read_counts), cpu_tt_out)
+    del cpu_tt_out
 
     # ---- kernel: sched_pick against its plain version -----------------------
     B, C = captured[0][0].shape
@@ -5496,6 +6105,11 @@ def main() -> int:
              compact_launch["lane_put"]),
             ("lane_diff", "lane_diff.cu", "madsim_tpu/harness/simtest.py:138",
              detsan_launch["lane_diff"]))] + [
+        dict(name=k, route="cuda", source="madsim_tpu_torch/csrc/"
+             "lane_rows.cu", replaces=where, **tt_k[row])
+        for k, row, where in (
+            ("lane_take_fork", "fork", "madsim_tpu/core/state.py:849"),
+            ("lane_take_lane", "lane", "madsim_tpu/core/state.py:678"))] + [
         dict(name=k, route="cuda", source=f"madsim_tpu_torch/csrc/{src}",
              replaces=where, launches=plane_launch[k], **plane_k[k])
         for k, src, where in (

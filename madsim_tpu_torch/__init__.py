@@ -12,7 +12,8 @@ CUDA unless the caller passes device="cpu".
 
 from .core.api import Ctx, Program
 from .core.extension import Extension
-from .core.state import SimState
+from .core.state import (CheckpointMismatch, LaneCheckpoint, SimState,
+                         checkpoint_lane, seed_batch_from)
 from .core.types import (
     CRASH_DEADLOCK,
     CRASH_INVARIANT,
@@ -27,6 +28,9 @@ from .core.types import (
     sec,
 )
 from .harness.simtest import SimFailure, run_seeds, simtest
+from .obs.timetravel import (CheckpointLog, ReplayDivergence,
+                             divergence_report, full_chain_replay,
+                             replay_window)
 from .runtime.runtime import Runtime
 from .runtime.scenario import Scenario
 
@@ -35,4 +39,7 @@ __all__ = [
     "Runtime", "Scenario", "simtest", "run_seeds", "SimFailure", "ms", "sec",
     "NODE_RANDOM", "EV_MSG", "EV_TIMER", "EV_SUPER", "CRASH_DEADLOCK",
     "CRASH_TIME_LIMIT", "CRASH_INVARIANT",
+    "LaneCheckpoint", "CheckpointMismatch", "checkpoint_lane",
+    "seed_batch_from", "CheckpointLog", "replay_window",
+    "full_chain_replay", "divergence_report", "ReplayDivergence",
 ]

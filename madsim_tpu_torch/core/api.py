@@ -210,6 +210,10 @@ class Program:
     every method operates on whole [B] batches of lanes with torch ops,
     no data-dependent Python control flow."""
 
+    def validate(self, cfg: T.SimConfig) -> None:
+        """Called once when a step is built over this program: raise if
+        the program needs something the port does not run yet."""
+
     def init(self, ctx: Ctx) -> None:
         """Node boot / restart: set initial state, arm initial timers."""
 

@@ -162,6 +162,8 @@ def make_step(cfg: T.SimConfig, programs: Sequence[Program],
     node_prog = np.asarray(node_prog, np.int32)
     assert node_prog.shape == (cfg.n_nodes,)
     assert node_prog.min() >= 0 and node_prog.max() < len(programs)
+    for prog in programs:
+        prog.validate(cfg)
     node_prog_t = torch.as_tensor(node_prog, device=device)
     N, C, P = cfg.n_nodes, cfg.event_capacity, cfg.payload_words
     spec_default = tree_map(lambda a: torch.as_tensor(a, device=device),

@@ -95,7 +95,9 @@ def state_from_numpy(leaves: dict, device) -> SimState:
         a = np.asarray(arr)
         if a.dtype == np.uint32:
             a = a.view(np.int32)
-        t = torch.as_tensor(np.ascontiguousarray(a), device=device)
+        # (np.ascontiguousarray makes a 0-d array 1-d: keep the shape)
+        t = torch.as_tensor(np.ascontiguousarray(a).reshape(a.shape),
+                            device=device)
         if not keys:
             fields[field] = t
             continue

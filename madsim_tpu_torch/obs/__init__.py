@@ -16,10 +16,15 @@ lineage and the profiler and latency reports (the counterpart of
                   over the `cfg.series_windows` plane.
   * spans.py    — per-hop critical paths of requests over the
                   `cfg.span_attr` plane (`explain_latency`).
-  * timetravel.py — exact-step advance (`Runtime.state_at`).
+  * timetravel.py — lane checkpoints harvested by `run(ckpt_every=K)`
+                  (`CheckpointLog`), window replay with observability
+                  upgraded (`replay_window`, `full_chain_replay`,
+                  `explain_crash(replay=True)`), the divergence
+                  microscope (`divergence_report`) and the exact-step
+                  advance (`Runtime.state_at`).
 
-The support, dashboard, metrics and progress modules and the rest of
-time travel wait for their slices (ROADMAP P11.8, P13, P14).
+The support, dashboard, metrics and progress modules wait for their
+slices (ROADMAP P13, P14).
 """
 
 from .causal import (causal_fingerprint, code_fingerprint, explain_crash,
@@ -35,6 +40,8 @@ from .series import (fault_names, format_series, lane_series,
                      series_counter_track_events, series_summary)
 from .spans import (explain_latency, format_span, request_span,
                     request_spans)
+from .timetravel import (CheckpointLog, ReplayDivergence, divergence_report,
+                         full_chain_replay, replay_window)
 from .trace import export_chrome_trace, to_chrome_events
 
 __all__ = [
@@ -50,4 +57,6 @@ __all__ = [
     "series_summary", "format_series", "lane_series",
     "series_counter_track_events", "fault_names",
     "request_span", "request_spans", "explain_latency", "format_span",
+    "CheckpointLog", "replay_window", "full_chain_replay",
+    "divergence_report", "ReplayDivergence",
 ]

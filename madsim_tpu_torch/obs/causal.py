@@ -16,9 +16,9 @@ ring (the edge resolves) or was overwritten by wrap (the chain reports
 `truncated=True` and stops there): a chain can be trusted as far as it
 goes.
 
-Everything here is host-side numpy over a `ring_records()` read. Window
-replay (`explain_crash(replay=True)`) waits for the time-travel slice
-(ROADMAP P11.8).
+Everything here is host-side numpy over a `ring_records()` read, except
+window replay (`explain_crash(replay=True)`, obs/timetravel.py), which
+re-runs the lane from a harvested checkpoint.
 """
 
 from __future__ import annotations
@@ -127,20 +127,30 @@ def explain_crash(state, lane: int = 0, *, replay: bool = False,
       crashed / crash_code / crash_node   the lane's crash verdict
       lane, dropped   lane index and ring-wrap overwrite count
 
-    replay=True (window replay from the sweep's lane checkpoints, which
-    recovers a wrap-truncated chain whole) raises NotImplementedError:
-    it waits for the time-travel slice (ROADMAP P11.8); rt, ckpts,
-    max_steps, chunk, trace_cap and export_trace are its arguments.
+    replay=True does not settle for the truncated suffix: pass the
+    runtime (`rt=`) and the sweep's harvested `ckpts=` (an
+    obs.timetravel.CheckpointLog from `run(ckpt_every=...)`) and the
+    chain is recovered by window replay from the nearest checkpoint with
+    a ring that holds the whole window (`truncated=False` whenever a
+    checkpoint precedes the chain's root), checked against the live lane
+    on fingerprint and crash verdict; `export_trace=` writes a Perfetto
+    trace of the window. The replayed chain stays bucket-compatible with
+    the live truncated one (`fingerprints_match`).
 
     Raises (via ring_records) if the ring is compiled out or the lane
     was not sampled; raises ValueError on an empty ring or a pre-r10
     state without lineage columns.
     """
     if replay:
-        raise NotImplementedError(
-            "explain_crash(replay=True): window replay from lane "
-            "checkpoints is not ported to madsim_tpu_torch yet (ROADMAP "
-            "P11.8)")
+        if rt is None:
+            raise ValueError("explain_crash(replay=True) needs rt= (and "
+                             "usually ckpts= — a CheckpointLog harvested "
+                             "with run(ckpt_every=...))")
+        from .timetravel import time_travel_explain
+        return time_travel_explain(rt, state, lane, ckpts=ckpts,
+                                   max_steps=max_steps, chunk=chunk,
+                                   trace_cap=trace_cap,
+                                   export_trace=export_trace)
     recs = ring_records(state, lane)
     try:
         walk = walk_lineage(recs)

@@ -16,9 +16,9 @@ the ring's recorded e2e latency, the identity the device's `sa_tail`
 fold keeps too. A chain stops where the device's measurement stops: at
 an external root (parent == -1) or at a root-kind re-mint.
 
-Everything here is host-side numpy over a `ring_records()` read.
-`explain_latency(replay=True)` on a chain the ring wrapped past waits
-for window replay (ROADMAP P11.8) and raises NotImplementedError.
+Everything here is host-side numpy over a `ring_records()` read, except
+`explain_latency(replay=True)` on a chain the ring wrapped past, which
+re-runs the lane from a harvested checkpoint (obs/timetravel.py).
 """
 
 from __future__ import annotations
@@ -202,13 +202,16 @@ def explain_latency(state, lane: int = 0, *, rank: int = 0,
     `root_kinds` defaults from `rt.cfg` when a runtime is passed (the
     usual call shape), else to () — external roots only.
 
-    replay=True (window replay from the sweep's lane checkpoints, which
-    recovers a wrap-truncated chain whole) raises NotImplementedError on
-    a truncated chain: it waits for the time-travel slice (ROADMAP
-    P11.8); rt, ckpts, max_steps, chunk and trace_cap are its arguments.
-    On a whole chain replay=True has nothing to recover and the live
-    answer is returned. `export_trace=` writes the Perfetto trace (with
-    the request duration spans, obs/trace.py) of the lane.
+    replay=True on a truncated chain (pass `rt=` and the sweep's
+    harvested `ckpts=`, a CheckpointLog from `run(ckpt_every=...)`)
+    recovers the chain by window replay from the newest checkpoint
+    preceding it, with a ring sized to the whole window, checked against
+    the live lane on fingerprint and crash verdict (ReplayDivergence on a
+    mismatch): `truncated=False` whenever a checkpoint precedes the
+    chain's root. On a whole chain there is nothing to recover and the
+    live answer is returned. `export_trace=` writes the Perfetto trace
+    (with the request duration spans, obs/trace.py) of whichever state
+    the answer came from.
 
     Raises ValueError when the ring/span columns are compiled out, the
     lane recorded no completions, or `rank` is out of range.
@@ -250,10 +253,48 @@ def explain_latency(state, lane: int = 0, *, rank: int = 0,
                dropped=int(recs["dropped"]), replayed=False)
 
     if replay and span["truncated"]:
-        raise NotImplementedError(
-            "explain_latency(replay=True): window replay from lane "
-            "checkpoints is not ported to madsim_tpu_torch yet (ROADMAP "
-            "P11.8)")
+        if rt is None:
+            raise ValueError("explain_latency(replay=True) needs rt= "
+                             "(and usually ckpts= — a CheckpointLog "
+                             "harvested with run(ckpt_every=...))")
+        from .timetravel import replay_window
+        live = dict(fingerprint=int(rt.fingerprints(state)[lane]),
+                    crashed=bool(lane_scalar(state.crashed)),
+                    crash_code=int(lane_scalar(state.crash_code)),
+                    crash_node=int(lane_scalar(state.crash_node)))
+        lane_steps = int(lane_scalar(state.steps))
+        live_halted = bool(lane_scalar(state.halted))
+        until = None if live_halted else lane_steps
+        cks = (ckpts.iter_checkpoints(lane, before_step=step)
+               if ckpts is not None else ())
+        any_ckpt = False
+        best = None
+        for ckpt in cks:
+            any_ckpt = True
+            win = replay_window(
+                rt, ckpt, until_step=until, max_steps=max_steps,
+                chunk=chunk, expect=live,
+                trace_cap=(trace_cap if trace_cap is not None
+                           else max(16, lane_steps - ckpt.steps)))
+            rrecs = ring_records(win["state"], 0)
+            rspan = request_span(rrecs, step, root_kinds=root_kinds)
+            cand = {**out, **rspan, "lat_us": lat, "replayed": True,
+                    "from_step": int(ckpt.steps)}
+            if not rspan["truncated"]:
+                out = cand
+                if export_trace is not None:
+                    from .trace import export_chrome_trace
+                    export_chrome_trace(export_trace, state=win["state"],
+                                        lane=0)
+                    out["trace_path"] = export_trace
+                return out
+            if best is None or len(rspan["hops"]) > len(best["hops"]):
+                best = cand      # the root precedes this checkpoint too
+        if not any_ckpt:
+            raise ValueError(
+                f"no harvested checkpoint covers lane {lane} before "
+                f"dispatch {step} — run with ckpt_every=...")
+        out = best if best is not None else out
 
     if export_trace is not None:
         from .trace import export_chrome_trace

@@ -5,16 +5,21 @@ A checkpoint is an .npz archive with one entry `leaf_{i}` a state leaf,
 in the JAX package's flatten order (`interop.state_leaves`) and with its
 dtypes (uint32 for keys and hashes), plus a `__treedef__` entry that
 lists the leaf paths and is never read. `load` reads only the `leaf_{i}`
-entries, so a file written by either package loads in the other. The
-lane checkpoints (`LaneCheckpoint`, `checkpoint_lane`, `seed_batch_from`)
-wait for ROADMAP P11.8.
+entries, so a file written by either package loads in the other.
+
+The lane checkpoint (`core.state.checkpoint_lane` / `LaneCheckpoint`,
+re-exported here) is the other shape: one lane's state with a versioned
+header (format marker and structural signature), the unit time-travel
+replay and the prefix fork build on. `LaneCheckpoint.load` rejects this
+module's headerless batch files, so the two formats never alias.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ..core.state import SimState
+from ..core.state import (CheckpointMismatch, LaneCheckpoint,  # noqa: F401
+                          SimState, checkpoint_lane, seed_batch_from)
 from ..interop import leaf_dtype, state_from_numpy, state_leaves, \
     state_to_numpy
 

@@ -116,14 +116,6 @@ class FusedGraph:
                     "state aliases an input buffer")
             dst.copy_(t)
 
-    def run(self, state: SimState, n_steps: int):
-        """Replay from `state` for n_steps (a multiple of the block), or
-        until every lane has halted. Returns (a copy of the final state,
-        the number of replays)."""
-        self.load(state)
-        replays = self.advance(n_steps)
-        return map_state(torch.clone, self.static), replays
-
     def load(self, state: SimState) -> None:
         """Copy `state` into the static buffers (a leaf that IS its
         buffer is left as it is)."""
@@ -225,6 +217,25 @@ class Runtime:
                        invariant=self.invariant, persist=self._persist,
                        halt_when=self._halt_when,
                        extensions=self.extensions, device=self.device)
+
+    def _ckpt_setup(self, ckpt_every, ckpt_log):
+        """ckpt_every / ckpt_log of `run` and `run_fused`, normalized:
+        (ckpt_every, ckpt_log), or (None, None) when harvesting is off.
+        The log is also left in `self.last_ckpt_log`, so `run(...,
+        ckpt_every=K)` without a log still hands the harvest back."""
+        if ckpt_every is None and ckpt_log is None:
+            return None, None
+        from ..obs.timetravel import CheckpointLog
+        if ckpt_log is None:
+            ckpt_log = CheckpointLog(every=ckpt_every)
+        if ckpt_every is None:
+            ckpt_every = ckpt_log.every
+        if not ckpt_every or int(ckpt_every) <= 0:
+            raise ValueError("ckpt_every must be a positive step count "
+                             "(or pass a CheckpointLog with .every set)")
+        ckpt_log.signature = self.cfg.structural_signature()
+        self.last_ckpt_log = ckpt_log
+        return int(ckpt_every), ckpt_log
 
     # ------------------------------------------------------------------
     def _build_template(self) -> SimState:
@@ -366,7 +377,8 @@ class Runtime:
 
     # ------------------------------------------------------------------
     def run(self, state: SimState, max_steps: int, chunk: int = 512,
-            collect_events: bool = False, observer=None):
+            collect_events: bool = False, observer=None,
+            ckpt_every: int | None = None, ckpt_log=None):
         """Advance until every lane halts or ~max_steps events each
         (rounded up to whole chunks). Returns (state, events | None).
 
@@ -380,9 +392,23 @@ class Runtime:
         JAX package's records (the done record carries the latency
         plane's lat_p50 / lat_p99 / slo_miss when it is compiled in).
 
+        ckpt_every / ckpt_log: harvest the whole batch into an
+        `obs.timetravel.CheckpointLog` (an owned host copy) at the entry
+        (the zeroth checkpoint) and at the first chunk sync on or past
+        each multiple of `ckpt_every` steps; an all-halted batch and the
+        sweep's final state are end states and are never harvested. Pass
+        a log to accumulate across runs, or `ckpt_every=K` alone: the log
+        made for it is left in `self.last_ckpt_log`.
+
         The step writes its input in place, so the run steps a private
         copy of `state` (one clone per call): the caller's state is left
         as it was."""
+        ckpt_every, ckpt_log = self._ckpt_setup(ckpt_every, ckpt_log)
+        if ckpt_every is not None:
+            # the entry state is the zeroth checkpoint: some checkpoint
+            # then precedes any causal root
+            ckpt_log.harvest(state, steps_done=0)
+        next_harvest = ckpt_every
         events = [] if collect_events else None
         done = k = 0
         B = int(state.halted.shape[0])
@@ -398,6 +424,10 @@ class Runtime:
                 done += chunk
                 k += 1
                 all_halted = bool(state.halted.all())
+                if (ckpt_every is not None and done >= next_harvest
+                        and not all_halted and done < max_steps):
+                    ckpt_log.harvest(state, steps_done=done)
+                    next_harvest = done + ckpt_every
                 if observer is not None:
                     t_now = time.perf_counter()
                     observer.on_chunk(dict(
@@ -423,7 +453,7 @@ class Runtime:
         return state, events
 
     def run_fused(self, state: SimState, max_steps: int, chunk: int = 512,
-                  ckpt_every=None, ckpt_log=None) -> SimState:
+                  ckpt_every: int | None = None, ckpt_log=None) -> SimState:
         """`run()` without the per-chunk host sync: advance until every
         lane halts or ~max_steps events each (rounded up to whole
         chunks), and return the final state. Bit-equal to
@@ -440,22 +470,40 @@ class Runtime:
         launch accounting in `self.fused_stats`. On the CPU it is `run()`
         itself. Either way the caller's state is left as it was.
 
-        ckpt_every / ckpt_log (a CheckpointLog harvest at segment
-        boundaries) are not ported yet (ROADMAP P11.8); whole-batch
-        snapshots are `runtime.checkpoint.save` / `load`."""
-        if ckpt_every is not None or ckpt_log is not None:
-            raise NotImplementedError(
-                "run_fused(ckpt_every=..., ckpt_log=...): the checkpoint "
-                "log is not ported to madsim_tpu_torch yet (ROADMAP "
-                "P11.8)")
+        ckpt_every / ckpt_log: the sweep runs in segments of
+        ceil(ckpt_every / chunk) chunks, and the whole batch is harvested
+        into the CheckpointLog (an owned host copy) at the entry and
+        between segments, never after the last one or on an all-halted
+        batch: the snapshots equal `run`'s with the same arguments. On
+        CUDA every segment replays the same captured graph on its static
+        buffers; a live lane advances exactly the segment's steps (the
+        late `halted.all()` read ends a segment early only when every
+        lane has halted)."""
+        ckpt_every, ckpt_log = self._ckpt_setup(ckpt_every, ckpt_log)
         if state.now.device.type != "cuda":
-            state, _ = self.run(state, max_steps, chunk)
+            state, _ = self.run(state, max_steps, chunk,
+                                ckpt_every=ckpt_every, ckpt_log=ckpt_log)
             return state
-        total = -(-max_steps // chunk) * chunk
+        n_chunks = -(-max_steps // chunk)
         with torch.no_grad():
             block = math.gcd(chunk, FUSED_BLOCK)
             graph, warmup = self._fused_graph(state, block)
-            state, replays = graph.run(state, total)
+            # chunks a segment: the whole run without a harvest
+            seg = (n_chunks if ckpt_every is None
+                   else max(1, -(-ckpt_every // chunk)))
+            if ckpt_log is not None:
+                ckpt_log.harvest(state, steps_done=0)  # the zeroth
+            graph.load(state)
+            total = replays = 0
+            while True:
+                m = min(seg, n_chunks - total)
+                replays += graph.advance(m * chunk)
+                total += m
+                # no harvest of the final or an all-halted state
+                if total >= n_chunks or bool(graph.static.halted.all()):
+                    break
+                ckpt_log.harvest(graph.static, steps_done=total * chunk)
+            state = map_state(torch.clone, graph.static)
         self.steps_run = replays * block
         self.fused_stats = dict(block=block, replays=replays,
                                 steps=self.steps_run, warmup_steps=warmup,

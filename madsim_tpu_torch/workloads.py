@@ -33,6 +33,10 @@
                      fuzzer knob (value, direction, torn and pool rows; the
                      jitter gate on): the edge-case plan of the search
                      kernels' checks
+  echo_config3_runtime  BASELINE.md config 3 (scripts/baseline_configs.py
+                     `config3`): the tonic-style RPC echo service, one
+                     server and two clients of 10 calls each, under 10%
+                     packet loss and a server kill/restart
   build_pingpong     the frozen golden workloads of
   build_wal_kv       tests/_grayfail_golden.py, built with no JAX: pingpong
                      with the recorder (trace_cap=64), and the WAL-KV
@@ -191,6 +195,25 @@ def all_knobs_runtime(device=None):
                     net=NetConfig(send_latency_min=ms(1),
                                   send_latency_max=ms(1), op_jitter_max=40))
     return Runtime(cfg, [PingPong(4, target=6)], state_spec(), scenario=sc,
+                   device=device)
+
+
+def echo_config3_runtime(device=None):
+    """BASELINE.md config 3 as scripts/baseline_configs.py `config3`
+    builds it: 3 nodes (the server and two clients, node_prog [0, 1, 1]),
+    48 event rows, a 6 s limit, 10% packet loss, the server killed at
+    300 ms and restarted at 700 ms, 10 calls a client with a 60 ms retry
+    timeout; no halt_when (every lane runs to its time limit)."""
+    from .models.rpc_echo import EchoClient, EchoServer, server_state_spec
+    from .runtime.runtime import Runtime
+    sc = Scenario()
+    sc.at(ms(300)).kill(0)
+    sc.at(ms(700)).restart(0)
+    cfg = SimConfig(n_nodes=3, event_capacity=48, time_limit=sec(6),
+                    net=NetConfig(packet_loss_rate=0.1))
+    return Runtime(cfg, [EchoServer(), EchoClient(target=10,
+                                                  timeout=ms(60))],
+                   server_state_spec(), node_prog=[0, 1, 1], scenario=sc,
                    device=device)
 
 

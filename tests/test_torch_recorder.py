@@ -169,9 +169,18 @@ def test_run_fused_equals_run_on_the_cpu():
 
 
 def test_run_fused_refuses_checkpoints():
+    """run_fused harvests checkpoints (tests/test_torch_timetravel.py holds
+    them to the reference) and refuses a step count that is no positive
+    number, as the reference does."""
     rt = workloads.build_pingpong(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rt.run_fused(rt.init_batch([1]), 8, chunk=8, ckpt_every=4)
+    with pytest.raises(ValueError, match="positive"):
+        rt.run_fused(rt.init_batch([1]), 8, chunk=8, ckpt_every=0)
+    out = rt.run_fused(rt.init_batch([1]), 16, chunk=8, ckpt_every=4)
+    log = rt.last_ckpt_log
+    assert [s["steps_done"] for s in log.snaps] == [0, 8]
+    assert_same(interop.state_to_numpy(rt.run(rt.init_batch([1]), 16,
+                                              chunk=8)[0]),
+                interop.state_to_numpy(out), what="with checkpoints")
 
 
 @pytest.mark.parametrize("name", ["flagship", "wal_kv"])

@@ -10,9 +10,13 @@ injected op starting a fresh chain; transparency; the readers
 (`attribution_counters`, `attribution_brief`, `attribution_summary`,
 `format_attribution`, `request_spans`, `request_span`,
 `explain_latency`, `format_span`) and the Chrome trace with its request
-spans, byte for byte; and `explain_latency(replay=True)` on a chain the
-ring wrapped past, which waits for ROADMAP P11.8. The JAX side runs on
-the non-partitionable threefry stream (see _torch_parity).
+spans, byte for byte; `explain_latency(replay=True)` on a chain the
+ring wrapped past (window replay from the run's harvested checkpoints:
+the same span as the reference's); and the span and latency planes on
+the JAX package's own chaos rpc_echo (tests/test_spans.py `_echo_rt`:
+reply deliveries complete a call and re-mint the next request's root,
+under a server kill and restart) with `attribution_summary`. The JAX
+side runs on the non-partitionable threefry stream (see _torch_parity).
 """
 
 import numpy as np
@@ -176,18 +180,103 @@ def test_the_trace_holds_request_spans(spans):
     assert {e["ph"] for e in pairs} == {"b", "e"}
 
 
+# the wrapped-chain specimen: a 16-slot ring, checkpoints every 64 steps
+WRAP_CAP, WRAP_STEPS, WRAP_CHUNK, WRAP_EVERY = 16, 192, 64, 64
+WRAP_SEEDS = SEEDS[:2]
+
+
 def test_explain_latency_replay_on_a_wrapped_chain_waits_for_time_travel(
-        spans):
-    from madsim_tpu_torch.obs import explain_latency
-    rt = spans["rt"].derived(trace_cap=4)
-    t, _ = rt.run(rt.init_batch(SEEDS[:1]), 96, 96)
-    live = explain_latency(t, 0, rt=rt)
+        spans, tmp_path):
+    """A 16-slot ring wraps long before the pingpong chains root, so the
+    live answer is a truncated suffix; window replay from the harvested
+    checkpoints recovers the whole span, the reference's hop for hop,
+    with its trace byte for byte (tests/test_spans.py
+    `test_replay_recovers_wrapped_chain`)."""
+    import madsim_tpu_torch as P
+    from madsim_tpu_torch.obs import CheckpointLog, explain_latency
+    paths = {k: str(tmp_path / f"{k}.json") for k in ("j", "t")}
+    with reference_stream():
+        jrt = _pp_rt(J, jpp, trace_cap=WRAP_CAP)
+        jlog = J.CheckpointLog()
+        s, _ = jrt.run(jrt.init_batch(WRAP_SEEDS), WRAP_STEPS, WRAP_CHUNK,
+                       ckpt_every=WRAP_EVERY, ckpt_log=jlog)
+        want = J.obs.explain_latency(s, 1, rt=jrt, replay=True, ckpts=jlog,
+                                     chunk=WRAP_CHUNK,
+                                     export_trace=paths["j"])
+    rt = _pp_rt(P, tpp, trace_cap=WRAP_CAP)
+    log = CheckpointLog()
+    t, _ = rt.run(rt.init_batch(WRAP_SEEDS), WRAP_STEPS, WRAP_CHUNK,
+                  ckpt_every=WRAP_EVERY, ckpt_log=log)
+    live = explain_latency(t, 1, rt=rt)
     assert live["truncated"] and not live["replayed"]
-    with pytest.raises(NotImplementedError, match="P11.8"):
-        explain_latency(t, 0, rt=rt, replay=True)
+    got = explain_latency(t, 1, rt=rt, replay=True, ckpts=log,
+                          chunk=WRAP_CHUNK, export_trace=paths["t"])
+    assert got["replayed"] and not got["truncated"]
+    assert (got["step"], got["lat_us"]) == (live["step"], live["lat_us"])
+    assert got["wait_us"] + got["transit_us"] == got["lat_us"]
+    assert want.pop("trace_path") == paths["j"]
+    assert got.pop("trace_path") == paths["t"]
+    equal_results(want, got, "explain_latency(replay=True)")
+    with open(paths["j"], "rb") as a, open(paths["t"], "rb") as b:
+        assert a.read() == b.read()
+    with pytest.raises(ValueError, match="rt="):
+        explain_latency(t, 1, replay=True)
     # a whole chain has nothing to recover: the live answer
     whole = explain_latency(spans["state"], 0, rt=spans["rt"], replay=True)
-    assert not whole["truncated"]
+    assert not whole["truncated"] and not whole["replayed"]
     with pytest.raises(ValueError, match="span_attr"):
         explain_latency(spans["state"].replace(
             tr_qw=spans["state"].tr_qw[:, :0]), 0)
+
+
+# --------------------------------------------------------------------------
+# The JAX package's chaos rpc_echo (tests/test_spans.py `_echo_rt`)
+# --------------------------------------------------------------------------
+ECHO_SEEDS = np.arange(8, dtype=np.uint32)
+ECHO_STEPS, ECHO_CHUNK = 2048, 128
+
+
+def _echo_rt(mod, echo, rpc, **kw):
+    """tests/test_spans.py `_echo_rt(True)`: rpc_echo on 4 nodes, the
+    server killed at 300 ms and restarted at 420 ms, a reply both
+    completing a call and re-minting the next request's root."""
+    sc = mod.Scenario()
+    sc.at(mod.ms(300)).kill(0)
+    sc.at(mod.ms(420)).restart(0)
+    rtag = rpc.reply_tag(echo.TAG_ECHO)
+    cfg = mod.SimConfig(
+        n_nodes=4, event_capacity=64, time_limit=mod.sec(5),
+        latency_hist=24, trace_cap=512,
+        complete_kinds=((mod.EV_MSG, rtag),),
+        root_kinds=((mod.EV_MSG, rtag),),
+        slo_target=mod.ms(8), span_attr=True,
+        net=mod.NetConfig(send_latency_min=mod.ms(1),
+                          send_latency_max=mod.ms(8)))
+    return echo.make_echo_runtime(n_nodes=4, target=8, scenario=sc, cfg=cfg,
+                                  **kw)
+
+
+def test_span_and_latency_planes_on_chaos_rpc_echo_match_reference():
+    import madsim_tpu_torch as P
+    from madsim_tpu import obs as jobs
+    from madsim_tpu.models import rpc_echo as jecho
+    from madsim_tpu.net import rpc as jrpc
+    from madsim_tpu_torch import obs as tobs
+    from madsim_tpu_torch.models import rpc_echo as techo
+    from madsim_tpu_torch.net import rpc as trpc
+    with reference_stream():
+        jrt = _echo_rt(J, jecho, jrpc)
+        s, _ = jrt.run(jrt.init_batch(ECHO_SEEDS), ECHO_STEPS, ECHO_CHUNK)
+        ref = jax_leaves(s)
+        ref_att = jobs.attribution_summary(s)
+    rt = _echo_rt(P, techo, trpc, device="cpu")
+    t, _ = rt.run(rt.init_batch(ECHO_SEEDS), ECHO_STEPS, ECHO_CHUNK)
+    got = interop.state_to_numpy(t)
+    assert_same(ref, got, what="chaos rpc_echo")
+    att = tobs.attribution_summary(t)
+    equal_results(ref_att, att, "attribution_summary")
+    # real traffic: tails attributed, the latency plane folded
+    assert got[".sa_tail"][:, :, 0].sum() > 0
+    assert got[".lh_e2e"].sum() > 0 and got[".halted"].all()
+    np.testing.assert_array_equal(got[".sa_tail"][:, :, 0],
+                                  got[".lh_slo_miss"])
