@@ -63,9 +63,10 @@ the frozen golden digests. One JSON object per line, in phases:
                (the select kernel's nudged path at full width)
   search_same_on_both  one fixed-seed campaign on the saturating runtime
                (bench.py's search A/B shape: 6 rounds of 128 lanes, 1500
-               steps) on the card and on the CPU: equal results and equal
-               corpora; the fuzzer finds more schedules than blind explore
-               on the same budget
+               steps) on the card and on the CPU (in a process of its
+               own, `chip_smoke.py --search-cpu OUT`, started after the
+               build): equal results and equal corpora; the fuzzer finds
+               more schedules than blind explore on the same budget
   flagship_same_on_both  the traced flagship (trace_cap=64) at B=203,
                256 steps, through run and run_fused on the card and run
                on the CPU: every leaf equal; the card's eager run launches
@@ -102,8 +103,9 @@ the frozen golden digests. One JSON object per line, in phases:
                flagship with the sim profiler and the latency plane,
                e2e from the leader's propose timer to its append
                replies, trace_cap=64) at B=100,000 for 2048 steps
-               through run_fused and run: every leaf equal, the
-               fingerprints equal the plane-off flagship's, obs_fold
+               through run_fused, and run for the first 1024: every leaf
+               equal there, the fingerprints equal the plane-off
+               flagship's, obs_fold
                launched once a step, lanes 0, 1, 4099 and 99,999 at
                step 1024 equal to a CPU run of those seeds (in a process
                of its own, `chip_smoke.py --planes-cpu OUT`, started
@@ -122,8 +124,9 @@ the frozen golden digests. One JSON object per line, in phases:
                all_planes_flagship_runtime: the plane flagship with the
                prefix sketch, 16 series windows of 625 ms and the span
                plane, at an SLO target some completions miss) at
-               B=100,000 for 2048 steps through run_fused and run: every
-               leaf equal, the plane-off fingerprints, obs_fold once a
+               B=100,000 for 2048 steps through run_fused, and run for
+               the first 1024: every leaf equal there, the plane-off
+               fingerprints, obs_fold once a
                step, lanes 0, 1, 4099 and 99,999 at step 1024 equal to
                the CPU child's run, the series, attribution and sketch
                digests over every lane (plane_sums four launches,
@@ -148,8 +151,8 @@ the frozen golden digests. One JSON object per line, in phases:
                its memory) and run_fused for the last 1024 steps: every
                lane ends on lane 4099's parent fingerprint, and the
                fork's lane 0 checkpointed on the card equals the
-               parent's; at B=4096 run(ckpt_every=512) and
-               run_fused(ckpt_every=512) harvest equal snapshots
+               parent's; at B=4096 over 1024 steps run(ckpt_every=512)
+               and run_fused(ckpt_every=512) harvest equal snapshots
   timetravel_explain  the crash-rich wal_kv with a 4-slot ring (24
                seeds, run(ckpt_every=32)): explain_crash(replay=True)
                of its first wrap-truncated crash returns a whole chain,
@@ -172,6 +175,30 @@ the frozen golden digests. One JSON object per line, in phases:
                to the CPU child's, the bug variant's crash verdicts on
                its first 512 lanes equal to the CPU's; each graph step's
                device ms and the eager step's handlers and invariant
+               sections
+  kv_config4   BASELINE.md config 4 (workloads.kv_config4_runtime: the
+               replicated KV store on 5 Raft servers and 3 clients, log
+               32) at its own 100,000 seeds in one batch through
+               run_compacting: no crash, no overflow, every client done,
+               all 100,000 client histories linearizable (the port's
+               native checker, on the host), lanes 0-3 equal to a CPU
+               run of the same seeds (in a process of its own,
+               `chip_smoke.py --kv-cpu OUT`, started after the build),
+               each step kernel its count a step (the graphs' replays and
+               their warm-ups), no plain draw; steps to halt, wall
+               seconds, seed-events/s (the engine alone, as config 4
+               reckons it), the checker's seconds, the graph step's
+               device ms; at B=4096 run_compacting equal to run_fused
+  kv_bank      make_kv_runtime's defaults (log 64), the compaction chaos
+               config (log 12, the window slides) and the bank chaos
+               config (log 48) at B=4096 through run_fused to the halt,
+               run equal to run_fused over the first 256 steps (the eager
+               KV step is host-bound), four lanes equal to the CPU
+               child's; the KV histories linearizable, every completed
+               bank op's total the conserving 600; the poisoned bank
+               replica crashing lanes with 501 or 102, its first 64
+               lanes' verdicts the CPU's; each graph step's device ms and
+               (bank_chaos) the eager step's handlers and invariant
                sections
   kernel       each kernel against its plain version, exactly equal
                (the kernel's time is device time: launches captured in a
@@ -231,7 +258,13 @@ the frozen golden digests. One JSON object per line, in phases:
                mask; L=8 and 32, N=3, 5, 8, 16 and 32, one to eight
                field columns, B=1, 37, 4096, 4101 and 100,003; every
                operand one element off a 16-byte boundary (the log rows
-               then read 4 bytes an access) or one lane off);
+               then read 4 bytes an access) or one lane off; the KV and
+               bank log lengths 12, 48, 64, 96 and 192 with five and six
+               field columns, with and without a slid window, and at 64
+               and 192 one element off), and on the KV and bank cells'
+               operands at step 512 (config 4 at B=100,000; kv_default,
+               kv_snapshot, bank_chaos at B=4096), each timed beside its
+               bound;
                apply_super on the flagship's operands at steps 0 and 512,
                wal_kv's at step 40 (B=100,000: its fs flush runs beside
                the kernel), the step-512 operands with no op lane and with
@@ -400,7 +433,14 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 INT32_OPS_PER_S = 67e12
 
 
+_T0 = time.perf_counter()
+
+
 def emit(**obj):
+    """One JSON line; a phase's line also carries the seconds since the
+    script started (`t_s`)."""
+    if "phase" in obj:
+        obj["t_s"] = time.perf_counter() - _T0
     print(json.dumps(obj), flush=True)
 
 
@@ -3207,7 +3247,8 @@ def clone_layout_state(state):
 # ---- K10 plane_sums / lane_p99, K5's plane columns) ------------------------
 # lanes of the plane flagship that a CPU run (a process of its own) repeats
 PLANE_CPU_LANES = (0, 1, 4099, 99_999)
-PLANE_CPU_STEPS = 1024
+PLANE_CPU_STEPS = 1024      # the CPU lanes' step, and where run = run_fused
+                            # is checked (the eager runner is host-bound)
 
 
 def planes_cpu_main(out_path) -> int:
@@ -3281,6 +3322,7 @@ def planes_phase(wrappers, dev, names, every, flag_fp, prof_off, cpu_job,
     torch.cuda.synchronize()
     reset_counts()
     t2 = time.perf_counter()
+    mid = s       # run's reference (run_fused leaves its input as it was)
     s = rt.run_fused(s, FLAG_STEPS - PLANE_CPU_STEPS, chunk=FLAG_CHUNK)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
@@ -3297,7 +3339,7 @@ def planes_phase(wrappers, dev, names, every, flag_fp, prof_off, cpu_job,
     # the eager runner on the same seeds
     reset_counts()
     t4 = time.perf_counter()
-    e, _ = rt.run(init, FLAG_STEPS, chunk=FLAG_CHUNK)
+    e, _ = rt.run(init, PLANE_CPU_STEPS, chunk=FLAG_CHUNK)
     torch.cuda.synchronize()
     t5 = time.perf_counter()
     eager = read_counts()
@@ -3305,8 +3347,8 @@ def planes_phase(wrappers, dev, names, every, flag_fp, prof_off, cpu_job,
     check(eager["obs_fold"] == rt.steps_run,
           f"planes run: obs_fold launched {eager['obs_fold']} times in "
           f"{rt.steps_run} steps")
-    same_runners = state_equal(s, e)
-    del e, init
+    same_runners = state_equal(mid, e)
+    del e, init, mid
     fps = fingerprints_once(rt, s, "planes")
     same_fp = bool((fps == flag_fp).all())
     # the CPU run of a few lanes
@@ -3355,7 +3397,8 @@ def planes_phase(wrappers, dev, names, every, flag_fp, prof_off, cpu_job,
          warmup_steps=warm, first_half_s=t1 - t0,
          steady_s=t3 - t2,
          ms_per_step=(t3 - t2) / (FLAG_STEPS - PLANE_CPU_STEPS) * 1e3,
-         eager_ms_per_step=(t5 - t4) / FLAG_STEPS * 1e3,
+         eager_ms_per_step=(t5 - t4) / PLANE_CPU_STEPS * 1e3,
+         eager_compared_at=PLANE_CPU_STEPS,
          max_memory_allocated=peak,
          run_equals_run_fused=same_runners,
          fingerprints_equal_plane_off=same_fp,
@@ -3460,6 +3503,7 @@ def planes_all_phase(wrappers, dev, names, every, flag_fp, prof_off, cpu,
     torch.cuda.synchronize()
     reset_counts()
     t2 = time.perf_counter()
+    mid = s       # run's reference (run_fused leaves its input as it was)
     s = rt.run_fused(s, FLAG_STEPS - PLANE_CPU_STEPS, chunk=FLAG_CHUNK)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
@@ -3475,7 +3519,7 @@ def planes_all_phase(wrappers, dev, names, every, flag_fp, prof_off, cpu,
     peak = torch.cuda.max_memory_allocated()
     reset_counts()
     t4 = time.perf_counter()
-    e, _ = rt.run(init, FLAG_STEPS, chunk=FLAG_CHUNK)
+    e, _ = rt.run(init, PLANE_CPU_STEPS, chunk=FLAG_CHUNK)
     torch.cuda.synchronize()
     t5 = time.perf_counter()
     eager = read_counts()
@@ -3483,8 +3527,8 @@ def planes_all_phase(wrappers, dev, names, every, flag_fp, prof_off, cpu,
     check(eager["obs_fold"] == rt.steps_run,
           f"planes_all run: obs_fold launched {eager['obs_fold']} times in "
           f"{rt.steps_run} steps")
-    same_runners = state_equal(s, e)
-    del e
+    same_runners = state_equal(mid, e)
+    del e, mid
     fps = fingerprints_once(rt, s, "planes_all")
     same_fp = bool((fps == flag_fp).all())
     cpu_diff = [k for k in half if not (half[k].shape == cpu[k].shape
@@ -3537,7 +3581,8 @@ def planes_all_phase(wrappers, dev, names, every, flag_fp, prof_off, cpu,
                                             plane_every},
          warmup_steps=warm, steady_s=t3 - t2,
          ms_per_step=(t3 - t2) / (FLAG_STEPS - PLANE_CPU_STEPS) * 1e3,
-         eager_ms_per_step=(t5 - t4) / FLAG_STEPS * 1e3,
+         eager_ms_per_step=(t5 - t4) / PLANE_CPU_STEPS * 1e3,
+         eager_compared_at=PLANE_CPU_STEPS,
          max_memory_allocated=peak, new_leaf_bytes=leaf_bytes,
          run_equals_run_fused=same_runners,
          fingerprints_equal_plane_off=same_fp,
@@ -4006,6 +4051,76 @@ def sums_bound(leaves, masks) -> int:
     return nbytes
 
 
+SPAN_WORDS = 6    # ev_span's words a row (core/step.py)
+
+
+def span_capture_bytes(B: int) -> int:
+    """The bytes the step's plain `spans` section must move a step: each
+    lane's popped ev_span row read (SPAN_WORDS int32), the scalars it
+    reads (valid, is_super and inherit: 1 byte each; root_raw, dmin, the
+    sojourn, the reset target, ev_node and now: 4 each), the carried
+    vector it writes (SPAN_WORDS) and the five measured words the
+    completion reads."""
+    return B * (4 * SPAN_WORDS + 3 + 6 * 4 + 4 * SPAN_WORDS + 5 * 4)
+
+
+def plain_reductions_phase(state):
+    """The digests' reductions still plain PyTorch (ROADMAP K10) on the
+    all-planes flagship's final state (B=100,000): `_masked_lane_pcts`
+    (a sort of a [B] metric; library: one torch.sort and three
+    torch.kthvalue calls), `_hist_quantiles` of the merged [N, LB] e2e
+    histogram, `_consensus_modal` of the [B, S] sketch (library:
+    torch.mode over the lanes), `_lane_burst_qhw` (one amax of [B, W]),
+    each beside its byte bound (inputs read once, outputs written once);
+    and the bound of the plain `spans` section (span_capture_bytes),
+    whose eager time is planes_all_profile's `spans` section."""
+    import torch
+    from madsim_tpu_torch.parallel import stats
+    B = state.now.shape[0]
+    on = state.pf_on
+    n = int(on.sum())
+    x = state.steps
+    masked = torch.where(on, x, stats.I32_MAX)
+    ks = [min(max((max(n, 1) - 1) * q // 100, 0), B - 1) + 1
+          for q in (50, 90, 100)]
+    e2e = state.lh_e2e.to(torch.int64).sum(0).float()       # [N, LB]
+    sk = state.cov_sketch
+    qhw = state.sr_qhw
+
+    def kth():
+        for k in ks:
+            torch.kthvalue(masked, k)
+
+    # name: (input, plain version, library call or None, bound bytes,
+    # extra numbers)
+    rows = {
+        "masked_lane_pcts": (
+            x, lambda: stats._masked_lane_pcts(x, on, n),
+            lambda: torch.sort(masked), B * (4 + 1) + 3 * 4,
+            dict(kthvalue_ms=cuda_ms(kth, 5))),
+        "hist_quantiles": (
+            e2e, lambda: stats._hist_quantiles(e2e, stats._LAT_QS), None,
+            e2e.numel() * 4 + e2e.shape[0] * len(stats._LAT_QS) * 4, {}),
+        "consensus_modal": (
+            sk, lambda: stats._consensus_modal(sk),
+            lambda: torch.mode(sk, 0), sk.numel() * 4 + sk.shape[1] * 8, {}),
+        "lane_burst_qhw": (
+            qhw, lambda: stats._lane_burst_qhw(qhw), None,
+            qhw.numel() * qhw.element_size() + B * 4, {}),
+    }
+    out = {}
+    for name, (inp, plain, lib, nbytes, more) in rows.items():
+        out[name] = dict(
+            plain_ms=min(cuda_ms(plain, 5), cuda_ms(plain, 5)),
+            library_ms=cuda_ms(lib, 5) if lib else None,
+            bound_bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            shape=list(inp.shape), **more)
+    sb = span_capture_bytes(B)
+    emit(phase="plain_reductions", batch=B, profiled_lanes=n, **out,
+         spans_section=dict(bound_bytes=sb,
+                            bound_ms=sb / HBM_BYTES_PER_S * 1e3))
+
+
 def planes_all_kernel_phase(wrappers, dev, pa):
     """K8 obs_fold with its sketch, series and span groups, K5 emit_write
     with the span columns, K10 plane_sums with its max and or leaves and
@@ -4151,6 +4266,7 @@ def planes_all_kernel_phase(wrappers, dev, pa):
          bound_bytes=b_bytes, bound_ms=burst["bound_ms"], bound_by="bytes",
          launches_on_main_path=pa["digest_launch"]["lane_burst"],
          library="none")
+    plain_reductions_phase(state)
     return dict(obs_fold=fold, plane_sums=sums, lane_burst=burst)
 
 
@@ -4158,6 +4274,7 @@ def planes_all_kernel_phase(wrappers, dev, pa):
 TT_EVERY = 1024              # timetravel_flagship: a harvest every 1024
 FORK_LANE = 4099             # the lane the prefix fork clones
 TT_SMALL_B, TT_SMALL_EVERY = 4096, 512   # run against run_fused harvests
+TT_SMALL_STEPS = 1024        # steps of that comparison (eager: host-bound)
 TT_SEEDS = 24                # timetravel_explain: the JAX test's 24 seeds
 TT_STEPS, TT_CHUNK, TT_CKPT = 30_000, 16, 32
 TT_KNOB_SHIFT = 20_000       # ticks the knob pair's lane B moves its rows
@@ -4511,11 +4628,11 @@ def timetravel_flagship_phase(wrappers, dev, names, every, flag_fp, counts):
         logs[runner] = CheckpointLog()
         t0 = time.perf_counter()
         if runner == "run":
-            end, _ = rt.run(s0, FLAG_STEPS, chunk=FLAG_CHUNK,
+            end, _ = rt.run(s0, TT_SMALL_STEPS, chunk=FLAG_CHUNK,
                             ckpt_every=TT_SMALL_EVERY,
                             ckpt_log=logs[runner])
         else:
-            end = rt.run_fused(s0, FLAG_STEPS, chunk=FLAG_CHUNK,
+            end = rt.run_fused(s0, TT_SMALL_STEPS, chunk=FLAG_CHUNK,
                                ckpt_every=TT_SMALL_EVERY,
                                ckpt_log=logs[runner])
         torch.cuda.synchronize()
@@ -4527,12 +4644,14 @@ def timetravel_flagship_phase(wrappers, dev, names, every, flag_fp, counts):
     equal = [state_equal(x["state"], y["state"])
              for x, y in zip(a.snaps, b.snaps)]
     ends = state_equal(logs["run_end"], logs["run_fused_end"])
-    emit(phase="timetravel_flagship", batch=TT_SMALL_B, steps=FLAG_STEPS,
+    emit(phase="timetravel_flagship", batch=TT_SMALL_B,
+         steps=TT_SMALL_STEPS,
          ckpt_every=TT_SMALL_EVERY, run_snapshots_at=done_a,
          run_fused_snapshots_at=done_b, snapshots_equal=equal,
          final_states_equal=ends, run_s=logs["run_s"],
          run_fused_s=logs["run_fused_s"])
-    check(done_a == done_b == list(range(0, FLAG_STEPS, TT_SMALL_EVERY)),
+    check(done_a == done_b
+          == list(range(0, TT_SMALL_STEPS, TT_SMALL_EVERY)),
           f"timetravel_flagship: snapshots at {done_a} and {done_b}")
     check(all(equal) and ends, "timetravel_flagship: run and run_fused "
           "harvested different snapshots")
@@ -4579,13 +4698,30 @@ def timetravel_explain_phase(dev, tmp, cpu):
           f"{diff}")
 
 
+def handlers_bytes(rt, state) -> int:
+    """The bytes a step's handlers section must move (ROADMAP K16): each
+    lane's acting node's state row read once and its new row written
+    once, its event's payload row and its tag, source, node and time
+    read once, and the effects it stages for the emission write (the
+    next step of `state`'s `em` operand) written once."""
+    B, N = state.alive.shape
+    row = sum(t.numel() // (B * N) * t.element_size()
+              for t in state.node_state.values())
+    em = emit_operands(rt, state)[1]
+    staged = sum(t.numel() * t.element_size() for t in em.values())
+    return B * (2 * row + 4 * rt.cfg.payload_words + 16) + staged
+
+
 def model_phase(wrappers, dev, names, every, counts, name, build, max_steps,
-                batch, chunk, lanes, cpu_lanes, profile_eager=True):
+                batch, chunk, lanes, cpu_lanes, profile_eager=True,
+                eager_steps=None):
     """One model runtime at `batch` lanes through run_fused and run: every
     leaf equal, each step kernel launched its count a step, `lanes` equal
     to the CPU's; the graph step's device ms and the eager step's
-    handlers and invariant sections (profile_steps). Returns (final
-    state, numbers)."""
+    handlers and invariant sections (profile_steps). With `eager_steps`
+    the eager run and a second run_fused stop after that many steps and
+    are compared there (the whole run is run_fused's alone). Returns
+    (final state, numbers)."""
     import numpy as np
     import torch
     reset_counts, read_counts = counts
@@ -4603,15 +4739,20 @@ def model_phase(wrappers, dev, names, every, counts, name, build, max_steps,
     on = check_once_per_step(f"{name} run_fused", launches,
                              steps_fused + rt.fused_stats["warmup_steps"],
                              names, per)
+    ref = f
+    if eager_steps is not None:
+        ref = rt.run_fused(s0, eager_steps, chunk=min(chunk, eager_steps))
     reset_counts()
     t0 = time.perf_counter()
-    e, _ = rt.run(s0, max_steps, chunk=chunk)
+    e, _ = rt.run(s0, eager_steps or max_steps,
+                  chunk=min(chunk, eager_steps or chunk))
     torch.cuda.synchronize()
     eager_wall = time.perf_counter() - t0
     steps_eager = rt.steps_run
     on |= check_once_per_step(f"{name} run", read_counts(), steps_eager,
                               names, per)
-    same = state_equal(f, e)
+    same = state_equal(ref, e)
+    del ref
     check(same, f"{name}: run_fused and run differ")
     diff = numpy_equal(cpu_lanes, numpy_lanes(f, lanes))
     check(not diff, f"{name}: lanes {lanes} differ from the CPU's in "
@@ -4621,6 +4762,7 @@ def model_phase(wrappers, dev, names, every, counts, name, build, max_steps,
                          batch, expect)
     nums = dict(batch=batch, steps_run=steps_fused, wall_s=wall,
                 eager_steps_run=steps_eager, eager_wall_s=eager_wall,
+                eager_compared_at=eager_steps or "halt",
                 steps_to_halt=int(f.steps.max()),
                 seed_events_per_s=batch * steps_fused / wall,
                 dispatched_events_per_s=int(f.steps.sum()) / wall,
@@ -4629,6 +4771,9 @@ def model_phase(wrappers, dev, names, every, counts, name, build, max_steps,
                 graph_device_ms_per_step=prof.get("device_busy_ms_per_step"),
                 graph_device_busy_share=prof.get("device_busy_share"),
                 graph_kernels_per_step=prof.get("device_kernels_per_step"))
+    hb = handlers_bytes(rt, s0)
+    nums.update(handlers_bound_bytes=hb,
+                handlers_bound_ms=hb / HBM_BYTES_PER_S * 1e3)
     if profile_eager:
         pe = profile_steps(lambda st, n: rt.run(st, n, chunk=n)[0], s0,
                            batch, expect)
@@ -4709,8 +4854,293 @@ def tpc_gossip_phase(wrappers, dev, names, every, counts, cpu):
             check(not crashed.any() and bool((have == 15).all()),
                   f"{name}: {extra}")
         check(bool(f.halted.all()), f"{name}: a lane did not halt")
+        if name.startswith("tpc"):
+            # tpc_invariant (K17): the [B, N, TX] decisions read once,
+            # the verdict (a bool and a code) written once
+            nb = f.node_state["decided"].numel() * 4 + MODEL_B * 5
+            extra.update(invariant_bound_bytes=nb,
+                         invariant_bound_ms=nb / HBM_BYTES_PER_S * 1e3)
         emit(phase="tpc_gossip", case=name, **nums, **extra)
     return on
+
+
+KV4_B, KV4_STEPS, KV4_CHUNK = 100_000, 60_000, 512   # config 4's own
+KV4_SMALL_B = 4096           # run_compacting against run_fused
+KV4_LANES = (0, 1, 2, 3)     # config 4's lanes the CPU child runs
+KV4_OPERANDS_AT = 512        # K11's config-4 operands: this step's
+KV_B, KV_STEPS, KV_CHUNK = 4096, 60_000, 512
+KV_LANES = (0, 1, 2047, 4095)
+KV_EAGER_STEPS = 256         # run = run_fused over this prefix: the eager
+                             # KV step is host-bound (~40 ms at B=4096)
+LEAKY_CPU_LANES = 64         # lanes of the poisoned bank the CPU runs
+
+
+def leaky_bank_runtime(device):
+    """The JAX package's tests/test_bank.py:48-80 poisoned replica: 3
+    servers and 2 clients of 6 ops, log 32, the fifth appended entry's
+    amount inflated by 7 on the node that appends it, the conservation
+    invariant in its pairwise form; its lanes crash with 501 (money
+    leak) or 102 (log mismatch)."""
+    import numpy as np
+    import torch
+    from madsim_tpu_torch import Runtime, SimConfig, sec
+    from madsim_tpu_torch.models import bank
+    from madsim_tpu_torch.ops.select import put_row, take1
+
+    class Leaky(bank.RaftBank):
+        def _extra_message(self, ctx, st, src, tag, payload):
+            super()._extra_message(ctx, st, src, tag, payload)
+            four = torch.full_like(st["log_len"], 4)
+            bad = (st["log_len"] == 5) & (take1(st["log_op"], four)
+                                          == bank.OP_TRANSFER)
+            st["log_amt"] = put_row(st["log_amt"], four,
+                                    take1(st["log_amt"], four) + 7, bad)
+
+    n_raft, n_clients = 3, 2
+    n = n_raft + n_clients
+    cfg = SimConfig(n_nodes=n, event_capacity=96, payload_words=13,
+                    time_limit=sec(20))
+    return Runtime(cfg, [Leaky(n, 6, 100, 32, n_peers=n_raft),
+                         bank.BankClient(n_raft, 6, 6)],
+                   bank.bank_state_spec(n, 32, 6),
+                   node_prog=np.asarray([0] * n_raft + [1] * n_clients),
+                   invariant=bank.bank_invariant(n, 32, n_raft, 6, 100),
+                   persist=bank.bank_persist_spec(),
+                   halt_when=bank.all_clients_done(n_raft, 6),
+                   device=device)
+
+
+def kv_cases():
+    """name: (runtime maker, servers, clients, ops, whether the eager
+    step is profiled by section) of the kv_bank phase's three cells."""
+    from madsim_tpu_torch import workloads
+    return {"kv_default": (workloads.kv_default_runtime, 5, 3, 12, False),
+            "kv_snapshot": (workloads.kv_snapshot_runtime, 5, 3, 10, False),
+            "bank_chaos": (workloads.bank_chaos_runtime, 5, 3, 8, True)}
+
+
+def search_cpu_main(out_path) -> int:
+    """`chip_smoke.py --search-cpu OUT`: the CPU half of the
+    search_same_on_both phase, the saturating campaign (SAT) through
+    `fuzz` on the CPU, run beside the card's phases (it touches no
+    card); its result, corpus entries, wall seconds and the kernel
+    wrappers' launch counts (all zero on the CPU), pickled to OUT."""
+    import pickle
+    import numpy as np
+    import torch
+    from madsim_tpu_torch import workloads
+    from madsim_tpu_torch.ops import kernels
+    from madsim_tpu_torch.search import Corpus, KnobPlan, fuzz
+    torch.set_num_threads(1)
+    rt = workloads.saturating_runtime(device="cpu")
+    corpus = Corpus(KnobPlan.from_runtime(rt),
+                    rng=np.random.default_rng(SAT["rng_seed"]))
+    t0 = time.perf_counter()
+    r = fuzz(rt, corpus=corpus, dry_rounds=SAT["max_rounds"] + 1, **SAT)
+    out = dict(result=r, entries=corpus.entries,
+               wall_s=time.perf_counter() - t0,
+               counts={k: w.launches for k, w in kernels.wrappers().items()})
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def kv_cpu_main(out_path) -> int:
+    """`chip_smoke.py --kv-cpu OUT`: the CPU halves of the kv_config4 and
+    kv_bank phases (config 4's KV4_LANES, each cell's KV_LANES, the
+    poisoned bank's first LEAKY_CPU_LANES verdicts), run beside the
+    card's phases (it touches no card); pickled to OUT."""
+    import pickle
+    import numpy as np
+    import torch
+    from madsim_tpu_torch import interop, workloads
+    torch.set_num_threads(1)
+    out = {}
+    rt = workloads.kv_config4_runtime(device="cpu")
+    s, _ = rt.run(rt.init_batch(np.asarray(KV4_LANES, np.uint32)),
+                  KV4_STEPS, 64)
+    out["kv_config4"] = interop.state_to_numpy(s)
+    for name, (build, *_) in kv_cases().items():
+        rt = build("cpu")
+        s, _ = rt.run(rt.init_batch(np.asarray(KV_LANES, np.uint32)),
+                      KV_STEPS, 64)
+        out[name] = interop.state_to_numpy(s)
+    rt = leaky_bank_runtime("cpu")
+    s, _ = rt.run(rt.init_batch(np.arange(LEAKY_CPU_LANES,
+                                          dtype=np.uint32)), KV_STEPS, 64)
+    out["leaky_verdicts"] = (s.crashed.numpy(), s.crash_code.numpy())
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def histories_linearizable(state, n_raft, n_clients):
+    """(histories, linearizable, checker seconds) of a KV batch: every
+    lane's client history extracted and checked on the host."""
+    from madsim_tpu_torch.models.raft_kv import extract_histories
+    from madsim_tpu_torch.native import check_kv_history
+    t0 = time.perf_counter()
+    hists = extract_histories(state, n_raft, n_clients)
+    ok = sum(check_kv_history(h) for h in hists)
+    return len(hists), ok, time.perf_counter() - t0
+
+
+def kv_config4_phase(wrappers, dev, names, every, counts, cpu):
+    """BASELINE.md config 4 (workloads.kv_config4_runtime) at KV4_B seeds
+    in one batch through run_compacting: no crash, no oops, every client
+    done, every history linearizable (the port's checker, on the host),
+    KV4_LANES equal to the CPU child's, each step kernel its count a
+    step (the graphs' replays and the warm-ups); at KV4_SMALL_B lanes
+    run_compacting equal to run_fused. Returns (the K1/K4 kernels it
+    ran, K11's operands at step KV4_OPERANDS_AT)."""
+    import numpy as np
+    import torch
+    from madsim_tpu_torch import workloads
+    from madsim_tpu_torch.runtime.runtime import FusedGraph
+    reset_counts, read_counts = counts
+    rt = workloads.kv_config4_runtime(device=dev)
+    init = rt.init_batch(np.arange(KV4_B, dtype=np.uint32))
+    per = step_launches(wrappers, rt, init)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = rt.run_compacting(init, KV4_STEPS, chunk=KV4_CHUNK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cst = dict(rt.compact_stats)
+    got = read_counts()
+    launches = {k: got[k] + cst["graph_launches"].get(k, 0) for k in every}
+    steps = cst["graph_steps"] + cst["captures"] * FusedGraph.WARMUP_STEPS
+    on = check_once_per_step("kv_config4 run_compacting", launches, steps,
+                             names, per)
+    crashed = int(out.crashed.sum())
+    oops = int((out.oops != 0).sum())
+    done = bool((out.node_state["c_opn"][:, 5:] >= 6).all())
+    events = int(out.steps.sum())
+    n_hist, n_lin, check_s = histories_linearizable(out, 5, 3)
+    diff = numpy_equal(cpu["kv_config4"], numpy_lanes(out, KV4_LANES))
+    # K11's operands mid-run, and the step's plain draws, at full width
+    mid = rt.run_fused(init, KV4_OPERANDS_AT, chunk=KV4_OPERANDS_AT)
+    ops = raft_operands(rt, mid)
+    draws, onehot = plain_draws_in_step(rt, mid)
+    prof = profile_steps(lambda st, n: rt.run_fused(st, n, chunk=n), init,
+                         KV4_B, dict({k: 1 for k in names}, **per))
+    del mid
+    small = rt.init_batch(np.arange(KV4_SMALL_B, dtype=np.uint32))
+    c_small = rt.run_compacting(small, KV4_STEPS, chunk=KV4_CHUNK)
+    small_stats = dict(rt.compact_stats)
+    f_small = rt.run_fused(small, KV4_STEPS, chunk=KV4_CHUNK)
+    same_small = state_equal(c_small, f_small)
+    emit(phase="kv_config4", config="BASELINE.md config 4", batch=KV4_B,
+         chunk=KV4_CHUNK, steps_to_halt=int(out.steps.max()), wall_s=wall,
+         seed_events_per_s=events / wall, events=events,
+         checker_s=check_s, histories=n_hist, linearizable=n_lin,
+         crashed=crashed, oops_lanes=oops, all_clients_done=done,
+         all_halted=bool(out.halted.all()), widths=cst["widths"],
+         repacks=cst["repacks"], graph_captures=cst["captures"],
+         graph_steps=cst["graph_steps"], launches=launches,
+         raft_invariant_launches=launches["raft_invariant"],
+         k1k4_per_step=per, prng_calls=draws, onehot_put_rows=onehot,
+         graph_device_ms_per_step=prof.get("device_busy_ms_per_step"),
+         graph_device_busy_share=prof.get("device_busy_share"),
+         graph_kernels_per_step=prof.get("device_kernels_per_step"),
+         cpu_lanes=list(KV4_LANES), cpu_lanes_differ=diff[:4],
+         small_batch=KV4_SMALL_B, small_widths=small_stats["widths"],
+         small_run_compacting_equal_run_fused=same_small)
+    check(crashed == 0 and oops == 0,
+          f"kv_config4: {crashed} lanes crashed, {oops} overflowed")
+    check(done and bool(out.halted.all()),
+          "kv_config4: a client did not finish or a lane did not halt")
+    check(n_hist == KV4_B and n_lin == KV4_B,
+          f"kv_config4: {n_hist - n_lin} of {n_hist} histories are not "
+          f"linearizable")
+    check(not diff, f"kv_config4: lanes {KV4_LANES} differ from the CPU's "
+          f"in {diff[:4]}")
+    check(not draws and not onehot, f"kv_config4: an eager step on the "
+          f"card drew with core/prng.py {draws} or wrote node_state with a "
+          f"one-hot put_row {onehot}")
+    check(same_small, "kv_config4: run_compacting differs from run_fused "
+          f"at B={KV4_SMALL_B}")
+    check(cst["repacks"] >= 1, "kv_config4: no repack")
+    return on, ops
+
+
+def kv_bank_phase(wrappers, dev, names, every, counts, cpu):
+    """kv_cases() at KV_B lanes through model_phase (run_fused to the
+    halt, run = run_fused over KV_EAGER_STEPS, KV_LANES equal to the CPU
+    child's): no crash, every client done; the KV cells' histories
+    linearizable, every completed bank op's total the conserving 600;
+    the poisoned bank crashing lanes with 501 or 102, its first
+    LEAKY_CPU_LANES verdicts the CPU's. Returns (the K1/K4 kernels it
+    ran, K11's operands of each cell at step KV4_OPERANDS_AT)."""
+    import numpy as np
+    import torch
+    from madsim_tpu_torch.models import bank
+    on, ops = set(), {}
+    for name, (build, n_raft, n_clients, n_ops, sections) in \
+            kv_cases().items():
+        f, nums, on_case = model_phase(
+            wrappers, dev, names, every, counts, name, build, KV_STEPS,
+            KV_B, KV_CHUNK, KV_LANES, cpu[name], profile_eager=sections,
+            eager_steps=KV_EAGER_STEPS)
+        on |= on_case
+        crashed = int(f.crashed.sum())
+        oops = int((f.oops != 0).sum())
+        done = bool((f.node_state["c_opn"][:, n_raft:] >= n_ops).all())
+        extra = dict(crashed=crashed, oops_lanes=oops, all_clients_done=done)
+        if name.startswith("kv"):
+            n_hist, n_lin, check_s = histories_linearizable(f, n_raft,
+                                                            n_clients)
+            extra.update(histories=n_hist, linearizable=n_lin,
+                         checker_s=check_s)
+            check(n_lin == n_hist == KV_B, f"{name}: {n_hist - n_lin} "
+                  f"histories are not linearizable")
+        else:
+            tot = f.node_state["h_total"][:, n_raft:].cpu().numpy()
+            resp = f.node_state["h_resp"][:, n_raft:].cpu().numpy()
+            seen = tot[resp >= 0]
+            # the conservation sum (K18): commit [B, N] and four [B, N, L]
+            # log columns read once, the verdict written once (K11 reads
+            # its own operands beside it)
+            ns = f.node_state
+            nb = (ns["commit"].numel() + sum(
+                ns[c].numel() for c in ("log_op", "log_afrom", "log_ato",
+                                        "log_amt"))) * 4 + KV_B * 5
+            extra.update(completed_ops=int(seen.size),
+                         conserving=int((seen == 600).sum()),
+                         conservation_bound_bytes=nb,
+                         conservation_bound_ms=nb / HBM_BYTES_PER_S * 1e3)
+            check(seen.size > 0 and bool((seen == 600).all()),
+                  f"{name}: a completed op saw a total other than 600")
+        rt = build(dev)
+        mid = rt.run_fused(rt.init_batch(np.arange(KV_B, dtype=np.uint32)),
+                           KV4_OPERANDS_AT, chunk=KV4_OPERANDS_AT)
+        ops[name] = raft_operands(rt, mid)
+        del mid, rt
+        emit(phase="kv_bank", case=name, **nums, **extra)
+        check(crashed == 0 and oops == 0 and done
+              and bool(f.halted.all()), f"{name}: {extra}")
+    # the poisoned replica
+    rt = leaky_bank_runtime(dev)
+    s0 = rt.init_batch(np.arange(KV_B, dtype=np.uint32))
+    f = rt.run_fused(s0, KV_STEPS, chunk=KV_CHUNK)
+    torch.cuda.synchronize()
+    crashed = f.crashed.cpu().numpy()
+    codes = f.crash_code.cpu().numpy()
+    want_c, want_code = cpu["leaky_verdicts"]
+    n = len(want_c)
+    same = (np.array_equal(crashed[:n], want_c)
+            and np.array_equal(codes[:n], want_code))
+    emit(phase="kv_bank", case="bank_poisoned", batch=KV_B,
+         crashed=int(crashed.sum()),
+         crash_codes=sorted(set(codes[crashed].tolist())),
+         cpu_lanes_compared=n, same_verdicts_as_cpu=same)
+    check(crashed.any() and set(codes[crashed].tolist()) <= {
+        bank.CRASH_MONEY_LEAK, 102}, "bank_poisoned: crashes "
+        f"{sorted(set(codes[crashed].tolist()))}")
+    check(same, f"bank_poisoned: crash verdicts differ from the CPU's on "
+          f"lanes 0..{n - 1}")
+    return on, ops
 
 
 def main() -> int:
@@ -4724,6 +5154,12 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--tt-cpu":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return tt_cpu_main(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--kv-cpu":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return kv_cpu_main(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--search-cpu":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return search_cpu_main(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -4812,8 +5248,20 @@ def main() -> int:
          cpu_tt_path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True)
 
+    # and so do the KV and bank phases, and search_same_on_both
+    cpu_kv_path = os.path.join(tmp, "kv_cpu.pkl")
+    cpu_kv = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--kv-cpu",
+         cpu_kv_path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    cpu_search_path = os.path.join(tmp, "search_cpu.pkl")
+    cpu_search = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--search-cpu",
+         cpu_search_path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
     def stop_children():
-        for child in (cpu_min, cpu_planes, cpu_tt):
+        for child in (cpu_min, cpu_planes, cpu_tt, cpu_kv, cpu_search):
             if child.poll() is None:
                 child.kill()
                 child.wait()
@@ -5257,22 +5705,22 @@ def main() -> int:
     del s, rt
 
     # ---- search_same_on_both: one campaign on the card and on the CPU -------
-    camp = {}
-    for where in ("cuda", "cpu"):
-        rt = workloads.saturating_runtime(device=where)
-        corpus = Corpus(KnobPlan.from_runtime(rt),
-                        rng=np.random.default_rng(SAT["rng_seed"]))
-        torch.cuda.synchronize()
-        reset_counts()
-        t0 = time.perf_counter()
-        with Spy(corpus_mod.Corpus, "schedule") as sched_spy:
-            r = fuzz(rt, corpus=corpus, dry_rounds=SAT["max_rounds"] + 1,
-                     **SAT)
-        torch.cuda.synchronize()
-        camp[where] = dict(result=r, entries=corpus.entries,
-                           wall_s=time.perf_counter() - t0,
-                           counts=read_counts(),
-                           mutated=len(sched_spy.seconds))
+    rt = workloads.saturating_runtime(device=dev)
+    corpus = Corpus(KnobPlan.from_runtime(rt),
+                    rng=np.random.default_rng(SAT["rng_seed"]))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with Spy(corpus_mod.Corpus, "schedule") as sched_spy:
+        r = fuzz(rt, corpus=corpus, dry_rounds=SAT["max_rounds"] + 1,
+                 **SAT)
+    torch.cuda.synchronize()
+    camp = dict(cuda=dict(result=r, entries=corpus.entries,
+                          wall_s=time.perf_counter() - t0,
+                          counts=read_counts(),
+                          mutated=len(sched_spy.seconds)),
+                cpu=wait_child(cpu_search, cpu_search_path,
+                               "search_same_on_both"))
     rt = workloads.saturating_runtime(device=dev)
     reset_counts()
     blind = explore(rt, dry_rounds=SAT["max_rounds"] + 1,
@@ -5371,6 +5819,17 @@ def main() -> int:
     on_path |= tpc_gossip_phase(wrappers, dev, no_raft, every,
                                 (reset_counts, read_counts), cpu_tt_out)
     del cpu_tt_out
+
+    # ---- the replicated KV store and the bank on Raft ---------------------
+    cpu_kv_out = wait_child(cpu_kv, cpu_kv_path, "kv_config4")
+    on_kv, kv4_ops = kv_config4_phase(wrappers, dev, names, every,
+                                      (reset_counts, read_counts),
+                                      cpu_kv_out)
+    on_path |= on_kv
+    on_kv, kv_ops = kv_bank_phase(wrappers, dev, names, every,
+                                  (reset_counts, read_counts), cpu_kv_out)
+    on_path |= on_kv
+    del cpu_kv_out
 
     # ---- kernel: sched_pick against its plain version -----------------------
     B, C = captured[0][0].shape
@@ -5687,8 +6146,17 @@ def main() -> int:
     # ---- kernel: the Raft safety check against its plain version -----------
     from madsim_tpu_torch.ops.raft_invariant import (raft_invariant_check,
                                                      raft_invariant_plain)
+    # the KV and bank cells' operands at step KV4_OPERANDS_AT: config 4
+    # (B=100,000, L=32, F=5), kv_default (L=64), kv_snapshot (L=12, the
+    # pairwise form), bank_chaos (L=48, F=6); at B=4096 but config 4
+    wide_cases = {f"kv_config4_step_{KV4_OPERANDS_AT}": kv4_ops}
+    wide_cases.update({f"{k}_step_{KV4_OPERANDS_AT}": v
+                       for k, v in kv_ops.items()})
+    raft_cases.update(wide_cases)
     for k in list(raft_cases):     # the captured operands in both forms
-        raft_cases[k + "_pairwise"] = raft_cases[k][:-1] + (True,)
+        raft_cases[k + ("_adjacent" if raft_cases[k][-1] else
+                        "_pairwise")] = raft_cases[k][:-1] + (
+                            not raft_cases[k][-1],)
     for B_r, N_r, L_r, F_r, snap, peer in (
             (EDGE_B, 5, 32, 1, False, None), (EDGE_B, 5, 32, 1, True, None),
             (EDGE_B, 3, 8, 2, True, (1, 0, 1)),
@@ -5703,6 +6171,26 @@ def main() -> int:
                        f"{'_snap' if snap else ''}"
                        f"{'_peers' if peer else ''}"
                        f"_{'pairwise' if ws else 'adjacent'}"] = ops + (ws,)
+    # the KV and bank log lengths (K11's tiled form past 32 slots) with
+    # their five and six entry fields, with and without a slid window
+    for L_r in (12, 48, 64, 96, 192):
+        for F_r in (5, 6):
+            for snap in (False, True):
+                ops = raft_edge_operands(dev, EDGE_B, 8, L_r, F_r,
+                                         L_r + F_r, (1,) * 5 + (0,) * 3,
+                                         snap)
+                for ws in (False, True):
+                    raft_cases[f"edges_kv_N8_L{L_r}_F{F_r}"
+                               f"{'_snap' if snap else ''}"
+                               f"_{'pairwise' if ws else 'adjacent'}"] = \
+                        ops + (ws,)
+    for L_r in (64, 192):          # the tiled rows 4 bytes an access
+        ops = raft_edge_operands(dev, EDGE_B + 5, 5, L_r, 5, 91, None, True)
+        moved = tuple(unaligned(t) for t in ops[:7]) + (
+            tuple(unaligned(c) for c in ops[7]),) + ops[8:]
+        for ws in (False, True):
+            raft_cases[f"edges_B{EDGE_B + 5}_L{L_r}_one_element_in_"
+                       f"{'pairwise' if ws else 'adjacent'}"] = moved + (ws,)
     # operands off a 16-byte boundary: every tensor one element in (the
     # log rows then go 4 bytes an access), and one lane in (the vectors
     # off, the log columns still aligned); B=4101, no multiple of a
@@ -5729,10 +6217,23 @@ def main() -> int:
     b_ms, o_ms = nbytes / HBM_BYTES_PER_S, ops_n / INT32_OPS_PER_S
     from madsim_tpu_torch.ops.raft_invariant import rows_vec4
     vec4 = rows_vec4((main_r[6],) + main_r[7], main_r[6].shape[-1])
+    # the KV and bank cells' operands, each in the form its runtime runs
+    widths = {}
+    for k, args in wide_cases.items():
+        kk = graph_ms(lambda: raft_invariant_check(*args), 50)
+        pp = cuda_ms(lambda: raft_invariant_plain(*args), 5)
+        kk2 = graph_ms(lambda: raft_invariant_check(*args), 50)
+        nb, no = raft_bound(*args)
+        B_w, N_w = args[0].shape
+        widths[k] = dict(B=B_w, N=N_w, L=args[6].shape[-1],
+                         F=len(args[7]), window_slides=args[-1],
+                         ms=min(kk, kk2), plain_ms=pp, bound_bytes=nb,
+                         bound_ms=max(nb / HBM_BYTES_PER_S,
+                                      no / INT32_OPS_PER_S) * 1e3)
     ri = dict(ms=min(k_ms, k_ms2), plain_ms=min(p_ms, p_ms2),
               bound_ms=max(b_ms, o_ms) * 1e3,
               bound_by="bytes" if b_ms >= o_ms else "operations",
-              max_abs_err=err, library_ms=None)
+              max_abs_err=err, library_ms=None, widths=widths)
     emit(phase="kernel", name="raft_invariant", cases={
         k: list(v[0].shape) for k, v in sorted(raft_cases.items())},
          main_case=f"flagship_step_{FLAG_CHUNK}", exact=True,
@@ -5740,8 +6241,9 @@ def main() -> int:
              "raft_invariant"], ms=[k_ms, k_ms2], plain_ms=[p_ms, p_ms2],
          ms_in_flagship_graph=prof_fused["raft_invariant_ms_per_step"],
          bound_bytes=nbytes, bound_operations=ops_n, bound_ms=ri["bound_ms"],
-         bound_by=ri["bound_by"], library="none", rows_vec4=vec4)
-    del raft_cases, main_r
+         bound_by=ri["bound_by"], library="none", rows_vec4=vec4,
+         widths=widths)
+    del raft_cases, main_r, wide_cases, kv4_ops, kv_ops
 
     # ---- kernel: the supervisor op against its plain version ----------------
     from madsim_tpu_torch.ops.apply_super import apply_super, apply_super_plain

@@ -49,6 +49,18 @@
 //
 // Where a log column is not 16-byte aligned or L is no multiple of 4, the
 // rows are read 4 bytes an access (`vec4` 0), in the same kernel.
+//
+// Log lengths past 32 (up to kMaxTiledL = 192: raft_kv's default 64, the
+// reference's tests at 48 and 96, shard_kv's 192) take a second
+// instantiation, `kTiled`: the thread walks its row in 32-slot tiles, each
+// tile's columns loaded into registers (16 bytes an access where `vec4`
+// holds; a tile starts at a multiple of 32 slots, so its rows stay 16-byte
+// aligned) and folded, the running prefix sum carried from tile to tile
+// and S written tile by tile. The shared rows grow with L (stride
+// (L + 1) | 1 words a thread), so the launcher gives a block as many warps
+// (4, 3, 2 or 1) as fit in 48 KB: 4 at L=64, 3 at L=96, 1 at L=192. The
+// chain reads are those of the L <= 32 form. L <= 32 keeps its own
+// instantiation, unchanged.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -71,13 +83,17 @@ struct RaftInvParams {
   int32_t* code;                // [B]
   int B, N, L, F, window_slides;
   int vec4;                     // rows read 16 bytes an access
+  int warps;                    // warps a block (the wrapper's choice,
+                                // checked by the launcher)
 };
 
 namespace {
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int kWarps = 4;                  // warps a block
-constexpr int kMaxL = 32;
+constexpr int kWarps = 4;                  // warps a block (L <= 32)
+constexpr int kMaxL = 32;                  // slots a tile (and L <= 32)
+constexpr int kMaxTiledL = 192;
+constexpr int kSmemLimit = 48 * 1024;      // bytes a block, no opt-in
 constexpr int kLeader = 2;
 constexpr uint32_t kMix = 920419823u;
 constexpr int32_t kTwoLeaders = 101;
@@ -87,8 +103,16 @@ constexpr int32_t kIntMax = 0x7FFFFFFF;
 
 __host__ __device__ constexpr int row_stride(int L) { return (L + 1) | 1; }
 
-__host__ __device__ constexpr int smem_words(int L) {
-  return 2 * (L + 1) + kWarps * 32 * row_stride(L);
+__host__ __device__ constexpr int smem_words(int L, int warps) {
+  return 2 * (L + 1) + warps * 32 * row_stride(L);
+}
+
+// The warps a block of the tiled instantiation takes: the most (up to
+// kWarps) whose shared rows fit in kSmemLimit.
+__host__ constexpr int tiled_warps(int L) {
+  int w = kWarps;
+  while (w > 1 && smem_words(L, w) * 4 > kSmemLimit) --w;
+  return w;
 }
 
 __device__ __forceinline__ int32_t sub32(int32_t a, int32_t b) {
@@ -152,10 +176,42 @@ __device__ __forceinline__ void prefix_row(const RaftInvParams& p,
   }
 }
 
+// The same row for L > 32, in 32-slot tiles: each tile's slots of every
+// column into registers, folded, and the prefix sum carried across tiles.
+__device__ __forceinline__ void prefix_row_tiled(const RaftInvParams& p,
+                                                 int64_t row0,
+                                                 const uint32_t* ipw,
+                                                 uint32_t* S) {
+  const int L = p.L;
+  uint32_t s = 0;
+  S[0] = 0;
+#pragma unroll 1
+  for (int k0 = 0; k0 < L; k0 += kMaxL) {
+    const int n = L - k0 < kMaxL ? L - k0 : kMaxL;
+    uint32_t h[kMaxL];
+    load_row(p.cols[0], row0 + k0, n, p.vec4, h);
+    for (int f = 1; f <= p.F; ++f) {
+      uint32_t y[kMaxL];
+      load_row(p.cols[f], row0 + k0, n, p.vec4, y);
+#pragma unroll
+      for (int k = 0; k < kMaxL; ++k) h[k] = h[k] * kMix + y[k];
+    }
+#pragma unroll
+    for (int k = 0; k < kMaxL; ++k) {
+      if (k < n) {
+        s += h[k] * ipw[k0 + k + 1];
+        S[k0 + k + 1] = s;
+      }
+    }
+  }
+}
+
+template <bool kTiled>
 __global__ void __launch_bounds__(kWarps * 32)
 raft_invariant_kernel(const __grid_constant__ RaftInvParams p) {
   extern __shared__ uint32_t sm[];
   const int N = p.N, L = p.L, stride = row_stride(L);
+  const int warps = kTiled ? static_cast<int>(blockDim.x >> 5) : kWarps;
   uint32_t* pw = sm;
   uint32_t* ipw = sm + (L + 1);
   for (int i = threadIdx.x; i <= L; i += blockDim.x) {
@@ -169,7 +225,7 @@ raft_invariant_kernel(const __grid_constant__ RaftInvParams p) {
   const int g = t / N;                     // this thread's lane in the warp
   const int n = t - g * N;                 // and its node
   const int base = g * N;                  // the lane's first thread
-  const int64_t b = (static_cast<int64_t>(blockIdx.x) * kWarps + warp) * G
+  const int64_t b = (static_cast<int64_t>(blockIdx.x) * warps + warp) * G
       + g;
   const bool mine = g < G && b < p.B;      // thread holds node n of lane b
   // the lane's threads in a ballot
@@ -188,7 +244,10 @@ raft_invariant_kernel(const __grid_constant__ RaftInvParams p) {
     cm = p.vecs[4][i];
     dig = static_cast<uint32_t>(p.vecs[5][i]);
     peer = p.peer[n] != 0;
-    prefix_row(p, i * L, ipw, rows + t * stride);
+    if (kTiled)
+      prefix_row_tiled(p, i * L, ipw, rows + t * stride);
+    else
+      prefix_row(p, i * L, ipw, rows + t * stride);
   }
   // the reference's masked views: non-peers count as empty, uncommitted
   const int32_t slm = peer ? sl : 0;
@@ -270,7 +329,7 @@ extern "C" int raft_invariant_launch(const RaftInvParams* params,
                                      void* stream) {
   const RaftInvParams& p = *params;
   if (p.B <= 0) return 0;
-  if (p.N < 1 || p.N > 32 || p.L < 1 || p.L > kMaxL || p.F < 0
+  if (p.N < 1 || p.N > 32 || p.L < 1 || p.L > kMaxTiledL || p.F < 0
       || p.F > kMaxFields)
     return static_cast<int>(cudaErrorInvalidValue);
   if (p.vec4) {
@@ -279,9 +338,16 @@ extern "C" int raft_invariant_launch(const RaftInvParams* params,
       if (reinterpret_cast<uintptr_t>(p.cols[c]) % 16 != 0)
         return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t lanes = static_cast<int64_t>(kWarps) * (32 / p.N);
+  const bool tiled = p.L > kMaxL;
+  const int warps = tiled ? tiled_warps(p.L) : kWarps;
+  if (p.warps != warps) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t lanes = static_cast<int64_t>(warps) * (32 / p.N);
   const dim3 grid(static_cast<unsigned>((p.B + lanes - 1) / lanes));
-  raft_invariant_kernel<<<grid, kWarps * 32, smem_words(p.L) * 4,
-                          static_cast<cudaStream_t>(stream)>>>(p);
+  const size_t smem = static_cast<size_t>(smem_words(p.L, warps)) * 4;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tiled)
+    raft_invariant_kernel<true><<<grid, warps * 32, smem, st>>>(p);
+  else
+    raft_invariant_kernel<false><<<grid, kWarps * 32, smem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,6 +24,9 @@ bits, so kernel and plain version agree exactly.
 CPU; for CUDA tensors it launches the kernel or raises. The kernel
 (csrc/raft_invariant.cu) gives each (lane, node) a thread, which reads
 its node's log rows 16 bytes an access where `rows_vec4` holds, else 4.
+It takes 1 <= L <= MAX_L: up to 32 slots a row in registers, beyond that
+(`L > TILE`) in 32-slot tiles, with `block_warps(L)` warps a block so
+that the shared prefix rows fit in 48 KB.
 `raft_invariant_check.launches` counts kernel launches (a launch recorded
 into a CUDA graph under capture counts in `captured` instead).
 """
@@ -49,7 +52,10 @@ CRASH_COMMIT_GT_LOG = 103
 
 MAX_FIELDS = 8   # log field columns the kernel takes
 MAX_N = 32       # nodes of a lane (one warp lane each)
-MAX_L = 32       # log slots of a node (one warp lane each)
+MAX_L = 192      # log slots of a node
+TILE = 32        # slots a thread holds in registers at once
+_WARPS = 4       # warps a block (L <= TILE; fewer where L's rows need it)
+_SMEM_LIMIT = 48 * 1024
 
 _I32 = torch.int32
 
@@ -166,7 +172,23 @@ class _Params(ctypes.Structure):
         + [(n, ctypes.c_void_p) for n in ("peer", "powP", "ipowP", "bad",
                                           "code")]
         + [(n, ctypes.c_int) for n in ("B", "N", "L", "F", "window_slides",
-                                       "vec4")])
+                                       "vec4", "warps")])
+
+
+def smem_bytes(L: int, warps: int) -> int:
+    """A block's shared memory: the two power tables and one prefix row
+    of stride (L + 1) | 1 words for each of its threads."""
+    return 4 * (2 * (L + 1) + warps * 32 * ((L + 1) | 1))
+
+
+def block_warps(L: int) -> int:
+    """The warps a block of the kernel takes at log length L: four up to
+    L = TILE; past it the most (4, 3, 2 or 1) whose rows fit in 48 KB
+    (4 at L=64, 3 at L=96, 1 at L=192)."""
+    w = _WARPS
+    while L > TILE and w > 1 and smem_bytes(L, w) > _SMEM_LIMIT:
+        w -= 1
+    return w
 
 
 def rows_vec4(cols, L: int) -> bool:
@@ -240,7 +262,8 @@ class _RaftInvariant(CKernel):
             return bad, code
         cols = (log_term,) + tuple(log_fields)
         p = _Params(B=B, N=N, L=L, F=F, window_slides=int(bool(
-            window_slides)), vec4=int(rows_vec4(cols, L)))
+            window_slides)), vec4=int(rows_vec4(cols, L)),
+            warps=block_warps(L))
         for i, t in enumerate(vecs):
             p.vecs[i] = t.data_ptr()
         for i, c in enumerate(cols):

@@ -542,6 +542,11 @@ class Runtime:
         chunks are the eager step, on a private copy. Either way the
         caller's state is left as it was.
 
+        On CUDA `compact_stats` also holds the steps the captured graphs
+        ran (`graph_steps`) and each kernel's launches in their replays
+        (`graph_launches`; a replay ticks no wrapper's count, the warm-up
+        steps before each capture do).
+
         observer: `on_chunk` a chunk, `on_compact` a repack (from/to
         widths) and `on_done`, with the JAX package's records; the done
         record also carries the whole batch's latency rollup (lat_p50,
@@ -555,6 +560,8 @@ class Runtime:
         orig_idx = np.arange(B)
         stash: list = []          # (original lanes, their state)
         done = k = repacks = stashed_total = captures = stash_bytes = 0
+        graph_steps = 0
+        graph_launches: dict = {}   # kernel -> launches its graphs replayed
         widths = [B]
         t0 = time.perf_counter()
         t_prev = t0
@@ -568,7 +575,11 @@ class Runtime:
                 cur = map_state(torch.clone, state)
             while done < max_steps:
                 if cuda:
-                    graph.advance(chunk)
+                    replays = graph.advance(chunk)
+                    graph_steps += replays * block
+                    for name, n in graph.captured.items():
+                        graph_launches[name] = (graph_launches.get(name, 0)
+                                                + n * replays)
                 else:
                     for _ in range(chunk):
                         cur, _ = self._step(cur)
@@ -639,7 +650,9 @@ class Runtime:
         self.compact_stats = dict(widths=widths, repacks=repacks,
                                   chunks=k, captures=captures,
                                   stashed_total=stashed_total,
-                                  stash_bytes=stash_bytes)
+                                  stash_bytes=stash_bytes,
+                                  graph_steps=graph_steps,
+                                  graph_launches=graph_launches)
         return out
 
     def _latency_fields(self, state: SimState) -> dict:

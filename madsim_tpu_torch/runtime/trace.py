@@ -8,7 +8,8 @@ runtime/mod.rs:349-358). Here the engine emits a structured event record
 per step when run with collect_events=True (numpy arrays shaped
 [steps, B, ...]); this module renders one seed's stream the same way,
 line for line as the JAX package renders it. The Perfetto export of the
-same records is `obs/trace.py`.
+same records is `obs/trace.py`; `export_chrome_trace` here is the
+original exporter signature, kept as a shim over it.
 """
 
 from __future__ import annotations
@@ -68,3 +69,12 @@ def format_trace(events: dict, b: int = 0, time_start: int | None = None,
 def print_trace(events: dict, b: int = 0, **kw) -> None:
     for line in format_trace(events, b, **kw):
         print(line)
+
+
+def export_chrome_trace(events: dict, path: str, b: int = 0,
+                        node_names=None) -> int:
+    """Back-compat shim for the original exporter signature; the
+    implementation (and the ring-source variant `run_fused` sweeps need)
+    lives in obs/trace.py."""
+    from ..obs.trace import export_chrome_trace as _export
+    return _export(path, events=events, b=b, node_names=node_names)

@@ -37,6 +37,21 @@
                      `config3`): the tonic-style RPC echo service, one
                      server and two clients of 10 calls each, under 10%
                      packet loss and a server kill/restart
+  kv_config4_runtime BASELINE.md config 4 (scripts/baseline_configs.py
+                     `config4`): the replicated KV store on Raft, 5
+                     servers and 3 clients of 6 ops on 3 keys, log 32,
+                     5% loss, three kill_random/restart_random pairs
+                     among the servers, 8 s
+  kv_default_runtime `models.raft_kv.make_kv_runtime()` at its defaults
+                     (log 64, 128 event rows, 20 s)
+  kv_snapshot_runtime the reference's compaction chaos config
+                     (tests/test_kv_snapshot.py:88): log 12 with
+                     compact_threshold 4 (the window slides), 10 ops a
+                     client, four kill/restart pairs and a partition
+  bank_chaos_runtime the reference's bank chaos config
+                     (tests/test_bank.py:29): log 48, 96 event rows,
+                     13 payload words, four kill/restart pairs and a
+                     partition
   build_pingpong     the frozen golden workloads of
   build_wal_kv       tests/_grayfail_golden.py, built with no JAX: pingpong
                      with the recorder (trace_cap=64), and the WAL-KV
@@ -215,6 +230,75 @@ def echo_config3_runtime(device=None):
                                                   timeout=ms(60))],
                    server_state_spec(), node_prog=[0, 1, 1], scenario=sc,
                    device=device)
+
+
+def kv_config4_runtime(device=None):
+    """BASELINE.md config 4 exactly as scripts/baseline_configs.py
+    `config4` builds it: make_kv_runtime(n_raft=5, n_clients=3,
+    n_keys=3, n_ops=6, log_capacity=32) on 8 nodes, 96 event rows, 12
+    payload words, 5% loss, servers killed at 700 + 900 t ms and
+    restarted at 1200 + 900 t ms (t = 0, 1, 2), an 8 s limit."""
+    from .models.raft_kv import make_kv_runtime
+    sc = Scenario()
+    for t in range(3):
+        sc.at(ms(700 + 900 * t)).kill_random(among=range(5))
+        sc.at(ms(1200 + 900 * t)).restart_random(among=range(5))
+    cfg = SimConfig(n_nodes=8, event_capacity=96, payload_words=12,
+                    time_limit=sec(8), net=NetConfig(packet_loss_rate=0.05))
+    return make_kv_runtime(n_raft=5, n_clients=3, n_keys=3, n_ops=6,
+                           log_capacity=32, scenario=sc, cfg=cfg,
+                           device=device)
+
+
+def kv_default_runtime(device=None):
+    """make_kv_runtime() at its defaults: 5 servers, 3 clients of 12 ops
+    on 4 keys, log 64, 128 event rows, 12 payload words, 20 s."""
+    from .models.raft_kv import make_kv_runtime
+    return make_kv_runtime(device=device)
+
+
+def _chaos_servers(n_raft: int, first: int, every: int):
+    """Four kill_random/restart_random pairs among the servers (the
+    restart 500 ms after each kill), a partition of nodes 0 and 1 at
+    2 s and a heal at 3 s."""
+    sc = Scenario()
+    for t in range(4):
+        sc.at(ms(first + every * t)).kill_random(among=range(n_raft))
+        sc.at(ms(first + 500 + every * t)).restart_random(
+            among=range(n_raft))
+    sc.at(sec(2)).partition([0, 1])
+    sc.at(sec(3)).heal()
+    return sc
+
+
+def kv_snapshot_runtime(device=None):
+    """The reference's tests/test_kv_snapshot.py:88 config: 5 servers and
+    3 clients of 10 ops on 3 keys, log 12 with compact_threshold 4 (the
+    log window slides; the invariant takes its pairwise form), 128 event
+    rows, 1-10 ms latency, 5% loss, kills at 900 + 900 t ms, a 12 s
+    limit."""
+    from .models.raft_kv import make_kv_runtime
+    cfg = SimConfig(n_nodes=8, event_capacity=128, payload_words=12,
+                    time_limit=sec(12),
+                    net=NetConfig(packet_loss_rate=0.05,
+                                  send_latency_min=ms(1),
+                                  send_latency_max=ms(10)))
+    return make_kv_runtime(5, 3, n_keys=3, n_ops=10, log_capacity=12,
+                           scenario=_chaos_servers(5, 900, 900), cfg=cfg,
+                           compact_threshold=4, device=device)
+
+
+def bank_chaos_runtime(device=None):
+    """The reference's tests/test_bank.py:29 config: 5 servers and 3
+    clients of 8 ops over 6 accounts, log 48, 96 event rows, 13 payload
+    words, 5% loss, kills at 800 + 800 t ms, an 8 s limit."""
+    from .models.bank import make_bank_runtime
+    cfg = SimConfig(n_nodes=8, event_capacity=96, payload_words=13,
+                    time_limit=sec(8), net=NetConfig(packet_loss_rate=0.05))
+    return make_bank_runtime(n_raft=5, n_clients=3, n_ops=8,
+                             log_capacity=48,
+                             scenario=_chaos_servers(5, 800, 800), cfg=cfg,
+                             device=device)
 
 
 def build_pingpong(device=None):

@@ -158,6 +158,35 @@ def test_chrome_trace_of_an_event_stream_matches_reference(tmp_path):
         tobs.export_chrome_trace(str(tmp_path / "x.json"))
 
 
+def test_runtime_trace_shim_writes_the_reference_shims_bytes(tmp_path):
+    """runtime/trace.export_chrome_trace(events, path, b, node_names), the
+    original exporter signature, writes the JAX package's shim's file
+    byte for byte from the same recorded event stream (lane 1 of two,
+    named nodes) and counts the same dispatches."""
+    from madsim_tpu.runtime import trace as jtrace
+    from madsim_tpu_torch.runtime import trace as ttrace
+    names = ["alpha", "beta", "gamma"]
+    with reference_stream():
+        jrt = J.Runtime(J.SimConfig(n_nodes=3, time_limit=J.sec(2)),
+                        [jpp.PingPong(3, target=8)], jpp.state_spec())
+        _, ev = jrt.run(jrt.init_batch(np.arange(2, dtype=np.uint32)), 192,
+                        64, collect_events=True)
+        nj = jtrace.export_chrome_trace(ev, str(tmp_path / "j.json"), b=1,
+                                        node_names=names)
+    import madsim_tpu_torch as P
+    rt = P.Runtime(P.SimConfig(n_nodes=3, time_limit=P.sec(2)),
+                   [tpp.PingPong(3, target=8)], tpp.state_spec(),
+                   device="cpu")
+    _, ev = rt.run(rt.init_batch(np.arange(2, dtype=np.uint32)), 192, 64,
+                   collect_events=True)
+    nt = ttrace.export_chrome_trace(ev, str(tmp_path / "t.json"), b=1,
+                                    node_names=names)
+    with open(tmp_path / "j.json", "rb") as a, \
+            open(tmp_path / "t.json", "rb") as b:
+        assert a.read() == b.read()
+    assert nt == nj > 0
+
+
 # --------------------------------------------------------------------------
 # The profiler's reports, counter tracks and trace, and the ring's plane
 # columns, on pingpong with both planes

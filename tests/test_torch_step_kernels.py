@@ -50,6 +50,14 @@ RAFT_CASES = {
     "N5_L8_B1_raft_nodes": (1, 5, 8, ("cmd",), False,
                             (True, True, False, True, True)),
 }
+# the log lengths of raft_kv and bank (K11's tiled form past 32 slots),
+# with their five and six entry fields
+_KV_FIELDS = ("op", "key", "val", "client", "rtag")
+_BANK_FIELDS = ("op", "afrom", "ato", "amt", "client", "rtag")
+RAFT_CASES.update({
+    f"N8_L{L}_F{len(f)}": (1024, 8, L, f, True,
+                           (True,) * 5 + (False,) * 3)
+    for L in (12, 48, 64, 96, 192) for f in (_KV_FIELDS, _BANK_FIELDS)})
 
 
 @pytest.mark.parametrize("window_slides", [False, True])
@@ -84,18 +92,48 @@ def test_raft_invariant_matches_reference(case, window_slides):
             jraft.CRASH_COMMIT_GT_LOG}
 
 
+def _tiled_prefix(cols, ipowP, L):
+    """A thread's prefix row S[0..L] as the kernel walks it: 32-slot
+    tiles of every column folded into entry hashes, the running sum
+    carried from tile to tile (uint32 arithmetic)."""
+    mix = np.uint32(920419823)
+    w = cols[0].shape[:-1]
+    S = np.zeros(w + (L + 1,), np.uint32)
+    s = np.zeros(w, np.uint32)
+    ipw = ipowP.numpy().view(np.uint32)
+    for k0 in range(0, L, 32):
+        n = min(32, L - k0)
+        h = cols[0][..., k0:k0 + n].numpy().view(np.uint32).copy()
+        for c in cols[1:]:
+            h = h * mix + c[..., k0:k0 + n].numpy().view(np.uint32)
+        for k in range(n):
+            s = s + h[..., k] * ipw[k0 + k + 1]
+            S[..., k0 + k + 1] = s
+    return S
+
+
 def _raft_standin(ref, stream):
-    """csrc/raft_invariant.cu on host memory: its blocks of four warps,
+    """csrc/raft_invariant.cu on host memory: its blocks of `warps` warps
+    (4 up to L = 32; past that the most whose shared rows fit in 48 KB),
     floor(32 / N) lanes a warp, each lane checked with the plain version
-    from operands read through the parameter block's pointers. Refuses
-    (cudaErrorInvalidValue) what the launcher refuses: 16-byte row reads
-    of columns that are not 16-byte aligned or of an L no multiple of 4."""
+    from operands read through the parameter block's pointers; past 32
+    slots each block's prefix rows are walked in 32-slot tiles as the
+    kernel does and held to the plain version's. Refuses
+    (cudaErrorInvalidValue) what the launcher refuses: L past 192, a
+    `warps` other than the launcher's, 16-byte row reads of columns that
+    are not 16-byte aligned or of an L no multiple of 4."""
     from madsim_tpu_torch.ops import raft_invariant as ri
     from test_torch_node_rows import _host
     p = ref._obj
     B, N, L, F = p.B, p.N, p.L, p.F
     if p.vec4 and (L % 4 or any(c % 16 for c in p.cols[:1 + F])):
         return 1
+    warps = 4
+    while L > 32 and warps > 1 and ri.smem_bytes(L, warps) > 48 * 1024:
+        warps -= 1
+    if not 1 <= L <= 192 or p.warps != warps:
+        return 1
+    assert ri.smem_bytes(L, warps) <= 48 * 1024
 
     def arr(ptr, shape, esize=4, dtype=np.int32):
         return torch.as_tensor(_host(ptr, int(np.prod(shape)), esize)
@@ -105,11 +143,18 @@ def _raft_standin(ref, stream):
     powP, ipowP = arr(p.powP, (L + 1,)), arr(p.ipowP, (L + 1,))
     bad = _host(p.bad, B, 1)
     code = _host(p.code, B, 4).view(np.int32)
-    lanes = 4 * (32 // N)                 # a block's
+    lanes = warps * (32 // N)             # a block's
     for b0 in range(0, B, lanes):
         w = min(lanes, B - b0)
         vecs = [arr(v + b0 * N * 4, (w, N)) for v in p.vecs[:6]]
         cols = [arr(c + b0 * N * L * 4, (w, N, L)) for c in p.cols[:1 + F]]
+        if L > 32:
+            h = ri.entry_hash(cols[0], cols[1:])
+            want = torch.cumsum(h * ipowP[1:], -1, dtype=torch.int32)
+            S = _tiled_prefix(cols, ipowP, L)
+            assert (S[..., 0] == 0).all()
+            np.testing.assert_array_equal(S[..., 1:].view(np.int32),
+                                          want.numpy())
         got = ri.raft_invariant_plain(*vecs, cols[0], tuple(cols[1:]), peer,
                                       powP, ipowP, bool(p.window_slides))
         bad[b0:b0 + w] = got[0].numpy()
@@ -126,6 +171,12 @@ RAFT_LAUNCHES = {
     "B1_N3_L8_F2": (1, 3, 8, 2, (True, False, True), False, True),
     "N8_L6_F2": (300, 8, 6, 2, None, False, False),
     "N32_L32_F8": (45, 32, 32, 8, None, False, True),
+    "tiled_N8_L48_F5": (203, 8, 48, 5, None, False, True),
+    "tiled_N8_L64_F5": (300, 8, 64, 5, (True,) * 5 + (False,) * 3, False,
+                        True),
+    "tiled_N5_L96_F6_one_element_in": (77, 5, 96, 6, None, True, False),
+    "tiled_N8_L192_F6": (33, 8, 192, 6, None, False, True),
+    "tiled_N3_L50_F1": (40, 3, 50, 1, None, False, False),
 }
 
 
@@ -137,7 +188,8 @@ def test_raft_invariant_launch_reads_rows_by_their_alignment(
     (`vec4`) only where every log column is 16-byte aligned and L is a
     multiple of 4; a stand-in launcher that refuses what the launcher
     refuses checks every lane with the plain version through the
-    parameter block. Equal to the plain version, one launch."""
+    parameter block, walking the prefix rows in the kernel's tiles past
+    32 slots. Equal to the plain version, one launch."""
     from madsim_tpu_torch.ops import raft_invariant as ri
     B, N, L, F, peer, off, vec4 = RAFT_LAUNCHES[case]
     ops = chip_smoke.raft_edge_operands("cpu", B, N, L, F, seed=B + N,
@@ -158,6 +210,27 @@ def test_raft_invariant_launch_reads_rows_by_their_alignment(
     assert seen == [int(vec4)] == [int(ri.rows_vec4((ops[6],) + ops[7], L))]
     want = raft_invariant_plain(*ops, window_slides)
     assert torch.equal(bad, want[0]) and torch.equal(code, want[1])
+
+
+def test_raft_invariant_kernel_takes_logs_up_to_192_slots(monkeypatch):
+    """The kernel path's limits: L = 192 launches (with one warp a block,
+    its shared rows within 48 KB), L = 193 raises before any launch."""
+    from madsim_tpu_torch.ops import raft_invariant as ri
+    assert ri.MAX_L == 192
+    assert [ri.block_warps(L) for L in (12, 32, 48, 64, 96, 192)] == [
+        4, 4, 4, 4, 3, 1]
+    monkeypatch.setattr(raft_invariant_check, "_fn", _raft_standin)
+    for L, ok in ((192, True), (193, False)):
+        ops = chip_smoke.raft_edge_operands("cpu", 9, 5, L, 1, seed=L)
+        before = raft_invariant_check.launches
+        if ok:
+            got = raft_invariant_check.run(*ops, True)
+            want = raft_invariant_plain(*ops, True)
+            assert torch.equal(got[1], want[1])
+        else:
+            with pytest.raises(NotImplementedError, match="L <= 192"):
+                raft_invariant_check.run(*ops, True)
+        assert raft_invariant_check.launches == before + ok
 
 
 # --------------------------------------------------------------------------
