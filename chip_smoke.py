@@ -68,7 +68,7 @@ the frozen golden digests. One JSON object per line, in phases:
                build): equal results and equal corpora; the fuzzer finds
                more schedules than blind explore on the same budget
   flagship_same_on_both  the traced flagship (trace_cap=64) at B=203,
-               256 steps, through run and run_fused on the card and run
+               128 steps, through run and run_fused on the card and run
                on the CPU: every leaf equal; the card's eager run launches
                each step kernel its count a step, the CPU run none
   compacting   the flagship's shapes halting at a commit index of 28 or
@@ -94,8 +94,8 @@ the frozen golden digests. One JSON object per line, in phases:
                on the card, and on the CPU in a process of its own started
                after the build: the same minimal script, info and fuzz
                result (the `minimized` table included)
-  harness_misc  on the flagship: state_at(0, k) for k in 1, 37, 100, 513
-               equal to a direct run of k steps; find_divergence over 512
+  harness_misc  on the flagship: state_at(0, k) for k in 1, 37, 129
+               equal to a direct run of k steps; find_divergence over 128
                steps finds none; a B=4096 checkpoint saved at step 512,
                loaded and resumed to 2048 gives the straight run's
                fingerprints
@@ -103,7 +103,7 @@ the frozen golden digests. One JSON object per line, in phases:
                flagship with the sim profiler and the latency plane,
                e2e from the leader's propose timer to its append
                replies, trace_cap=64) at B=100,000 for 2048 steps
-               through run_fused, and run for the first 1024: every leaf
+               through run_fused, and run for the first 512: every leaf
                equal there, the fingerprints equal the plane-off
                flagship's, obs_fold
                launched once a step, lanes 0, 1, 4099 and 99,999 at
@@ -125,7 +125,7 @@ the frozen golden digests. One JSON object per line, in phases:
                prefix sketch, 16 series windows of 625 ms and the span
                plane, at an SLO target some completions miss) at
                B=100,000 for 2048 steps through run_fused, and run for
-               the first 1024: every leaf equal there, the plane-off
+               the first 512: every leaf equal there, the plane-off
                fingerprints, obs_fold once a
                step, lanes 0, 1, 4099 and 99,999 at step 1024 equal to
                the CPU child's run, the series, attribution and sketch
@@ -138,8 +138,9 @@ the frozen golden digests. One JSON object per line, in phases:
   recovery     recovery_invariant (harness/recovery.py) on four pingpong
                recipes (RECOVERY_RECIPES: a clog healed and a
                set_latency never healed, each judged so that every
-               lane crashes, and so that none or some do), B=4096:
-               run_fused equal to run, the expected CRASH_RECOVERY
+               lane crashes, and so that none or some do), B=4096, 256
+               steps: run_fused equal to run over the first 128, the
+               expected CRASH_RECOVERY
                lanes, lanes 0..7 equal to a CPU run
   timetravel_flagship  the flagship at B=100,000 through
                run_fused(2048 steps, ckpt_every=1024): the plane-off
@@ -151,8 +152,8 @@ the frozen golden digests. One JSON object per line, in phases:
                its memory) and run_fused for the last 1024 steps: every
                lane ends on lane 4099's parent fingerprint, and the
                fork's lane 0 checkpointed on the card equals the
-               parent's; at B=4096 over 1024 steps run(ckpt_every=512)
-               and run_fused(ckpt_every=512) harvest equal snapshots
+               parent's; at B=4096 over 512 steps run(ckpt_every=256)
+               and run_fused(ckpt_every=256) harvest equal snapshots
   timetravel_explain  the crash-rich wal_kv with a 4-slot ring (24
                seeds, run(ckpt_every=32)): explain_crash(replay=True)
                of its first wrap-truncated crash returns a whole chain,
@@ -171,7 +172,8 @@ the frozen golden digests. One JSON object per line, in phases:
   tpc_gossip   two_phase_commit under loss and two coordinator
                kill/restarts, its early_decide_quorum=2 bug variant, and
                gossip through a partition and heal, each at B=16,384
-               through run_fused and run, leaf for leaf, four lanes equal
+               through run_fused to the halt, run equal to run_fused leaf
+               for leaf over the first 256 steps, four lanes equal
                to the CPU child's, the bug variant's crash verdicts on
                its first 512 lanes equal to the CPU's; each graph step's
                device ms and the eager step's handlers and invariant
@@ -192,7 +194,7 @@ the frozen golden digests. One JSON object per line, in phases:
   kv_bank      make_kv_runtime's defaults (log 64), the compaction chaos
                config (log 12, the window slides) and the bank chaos
                config (log 48) at B=4096 through run_fused to the halt,
-               run equal to run_fused over the first 256 steps (the eager
+               run equal to run_fused over the first 128 steps (the eager
                KV step is host-bound), four lanes equal to the CPU
                child's; the KV histories linearizable, every completed
                bank op's total the conserving 600; the poisoned bank
@@ -200,25 +202,56 @@ the frozen golden digests. One JSON object per line, in phases:
                lanes' verdicts the CPU's; each graph step's device ms and
                (bank_chaos) the eager step's handlers and invariant
                sections
+  models_p9b   chain replication (workloads.chain_runtime: C=384, the
+               reference's loss chaos) at B=16,384, and the streaming
+               dataflow under mapper chaos, Percolator-lite at its
+               defaults (C=256) and bench.py's sharded KV (three Raft
+               groups, L=192, 48 node-state leaves; a cap of 512 steps,
+               its client ops done by then printed) at B=4096, each
+               through run_fused and run (equal over the first 128
+               steps; the sharded KV's 32), four lanes equal to a CPU run
+               (in a process of its own, `chip_smoke.py --p9b-cpu OUT`,
+               started after fuzz_flagship; the sharded KV's at its cap,
+               where the tier-1 tests hold its lanes 0 and 1 to the JAX
+               package's), each step kernel its count a step (the sharded KV's raft_invariant three: one a
+               group), no plain draw in an eager step: no crash (chain,
+               ministream, sharded KV), every client done, every chain
+               and sharded-KV history linearizable, every ministream
+               epoch committed once; the red cells (chain's short master
+               wait, ministream's overtaking barrier, Percolator's slow
+               disk) and Percolator at its defaults (whose TTL hole
+               crashes a few lanes with no fault injected, in the
+               reference too) crashing the same lanes with the same
+               codes as the CPU on their first 256 lanes; steps to halt,
+               the graph step's device ms, kernels a step and busy share,
+               seed-events/s, and (chain) the eager step's sections
+               (the other cells' eager sections: `chip_smoke.py
+               --p9b-profile`, a run of its own)
   kernel       each kernel against its plain version, exactly equal
                (the kernel's time is device time: launches captured in a
                CUDA graph and replayed between events):
                sched_pick on edge-case tables (B=100,000; B=1;
-               B=100,003; C=33 and C=256 with N=32; warp tiles that mix
+               B=100,003; C=33 and C=256 with N=32; C=257, 288, 320
+               and 384 at B=4096, the wide instantiations; warp tiles
+               that mix
                nudged, halted, tied, one-candidate, empty and parked
-               lanes; every lane halted; tables not 16-byte aligned, which
-               the kernel copies 4 bytes at a time), each also with its
-               occupancy output (the profiler's), and on tables captured
-               from the flagship at steps 0, 512, 2048, from wal_kv at
-               B=100,000, C=256, step 40 and from PCT's nudged run, with
+               lanes, also at C=384; every lane halted; tables not
+               16-byte aligned, which the kernel copies 4 bytes at a
+               time, also at C=384), each also with its occupancy output
+               (the profiler's), and on tables captured from the
+               flagship at steps 0, 512, 2048, from wal_kv at B=100,000,
+               C=256, step 40, from PCT's nudged run and from chain
+               replication at B=16,384, C=384, step 512 (timed too), with
                its registers a thread and resident blocks an SM (the
                occupancy API) beside its time as a graph replay and inside
                the profiled flagship graph; emit_write on edge-case
-               operands at C=96 and C=256 (full tables, masked
+               operands at C=96, 256, 257, 288, 320 and 384 (full tables,
+               masked
                emissions, clogged links, loss 0 and 1, jitter, skew, disk
                delay, a wrapping ring) and on operands captured from the
-               traced flagship at steps 0 and 512 and from wal_kv at
-               step 40 (32 golden lanes, and B=100,000), kernel and plain
+               traced flagship at steps 0 and 512, from wal_kv at step
+               40 (32 golden lanes, and B=100,000) and from chain
+               replication at step 512 (timed too), kernel and plain
                version each writing a copy of the same operands in place:
                every table and ring leaf equal, and no row written that
                an emission did not take; kernel and plain times, each a
@@ -414,7 +447,7 @@ FUZZ_ROUNDS = 3
 FUZZ_HAVOC = 3
 EXPLORE_ROUNDS = 2
 PCT_STEPS = 512
-SAME_B, SAME_STEPS = 203, 256   # flagship_same_on_both
+SAME_B, SAME_STEPS = 203, 128   # flagship_same_on_both
 # the saturating campaign run on the card and on the CPU (bench.py's
 # search A/B shape); dry_rounds past max_rounds: every round runs
 SAT = dict(max_steps=1500, batch=128, max_rounds=6, chunk=256, rng_seed=7)
@@ -423,6 +456,7 @@ STEP_KERNELS = ("emit_write", "sched_pick", "raft_invariant", "apply_super")
 DET_B = 4096
 DET_EAGER_STEPS = FLAG_CHUNK   # the eager determinism passes (host-bound)
 PROF_STEPS = 16
+PROF_PLAIN_STEPS = 4  # the flagship profiles of the plain K1/K4, K3/K11 paths
 PROF_WINDOWS = 3     # traced windows at most, when records go missing
 PROF_SETTLE_STEPS = 8  # traced steps before the window, left out of it
 SETTLE_RANGE = "chip_smoke.settle"
@@ -861,6 +895,42 @@ def emit_bound(tables, em, lane, ring, n_sends, use_jitter, delay=False):
     return nbytes, ops
 
 
+def emit_write_ms(kernel, plain, ops, pairs=2) -> dict:
+    """The emission write's device ms on `ops` (in place, so each timed
+    call restores the table and ring columns first; the restore alone is
+    subtracted) beside its bound: `pairs` kernel timings as CUDA-graph
+    replays of 20 calls (`ms`) and `pairs` of the plain version's eager
+    calls (`plain_ms`), in turns; the restore's own ms, the kernel's
+    eager launch, and emit_bound's bytes and operations with the bound
+    they give."""
+    from madsim_tpu_torch.ops.emit_write import RING_COLS, TABLE_COLS
+    live = clone_tree(ops)
+    restores = [(live[0][k], ops[0][k]) for k in TABLE_COLS]
+    if ops[3] is not None:
+        restores += [(live[3]["cols"][k], ops[3]["cols"][k])
+                     for k in RING_COLS]
+
+    def restore():
+        for dst, src in restores:
+            dst.copy_(src)
+
+    ks, ps = [], []
+    for _ in range(pairs):
+        ks.append(graph_ms(lambda: (restore(), kernel(*live)), 20)
+                  - graph_ms(restore, 20))
+        ps.append(cuda_ms(lambda: (restore(), plain(*live)), 5)
+                  - cuda_ms(restore, 5))
+    nbytes, nops = emit_bound(*ops)
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = nops / INT32_OPS_PER_S * 1e3
+    return dict(ms=ks, plain_ms=ps, restore_ms=graph_ms(restore, 20),
+                eager_launch_ms=(cuda_ms(lambda: (restore(), kernel(*live)),
+                                         20) - cuda_ms(restore, 20)),
+                bound_bytes=nbytes, bound_operations=nops,
+                bound_ms=max(b_ms, o_ms),
+                bound_by="bytes" if b_ms >= o_ms else "operations")
+
+
 def check_rows_written(name, before, after):
     """The emission write changed no table row but those emissions took
     (free before, occupied after), and no more than one row of each
@@ -912,14 +982,23 @@ def fused_launches(rt, counts, names):
     return {k: counts[k] + st["captured"][k] * st["replays"] for k in names}
 
 
+def per_step_of(names) -> dict:
+    """{step kernel: launches a step} of `names`: a list of kernels each
+    launched once a step, or such a dict (sharded KV checks each of its
+    three Raft groups with one raft_invariant launch)."""
+    return dict(names) if isinstance(names, dict) else {k: 1 for k in names}
+
+
 def check_once_per_step(what, launches, steps, names, per_step):
-    """Each step kernel of `names` launched once a step, every other step
-    kernel (the Raft check, on a workload with no Raft) never; each K1/K4
-    kernel `per_step[k]` times a step (`step_launches`): those of
-    ON_EVERY_STEP at least once, the rest where the path's step draws
-    with them. Returns the K1/K4 kernels the path ran."""
+    """Each step kernel of `names` launched once a step (or as many times
+    as `names` gives, a dict), every other step kernel (the Raft check,
+    on a workload with no Raft) never; each K1/K4 kernel `per_step[k]`
+    times a step (`step_launches`): those of ON_EVERY_STEP at least once,
+    the rest where the path's step draws with them. Returns the K1/K4
+    kernels the path ran."""
+    each = per_step_of(names)
     for k in STEP_KERNELS:
-        want = steps if k in names else 0
+        want = steps * each.get(k, 0)
         check(launches[k] == want,
               f"{what}: {k} launched {launches[k]} times in {steps} steps")
     for k in ("step_keys", "dup_draws"):
@@ -946,8 +1025,8 @@ def fingerprints_once(rt, state, what):
     return out
 
 
-def profile_steps(run, state, batch, expect):
-    """Trace PROF_STEPS steps of `run(state, n)` with torch.profiler:
+def profile_steps(run, state, batch, expect, steps=PROF_STEPS):
+    """Trace `steps` steps of `run(state, n)` with torch.profiler:
     device kernels per step, their summed device time against the wall
     time (the device's busy share), the top kernels, the device events of
     each kernel of `expect` ({kernel: launches a step};
@@ -975,9 +1054,8 @@ def profile_steps(run, state, batch, expect):
     reading of the profiles before the settle range)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
-    state = run(state, PROF_STEPS)                # warm
+    state = run(state, steps)                     # warm
     short = []
-    steps = PROF_STEPS
     for _ in range(PROF_WINDOWS):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -2300,11 +2378,14 @@ def gather_sector_bytes(tree, idx):
     return total + idx.numel() * 4
 
 
-def plain_draws_in_step(rt, state):
+def plain_draws_in_step(rt, state, skip=()):
     """({core/prng.py function: calls}, [shapes of the one-hot put_row
     writes of node_state, t_kind or t_deadline]) in one eager step of
     `state` (on a copy): every function of core/prng.py, wherever the
-    port's modules bind it, and select.put_row are wrapped for the step."""
+    port's modules bind it, and select.put_row are wrapped for the step.
+    Node-state leaves named in `skip` are not counted (the fs leaves of
+    the supervisor op's torn-write flush, plain PyTorch after the kernel:
+    K3's queued remainder)."""
     import inspect
     import torch
     from madsim_tpu_torch.core import prng
@@ -2312,7 +2393,8 @@ def plain_draws_in_step(rt, state):
     from madsim_tpu_torch.ops import select as sel
     own = map_state(torch.clone, state)
     targets = {t.data_ptr() for t in [own.t_kind, own.t_deadline]
-               + list(own.node_state.values()) if t.numel()}
+               + [v for k, v in own.node_state.items() if k not in skip]
+               if t.numel()}
     calls, onehot = {}, []
 
     def counted(name, fn):
@@ -2433,8 +2515,8 @@ COMPACT_STEPS = 4096     # every lane of compacting_runtime halts by ~2600
 COMPACT_MIN_BATCH = 256
 MIN_STEPS, MIN_CHUNK = 60_000, 16   # the minimize phase's runs
 MIN_FUZZ = dict(batch=8, max_rounds=2, chunk=MIN_CHUNK)
-STATE_AT_STEPS = (1, 37, 100, 513)
-DIVERGENCE_STEPS = 512
+STATE_AT_STEPS = (1, 37, 129)
+DIVERGENCE_STEPS = 128
 CKPT_B, CKPT_AT = 4096, 512
 LANE_KERNELS = ("lane_take", "lane_put", "lane_diff")
 
@@ -3247,7 +3329,9 @@ def clone_layout_state(state):
 # ---- K10 plane_sums / lane_p99, K5's plane columns) ------------------------
 # lanes of the plane flagship that a CPU run (a process of its own) repeats
 PLANE_CPU_LANES = (0, 1, 4099, 99_999)
-PLANE_CPU_STEPS = 1024      # the CPU lanes' step, and where run = run_fused
+PLANE_CPU_STEPS = 1024      # the CPU lanes' step
+PLANE_EAGER_STEPS = 512     # where run = run_fused (the eager step is
+                            # host-bound)
                             # is checked (the eager runner is host-bound)
 
 
@@ -3339,7 +3423,7 @@ def planes_phase(wrappers, dev, names, every, flag_fp, prof_off, cpu_job,
     # the eager runner on the same seeds
     reset_counts()
     t4 = time.perf_counter()
-    e, _ = rt.run(init, PLANE_CPU_STEPS, chunk=FLAG_CHUNK)
+    e, _ = rt.run(init, PLANE_EAGER_STEPS, chunk=FLAG_CHUNK)
     torch.cuda.synchronize()
     t5 = time.perf_counter()
     eager = read_counts()
@@ -3347,7 +3431,8 @@ def planes_phase(wrappers, dev, names, every, flag_fp, prof_off, cpu_job,
     check(eager["obs_fold"] == rt.steps_run,
           f"planes run: obs_fold launched {eager['obs_fold']} times in "
           f"{rt.steps_run} steps")
-    same_runners = state_equal(mid, e)
+    same_runners = state_equal(
+        rt.run_fused(init, PLANE_EAGER_STEPS, chunk=FLAG_CHUNK), e)
     del e, init, mid
     fps = fingerprints_once(rt, s, "planes")
     same_fp = bool((fps == flag_fp).all())
@@ -3397,8 +3482,8 @@ def planes_phase(wrappers, dev, names, every, flag_fp, prof_off, cpu_job,
          warmup_steps=warm, first_half_s=t1 - t0,
          steady_s=t3 - t2,
          ms_per_step=(t3 - t2) / (FLAG_STEPS - PLANE_CPU_STEPS) * 1e3,
-         eager_ms_per_step=(t5 - t4) / PLANE_CPU_STEPS * 1e3,
-         eager_compared_at=PLANE_CPU_STEPS,
+         eager_ms_per_step=(t5 - t4) / PLANE_EAGER_STEPS * 1e3,
+         eager_compared_at=PLANE_EAGER_STEPS,
          max_memory_allocated=peak,
          run_equals_run_fused=same_runners,
          fingerprints_equal_plane_off=same_fp,
@@ -3519,7 +3604,7 @@ def planes_all_phase(wrappers, dev, names, every, flag_fp, prof_off, cpu,
     peak = torch.cuda.max_memory_allocated()
     reset_counts()
     t4 = time.perf_counter()
-    e, _ = rt.run(init, PLANE_CPU_STEPS, chunk=FLAG_CHUNK)
+    e, _ = rt.run(init, PLANE_EAGER_STEPS, chunk=FLAG_CHUNK)
     torch.cuda.synchronize()
     t5 = time.perf_counter()
     eager = read_counts()
@@ -3527,7 +3612,8 @@ def planes_all_phase(wrappers, dev, names, every, flag_fp, prof_off, cpu,
     check(eager["obs_fold"] == rt.steps_run,
           f"planes_all run: obs_fold launched {eager['obs_fold']} times in "
           f"{rt.steps_run} steps")
-    same_runners = state_equal(mid, e)
+    same_runners = state_equal(
+        rt.run_fused(init, PLANE_EAGER_STEPS, chunk=FLAG_CHUNK), e)
     del e, mid
     fps = fingerprints_once(rt, s, "planes_all")
     same_fp = bool((fps == flag_fp).all())
@@ -3581,8 +3667,8 @@ def planes_all_phase(wrappers, dev, names, every, flag_fp, prof_off, cpu,
                                             plane_every},
          warmup_steps=warm, steady_s=t3 - t2,
          ms_per_step=(t3 - t2) / (FLAG_STEPS - PLANE_CPU_STEPS) * 1e3,
-         eager_ms_per_step=(t5 - t4) / PLANE_CPU_STEPS * 1e3,
-         eager_compared_at=PLANE_CPU_STEPS,
+         eager_ms_per_step=(t5 - t4) / PLANE_EAGER_STEPS * 1e3,
+         eager_compared_at=PLANE_EAGER_STEPS,
          max_memory_allocated=peak, new_leaf_bytes=leaf_bytes,
          run_equals_run_fused=same_runners,
          fingerprints_equal_plane_off=same_fp,
@@ -3695,6 +3781,7 @@ def recovery_runtime(recipe, device):
 
 
 RECOVERY_STEPS = 256
+RECOVERY_EAGER_STEPS = 128   # where run = run_fused (host-bound)
 
 
 def recovery_phase(dev):
@@ -3715,7 +3802,9 @@ def recovery_phase(dev):
         f = rt.run_fused(rt.init_batch(seeds), RECOVERY_STEPS, chunk=128)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        e, _ = rt.run(rt.init_batch(seeds), RECOVERY_STEPS, chunk=128)
+        e, _ = rt.run(rt.init_batch(seeds), RECOVERY_EAGER_STEPS, chunk=128)
+        same = state_equal(rt.run_fused(rt.init_batch(seeds),
+                                        RECOVERY_EAGER_STEPS, chunk=128), e)
         cpu_rt = recovery_runtime(recipe, "cpu")
         c, _ = cpu_rt.run(cpu_rt.init_batch(seeds[:8]), RECOVERY_STEPS,
                           chunk=128)
@@ -3726,14 +3815,13 @@ def recovery_phase(dev):
         rec = codes == CRASH_RECOVERY
         steps = f.steps.cpu().numpy()
         out[recipe] = dict(
-            run_fused_s=t1 - t0, run_equals_run_fused=state_equal(f, e),
+            run_fused_s=t1 - t0, run_equals_run_fused=same,
             crash_recovery_lanes=int(rec.sum()),
             crash_steps=([int(steps[rec].min()), int(steps[rec].max())]
                          if rec.any() else None),
             other_codes=sorted({int(x) for x in codes[~rec]}),
             cpu_leaves_differ=differ)
-        check(state_equal(f, e), f"recovery {recipe}: run and run_fused "
-              "differ")
+        check(same, f"recovery {recipe}: run and run_fused differ")
         check({"all": rec.all(), "some": rec.any() and not rec.all(),
                "none": not rec.any()}[crashes], f"recovery {recipe}: "
               f"{int(rec.sum())} of {rec.size} lanes crashed "
@@ -3957,7 +4045,8 @@ def plane_kernel_phase(wrappers, dev, planes_out, emit_off_ms):
     # ---- K5 emit_write with the plane columns
     emit_cases = {"plane_flagship_step_1024": planes_out["emit_ops"]}
     for C_e, E_e, ns_e, jit_e in ((96, 12, 7, True), (96, 0, 0, False),
-                                  (256, 5, 0, True)):
+                                  (256, 5, 0, True), (288, 9, 4, False),
+                                  (384, 12, 7, True)):
         base = emit_edge_operands(dev, 4096, C_e, 5, 8, E_e, ns_e, jit_e,
                                   True, True, seed=C_e + E_e)
         emit_cases[f"edges_C{C_e}_E{E_e}_planes"] = emit_plane_operands(
@@ -4175,7 +4264,8 @@ def planes_all_kernel_phase(wrappers, dev, pa):
     # ---- K5 emit_write with the span columns
     emit_cases = {"all_planes_step_1024": pa["emit_ops"]}
     for C_e, E_e, ns_e, jit_e in ((96, 12, 7, True), (96, 0, 0, False),
-                                  (256, 5, 0, True)):
+                                  (256, 5, 0, True), (320, 6, 2, True),
+                                  (384, 12, 7, False)):
         base = emit_edge_operands(dev, 4096, C_e, 5, 8, E_e, ns_e, jit_e,
                                   True, True, seed=C_e + E_e + 1)
         emit_cases[f"edges_C{C_e}_E{E_e}_spans"] = emit_plane_operands(
@@ -4273,8 +4363,8 @@ def planes_all_kernel_phase(wrappers, dev, pa):
 # ---- time travel and the first net-layer models ----------------------------
 TT_EVERY = 1024              # timetravel_flagship: a harvest every 1024
 FORK_LANE = 4099             # the lane the prefix fork clones
-TT_SMALL_B, TT_SMALL_EVERY = 4096, 512   # run against run_fused harvests
-TT_SMALL_STEPS = 1024        # steps of that comparison (eager: host-bound)
+TT_SMALL_B, TT_SMALL_EVERY = 4096, 256   # run against run_fused harvests
+TT_SMALL_STEPS = 512         # steps of that comparison (eager: host-bound)
 TT_SEEDS = 24                # timetravel_explain: the JAX test's 24 seeds
 TT_STEPS, TT_CHUNK, TT_CKPT = 30_000, 16, 32
 TT_KNOB_SHIFT = 20_000       # ticks the knob pair's lane B moves its rows
@@ -4283,6 +4373,7 @@ ECHO_B, ECHO_STEPS, ECHO_CHUNK = 50_000, 20_000, 512
 ECHO_LANES = (0, 1, 25_000, 49_999)
 MODEL_B, MODEL_CHUNK = 16_384, 512
 MODEL_LANES = (0, 1, 8_191, 16_383)
+MODEL_EAGER_STEPS = 256      # run = run_fused over this prefix
 BUG_CPU_LANES = 512          # lanes of the 2PC bug variant the CPU runs
 
 
@@ -4628,11 +4719,11 @@ def timetravel_flagship_phase(wrappers, dev, names, every, flag_fp, counts):
         logs[runner] = CheckpointLog()
         t0 = time.perf_counter()
         if runner == "run":
-            end, _ = rt.run(s0, TT_SMALL_STEPS, chunk=FLAG_CHUNK,
+            end, _ = rt.run(s0, TT_SMALL_STEPS, chunk=TT_SMALL_EVERY,
                             ckpt_every=TT_SMALL_EVERY,
                             ckpt_log=logs[runner])
         else:
-            end = rt.run_fused(s0, TT_SMALL_STEPS, chunk=FLAG_CHUNK,
+            end = rt.run_fused(s0, TT_SMALL_STEPS, chunk=TT_SMALL_EVERY,
                                ckpt_every=TT_SMALL_EVERY,
                                ckpt_log=logs[runner])
         torch.cuda.synchronize()
@@ -4714,10 +4805,11 @@ def handlers_bytes(rt, state) -> int:
 
 def model_phase(wrappers, dev, names, every, counts, name, build, max_steps,
                 batch, chunk, lanes, cpu_lanes, profile_eager=True,
-                eager_steps=None):
+                eager_steps=None, prof_steps=PROF_STEPS):
     """One model runtime at `batch` lanes through run_fused and run: every
     leaf equal, each step kernel launched its count a step, `lanes` equal
-    to the CPU's; the graph step's device ms and the eager step's
+    to the CPU's (at the halt, or at `max_steps` where the run is capped
+    short of it); the graph step's device ms and the eager step's
     handlers and invariant sections (profile_steps). With `eager_steps`
     the eager run and a second run_fused stop after that many steps and
     are compared there (the whole run is run_fused's alone). Returns
@@ -4757,12 +4849,14 @@ def model_phase(wrappers, dev, names, every, counts, name, build, max_steps,
     diff = numpy_equal(cpu_lanes, numpy_lanes(f, lanes))
     check(not diff, f"{name}: lanes {lanes} differ from the CPU's in "
           f"{diff[:4]}")
-    expect = dict({k: 1 for k in names}, **per)
+    expect = dict(per_step_of(names), **per)
     prof = profile_steps(lambda st, n: rt.run_fused(st, n, chunk=n), s0,
-                         batch, expect)
+                         batch, expect, steps=prof_steps)
     nums = dict(batch=batch, steps_run=steps_fused, wall_s=wall,
                 eager_steps_run=steps_eager, eager_wall_s=eager_wall,
                 eager_compared_at=eager_steps or "halt",
+                cpu_compared_at=("halt" if bool(f.halted.all())
+                                 else steps_fused),
                 steps_to_halt=int(f.steps.max()),
                 seed_events_per_s=batch * steps_fused / wall,
                 dispatched_events_per_s=int(f.steps.sum()) / wall,
@@ -4770,7 +4864,8 @@ def model_phase(wrappers, dev, names, every, counts, name, build, max_steps,
                 run_fused_equal_run=same, cpu_lanes=list(lanes),
                 graph_device_ms_per_step=prof.get("device_busy_ms_per_step"),
                 graph_device_busy_share=prof.get("device_busy_share"),
-                graph_kernels_per_step=prof.get("device_kernels_per_step"))
+                graph_kernels_per_step=prof.get("device_kernels_per_step"),
+                graph_kernel_ms_per_step=prof.get("kernel_ms_per_step"))
     hb = handlers_bytes(rt, s0)
     nums.update(handlers_bound_bytes=hb,
                 handlers_bound_ms=hb / HBM_BYTES_PER_S * 1e3)
@@ -4822,7 +4917,8 @@ def tpc_gossip_phase(wrappers, dev, names, every, counts, cpu):
     for name, (build, max_steps) in MODEL_CASES.items():
         f, nums, on_case = model_phase(
             wrappers, dev, names, every, counts, name, build, max_steps,
-            MODEL_B, MODEL_CHUNK, MODEL_LANES, cpu["models"][name])
+            MODEL_B, MODEL_CHUNK, MODEL_LANES, cpu["models"][name],
+            eager_steps=MODEL_EAGER_STEPS)
         on |= on_case
         crashed = f.crashed.cpu().numpy()
         codes = f.crash_code.cpu().numpy()
@@ -4870,7 +4966,7 @@ KV4_LANES = (0, 1, 2, 3)     # config 4's lanes the CPU child runs
 KV4_OPERANDS_AT = 512        # K11's config-4 operands: this step's
 KV_B, KV_STEPS, KV_CHUNK = 4096, 60_000, 512
 KV_LANES = (0, 1, 2047, 4095)
-KV_EAGER_STEPS = 256         # run = run_fused over this prefix: the eager
+KV_EAGER_STEPS = 128         # run = run_fused over this prefix: the eager
                              # KV step is host-bound (~40 ms at B=4096)
 LEAKY_CPU_LANES = 64         # lanes of the poisoned bank the CPU runs
 
@@ -5143,6 +5239,300 @@ def kv_bank_phase(wrappers, dev, names, every, counts, cpu):
     return on, ops
 
 
+CHAIN_B = 16_384             # chain replication's cell (C=384)
+P9B_B = 4096                 # the other P9 models' cells
+P9B_CHUNK = 512
+P9B_STEPS = 60_000
+P9B_EAGER_STEPS = 128        # run = run_fused over this prefix (host-bound)
+CHAIN_LANES = (0, 1, 8_191, 16_383)
+P9B_LANES = (0, 1, 2047, 4095)
+P9B_RED_LANES = 256          # the first lanes whose verdicts the CPU runs
+SHARD_STEPS = 512            # sharded KV's step cap, where its CPU lanes
+                             # are held too (its clients finish at
+                             # ~11,000-12,300 steps, ~15 simulated s)
+SHARD_EAGER_STEPS = 32       # its run = run_fused prefix (~0.2 s an eager
+                             # step: three Raft programs, 6,147 kernels)
+SHARD_PROF_STEPS = 8         # its profiled graph steps (6,147 kernels each;
+                             # one graph block: FUSED_BLOCK)
+P9B_OPERANDS_AT = 512        # chain's kernel operands: this step's
+K11_LEAVES = ("role", "term", "snap_len", "log_len", "commit",
+              "snap_digest", "log_term", "log_op", "log_key", "log_val",
+              "log_client", "log_rtag")   # the sharded KV's K11 operands
+
+
+def p9b_cases():
+    """name: (builder, batch, step cap, lanes the CPU runs, Raft groups,
+    whether the eager step is profiled by section) of the models_p9b
+    phase's green cells."""
+    from madsim_tpu_torch import workloads
+    return {
+        "chain": (workloads.chain_runtime, CHAIN_B, P9B_STEPS, CHAIN_LANES,
+                  0, True),
+        "ministream": (workloads.ministream_runtime, P9B_B, P9B_STEPS,
+                       P9B_LANES, 0, False),
+        "percolator": (workloads.percolator_runtime, P9B_B, P9B_STEPS,
+                       P9B_LANES, 0, False),
+        "shard_kv": (workloads.shardkv_runtime, P9B_B, SHARD_STEPS,
+                     P9B_LANES, 3, False)}
+
+
+def p9b_step_launches(groups) -> dict:
+    """{step kernel: launches a step} of a models_p9b cell with `groups`
+    Raft groups: raft_invariant once a group (the sharded KV's
+    compose_invariants), not at all without Raft; the others once."""
+    out = {k: 1 for k in STEP_KERNELS if k != "raft_invariant"}
+    if groups:
+        out["raft_invariant"] = groups
+    return out
+
+
+def p9b_red_cases():
+    """name: (builder, the crash code its oracle fires) of the models_p9b
+    phase's red cells."""
+    from madsim_tpu_torch import workloads
+    from madsim_tpu_torch.models import chain, ministream, percolator
+    return {
+        "chain_buggy": (workloads.chain_buggy_runtime,
+                        chain.CRASH_TWO_TAILS),
+        "ministream_overtake": (workloads.ministream_overtake_runtime,
+                                ministream.CRASH_STREAM_LOST_OR_DUP),
+        "percolator_gray": (workloads.percolator_gray_runtime,
+                            percolator.CRASH_SNAPSHOT)}
+
+
+def p9b_cpu_main(out_path) -> int:
+    """`chip_smoke.py --p9b-cpu OUT`: the CPU half of the models_p9b
+    phase, run beside the card's phases (it touches no card): each green
+    cell's lanes (to the halt, or to the cell's step cap), and the
+    first P9B_RED_LANES verdicts of each red cell and of percolator (the
+    lite design's TTL hole crashes a few of its lanes with no fault
+    injected, in the reference too); pickled to OUT."""
+    import pickle
+    import numpy as np
+    import torch
+    from madsim_tpu_torch import interop, workloads
+    torch.set_num_threads(1)
+    out = {}
+    for name, (build, _, cap, lanes, _, _) in p9b_cases().items():
+        rt = build("cpu")
+        s, _ = rt.run(rt.init_batch(np.asarray(lanes, np.uint32)), cap,
+                      min(64, cap))
+        out[name] = interop.state_to_numpy(s)
+    verdicts = {k: b for k, (b, _) in p9b_red_cases().items()}
+    verdicts["percolator"] = workloads.percolator_runtime
+    for name, build in verdicts.items():
+        rt = build("cpu")
+        s, _ = rt.run(rt.init_batch(np.arange(P9B_RED_LANES,
+                                              dtype=np.uint32)),
+                      P9B_STEPS, 64)
+        out[f"{name}_verdicts"] = (s.crashed.numpy(), s.crash_code.numpy())
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def same_verdicts(state, want):
+    """(crashed lanes, their codes, whether the first len(want) lanes'
+    crash verdicts and codes equal `want`, the CPU's)."""
+    import numpy as np
+    crashed = state.crashed.cpu().numpy()
+    codes = state.crash_code.cpu().numpy()
+    want_c, want_code = want
+    n = len(want_c)
+    return crashed, codes, (np.array_equal(crashed[:n], want_c)
+                            and np.array_equal(codes[:n], want_code))
+
+
+def p9b_profile_main() -> int:
+    """`chip_smoke.py --p9b-profile`: the eager step's sections (handlers,
+    invariant) of the models_p9b cells the main run does not profile
+    eager (ministream, percolator, the sharded KV), each from its
+    step-P9B_OPERANDS_AT state at its cell's width, beside the handlers'
+    byte bound (ROADMAP K16/K17). One JSON line a cell; needs a card."""
+    import numpy as np
+    import torch
+    from madsim_tpu_torch.ops import kernels
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    wrappers = kernels.wrappers()
+    kernels.build_all()
+    for name, (build, batch, _, _, groups, sections) in \
+            p9b_cases().items():
+        if sections:
+            continue
+        rt = build(dev)
+        mid = rt.run_fused(rt.init_batch(np.arange(batch, dtype=np.uint32)),
+                           P9B_OPERANDS_AT, chunk=P9B_OPERANDS_AT)
+        per = step_launches(wrappers, rt, mid)
+        pe = profile_steps(lambda st, n: rt.run(st, n, chunk=n)[0], mid,
+                           batch, dict(p9b_step_launches(groups), **per))
+        sec = pe.get("section_ms_per_step") or {}
+        hb = handlers_bytes(rt, mid)
+        emit(phase="p9b_profile", case=name, batch=batch,
+             from_step=P9B_OPERANDS_AT,
+             eager_device_ms_per_step=pe.get("device_busy_ms_per_step"),
+             handlers_ms_per_step=sec.get("handlers"),
+             invariant_ms_per_step=sec.get("invariant"),
+             eager_section_ms_per_step=sec,
+             kernel_ms_per_step=pe.get("kernel_ms_per_step"),
+             handler_split=pe.get("handler_split"),
+             handlers_bound_bytes=hb,
+             handlers_bound_ms=hb / HBM_BYTES_PER_S * 1e3,
+             device=torch.cuda.get_device_name(0))
+        del mid, rt
+    return 0
+
+
+def models_p9b_phase(wrappers, dev, every, counts, cpu):
+    """The last P9 models without a new net layer, each through
+    model_phase (run_fused to the halt or the step cap, run = run_fused
+    over P9B_EAGER_STEPS, the CPU child's lanes equal; the sharded KV to
+    its cap of SHARD_STEPS, the CPU's lanes there): chain replication
+    at C=384 and B=CHAIN_B (the wide K2 and K5 instantiations on a main
+    path), the streaming dataflow, Percolator-lite (C=256, its commit WAL
+    through the fs flush) and the sharded KV (bench.py's config: three
+    Raft groups, one raft_invariant launch each a step, L=192, K3 at its
+    48-leaf limit) at P9B_B. Checks: no crash on chain, ministream and
+    shard_kv; every client done (shard_kv: on every lane halted by the
+    step cap, none by this cap); chain's and shard_kv's histories
+    linearizable;
+    ministream's every epoch committed once; no plain draw in an eager
+    step on the card; the red cells' and percolator's crashed lanes and
+    codes equal to the CPU child's on their first P9B_RED_LANES lanes.
+    Returns (the K1/K4 kernels it ran, chain's K2 and K5 operands at step
+    P9B_OPERANDS_AT, chain's launches of each)."""
+    import numpy as np
+    import torch
+    from madsim_tpu_torch.fs import fs_state
+    from madsim_tpu_torch.models import percolator
+    on, chain_ops, chain_launch = set(), None, None
+    fs_leaves = tuple(fs_state(1, 1))
+    for name, (build, batch, cap, lanes, groups, sections) in \
+            p9b_cases().items():
+        t_cell = time.perf_counter()
+        rt = build(dev)       # one runtime: one graph capture for the cell
+        f, nums, on_case = model_phase(
+            wrappers, dev, p9b_step_launches(groups), every, counts, name,
+            lambda _: rt, cap, batch, P9B_CHUNK, lanes, cpu[name],
+            profile_eager=sections,
+            eager_steps=(SHARD_EAGER_STEPS if name == "shard_kv"
+                         else P9B_EAGER_STEPS),
+            prof_steps=SHARD_PROF_STEPS if name == "shard_kv" else PROF_STEPS)
+        model_s = time.perf_counter() - t_cell
+        on |= on_case
+        # the step-P9B_OPERANDS_AT state (K2/K5 operands, the plain-draw
+        # check): the capped cell's last state, else a replay of the
+        # runtime's captured graph
+        mid = (f if cap == P9B_OPERANDS_AT else rt.run_fused(
+            rt.init_batch(np.arange(batch, dtype=np.uint32)),
+            P9B_OPERANDS_AT, chunk=P9B_OPERANDS_AT))
+        crashed = f.crashed.cpu().numpy()
+        halted = f.halted.cpu().numpy()
+        oops = int((f.oops != 0).sum())
+        ns = f.node_state
+        extra = dict(C=rt.cfg.event_capacity, n_nodes=rt.cfg.n_nodes,
+                     node_state_leaves=len(ns), crashed=int(crashed.sum()),
+                     oops_lanes=oops, halted=int(halted.sum()))
+        draws, onehot = plain_draws_in_step(rt, mid, skip=fs_leaves)
+        extra.update(prng_calls=draws, onehot_put_rows=onehot)
+        check(not draws and not onehot, f"{name}: an eager step on the "
+              f"card drew with core/prng.py {draws} or wrote node_state "
+              f"with a one-hot put_row {onehot}")
+        clients_base = None
+        if name == "chain":
+            chain_ops = dict(select=select_inputs(mid),
+                             emit=emit_operands(rt, mid),
+                             at=f"chain_B{batch}_step_{P9B_OPERANDS_AT}")
+            chain_launch = nums["launches"]
+            done = (ns["c_opn"][:, 4:] >= 20).all(1).cpu().numpy()
+            clients_base = 4        # the KV store's history layout
+            # chain_invariant (K17): r_pos, r_len, r_lease and alive
+            # [B, N] and the clock read once, the verdict written once
+            nb = (sum(ns[k].numel() * 4 for k in ("r_pos", "r_len",
+                                                   "r_lease"))
+                  + f.alive.numel() + batch * 4 + batch * 5)
+            extra.update(invariant_bound_bytes=nb,
+                         invariant_bound_ms=nb / HBM_BYTES_PER_S * 1e3)
+        elif name == "shard_kv":
+            done = (ns["c_opn"][:, 9:] >= 64).all(1).cpu().numpy()
+            clients_base = 9
+            # compose_invariants (K17; three K11 launches, one a group):
+            # every node's K11 operands read once (each node is in one
+            # group), the verdict written once
+            nb = sum(ns[k].numel() * 4 for k in K11_LEAVES) + batch * 5
+            extra.update(invariant_bound_bytes=nb,
+                         invariant_bound_ms=nb / HBM_BYTES_PER_S * 1e3)
+            opn = ns["c_opn"][:, 9:].sum(1).cpu().numpy()
+            extra.update(step_cap=cap, halted_by_cap=int(halted.sum()),
+                         client_ops_done_min=int(opn.min()),
+                         client_ops_done_mean=float(opn.mean()),
+                         sim_seconds_min=float(f.now.min()) / 1e6,
+                         cfgs_max=int(ns["cfg_n"][:, :3].max()),
+                         lanes_migrated=int((ns["out_num"][:, 3:9] >= 2)
+                                            .any(-1).any(-1).sum()))
+        elif name == "ministream":
+            done = (ns["k_committed"][:, 3] == 4).cpu().numpy()
+        else:
+            done = (ns["c_done"][:, 2:] == 1).all(1).cpu().numpy()
+        del mid
+        extra.update(clients_done=int(done.sum()))
+        if clients_base is not None:
+            n_hist, n_lin, check_s = histories_linearizable(f, clients_base,
+                                                            2)
+            extra.update(histories=n_hist, linearizable=n_lin,
+                         checker_s=check_s)
+            check(n_hist == n_lin == batch, f"{name}: {n_hist - n_lin} of "
+                  f"{n_hist} histories are not linearizable")
+        if name == "percolator":
+            # the lite design's TTL hole crashes a few lanes with no fault
+            # injected (in the reference too): held to the CPU's verdicts
+            _, codes, same = same_verdicts(f, cpu["percolator_verdicts"])
+            extra.update(crash_codes=sorted(set(codes[crashed].tolist())),
+                         cpu_lanes_compared=P9B_RED_LANES,
+                         same_verdicts_as_cpu=same)
+            check(set(codes[crashed].tolist()) <= {percolator.CRASH_SNAPSHOT}
+                  and oops == 0 and same, f"{name}: {extra}")
+            check(bool(done[~crashed].all()) and bool(halted.all()),
+                  f"{name}: a client did not finish or a lane did not halt")
+        elif name == "shard_kv":
+            check(not crashed.any() and oops == 0, f"{name}: {extra}")
+            # its lanes halt at ~11,000-12,300 steps (15 simulated s; the
+            # JAX package on 16 seeds): by the cap, clients are mid-way
+            check(bool(done[halted].all()) and int(opn.sum()) > 0,
+                  f"{name}: no client op done by step {cap}, or a halted "
+                  f"lane's client did not finish")
+        else:
+            check(not crashed.any() and oops == 0 and bool(done.all())
+                  and bool(halted.all()), f"{name}: {extra}")
+        emit(phase="models_p9b", case=name, **nums, **extra,
+             model_phase_s=model_s, cell_s=time.perf_counter() - t_cell)
+        del f, rt
+    # the red cells: crashed lanes and codes against the CPU's
+    for name, (build, code) in p9b_red_cases().items():
+        rt = build(dev)
+        s0 = rt.init_batch(np.arange(P9B_B, dtype=np.uint32))
+        t0 = time.perf_counter()
+        f = rt.run_fused(s0, P9B_STEPS, chunk=P9B_CHUNK)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        crashed, codes, same = same_verdicts(f, cpu[f"{name}_verdicts"])
+        emit(phase="models_p9b", case=name, batch=P9B_B, wall_s=wall,
+             steps_to_halt=int(f.steps.max()), crashed=int(crashed.sum()),
+             crash_codes=sorted(set(codes[crashed].tolist())),
+             cpu_lanes_compared=P9B_RED_LANES,
+             cpu_crashed=int(cpu[f"{name}_verdicts"][0].sum()),
+             same_verdicts_as_cpu=same)
+        check(crashed.any() and set(codes[crashed].tolist()) <= {code},
+              f"{name}: crashes {sorted(set(codes[crashed].tolist()))}")
+        check(same, f"{name}: crash verdicts differ from the CPU's on "
+              f"lanes 0..{P9B_RED_LANES - 1}")
+        check(bool(f.halted.all()), f"{name}: a lane did not halt")
+        del f, rt
+    return on, chain_ops, chain_launch
+
+
 def main() -> int:
     import torch
     if len(sys.argv) == 3 and sys.argv[1] == "--minimize-cpu":
@@ -5157,6 +5547,12 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--kv-cpu":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return kv_cpu_main(sys.argv[2])
+    if len(sys.argv) == 2 and sys.argv[1] == "--p9b-profile":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return p9b_profile_main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--p9b-cpu":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return p9b_cpu_main(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--search-cpu":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return search_cpu_main(sys.argv[2])
@@ -5259,9 +5655,12 @@ def main() -> int:
         [sys.executable, os.path.abspath(__file__), "--search-cpu",
          cpu_search_path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True)
+    # (the models_p9b phase's starts after the fuzz_flagship phase, whose
+    # host half the six children together slowed)
+    children = [cpu_min, cpu_planes, cpu_tt, cpu_kv, cpu_search]
 
     def stop_children():
-        for child in (cpu_min, cpu_planes, cpu_tt, cpu_kv, cpu_search):
+        for child in children:
             if child.poll() is None:
                 child.kill()
                 child.wait()
@@ -5644,6 +6043,12 @@ def main() -> int:
     apply_cases = {f"flagship_round_{FUZZ_ROUNDS - 1}":
                    app_spy.kept[FUZZ_ROUNDS - 1][0]}
     del mut_spy, app_spy
+    cpu_p9b_path = os.path.join(tmp, "p9b_cpu.pkl")
+    cpu_p9b = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--p9b-cpu",
+         cpu_p9b_path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    children.append(cpu_p9b)
 
     # ---- explore_flagship: blind sweeps with the on-device digest -----------
     digests = []
@@ -5831,6 +6236,13 @@ def main() -> int:
     on_path |= on_kv
     del cpu_kv_out
 
+    # ---- the last P9 models with no new net layer ------------------------
+    cpu_p9b_out = wait_child(cpu_p9b, cpu_p9b_path, "models_p9b")
+    on_p9b, chain_ops, chain_launch = models_p9b_phase(
+        wrappers, dev, every, (reset_counts, read_counts), cpu_p9b_out)
+    on_path |= on_p9b
+    del cpu_p9b_out
+
     # ---- kernel: sched_pick against its plain version -----------------------
     B, C = captured[0][0].shape
     N = captured[0][5].shape[1]
@@ -5848,12 +6260,26 @@ def main() -> int:
              "mixed_tiles": mixed_tile_inputs(dev, B, C, N, seed=5),
              "mixed_tiles_C_256_N_32": mixed_tile_inputs(dev, B, 256, 32,
                                                          seed=6),
+             # past 256 rows: the wide instantiations (C = 257 and 288
+             # share one, so the wider follows the narrower), with nudged
+             # and drawn lanes in every tile; EDGE_B lanes (a tile is 32)
+             "C_257_N_6": edge_inputs(dev, EDGE_B, 257, 6, seed=7),
+             "C_288_N_32": edge_inputs(dev, EDGE_B, 288, 32, seed=8),
+             "C_320_N_6": edge_inputs(dev, EDGE_B, 320, 6, seed=9),
+             "C_384_N_6": edge_inputs(dev, EDGE_B, 384, 6, seed=10),
+             "mixed_tiles_C_384_N_32": mixed_tile_inputs(dev, EDGE_B, 384,
+                                                         32, seed=11),
+             "unaligned_C_384": tuple(
+                 unaligned(a) if i < 5 else a
+                 for i, a in enumerate(edge_inputs(dev, EDGE_B, 384, 6,
+                                                   seed=12))),
              "every_lane_halted": tuple(every_halted),
              "unaligned_tables": tuple(unaligned(a) if i < 5 else a
                                        for i, a in enumerate(edges))}
     cases.update({f"flagship_step_{k}": v for k, v in captured.items()})
     cases[wal_case] = wal_select
     cases[f"pct_flagship_step_{PCT_STEPS // 2}"] = pct_select
+    cases[chain_ops["at"]] = chain_ops["select"]
     max_err = 0
     for name, args in cases.items():
         out_k = sched_pick(*args)
@@ -5889,10 +6315,21 @@ def main() -> int:
     sp_bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     sp = dict(ms=min(k_ms, k_ms2), plain_ms=min(p_ms, p_ms2),
               bound_ms=sp_bound_ms, max_abs_err=max_err)
-    # registers a thread and resident blocks an SM, at the flagship's C
-    # and at wal_kv's
+    # chain replication's step-512 operands (B=16,384, C=384): the wide
+    # instantiation on its main path, timed the same way
+    ch_args = chain_ops["select"]
+    ch_k = [graph_ms(lambda: sched_pick(*ch_args), 50) for _ in range(2)]
+    ch_p = [cuda_ms(lambda: sched_pick_plain(*ch_args), 5)
+            for _ in range(2)]
+    ch_bytes = bound_bytes(*ch_args)
+    sp384 = dict(ms=min(ch_k), plain_ms=min(ch_p),
+                 bound_ms=ch_bytes / HBM_BYTES_PER_S * 1e3,
+                 max_abs_err=max_err)
+    # registers a thread and resident blocks an SM, at the flagship's C,
+    # wal_kv's and chain replication's
     occupancy = {f"C_{c}": sched_pick.occupancy(c)
-                 for c in sorted({C, wal_select[0].shape[1]})}
+                 for c in sorted({C, wal_select[0].shape[1],
+                                  ch_args[0].shape[1]})}
     emit(phase="kernel", name="sched_pick", cases={
         k: list(v[0].shape) for k, v in sorted(cases.items())}, batch=B,
          C=C, N=N, exact=True, max_abs_err=max_err,
@@ -5901,21 +6338,34 @@ def main() -> int:
          ms=[k_ms, k_ms2], eager_launch_ms=k_eager,
          ms_in_flagship_graph=prof_fused["sched_pick_ms_per_step"],
          occupancy=occupancy, plain_ms=[p_ms, p_ms2], bound_bytes=nbytes,
-         bound_ms=sp_bound_ms, library="none")
+         bound_ms=sp_bound_ms, library="none",
+         chain=dict(operands=chain_ops["at"], batch=ch_args[0].shape[0],
+                    C=ch_args[0].shape[1], ms=ch_k, plain_ms=ch_p,
+                    bound_bytes=ch_bytes, bound_ms=sp384["bound_ms"],
+                    launches_on_main_path=chain_launch["sched_pick"]))
     del cases, captured, main_args, wal_select, pct_select, edges, \
         every_halted
 
     # ---- kernel: emit_write against its plain version -----------------------
+    # ... and past 256 rows (the wide tables: chain replication's 384),
+    # with and without jitter and ring
     for C_e, E_e, ns_e, jit_e, ring_e in ((96, 12, 7, True, True),
                                           (96, 0, 0, False, True),
                                           (256, 3, 1, False, True),
                                           (256, 5, 0, True, False),
-                                          (256, 6, 6, False, False)):
+                                          (256, 6, 6, False, False),
+                                          (257, 4, 2, True, True),
+                                          (288, 12, 7, False, False),
+                                          (320, 0, 0, False, True),
+                                          (384, 9, 6, False, True),
+                                          (384, 5, 1, True, False),
+                                          (384, 32, 16, True, True)):
         emit_cases[f"edges_C{C_e}_E{E_e}_sends{ns_e}"
                    f"{'_jitter' if jit_e else ''}"
                    f"{'_ring' if ring_e else ''}"] = emit_edge_operands(
             dev, 4096, C_e, 5, 8, E_e, ns_e, jit_e, ring_e, ring_e,
             seed=C_e + E_e)
+    emit_cases[chain_ops["at"]] = chain_ops["emit"]
     max_err_e = 0
     for name, args in emit_cases.items():
         # kernel and plain version each write a copy of the operands
@@ -5934,38 +6384,16 @@ def main() -> int:
             (b[0], b[3], out_p)))
         check_rows_written(f"emit_write on {name}", args, a)
     main_e = emit_cases[f"flagship_step_{FLAG_CHUNK}"]
-    # the write changes its operands, so each timed call restores the
-    # touched columns from main_e first; the restore alone is subtracted
-    live = clone_tree(main_e)
-    restores = [(live[0][k], main_e[0][k]) for k in TABLE_COLS]
-    if main_e[3] is not None:
-        restores += [(live[3]["cols"][k], main_e[3]["cols"][k])
-                     for k in RING_COLS]
-
-    def restore():
-        for dst, src in restores:
-            dst.copy_(src)
-
-    def kernel_ms():
-        return (graph_ms(lambda: (restore(), emit_write(*live)), 20)
-                - graph_ms(restore, 20))
-
-    def plain_ms():
-        return (cuda_ms(lambda: (restore(), emit_write_plain(*live)), 5)
-                - cuda_ms(restore, 5))
-
-    ek, ep, ek2, ep2 = kernel_ms(), plain_ms(), kernel_ms(), plain_ms()
-    restore_ms = graph_ms(restore, 20)
-    ek_eager = (cuda_ms(lambda: (restore(), emit_write(*live)), 20)
-                - cuda_ms(restore, 20))
-    ek_graph = prof_fused["emit_write_ms_per_step"]
-    e_bytes, e_ops = emit_bound(*main_e)
-    e_bound_ms = max(e_bytes / HBM_BYTES_PER_S, e_ops / INT32_OPS_PER_S) \
-        * 1e3
-    e_bound_by = ("bytes" if e_bytes / HBM_BYTES_PER_S
-                  >= e_ops / INT32_OPS_PER_S else "operations")
-    ew = dict(ms=min(ek, ek2), plain_ms=min(ep, ep2), bound_ms=e_bound_ms,
-              max_abs_err=max_err_e, bound_by=e_bound_by)
+    et = emit_write_ms(emit_write, emit_write_plain, main_e)
+    ew = dict(ms=min(et["ms"]), plain_ms=min(et["plain_ms"]),
+              bound_ms=et["bound_ms"], max_abs_err=max_err_e,
+              bound_by=et["bound_by"])
+    # chain replication's step-512 operands (B=16,384, C=384)
+    ch_e = chain_ops["emit"]
+    ct = emit_write_ms(emit_write, emit_write_plain, ch_e)
+    ew384 = dict(ms=min(ct["ms"]), plain_ms=min(ct["plain_ms"]),
+                 bound_ms=ct["bound_ms"], max_abs_err=max_err_e,
+                 bound_by=ct["bound_by"])
     emit(phase="kernel", name="emit_write", cases={
         k: list(v[0]["t_kind"].shape) for k, v in sorted(emit_cases.items())},
          batch=main_e[0]["t_kind"].shape[0],
@@ -5973,12 +6401,14 @@ def main() -> int:
          n_sends=main_e[4], exact=True, max_abs_err=max_err_e,
          launches_on_main_path=fused_launch["emit_write"],
          launches_per_step=fused_launch["emit_write"] / (FLAG_STEPS + warm),
-         ms=[ek, ek2], eager_launch_ms=ek_eager, plain_ms=[ep, ep2],
-         restore_ms=restore_ms, ms_in_flagship_graph=ek_graph,
-         bound_bytes=e_bytes,
-         bound_operations=e_ops, bound_ms=e_bound_ms, bound_by=e_bound_by,
-         library="none")
-    del emit_cases, main_e, live, restores
+         ms_in_flagship_graph=prof_fused["emit_write_ms_per_step"],
+         library="none", **et,
+         chain=dict(operands=chain_ops["at"],
+                    batch=ch_e[0]["t_kind"].shape[0],
+                    C=ch_e[0]["t_kind"].shape[1], E=ch_e[1]["m"].shape[1],
+                    n_sends=ch_e[4], **ct,
+                    launches_on_main_path=chain_launch["emit_write"]))
+    del emit_cases, main_e, chain_ops
 
     # ---- kernel: K8 obs_fold, K5's plane columns, K10 -----------------------
     plane_k = plane_kernel_phase(wrappers, dev, planes_out, ew["ms"])
@@ -6499,7 +6929,8 @@ def main() -> int:
     try:
         prof_plain_k = profile_steps(
             lambda st, n: rt.run(st, n, chunk=n)[0], s, FLAG_B,
-            dict({k: 1 for k in names}, **{k: 0 for k in K1K4}))
+            dict({k: 1 for k in names}, **{k: 0 for k in K1K4}),
+            steps=PROF_PLAIN_STEPS)
     finally:
         for n, f in real_k[0].items():
             setattr(tf_mod, n, f)
@@ -6517,7 +6948,7 @@ def main() -> int:
     try:
         prof_plain = profile_steps(
             lambda st, n: rt.run(st, n, chunk=n)[0], s, FLAG_B,
-            expect_plain)
+            expect_plain, steps=PROF_PLAIN_STEPS)
     finally:
         step_mod.apply_super, raft_mod.raft_invariant_check = real
     emit(phase="profile", runner="run",
@@ -6569,7 +7000,17 @@ def main() -> int:
              launches=fused_launch["emit_write"],
              max_abs_err=ew["max_abs_err"], ms=ew["ms"],
              plain_ms=ew["plain_ms"], bound_ms=ew["bound_ms"],
-             bound_by=ew["bound_by"], library_ms=None)] + [
+             bound_by=ew["bound_by"], library_ms=None),
+        dict(name="sched_pick_C384", route="cuda",
+             source="madsim_tpu_torch/csrc/sched_pick.cu",
+             replaces="madsim_tpu/core/step.py:141",
+             launches=chain_launch["sched_pick"], bound_by="bytes",
+             library_ms=None, **sp384),
+        dict(name="emit_write_C384", route="cuda",
+             source="madsim_tpu_torch/csrc/emit_write.cu",
+             replaces="madsim_tpu/core/step.py:476",
+             launches=chain_launch["emit_write"], library_ms=None,
+             **ew384)] + [
         dict(name=k, route="cuda", source=f"madsim_tpu_torch/csrc/{src}",
              replaces=where, launches=n, **search_kernels[k])
         for k, src, where, n in (

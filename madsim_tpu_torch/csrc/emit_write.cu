@@ -79,7 +79,11 @@
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
-constexpr int kMaxC = 256;
+// C only sets how many batches of epad rows the rank walks and the
+// high-water count; nothing is sized by it (the slot list holds E <= 32
+// rows a lane). The limit is the largest C the port's models use (chain
+// replication's 384) and the card has been checked at.
+constexpr int kMaxC = 384;
 constexpr int kMaxE = 32;                // one emission per thread
 constexpr int kBatch = 8;                // t_kind reads issued together
 constexpr int kRingCols = 8;
@@ -410,7 +414,7 @@ emit_write_kernel(const EmitParams p, const int log_epad) {
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). Launches on `stream` and
-// returns cudaGetLastError() (0 = launched). Requires C <= 256, N <= 32,
+// returns cudaGetLastError() (0 = launched). Requires C <= 384, N <= 32,
 // E <= 32; the table section runs when E > 0, the ring when TC > 0.
 extern "C" int emit_write_launch(const EmitParams* params, void* stream) {
   const EmitParams& p = *params;

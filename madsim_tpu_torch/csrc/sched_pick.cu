@@ -68,7 +68,7 @@
 namespace {
 
 constexpr int kWarpsPerBlock = 4;
-constexpr int kMaxChunks = 8;            // C <= 32 * kMaxChunks = 256
+constexpr int kMaxChunks = 12;           // C <= 32 * kMaxChunks = 384
 constexpr int32_t kTInf = 0x7FFFFFFF;
 constexpr int32_t kEvFree = 0;
 constexpr int32_t kEvSuper = 3;
@@ -417,7 +417,11 @@ using KernelFn = void (*)(const int32_t*, const int32_t*, const int32_t*,
                           int32_t*, uint8_t*, uint8_t*, uint32_t*, int32_t*,
                           int32_t*, int, int, int, int);
 
-// the instantiation for C rows (NCH = ceil(C / 32): 2 NCH rows a thread)
+// the instantiation for C rows (NCH = ceil(C / 32): 2 NCH rows a thread).
+// NCH 9-12 (256 < C <= 384, chain replication's C = 384) are the same
+// code with up to 24 rows a thread; their ring (up to ~97 KB a block of
+// four warps at C = 384) takes the dynamic shared-memory opt-in, as every
+// C >= 190 does, and leaves an SM two blocks
 KernelFn kernel_for(int C) {
   switch ((C + 31) / 32) {
     case 1: return sched_pick_kernel<1>;
@@ -427,7 +431,11 @@ KernelFn kernel_for(int C) {
     case 5: return sched_pick_kernel<5>;
     case 6: return sched_pick_kernel<6>;
     case 7: return sched_pick_kernel<7>;
-    default: return sched_pick_kernel<8>;
+    case 8: return sched_pick_kernel<8>;
+    case 9: return sched_pick_kernel<9>;
+    case 10: return sched_pick_kernel<10>;
+    case 11: return sched_pick_kernel<11>;
+    default: return sched_pick_kernel<12>;
   }
 }
 
@@ -437,8 +445,11 @@ size_t smem_bytes(int C) {
 }
 
 // The instantiation for C rows, allowed the dynamic shared memory its ring
-// takes (above 48 KB, from C = 190 on, only by opting in: once a device,
-// at the first launch, which comes before any CUDA-graph capture of it).
+// takes (above 48 KB, from C = 190 on, only by opting in: once a device
+// and instantiation, at the first launch, which comes before any
+// CUDA-graph capture of it). The opt-in is the ring of the instantiation's
+// widest C, 32 NCH, so that a later launch at a wider C of the same
+// instantiation (C = 257, then 288) is not refused.
 cudaError_t prepare(int C, KernelFn* fn) {
   constexpr int kDevices = 64;
   static bool opted_in[kDevices][kMaxChunks + 1] = {};
@@ -451,7 +462,7 @@ cudaError_t prepare(int C, KernelFn* fn) {
   const int nch = (C + 31) / 32;
   if (dev < kDevices && opted_in[dev][nch]) return cudaSuccess;
   err = cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
+                             static_cast<int>(smem_bytes(32 * nch)));
   if (err == cudaSuccess && dev < kDevices) opted_in[dev][nch] = true;
   return err;
 }
@@ -459,7 +470,7 @@ cudaError_t prepare(int C, KernelFn* fn) {
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). Launches on `stream` and
-// returns cudaGetLastError() (0 = launched). Requires C <= 256, N <= 32.
+// returns cudaGetLastError() (0 = launched). Requires C <= 384, N <= 32.
 // occ_out may be null (no occupancy count).
 extern "C" int sched_pick_launch(
     const void* t_kind, const void* t_node, const void* t_deadline,

@@ -80,7 +80,7 @@ from ..core import prng
 from ..core import types as T
 from . import select as sel
 
-MAX_C = 256   # the kernel keeps C / 32 rows per thread in registers
+MAX_C = 384   # the rank walks C rows in batches; nothing is sized by C
 MAX_N = 32
 MAX_E = 32    # one emission per thread of a warp
 

@@ -30,7 +30,7 @@ from ..core import types as T
 from ..core.prng import shr, to_u64, u32
 from . import select as sel
 
-MAX_C = 256   # a thread of the kernel reduces C / 16 rows of a lane
+MAX_C = 384   # a thread of the kernel reduces C / 16 rows of a lane
 MAX_N = 32    # the parked nodes of a lane are one 32-bit mask
 
 

@@ -52,6 +52,28 @@
                      (tests/test_bank.py:29): log 48, 96 event rows,
                      13 payload words, four kill/restart pairs and a
                      partition
+  chain_runtime      chain replication at make_chain_runtime's shapes
+                     (C=384, 6 nodes, 12 payload words) under the
+                     reference's loss chaos (tests/test_chain.py:76): 20
+                     ops a client, 5% loss, a replica killed at 250 ms
+  chain_buggy_runtime the reference's short master wait
+                     (tests/test_chain.py:86): the tail paused through
+                     the impatient master's reconfiguration; the
+                     two-tails invariant crashes lanes with 501
+  ministream_runtime the streaming dataflow under mapper chaos
+                     (tests/test_ministream.py:32): three kill/restart
+                     pairs among the mappers
+  ministream_overtake_runtime  the alignment bug (tests/test_ministream.py
+                     :46, strict_barrier=False): lanes crash with 401
+  percolator_runtime Percolator-lite at make_percolator_runtime's
+                     defaults (C=256, 5 nodes), no faults
+  percolator_gray_runtime  the reference's slow-disk recipe
+                     (tests/test_grayfail.py:446-454): server 0's disk
+                     100-700 ms at 20 ms, 12 ops a client; lanes crash
+                     with 501
+  shardkv_runtime    bench.py's sharded KV (bench.py:276-283): a 3-node
+                     controller group, two 3-node kv groups, 2 clients of
+                     64 ops, log 192, max_cfg 8, 160 event rows, 600 s
   build_pingpong     the frozen golden workloads of
   build_wal_kv       tests/_grayfail_golden.py, built with no JAX: pingpong
                      with the recorder (trace_cap=64), and the WAL-KV
@@ -299,6 +321,97 @@ def bank_chaos_runtime(device=None):
                              log_capacity=48,
                              scenario=_chaos_servers(5, 800, 800), cfg=cfg,
                              device=device)
+
+
+def chain_runtime(device=None):
+    """tests/test_chain.py:76-83: make_chain_runtime(3, 2, 20) on 6 nodes,
+    384 event rows, 12 payload words, 1-8 ms latency, 5% loss, a random
+    replica killed at 250 ms, a 12 s limit."""
+    from .models.chain import make_chain_runtime
+    sc = Scenario()
+    sc.at(ms(250)).kill_random(among=range(1, 4))
+    cfg = SimConfig(n_nodes=6, event_capacity=384, payload_words=12,
+                    time_limit=sec(12),
+                    net=NetConfig(packet_loss_rate=0.05,
+                                  send_latency_min=ms(1),
+                                  send_latency_max=ms(8)))
+    return make_chain_runtime(3, 2, 20, scenario=sc, cfg=cfg, device=device)
+
+
+def chain_buggy_runtime(device=None):
+    """tests/test_chain.py:86-100: the tail (node 3) paused at 150 ms and
+    resumed at 330 ms under a 400 ms lease and a 1 ms master wait, an 8 s
+    limit; the two-tails invariant crashes lanes with 501."""
+    from .models.chain import make_chain_runtime
+    sc = Scenario()
+    sc.at(ms(150)).pause(3)
+    sc.at(ms(330)).resume(3)
+    cfg = SimConfig(n_nodes=6, event_capacity=384, payload_words=12,
+                    time_limit=sec(8),
+                    net=NetConfig(send_latency_min=ms(1),
+                                  send_latency_max=ms(8)))
+    return make_chain_runtime(3, 2, 20, scenario=sc, cfg=cfg,
+                              lease=ms(400), master_wait=ms(1),
+                              device=device)
+
+
+def _mapper_chaos():
+    """tests/test_ministream.py:36-40: kill a random mapper at 300 +
+    700 t ms and restart one at 600 + 700 t ms (t = 0, 1, 2)."""
+    from .models.ministream import MAP_A, MAP_B
+    sc = Scenario()
+    for t in range(3):
+        sc.at(ms(300 + 700 * t)).kill_random(among=(MAP_A, MAP_B))
+        sc.at(ms(600 + 700 * t)).restart_random(among=(MAP_A, MAP_B))
+    return sc
+
+
+def ministream_runtime(device=None):
+    """tests/test_ministream.py:32-44: k=8, 4 epochs, 160 event rows, 5%
+    loss, the mapper chaos, a 60 s limit."""
+    from .models.ministream import make_ministream_runtime
+    return make_ministream_runtime(k=8, epochs=4, scenario=_mapper_chaos(),
+                                   device=device)
+
+
+def ministream_overtake_runtime(device=None):
+    """tests/test_ministream.py:46-52: strict_barrier=False under 5% loss;
+    the exactly-once oracle crashes lanes with 401."""
+    from .models.ministream import make_ministream_runtime
+    return make_ministream_runtime(k=8, epochs=4, strict_barrier=False,
+                                   device=device)
+
+
+def percolator_runtime(device=None):
+    """make_percolator_runtime() at its defaults: 2 shard servers and 3
+    clients of 9 ops over 6 keys, 256 event rows, 8 payload words, 10 s
+    (tests/test_grayfail.py:438-443)."""
+    from .models.percolator import make_percolator_runtime
+    return make_percolator_runtime(device=device)
+
+
+def percolator_gray_runtime(device=None):
+    """tests/test_grayfail.py:446-454: chaos.slow_disk(100 ms, 20 ms,
+    700 ms, node=0) with 12 ops a client; lanes crash with 501."""
+    from .models.percolator import make_percolator_runtime
+    from .runtime import chaos
+    sc = chaos.slow_disk(ms(100), ms(20), ms(700), node=0)
+    return make_percolator_runtime(n_ops=12, scenario=sc, device=device)
+
+
+def shardkv_runtime(device=None):
+    """bench.py:276-283 (`_shardkv_mode`): make_shard_runtime(n_groups=2,
+    rg=3, rc=3, n_clients=2, n_ops=64, max_cfg=8, log_capacity=192) on 11
+    nodes, 160 event rows, 12 payload words, 1-10 ms latency, a 600 s
+    limit."""
+    from .models.shard_kv import make_shard_runtime
+    cfg = SimConfig(n_nodes=11, event_capacity=160, payload_words=12,
+                    time_limit=sec(600),
+                    net=NetConfig(send_latency_min=ms(1),
+                                  send_latency_max=ms(10)))
+    return make_shard_runtime(n_groups=2, rg=3, rc=3, n_clients=2,
+                              n_ops=64, max_cfg=8, log_capacity=192,
+                              cfg=cfg, device=device)
 
 
 def build_pingpong(device=None):

@@ -9,6 +9,7 @@ were recorded under), and the results are compared with zero tolerance.
 from __future__ import annotations
 
 import contextlib
+import gc
 
 import jax
 import jax.tree_util as jtu
@@ -30,19 +31,72 @@ def one_cpu_thread():
     torch.set_num_threads(before)
 
 
+def mapping_count() -> int | None:
+    """This process's memory mappings (lines of /proc/self/maps), or None
+    where the system has no such file."""
+    try:
+        with open("/proc/self/maps") as f:
+            return sum(1 for _ in f)
+    except OSError:
+        return None
+
+
+def mapping_limit() -> int:
+    """The kernel's per-process mapping limit (vm.max_map_count)."""
+    try:
+        with open("/proc/sys/vm/max_map_count") as f:
+            return int(f.read())
+    except (OSError, ValueError):
+        return 65530
+
+
+def release_executables_past() -> bool:
+    """Drop every compiled JAX executable that only the caches hold (the
+    JAX package's PROGRAM_CACHE and jax's own) once this process maps more
+    than half the kernel's mapping limit; True if it did.
+
+    Each XLA CPU executable maps its code in many pieces (a compile of the
+    chain reference at C=384 adds ~900 mappings), and a test worker keeps
+    every executable its caches hold, so a long run reaches the limit and
+    the next compile or persistent-cache read dies in native code with a
+    segfault (ROADMAP F28). Dropped executables are compiled again (or
+    read from the persistent cache) when next used; no value changes."""
+    n = mapping_count()
+    if n is None or 2 * n <= mapping_limit():
+        return False
+    from madsim_tpu.compile.cache import PROGRAM_CACHE
+    PROGRAM_CACHE.clear()
+    jax.clear_caches()
+    gc.collect()
+    return True
+
+
 @contextlib.contextmanager
 def reference_stream():
     """Run JAX reference code on the non-partitionable threefry stream,
     with the persistent compilation cache off for the duration: an
     executable deserialized from that cache can return wrong values on
-    this jaxlib, and a reference value must never come from one."""
+    this jaxlib, a read of it can crash the process (ROADMAP F28), and a
+    reference value must never come from one.
+
+    jax decides once a process whether it uses the cache (the first
+    compile reads the flag, `compilation_cache.is_cache_used`), so
+    turning the flag off is not enough in a test worker that compiled
+    before: that decision is reset on entry, and again on exit, after the
+    flag is restored, so that later compiles decide afresh. A process
+    near its mapping limit first drops its cached executables
+    (`release_executables_past`)."""
+    from jax._src import compilation_cache
+    release_executables_past()
     cache_was = jax.config.jax_enable_compilation_cache
     jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
     try:
         with jax.threefry_partitionable(False):
             yield
     finally:
         jax.config.update("jax_enable_compilation_cache", cache_was)
+        compilation_cache.reset_cache()
 
 
 def jax_leaves(state) -> dict:

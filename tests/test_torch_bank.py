@@ -139,3 +139,47 @@ def test_conservation_check_matches_reference():
     np.testing.assert_array_equal(bad.numpy(), np.asarray(jb))
     np.testing.assert_array_equal(code.numpy(), np.asarray(jc))
     assert 0 < int(bad.sum()) < B
+
+
+def test_reference_runs_take_nothing_from_the_persistent_cache():
+    """Inside `reference_stream` jax neither reads nor writes its
+    persistent compilation cache, even in a worker whose earlier compiles
+    decided to use it (jax decides once a process; a read of that cache
+    crashed a worker inside this file's reference run, ROADMAP F28); on
+    exit the decision is taken afresh from the restored flag."""
+    import jax
+    import jax.numpy as jnp
+    from jax._src import compilation_cache, xla_bridge
+    from _torch_parity import reference_stream
+    backend = xla_bridge.get_backend()
+    jax.jit(lambda x: x + 1)(jnp.arange(3))     # a compile outside
+    outside = compilation_cache.is_cache_used(backend)
+    with reference_stream():
+        assert not compilation_cache.is_cache_used(backend)
+        jax.jit(lambda x: x * 3 + 1)(jnp.arange(4))
+        assert not compilation_cache.is_cache_used(backend)
+    assert compilation_cache.is_cache_used(backend) == outside
+
+
+@pytest.mark.parametrize("limit", ["far", "near"])
+def test_reference_stream_drops_cached_executables_near_the_mapping_limit(
+        monkeypatch, limit):
+    """Past half the kernel's per-process mapping limit, `reference_stream`
+    first drops the executables that only the caches hold (a test worker
+    at the limit dies in its next compile, ROADMAP F28); below it, it
+    keeps them."""
+    import jax
+    import jax.numpy as jnp
+    import _torch_parity as tp
+    from madsim_tpu.compile.cache import PROGRAM_CACHE
+    f = jax.jit(lambda x: x * 5 + 2)
+    f(jnp.arange(7))
+    PROGRAM_CACHE.get(("mapping-limit-probe",), lambda: f)
+    monkeypatch.setattr(tp, "mapping_limit",
+                        (lambda: 1 << 40) if limit == "far" else (lambda: 0))
+    with tp.reference_stream():
+        pass
+    dropped = limit == "near"
+    assert f._cache_size() == (0 if dropped else 1)
+    assert (len(PROGRAM_CACHE) == 0) == dropped
+    assert tp.mapping_count() > 0

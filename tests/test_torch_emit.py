@@ -75,8 +75,11 @@ def _scenario(mod, ms):
 
 
 # (event_capacity, op_jitter_max, steps): the roomy table takes every
-# fault corner with jitter on; the small one overflows
-CASES = {"corners_jitter": (256, 200, 160), "overflow": (20, 0, 96)}
+# fault corner with jitter on; the small one overflows; the wide ones are
+# tables past 256 rows (the kernels' wide instantiations: 257, and chain
+# replication's 384)
+CASES = {"corners_jitter": (256, 200, 160), "overflow": (20, 0, 96),
+         "wide_C257_jitter": (257, 200, 96), "wide_C384": (384, 0, 96)}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

@@ -39,7 +39,10 @@ EDGE = {f"C{c}_E{e}_sends{s}{'_jitter' if j else ''}{'_ring' if r else ''}":
         for c, e, s, j, r in ((96, 12, 7, True, True), (96, 0, 0, False, True),
                               (256, 3, 1, False, True),
                               (256, 5, 0, True, False),
-                              (256, 6, 6, False, False))}
+                              (256, 6, 6, False, False),
+                              (257, 4, 2, True, True),
+                              (384, 9, 6, False, True),
+                              (384, 5, 1, True, False))}
 
 
 def _edge(case):

@@ -190,9 +190,11 @@ def select_inputs(seed, b=B, C=C, N=N):
 
 
 # (C, N): the flagship's table (the cases named by their seed alone); one
-# row over a warp's 32 with a node per bit of the parked mask; the
-# kernel's largest table; a single row
-_SHAPES = [(seed, c, n) for c, n in ((96, 5), (33, 32), (256, 5), (1, 1))
+# row over a warp's 32 with a node per bit of the parked mask; wal_kv's
+# table; one row past it (the kernel's first wide instantiation); chain
+# replication's table, the kernel's largest; a single row
+_SHAPES = [(seed, c, n) for c, n in ((96, 5), (33, 32), (256, 5), (257, 6),
+                                     (384, 6), (1, 1))
            for seed in (0, 1)]
 
 
