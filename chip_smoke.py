@@ -1539,9 +1539,9 @@ def raft_bound(role, term, snap_len, log_len, commit, snap_digest, log_term,
 def fs_conn_runtime(dev):
     """A 5-node runtime (C=16, P=4) whose node state carries the fs and
     conn/stream leaves of tier-1 test_apply_super_matches_reference_on_
-    every_opcode, with its SuperPlan: the schema in which the torn-write
-    flush and the reset-peer tear run beside the kernel. Its programs
-    never run (the state is made, not stepped)."""
+    every_opcode, with its SuperPlan: the schema in which the kernel runs
+    the torn-write flush and the reset-peer tear. Its programs never run
+    (the state is made, not stepped)."""
     import numpy as np
     import torch
     from madsim_tpu_torch import Runtime, SimConfig
@@ -1692,11 +1692,13 @@ def super_bound(plan, s, op, node, src, payload, key):
     NODE_RANDOM lane's key, pool vector and pool words; an effective op's
     own reads and writes (a kill's t_node and t_kind rows and the rows it
     clears, a boot's reset rows, a link op's matrix, a knob's payload
-    word and target entry). Operations: 80 integer operations per
-    threefry block, 6 blocks for each NODE_RANDOM lane's draw."""
+    word and target entry, a torn kill's fs rows and flushed words, a
+    reset-peer's touched conn/stream entries). Operations: 80 integer
+    operations per threefry block, 6 blocks for each NODE_RANDOM lane's
+    draw, 2 + 6 F for a torn kill's F cuts."""
     import torch
     from madsim_tpu_torch.core import types as T
-    from madsim_tpu_torch.ops.apply_super import apply_super_plain
+    from madsim_tpu_torch.ops.apply_super import _get, apply_super_plain
     B, C = s.t_kind.shape
     N = s.alive.shape[1]
     out, _, target, reset = apply_super_plain(
@@ -1717,7 +1719,45 @@ def super_bound(plan, s, op, node, src, payload, key):
     knob = (op == T.OP_SET_LOSS) | (op == T.OP_SET_LATENCY) | (
         (op >= T.OP_SET_SKEW) & (op <= T.OP_SET_DUP))
     nbytes += int(knob.sum()) * 16
-    return nbytes, 80 * 6 * n_rnd
+    blocks = 6 * n_rnd
+    # a torn kill's flush: the target's dlen and mlen read, its flushed
+    # words read from fs_mem and written to fs_disk, dlen written; the
+    # draws 2 + 6 F threefry blocks
+    flush = super_flush_lanes(plan, s, op, target, reset)
+    if plan.fs and bool(flush.any()):
+        F = plan.spec_default["fs_mem"].shape[0]
+        lane_t = (torch.nonzero(flush).flatten(), target[flush].long())
+        dlen = s.node_state["fs_dlen"][lane_t].long()
+        ndlen = out.node_state["fs_dlen"][lane_t].long()
+        nbytes += int(flush.sum()) * F * 12 + int((ndlen - dlen).sum()) * 8
+        blocks += int(flush.sum()) * (2 + 6 * F)
+    # a reset-peer's tear (the lanes whose bumped epochs moved): each tear
+    # leaf's touched entries written, and read where bumped
+    n_tear = 0
+    for (path, d), act in zip(plan.leaves, plan.acts):
+        if act == 2:
+            moved = (_get(out.node_state, path) != _get(s.node_state, path)
+                     ).flatten(1).any(1)
+            n_tear = int((moved & (op == T.OP_RESET_PEER)).sum())
+            break
+    for (path, d), act in zip(plan.leaves, plan.acts):
+        if act:
+            r = d.numel() // N
+            touched = (d.numel() + (N - 1) * r) * d.element_size()
+            nbytes += n_tear * touched * (2 if act == 2 else 1)
+    return nbytes, 80 * blocks
+
+
+def super_flush_lanes(plan, s, op, target, reset):
+    """[B] bool: the lanes whose op is a torn kill (a KILL or RESTART of a
+    live node in torn mode) in a schema with the fs leaves."""
+    import torch
+    from madsim_tpu_torch.core import types as T
+    kill = reset & (op != T.OP_INIT)
+    if not plan.fs:
+        return torch.zeros_like(kill)
+    live_torn = (s.torn & s.alive).gather(1, target.long()[:, None])[:, 0]
+    return kill & live_torn
 
 
 def super_sector_bytes(plan, s, op, node, src, payload, key):
@@ -1766,6 +1806,27 @@ def super_sector_bytes(plan, s, op, node, src, payload, key):
     rt_ = lanes[reset] * N + t[reset]
     for vec in (s.alive, s.paused):
         total += sectors(vec.data_ptr() + rt_, 1)
+    # a torn kill's fs rows (the target's whole rows: an upper bound) and
+    # a reset-peer's tear: the target's own row and its entry in every
+    # other node's row of each tear leaf
+    flush = super_flush_lanes(plan, s, op, target, reset)
+    if plan.fs and bool(flush.any()):
+        fb = lanes[flush] * N + t[flush]
+        for k in ("fs_mem", "fs_mlen", "fs_disk", "fs_dlen"):
+            leaf = s.node_state[k]
+            rb = leaf[0, 0].numel() * 4
+            total += sectors(leaf.data_ptr() + fb * rb, rb)
+    rp = lanes[op == T.OP_RESET_PEER] if plan.n_tear else lanes[:0]
+    for (path, d), act in zip(plan.leaves, plan.acts):
+        if act and rp.numel():
+            leaf = _get(s.node_state, path)
+            row = d.numel() * leaf.element_size()
+            r = row // N
+            tt = t[op == T.OP_RESET_PEER]
+            total += sectors(leaf.data_ptr() + (rp * N + tt) * row, row)
+            for i in range(N):
+                total += sectors(leaf.data_ptr() + (rp * N + i) * row
+                                 + tt * r, r)
     link = ((op >= T.OP_HEAL) & (op <= T.OP_PARTITION_ONEWAY)) & (
         (out.clog_link != s.clog_link).flatten(1).any(1) | (op == T.OP_HEAL))
     total += sectors(s.clog_link.data_ptr() + lanes[link] * N * N, N * N)
@@ -1785,17 +1846,17 @@ def super_apply_ms(apply, args, n=20, reps=3):
     [each replay's ms])."""
     import torch
     plan, s = args[:2]
+    # every node-state leaf: the boot resets, the tear and the flush
+    keys = sorted(s.node_state)
     src = [getattr(s, k) for k in SUPER_WRITES] + [
-        s.node_state[p[0]] for p, _ in plan.leaves]
+        s.node_state[k] for k in keys]
     copies = []
     for _ in range(n):
         own = s.replace(**{k: getattr(s, k).clone() for k in SUPER_WRITES})
-        ns = dict(own.node_state)
-        for p, _ in plan.leaves:
-            ns[p[0]] = ns[p[0]].clone()
-        own = own.replace(node_state=ns)
+        own = own.replace(node_state={k: own.node_state[k].clone()
+                                      for k in keys})
         dst = [getattr(own, k) for k in SUPER_WRITES] + [
-            own.node_state[p[0]] for p, _ in plan.leaves]
+            own.node_state[k] for k in keys]
         copies.append(((plan, own) + tuple(args[2:]), dst))
 
     def restore():
@@ -1847,8 +1908,9 @@ FLAGSHIP_K1K4 = dict(step_keys=1, dup_draws=1, split_randint=2,
                      threefry_keys=0, threefry_draw=0, node_gather=1,
                      put_rows_=2)
 # launched by every step of every path; the others where a path's step
-# draws with them (threefry_keys and threefry_draw: wal_kv's torn-write
-# flush; split_randint: a handler's Ctx.randint with int bounds)
+# draws with them (threefry_keys and threefry_draw: a handler's
+# ctx.bernoulli, as config 4's KV clients; split_randint: a handler's
+# Ctx.randint with int bounds)
 ON_EVERY_STEP = ("step_keys", "dup_draws", "node_gather", "put_rows_")
 DUP_WORDS = (0x44555031, 0x44555032)
 # integer operations of one 20-round threefry2x32 block (mutate_bound's)
@@ -2378,14 +2440,11 @@ def gather_sector_bytes(tree, idx):
     return total + idx.numel() * 4
 
 
-def plain_draws_in_step(rt, state, skip=()):
+def plain_draws_in_step(rt, state):
     """({core/prng.py function: calls}, [shapes of the one-hot put_row
     writes of node_state, t_kind or t_deadline]) in one eager step of
     `state` (on a copy): every function of core/prng.py, wherever the
-    port's modules bind it, and select.put_row are wrapped for the step.
-    Node-state leaves named in `skip` are not counted (the fs leaves of
-    the supervisor op's torn-write flush, plain PyTorch after the kernel:
-    K3's queued remainder)."""
+    port's modules bind it, and select.put_row are wrapped for the step."""
     import inspect
     import torch
     from madsim_tpu_torch.core import prng
@@ -2393,8 +2452,7 @@ def plain_draws_in_step(rt, state, skip=()):
     from madsim_tpu_torch.ops import select as sel
     own = map_state(torch.clone, state)
     targets = {t.data_ptr() for t in [own.t_kind, own.t_deadline]
-               + [v for k, v in own.node_state.items() if k not in skip]
-               if t.numel()}
+               + list(own.node_state.values()) if t.numel()}
     calls, onehot = {}, []
 
     def counted(name, fn):
@@ -3330,7 +3388,7 @@ def clone_layout_state(state):
 # lanes of the plane flagship that a CPU run (a process of its own) repeats
 PLANE_CPU_LANES = (0, 1, 4099, 99_999)
 PLANE_CPU_STEPS = 1024      # the CPU lanes' step
-PLANE_EAGER_STEPS = 512     # where run = run_fused (the eager step is
+PLANE_EAGER_STEPS = 256     # where run = run_fused (the eager step is
                             # host-bound)
                             # is checked (the eager runner is host-bound)
 
@@ -3781,7 +3839,7 @@ def recovery_runtime(recipe, device):
 
 
 RECOVERY_STEPS = 256
-RECOVERY_EAGER_STEPS = 128   # where run = run_fused (host-bound)
+RECOVERY_EAGER_STEPS = 64    # where run = run_fused (host-bound)
 
 
 def recovery_phase(dev):
@@ -4363,8 +4421,8 @@ def planes_all_kernel_phase(wrappers, dev, pa):
 # ---- time travel and the first net-layer models ----------------------------
 TT_EVERY = 1024              # timetravel_flagship: a harvest every 1024
 FORK_LANE = 4099             # the lane the prefix fork clones
-TT_SMALL_B, TT_SMALL_EVERY = 4096, 256   # run against run_fused harvests
-TT_SMALL_STEPS = 512         # steps of that comparison (eager: host-bound)
+TT_SMALL_B, TT_SMALL_EVERY = 4096, 128   # run against run_fused harvests
+TT_SMALL_STEPS = 256         # steps of that comparison (eager: host-bound)
 TT_SEEDS = 24                # timetravel_explain: the JAX test's 24 seeds
 TT_STEPS, TT_CHUNK, TT_CKPT = 30_000, 16, 32
 TT_KNOB_SHIFT = 20_000       # ticks the knob pair's lane B moves its rows
@@ -4373,7 +4431,7 @@ ECHO_B, ECHO_STEPS, ECHO_CHUNK = 50_000, 20_000, 512
 ECHO_LANES = (0, 1, 25_000, 49_999)
 MODEL_B, MODEL_CHUNK = 16_384, 512
 MODEL_LANES = (0, 1, 8_191, 16_383)
-MODEL_EAGER_STEPS = 256      # run = run_fused over this prefix
+MODEL_EAGER_STEPS = 128      # run = run_fused over this prefix
 BUG_CPU_LANES = 512          # lanes of the 2PC bug variant the CPU runs
 
 
@@ -4805,7 +4863,7 @@ def handlers_bytes(rt, state) -> int:
 
 def model_phase(wrappers, dev, names, every, counts, name, build, max_steps,
                 batch, chunk, lanes, cpu_lanes, profile_eager=True,
-                eager_steps=None, prof_steps=PROF_STEPS):
+                eager_steps=None, prof_steps=PROF_STEPS, profile=True):
     """One model runtime at `batch` lanes through run_fused and run: every
     leaf equal, each step kernel launched its count a step, `lanes` equal
     to the CPU's (at the halt, or at `max_steps` where the run is capped
@@ -4850,8 +4908,9 @@ def model_phase(wrappers, dev, names, every, counts, name, build, max_steps,
     check(not diff, f"{name}: lanes {lanes} differ from the CPU's in "
           f"{diff[:4]}")
     expect = dict(per_step_of(names), **per)
-    prof = profile_steps(lambda st, n: rt.run_fused(st, n, chunk=n), s0,
-                         batch, expect, steps=prof_steps)
+    prof = (profile_steps(lambda st, n: rt.run_fused(st, n, chunk=n), s0,
+                          batch, expect, steps=prof_steps) if profile
+            else {})
     nums = dict(batch=batch, steps_run=steps_fused, wall_s=wall,
                 eager_steps_run=steps_eager, eager_wall_s=eager_wall,
                 eager_compared_at=eager_steps or "halt",
@@ -4871,7 +4930,7 @@ def model_phase(wrappers, dev, names, every, counts, name, build, max_steps,
                 handlers_bound_ms=hb / HBM_BYTES_PER_S * 1e3)
     if profile_eager:
         pe = profile_steps(lambda st, n: rt.run(st, n, chunk=n)[0], s0,
-                           batch, expect)
+                           batch, expect, steps=prof_steps)
         sec = pe.get("section_ms_per_step") or {}
         nums.update(eager_device_ms_per_step=pe.get(
             "device_busy_ms_per_step"),
@@ -4966,7 +5025,7 @@ KV4_LANES = (0, 1, 2, 3)     # config 4's lanes the CPU child runs
 KV4_OPERANDS_AT = 512        # K11's config-4 operands: this step's
 KV_B, KV_STEPS, KV_CHUNK = 4096, 60_000, 512
 KV_LANES = (0, 1, 2047, 4095)
-KV_EAGER_STEPS = 128         # run = run_fused over this prefix: the eager
+KV_EAGER_STEPS = 64          # run = run_fused over this prefix: the eager
                              # KV step is host-bound (~40 ms at B=4096)
 LEAKY_CPU_LANES = 64         # lanes of the poisoned bank the CPU runs
 
@@ -5088,7 +5147,9 @@ def kv_config4_phase(wrappers, dev, names, every, counts, cpu):
     KV4_LANES equal to the CPU child's, each step kernel its count a
     step (the graphs' replays and the warm-ups); at KV4_SMALL_B lanes
     run_compacting equal to run_fused. Returns (the K1/K4 kernels it
-    ran, K11's operands at step KV4_OPERANDS_AT)."""
+    ran, K11's operands at step KV4_OPERANDS_AT, that step's
+    threefry_keys and threefry_draw calls {kernel: [(case, method, args,
+    kwargs)]} and the run's launches)."""
     import numpy as np
     import torch
     from madsim_tpu_torch import workloads
@@ -5118,6 +5179,10 @@ def kv_config4_phase(wrappers, dev, names, every, counts, cpu):
     # K11's operands mid-run, and the step's plain draws, at full width
     mid = rt.run_fused(init, KV4_OPERANDS_AT, chunk=KV4_OPERANDS_AT)
     ops = raft_operands(rt, mid)
+    case = f"kv_config4_B{KV4_B}_step_{KV4_OPERANDS_AT}"
+    k1 = {k: [(case, *c) for c in calls] for k, calls in
+          k1k4_operands(wrappers, rt, mid).items()
+          if k in ("threefry_keys", "threefry_draw")}
     draws, onehot = plain_draws_in_step(rt, mid)
     prof = profile_steps(lambda st, n: rt.run_fused(st, n, chunk=n), init,
                          KV4_B, dict({k: 1 for k in names}, **per))
@@ -5158,7 +5223,10 @@ def kv_config4_phase(wrappers, dev, names, every, counts, cpu):
     check(same_small, "kv_config4: run_compacting differs from run_fused "
           f"at B={KV4_SMALL_B}")
     check(cst["repacks"] >= 1, "kv_config4: no repack")
-    return on, ops
+    check(per["threefry_draw"] >= 1,
+          f"kv_config4: a step launches {per}; its clients' ctx.bernoulli "
+          "draws through threefry_draw")
+    return on, ops, k1, launches
 
 
 def kv_bank_phase(wrappers, dev, names, every, counts, cpu):
@@ -5243,7 +5311,7 @@ CHAIN_B = 16_384             # chain replication's cell (C=384)
 P9B_B = 4096                 # the other P9 models' cells
 P9B_CHUNK = 512
 P9B_STEPS = 60_000
-P9B_EAGER_STEPS = 128        # run = run_fused over this prefix (host-bound)
+P9B_EAGER_STEPS = 64         # run = run_fused over this prefix (host-bound)
 CHAIN_LANES = (0, 1, 8_191, 16_383)
 P9B_LANES = (0, 1, 2047, 4095)
 P9B_RED_LANES = 256          # the first lanes whose verdicts the CPU runs
@@ -5343,12 +5411,15 @@ def same_verdicts(state, want):
                             and np.array_equal(codes[:n], want_code))
 
 
-def p9b_profile_main() -> int:
+def p9b_profile_main(conn: bool = False) -> int:
     """`chip_smoke.py --p9b-profile`: the eager step's sections (handlers,
     invariant) of the models_p9b cells the main run does not profile
     eager (ministream, percolator, the sharded KV), each from its
     step-P9B_OPERANDS_AT state at its cell's width, beside the handlers'
-    byte bound (ROADMAP K16/K17). One JSON line a cell; needs a card."""
+    byte bound (ROADMAP K16/K17). `chip_smoke.py --conn-profile`
+    (`conn`): the same of the models_conn cells minipg and
+    stream_echo_bidi (the main run profiles neither eager: ~7,000
+    kernels a step). One JSON line a cell; needs a card."""
     import numpy as np
     import torch
     from madsim_tpu_torch.ops import kernels
@@ -5358,20 +5429,26 @@ def p9b_profile_main() -> int:
     dev = torch.device("cuda")
     wrappers = kernels.wrappers()
     kernels.build_all()
-    for name, (build, batch, _, _, groups, sections) in \
-            p9b_cases().items():
-        if sections:
-            continue
+    if conn:
+        cells = {k: (v[0], v[1], 0) for k, v in conn_cases().items()
+                 if k in ("minipg", "stream_echo_bidi")}
+    else:
+        cells = {k: (v[0], v[1], v[4]) for k, v in p9b_cases().items()
+                 if not v[5]}
+    for name, (build, batch, groups) in cells.items():
         rt = build(dev)
+        at = min(P9B_OPERANDS_AT, CONN_CPU_STEPS) if conn \
+            else P9B_OPERANDS_AT
         mid = rt.run_fused(rt.init_batch(np.arange(batch, dtype=np.uint32)),
-                           P9B_OPERANDS_AT, chunk=P9B_OPERANDS_AT)
+                           at, chunk=at)
         per = step_launches(wrappers, rt, mid)
         pe = profile_steps(lambda st, n: rt.run(st, n, chunk=n)[0], mid,
-                           batch, dict(p9b_step_launches(groups), **per))
+                           batch, dict(p9b_step_launches(groups), **per),
+                           steps=CONN_PROF_STEPS if conn else PROF_STEPS)
         sec = pe.get("section_ms_per_step") or {}
         hb = handlers_bytes(rt, mid)
-        emit(phase="p9b_profile", case=name, batch=batch,
-             from_step=P9B_OPERANDS_AT,
+        emit(phase="conn_profile" if conn else "p9b_profile", case=name,
+             batch=batch, from_step=at,
              eager_device_ms_per_step=pe.get("device_busy_ms_per_step"),
              handlers_ms_per_step=sec.get("handlers"),
              invariant_ms_per_step=sec.get("invariant"),
@@ -5405,10 +5482,8 @@ def models_p9b_phase(wrappers, dev, every, counts, cpu):
     P9B_OPERANDS_AT, chain's launches of each)."""
     import numpy as np
     import torch
-    from madsim_tpu_torch.fs import fs_state
     from madsim_tpu_torch.models import percolator
     on, chain_ops, chain_launch = set(), None, None
-    fs_leaves = tuple(fs_state(1, 1))
     for name, (build, batch, cap, lanes, groups, sections) in \
             p9b_cases().items():
         t_cell = time.perf_counter()
@@ -5435,7 +5510,7 @@ def models_p9b_phase(wrappers, dev, every, counts, cpu):
         extra = dict(C=rt.cfg.event_capacity, n_nodes=rt.cfg.n_nodes,
                      node_state_leaves=len(ns), crashed=int(crashed.sum()),
                      oops_lanes=oops, halted=int(halted.sum()))
-        draws, onehot = plain_draws_in_step(rt, mid, skip=fs_leaves)
+        draws, onehot = plain_draws_in_step(rt, mid)
         extra.update(prng_calls=draws, onehot_put_rows=onehot)
         check(not draws and not onehot, f"{name}: an eager step on the "
               f"card drew with core/prng.py {draws} or wrote node_state "
@@ -5533,6 +5608,330 @@ def models_p9b_phase(wrappers, dev, every, counts, cpu):
     return on, chain_ops, chain_launch
 
 
+# ---- the connection and stream layer: minipg, connfault, stream_echo,
+# ---- grayfail ------------------------------------------------------------
+MINIPG_B = 2048              # bench.py --minipg's batch
+MINIPG_STEPS = 512           # and its timed steps: the cell's step cap,
+                             # where its CPU lanes are held (64 txns a
+                             # client over 600 s: no lane halts by then)
+CONN_B = 16_384              # the connfault, stream_echo and red cells
+CONN_CHUNK = 256
+CONN_CPU_STEPS = 256         # where a connfault / stream_echo cell's CPU
+                             # lanes are held; the card then runs on
+CONN_PROF_STEPS = 8          # the cells' profiled steps (~7,000 kernels a
+                             # step)
+CONN_EAGER_STEPS = 16        # run = run_fused over this prefix (host-bound:
+                             # 110-170 ms an eager step)
+CONN_LANES = (0, 1, 8_191, 16_383)
+MINIPG_LANES = (0, 1, 1023, 2047)
+CONN_RED_LANES = 48          # the first lanes whose verdicts the CPU runs
+CONN_RED_STEPS = 512         # where the red cells' verdicts are compared
+                             # (connfault mix, guards off: 2 of the first
+                             # 48 lanes crashed by then; the grayfail
+                             # recipes halt by ~430)
+CONN_OPERANDS_AT = 512       # connfault_mix's K3 operands
+CONN_VERDICT_STEPS = 512     # where the green connfault cells' first
+                             # CONN_RED_LANES verdicts are compared (the
+                             # reset recipe crashes 44 of 16,384 by then)
+CONN_HALT_CAP = 2_560        # connfault_mix_guarded runs on to its halt
+                             # (~2,225 steps; its 403s fire at the halt)
+CONN_WINDOW = 32             # the windows in which crashed lanes are caught
+CONN_SAMPLE = 2              # crashed lanes a cell the CPU replays
+CONN_KNOWN_CRASH = 76        # the first seed that connfault mix with guards
+                             # crashes (403 at step 1120; the JAX package's
+                             # too: tier-1 test_torch_minipg): the CPU child
+                             # runs it from its start to its halt
+
+
+def conn_cases():
+    """name: (builder, batch, step cap where the CPU lanes are held, lanes
+    the CPU runs) of the models_conn phase's cells with the guards on."""
+    from madsim_tpu_torch import workloads
+
+    def connfault(recipe, guard=None):
+        return lambda dev: workloads.connfault_runtime(recipe, guard=guard,
+                                                       device=dev)
+
+    def echo(mode):
+        return lambda dev: workloads.stream_echo_runtime(mode, device=dev)
+
+    cases = {"minipg": (workloads.minipg_runtime, MINIPG_B, MINIPG_STEPS,
+                        MINIPG_LANES),
+             "connfault_mix_guarded": (connfault("mix", True), CONN_B,
+                                       CONN_CPU_STEPS, CONN_LANES)}
+    for recipe in ("reset", "dup", "half"):
+        cases[f"connfault_{recipe}"] = (connfault(recipe), CONN_B,
+                                        CONN_CPU_STEPS, CONN_LANES)
+    for mode in workloads.STREAM_ECHO_MODES:
+        cases[f"stream_echo_{mode}"] = (echo(mode), CONN_B, CONN_CPU_STEPS,
+                                        CONN_LANES)
+    return cases
+
+
+def conn_red_cases():
+    """name: (builder, the crash codes its oracles fire) of the
+    models_conn phase's red cells."""
+    from madsim_tpu_torch import workloads
+    from madsim_tpu_torch.models import minipg, percolator
+    return {"connfault_mix": (
+        lambda dev: workloads.connfault_runtime("mix", device=dev),
+        {minipg.CRASH_BAD_STATUS, minipg.CRASH_TXN_READ,
+         minipg.CRASH_VISIBILITY}),
+        "grayfail_mix": (
+            lambda dev: workloads.grayfail_runtime("mix", device=dev),
+            {percolator.CRASH_SNAPSHOT}),
+        "grayfail_torn": (
+            lambda dev: workloads.grayfail_runtime("torn", device=dev),
+            {percolator.CRASH_SNAPSHOT})}
+
+
+# the crash codes of minipg's and stream_echo's oracles
+CONN_CODES = {401, 402, 403, 201, 202, 203}
+
+
+def conn_cpu_main(out_path) -> int:
+    """`chip_smoke.py --conn-cpu OUT`: the CPU half of the models_conn
+    phase, run beside the card's phases (it touches no card): each green
+    cell's lanes at its CPU step cap (stream_echo's halt first), and the
+    first CONN_RED_LANES verdicts of each red cell at CONN_RED_STEPS;
+    pickled to OUT."""
+    import pickle
+    import numpy as np
+    import torch
+    from madsim_tpu_torch import interop
+    torch.set_num_threads(1)
+    out = {}
+    for name, (build, _, cap, lanes) in conn_cases().items():
+        rt = build("cpu")
+        s, _ = rt.run(rt.init_batch(np.asarray(lanes, np.uint32)), cap,
+                      min(64, cap))
+        out[name] = interop.state_to_numpy(s)
+    for name, (build, _) in conn_red_cases().items():
+        rt = build("cpu")
+        s, _ = rt.run(rt.init_batch(np.arange(CONN_RED_LANES,
+                                              dtype=np.uint32)),
+                      CONN_RED_STEPS, 64)
+        out[f"{name}_verdicts"] = (s.crashed.numpy(), s.crash_code.numpy())
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def conn_verdicts_cpu_main(out_path) -> int:
+    """`chip_smoke.py --conn-verdicts-cpu OUT`: the first CONN_RED_LANES
+    crash verdicts of each green connfault cell at CONN_VERDICT_STEPS, on
+    the port's CPU path, run beside the card's phases, and connfault mix
+    with guards' lane CONN_KNOWN_CRASH from its start to its halt;
+    pickled to OUT."""
+    import pickle
+    import numpy as np
+    import torch
+    from madsim_tpu_torch import interop
+    torch.set_num_threads(1)
+    out = {}
+    for name, (build, _, _, _) in conn_cases().items():
+        if not name.startswith("connfault"):
+            continue
+        rt = build("cpu")
+        s, _ = rt.run(rt.init_batch(np.arange(CONN_RED_LANES,
+                                              dtype=np.uint32)),
+                      CONN_VERDICT_STEPS, 64)
+        out[name] = (s.crashed.numpy(), s.crash_code.numpy())
+        if name == "connfault_mix_guarded":
+            s, _ = rt.run(rt.init_batch(np.array([CONN_KNOWN_CRASH],
+                                                 np.uint32)),
+                          CONN_HALT_CAP, 64)
+            out[f"{name}_lane"] = interop.state_to_numpy(s)
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def conn_run_on(rt, f, at, to_step, verdict_at):
+    """A green connfault cell run on from `f` (at step `at`) on the card
+    in CONN_WINDOW-step windows to step `to_step` or every lane's halt.
+    Returns (the final state, the state at step `verdict_at`, the first
+    CONN_SAMPLE lanes that crashed: [(lanes, their numpy leaves before
+    the window they crashed in, after it)])."""
+    s, at_v, sample, n = f, None, [], 0
+    while at < to_step:
+        nxt = rt.run_fused(s, CONN_WINDOW, chunk=CONN_WINDOW)
+        at += CONN_WINDOW
+        if n < CONN_SAMPLE:
+            new = (nxt.crashed & ~s.crashed).nonzero().flatten()
+            new = new[:CONN_SAMPLE - n].tolist()
+            if new:
+                sample.append((new, numpy_lanes(s, new),
+                               numpy_lanes(nxt, new)))
+                n += len(new)
+        s = nxt
+        if at == verdict_at:
+            at_v = s
+        if bool(s.halted.all()):
+            break
+    return s, at_v, sample
+
+
+def conn_sample_on_cpu(build, sample):
+    """The crashed lanes of `conn_run_on` replayed on the port's CPU path
+    over their window: [(lanes, the leaves that differ from the card's)]."""
+    from madsim_tpu_torch import interop
+    rt = build("cpu")
+    out = []
+    for lanes, before, after in sample:
+        s, _ = rt.run(interop.state_from_numpy(before, "cpu"), CONN_WINDOW,
+                      CONN_WINDOW)
+        out.append((lanes, numpy_equal(after, interop.state_to_numpy(s))))
+    return out
+
+
+def conn_done(state):
+    """[B] bool: every client of a conn cell's lane done."""
+    return (state.node_state["c_done"][:, 1:] == 1).all(1)
+
+
+def models_conn_phase(wrappers, dev, every, counts, cpu, cpu_v):
+    """The connection and stream layer's models, each cell with the
+    guards on through model_phase (run_fused to its step cap, run =
+    run_fused over CONN_EAGER_STEPS, the CPU child's lanes equal at the
+    cap): minipg at bench.py --minipg's config (B=2048, C=96, 64 txns a
+    client; its step cap of 512 bench.py's timed steps, seed-events/s
+    recorded), the connfault recipes (mix, reset, dup, half; C=192) and
+    the three stream_echo shapes at CONN_B. The connfault cells then run
+    on in CONN_WINDOW-step windows (`conn_run_on`) to CONN_VERDICT_STEPS,
+    connfault_mix_guarded to its halt: their first CONN_RED_LANES crash
+    verdicts at CONN_VERDICT_STEPS equal the CPU child's (`cpu_v`), and
+    the first CONN_SAMPLE lanes the card crashed, replayed on the CPU
+    from the card's state over the window they crashed in, equal the
+    card's leaf for leaf, and connfault_mix_guarded's lane
+    CONN_KNOWN_CRASH crashes (403) equal to the CPU child's run of it
+    from its start. Checks: no overflow; no crash but by minipg's
+    oracles in the connfault cells (the reference crashes some of 16,384
+    seeds with 403 even with the guards on) and none in the others; every
+    client done on every lane that halts without a crash (every
+    stream_echo and connfault_mix_guarded lane halts); no plain draw and
+    no one-hot node-state write in an eager step on the card; K3 once a
+    step. The red cells (connfault mix with the guards off, grayfail mix
+    and torn) through run_fused: their crashed lanes and codes at
+    CONN_RED_STEPS equal to the CPU child's on the first CONN_RED_LANES
+    lanes, at least one of them crashed. Only minipg's graph step is
+    profiled (`--conn-profile` profiles the eager ones). Returns (the
+    K1/K4 kernels it ran, K3's operands at connfault_mix's step
+    CONN_OPERANDS_AT)."""
+    import numpy as np
+    import torch
+    on, k3_ops = set(), None
+    names = {k: 1 for k in STEP_KERNELS if k != "raft_invariant"}
+    for name, (build, batch, cap, lanes) in conn_cases().items():
+        t_cell = time.perf_counter()
+        rt = build(dev)       # one runtime: one graph capture for the cell
+        f, nums, on_case = model_phase(
+            wrappers, dev, names, every, counts, name, lambda _: rt, cap,
+            batch, min(CONN_CHUNK, cap), lanes, cpu[name],
+            profile_eager=False, eager_steps=CONN_EAGER_STEPS,
+            prof_steps=CONN_PROF_STEPS, profile=name == "minipg")
+        model_s = time.perf_counter() - t_cell
+        on |= on_case
+        draws, onehot = plain_draws_in_step(rt, f)
+        check(not draws and not onehot, f"{name}: an eager step on the "
+              f"card drew with core/prng.py {draws} or wrote node_state "
+              f"with a one-hot put_row {onehot}")
+        extra = dict(C=rt.cfg.event_capacity, n_nodes=rt.cfg.n_nodes,
+                     node_state_leaves=len(f.node_state),
+                     prng_calls=draws, onehot_put_rows=onehot)
+        if name.startswith("connfault"):
+            t_on = time.perf_counter()
+            to = (CONN_HALT_CAP if name == "connfault_mix_guarded"
+                  else CONN_VERDICT_STEPS)
+            f, f_v, sample = conn_run_on(rt, f, cap, to, CONN_VERDICT_STEPS)
+            check(f_v is not None, f"{name}: every lane halted before step "
+                  f"{CONN_VERDICT_STEPS}")
+            _, _, same = same_verdicts(f_v, cpu_v[name])
+            replayed = conn_sample_on_cpu(build, sample)
+            extra.update(
+                run_on_to=to, steps_max=int(f.steps.max()),
+                verdicts_at=CONN_VERDICT_STEPS,
+                crashed_at_verdicts=int(f_v.crashed.sum()),
+                first_lanes_crashed=int(f_v.crashed[:CONN_RED_LANES].sum()),
+                cpu_lanes_compared=CONN_RED_LANES,
+                same_verdicts_as_cpu=same,
+                crashed_lanes_replayed=[x for ls, _ in replayed for x in ls],
+                run_on_s=time.perf_counter() - t_on)
+            check(same, f"{name}: crash verdicts differ from the CPU's on "
+                  f"lanes 0..{CONN_RED_LANES - 1} at step "
+                  f"{CONN_VERDICT_STEPS}")
+            for ls, diff in replayed:
+                check(not diff, f"{name}: crashed lanes {ls} replayed on the "
+                      f"CPU over their window differ in {diff[:6]}")
+            del f_v
+        crashed = int(f.crashed.sum())
+        oops = int((f.oops != 0).sum())
+        halted = f.halted.cpu().numpy()
+        done = conn_done(f).cpu().numpy()
+        extra.update(crashed=crashed, oops_lanes=oops,
+                     halted=int(halted.sum()), clients_done=int(done.sum()))
+        if name == "minipg":
+            commits = (f.node_state["c_tid"][:, 1:] - 1).sum(1)
+            extra.update(txns_done_mean=float(commits.float().mean()),
+                         sim_seconds_min=float(f.now.min()) / 1e6)
+        codes = f.crash_code[f.crashed].cpu().numpy()
+        extra.update(crash_codes=sorted(set(codes.tolist())))
+        check(oops == 0 and set(codes.tolist()) <= CONN_CODES,
+              f"{name}: {extra}")
+        if not name.startswith("connfault"):
+            check(crashed == 0, f"{name}: {extra}")
+        ok = halted & ~f.crashed.cpu().numpy()
+        check(bool(done[ok].all()), f"{name}: a halted lane's client did "
+              "not finish")
+        if name.startswith("stream_echo"):
+            check(bool(halted.all()), f"{name}: a lane did not halt by step "
+                  f"{cap}")
+        if name == "connfault_mix_guarded":
+            check(bool(halted.all()) and bool(done.any()),
+                  f"{name}: a lane did not halt by step {CONN_HALT_CAP}, or "
+                  f"no client finished: {extra}")
+            check(crashed >= 1 and bool(extra["crashed_lanes_replayed"]),
+                  f"{name}: no lane crashed by the halt, so no crash was "
+                  f"replayed: {extra}")
+            lane = numpy_lanes(f, [CONN_KNOWN_CRASH])
+            diff = numpy_equal(cpu_v[f"{name}_lane"], lane)
+            check(not diff and bool(lane[".crashed"].all())
+                  and int(lane[".crash_code"][0]) == 403,
+                  f"{name}: lane {CONN_KNOWN_CRASH} from its start to its "
+                  f"halt differs from the CPU's in {diff[:6]} (crashed "
+                  f"{lane['.crashed']}, code {lane['.crash_code']})")
+        emit(phase="models_conn", case=name, **nums, **extra,
+             model_phase_s=model_s, cell_s=time.perf_counter() - t_cell)
+        del f, rt
+    # the red cells: crashed lanes and codes against the CPU's
+    for name, (build, codes_ok) in conn_red_cases().items():
+        rt = build(dev)
+        s0 = rt.init_batch(np.arange(CONN_B, dtype=np.uint32))
+        t0 = time.perf_counter()
+        f = rt.run_fused(s0, CONN_RED_STEPS, chunk=CONN_CHUNK)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        crashed, codes, same = same_verdicts(f, cpu[f"{name}_verdicts"])
+        first = int(crashed[:CONN_RED_LANES].sum())
+        if name == "connfault_mix":
+            k3_ops = super_operands(rt, f)
+        emit(phase="models_conn", case=name, batch=CONN_B,
+             wall_s=wall, compared_at=CONN_RED_STEPS,
+             first_lanes_crashed=first, cpu_lanes_compared=CONN_RED_LANES,
+             cpu_crashed=int(cpu[f"{name}_verdicts"][0].sum()),
+             same_verdicts_as_cpu=same, steps_max=int(f.steps.max()),
+             halted=int(f.halted.sum()), crashed=int(crashed.sum()),
+             crash_codes=sorted(set(codes[crashed].tolist())))
+        check(same, f"{name}: crash verdicts differ from the CPU's on "
+              f"lanes 0..{CONN_RED_LANES - 1} at step {CONN_RED_STEPS}")
+        check(first >= 1, f"{name}: none of the first {CONN_RED_LANES} "
+              f"lanes crashed by step {CONN_RED_STEPS}")
+        check(set(codes[crashed].tolist()) <= codes_ok,
+              f"{name}: crashes {sorted(set(codes[crashed].tolist()))}")
+        del f, rt, s0
+    return on, k3_ops
+
+
 def main() -> int:
     import torch
     if len(sys.argv) == 3 and sys.argv[1] == "--minimize-cpu":
@@ -5547,12 +5946,19 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--kv-cpu":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return kv_cpu_main(sys.argv[2])
-    if len(sys.argv) == 2 and sys.argv[1] == "--p9b-profile":
+    if len(sys.argv) == 2 and sys.argv[1] in ("--p9b-profile",
+                                               "--conn-profile"):
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-        return p9b_profile_main()
+        return p9b_profile_main(conn=sys.argv[1] == "--conn-profile")
     if len(sys.argv) == 3 and sys.argv[1] == "--p9b-cpu":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return p9b_cpu_main(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--conn-cpu":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return conn_cpu_main(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--conn-verdicts-cpu":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return conn_verdicts_cpu_main(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--search-cpu":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return search_cpu_main(sys.argv[2])
@@ -5918,11 +6324,6 @@ def main() -> int:
     super_cases[wal_case] = super_operands(rt, mid)
     wal_select = select_inputs(mid)
     per_wal = step_launches(wrappers, rt, mid)
-    # the torn-write flush's split and draw: wal_kv's step keeps the
-    # threefry_keys and threefry_draw kernels on a main path
-    wal_k1 = {k: [(wal_case, *c) for c in calls] for k, calls in
-              k1k4_operands(wrappers, rt, mid).items()
-              if k in ("threefry_keys", "threefry_draw")}
     del mid
     torch.cuda.synchronize()
     reset_counts()
@@ -5934,10 +6335,10 @@ def main() -> int:
     on_path |= check_once_per_step(
         "fused_wal_kv", launches,
         rt.steps_run + rt.fused_stats["warmup_steps"], no_raft, per_wal)
-    check(per_wal["threefry_keys"] >= 1 and per_wal["threefry_draw"] >= 1,
+    check(per_wal["threefry_keys"] == 0 and per_wal["threefry_draw"] == 0,
           f"fused_wal_kv: a step launches {per_wal}; the torn-write flush "
-          f"draws through threefry_keys and threefry_draw")
-    wal_launch = launches
+          f"draws inside the supervisor op's kernel, not through "
+          f"threefry_keys or threefry_draw")
     want = golden["wal_kv"]["run_fused"]
     got = interop.leaf_digests(slice_lanes(s, p["seeds"]))
     bad = [k for k in want if got.get(k) != want[k]]
@@ -6049,6 +6450,18 @@ def main() -> int:
          cpu_p9b_path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True)
     children.append(cpu_p9b)
+    cpu_conn_path = os.path.join(tmp, "conn_cpu.pkl")
+    cpu_conn = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--conn-cpu",
+         cpu_conn_path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    children.append(cpu_conn)
+    cpu_conn_v_path = os.path.join(tmp, "conn_verdicts_cpu.pkl")
+    cpu_conn_v_job = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--conn-verdicts-cpu",
+         cpu_conn_v_path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    children.append(cpu_conn_v_job)
 
     # ---- explore_flagship: blind sweeps with the on-device digest -----------
     digests = []
@@ -6227,9 +6640,9 @@ def main() -> int:
 
     # ---- the replicated KV store and the bank on Raft ---------------------
     cpu_kv_out = wait_child(cpu_kv, cpu_kv_path, "kv_config4")
-    on_kv, kv4_ops = kv_config4_phase(wrappers, dev, names, every,
-                                      (reset_counts, read_counts),
-                                      cpu_kv_out)
+    on_kv, kv4_ops, kv4_k1, kv4_launch = kv_config4_phase(
+        wrappers, dev, names, every, (reset_counts, read_counts),
+        cpu_kv_out)
     on_path |= on_kv
     on_kv, kv_ops = kv_bank_phase(wrappers, dev, names, every,
                                   (reset_counts, read_counts), cpu_kv_out)
@@ -6242,6 +6655,16 @@ def main() -> int:
         wrappers, dev, every, (reset_counts, read_counts), cpu_p9b_out)
     on_path |= on_p9b
     del cpu_p9b_out
+
+    # ---- the connection and stream layer ---------------------------------
+    cpu_conn_out = wait_child(cpu_conn, cpu_conn_path, "models_conn")
+    cpu_conn_v = wait_child(cpu_conn_v_job, cpu_conn_v_path,
+                            "models_conn verdicts")
+    on_conn, conn_k3 = models_conn_phase(
+        wrappers, dev, every, (reset_counts, read_counts), cpu_conn_out,
+        cpu_conn_v)
+    on_path |= on_conn
+    del cpu_conn_out, cpu_conn_v
 
     # ---- kernel: sched_pick against its plain version -----------------------
     B, C = captured[0][0].shape
@@ -6691,11 +7114,46 @@ def main() -> int:
     fc_rt, fc_plan = fs_conn_runtime(dev)
     super_cases[f"edges_fs_conn_B{FLAG_B}"] = super_edge_operands(
         fc_rt, FLAG_B, 8, fc_plan)
+    # minipg's own schema (5-d rings, 32 leaves) at random states
+    pg_rt = workloads.minipg_runtime(device=dev)
+    super_cases[f"edges_minipg_B{CONN_B}"] = super_edge_operands(
+        pg_rt, CONN_B, 13)
+    del pg_rt
+    # connfault_mix's own state at step CONN_OPERANDS_AT, as it is and
+    # with every lane a RESET_PEER of node lane % N (each node's entry in
+    # every other node's rows torn, its own row too)
+    conn_case = f"connfault_mix_B{CONN_B}_step_{CONN_OPERANDS_AT}"
+    super_cases[conn_case] = conn_k3
+    plan_c, s_c, op_c, node_c, src_c, pay_c, key_c = conn_k3
+    lanes_c = torch.arange(op_c.shape[0], device=dev, dtype=torch.int32)
+    super_cases[f"{conn_case}_every_lane_reset_peer"] = (
+        plan_c, s_c, torch.full_like(op_c, 18), lanes_c % plan_c.cfg.n_nodes,
+        src_c, pay_c, key_c)
+    # a Percolator state under torn_write_kill: grayfail torn's state at
+    # step 128 (shard 1 up, its WAL's unsynced tail under group commit),
+    # shard 1 in torn mode in every lane, killed (even lanes) or
+    # restarted (odd): the flush, then the boot's reset of fs_mem
+    gt_rt = workloads.grayfail_runtime("torn", device=dev)
+    gt = gt_rt.run_fused(gt_rt.init_batch(np.arange(CONN_B,
+                                                    dtype=np.uint32)),
+                         128, chunk=128)
+    plan_g, s_g, op_g, node_g, src_g, pay_g, key_g = super_operands(gt_rt,
+                                                                    gt)
+    torn_g = s_g.torn.clone()
+    torn_g[:, 1] = True
+    lanes_g = torch.arange(op_g.shape[0], device=dev, dtype=torch.int32)
+    torn_case = f"grayfail_torn_B{CONN_B}_step_128_torn_kill"
+    super_cases[torn_case] = (
+        plan_g, s_g.replace(torn=torn_g),
+        torch.where(lanes_g % 2 == 0, 2, 3).to(torch.int32),
+        torch.ones_like(node_g), src_g, pay_g, key_g)
+    del gt, gt_rt, conn_k3
     # K3's time against its op count: the step-512 operands with no op
     # lane, as they are, and with every lane a RESTART (a kill and a boot)
     flag_main = f"flagship_step_{FLAG_CHUNK}"
     super_timed = (f"{flag_main}_no_op_lanes", flag_main,
-                   f"{flag_main}_every_lane_restart")
+                   f"{flag_main}_every_lane_restart", conn_case,
+                   f"{conn_case}_every_lane_reset_peer", torn_case)
     plan_m, s_m, op_m, node_m, src_m, pay_m, key_m = super_cases[flag_main]
     n_m = plan_m.cfg.n_nodes
     lanes_m = torch.arange(op_m.shape[0], device=dev, dtype=torch.int32)
@@ -6706,10 +7164,14 @@ def main() -> int:
         plan_m, s_m, torch.full_like(op_m, 3), lanes_m % n_m, src_m, pay_m,
         key_m)
     err = 0
+    k1_in_super = {}
     for name, args in super_cases.items():
         # in place: kernel and plain version each take a copy
         a, b = clone_tree(args), clone_tree(args)
+        before = {k: wrappers[k].launches for k in K1}
         out_k = apply_super(*a)
+        k1_in_super[name] = {k: wrappers[k].launches - before[k] for k in K1
+                             if wrappers[k].launches != before[k]}
         out_p = apply_super_plain(b[0].cfg, b[0].spec_default,
                                   b[0].persist_mask, *b[1:])
         torch.cuda.synchronize()
@@ -6722,6 +7184,9 @@ def main() -> int:
             (interop.state_leaves(out_p[0]), out_p[1:])))
         check_super_rows(f"apply_super on {name}", args[1], out_k[0],
                          args[2], out_k[2])
+    # the torn-write flush draws inside the kernel: no K1 launch
+    check(not any(k1_in_super.values()),
+          f"apply_super: K1 kernels launched by the op {k1_in_super}")
     # the op writes its operands, so each timed call works on its own copy
     # of the leaves it writes, restored before each timed replay
     timed = {}
@@ -6735,7 +7200,8 @@ def main() -> int:
         b_ms, o_ms = nbytes / HBM_BYTES_PER_S, ops_n / INT32_OPS_PER_S
         op_lanes = main_s[2] != 0
         heavy = op_lanes & ((main_s[2] <= 3) | ((main_s[2] >= 13)
-                                                & (main_s[2] <= 15)))
+                                                & (main_s[2] <= 15))
+                            | (main_s[2] == 18))
         sector_bytes = super_sector_bytes(*main_s)
         timed[name] = dict(
             ms=k_ms, plain_ms=p_ms, op_lanes=int(op_lanes.sum()),
@@ -6805,9 +7271,16 @@ def main() -> int:
 
     # ---- kernel: the threefry draws (K1) and the node rows (K4) -------------
     # their launches on a main path: the traced flagship's, and for the
-    # torn-write flush's split and draw the wal_kv run's
+    # split and draw of a handler's ctx.bernoulli config 4's (its KV
+    # clients pick put or get with one)
     k1k4_launches = dict(fused_launch, **{
-        k: wal_launch[k] for k in ("threefry_keys", "threefry_draw")})
+        k: kv4_launch[k] for k in ("threefry_keys", "threefry_draw")})
+    # threefry_keys left the last main path with the torn-write flush (now
+    # in K3): it runs where a step's first draw of a key chain is a
+    # handler's ctx.bernoulli / ctx.uniform or a ctx.hash_key, which no
+    # chip_smoke path's step has; it is timed on the split the flush made
+    # (two keys from each of the flagship's 100,000)
+    flag_keys = k1k4_cases["step_keys"][0][1][0]
     # edge operands, and every K1/K4 launch of the flagship's step 512
     k_cases = k1_edge_cases(dev, EDGE_B)
     node_tree = k1k4_cases["node_gather"][0][1][0]
@@ -6816,21 +7289,21 @@ def main() -> int:
     for k, calls in k1k4_cases.items():
         k_cases += [(f"flagship_step_{FLAG_CHUNK}_{i}_{m}", k, m, a, kw)
                     for i, (m, a, kw) in enumerate(calls)]
-    for k, calls in wal_k1.items():
+    for k, calls in kv4_k1.items():
         k_cases += [(f"{case}_{i}_{m}", k, m, a, kw)
                     for i, (case, m, a, kw) in enumerate(calls)]
     # timed on the step's own calls: the flagship's fused keys, dup
-    # section, first handler draw, node slice and node scatter; wal_kv's
-    # torn-write flush split and draw (no flagship step launches them)
+    # section, first handler draw, node slice and node scatter; config
+    # 4's ctx.bernoulli split and draw (no flagship step launches them)
     flag_main = f"flagship_step_{FLAG_CHUNK}"
     k1k4_main = {
         "step_keys": (flag_main, *k1k4_cases["step_keys"][0]),
         "dup_draws": (flag_main, *k1k4_cases["dup_draws"][0]),
         "split_randint": (flag_main, *k1k4_cases["split_randint"][0]),
-        "threefry_keys": next(c for c in wal_k1["threefry_keys"]
-                              if c[1] == "split"),
-        "threefry_draw": next(c for c in wal_k1["threefry_draw"]
-                              if c[1] == "randint"),
+        "threefry_keys": (f"flagship_B{FLAG_B}_keys", "split",
+                          (flag_keys, 2), {}),
+        "threefry_draw": next(c for c in kv4_k1["threefry_draw"]
+                              if c[1] == "bernoulli"),
         "node_gather": (flag_main, *k1k4_cases["node_gather"][0]),
         "put_rows_": (flag_main, *max(k1k4_cases["put_rows_"],
                                       key=lambda c: len(c[1][0])))}
@@ -6853,7 +7326,7 @@ def main() -> int:
          launches=[f"{k}.{m}" for k, m, _, _ in k1_calls], ms=k1_ms,
          bound_bytes=sum(b for b, _ in kb),
          bound_operations=sum(o for _, o in kb), bound_ms=k1_bound_ms)
-    del k_cases, k1k4_cases, k1k4_main, node_tree, k1_calls, outs, wal_k1
+    del k_cases, k1k4_cases, k1k4_main, node_tree, k1_calls, outs, kv4_k1
 
     # ---- determinism and batch independence ---------------------------------
     # each runner twice on lanes 0..4095 alone, held against the same lanes
@@ -6982,8 +7455,10 @@ def main() -> int:
         check(prof["int32_scan_ms_per_step"] == 0,
               f"profile {what}: an int32 scan is left in the step")
 
-    check(on_path == set(K1K4),
-          f"K1/K4 kernels on no checked path: {set(K1K4) - on_path}")
+    check(on_path == set(K1K4) - {"threefry_keys"},
+          f"K1/K4 kernels on no checked path: "
+          f"{set(K1K4) - {'threefry_keys'} - on_path}, or threefry_keys "
+          f"back on one: {on_path & {'threefry_keys'}}")
 
     # ---- kernels ------------------------------------------------------------
     emit(kernels=[

@@ -24,6 +24,18 @@
 //               reference's division), lat_lo / lat_hi; the target's skew,
 //               disk delay (torn from payload[P-2]) and dup rate from
 //               payload[P-1], each clipped to its cap
+//   torn kill   a KILL (or RESTART) of a live node in torn mode first
+//               flushes a random prefix of each fs file's unsynced tail
+//               into the durable view: file f's cut is dlen + draw_f %
+//               (max(mlen - dlen, 0) + 1), draw = randint(split(key,
+//               2)[1], (F,), 0, 2^30); words [dlen, cut) of fs_mem go to
+//               fs_disk and fs_dlen becomes max(dlen, cut) — read before
+//               the boot resets fs_mem and fs_mlen
+//   RESET_PEER  every conn/stream entry touching the target, at every
+//               node (its own row, every peer) and as a peer of every
+//               other node, is zeroed (cn_state, the stream rings and
+//               counters) or bumped by one, once each (cn_epoch,
+//               st_epoch) — the leaves' tear actions
 //   boot        the target's row of every leaf of the reset table (the
 //               non-persistent node-state leaves) takes its default
 //   outputs     init_node (target on boot, else -1), target, reset_mask
@@ -34,8 +46,9 @@
 // Bound: bytes, and for the flagship's data very few of them. Most lanes
 // dispatched no supervisor event (op 0, an in-range node): such a lane
 // reads op, node and src and writes its four outputs. The rare op lanes
-// add a kill's scan of the lane's C table rows, a boot's reset rows and a
-// partition's N x N matrix. Design, in two phases per warp:
+// add a kill's scan of the lane's C table rows, a torn kill's flush, a
+// boot's reset rows, a reset-peer's tear and a partition's N x N matrix.
+// Design, in two phases per warp:
 //
 //   phase 1   a thread a lane: the coalesced loads of op, node and src,
 //             the pool pick (the pool is a bitmask, so the pick is a
@@ -50,7 +63,14 @@
 //             reset rows spread over the flattened (leaf, element) space
 //             (leaf l holds elements [start_l, start_l + row_l), the
 //             prefix table `SuperPlan` builds; the defaults table is laid
-//             out the same way) and write its link matrix a cell a thread
+//             out the same way) and write its link matrix a cell a thread.
+//             A torn kill's flush takes the files 32 at a time, a file a
+//             thread for the draw and the lengths, then every thread on
+//             each file's flushed words (the cut and dlen reach them by
+//             shuffle); the warp syncs before the boot overwrites the
+//             fs_mem rows the flush read. A reset-peer's tear walks each
+//             tear leaf's touched entries: the target's own [N, r] block
+//             and the [r] block at the target in every other node's.
 //
 // So a kill's 3 x C dependent loads and stores in one thread become C/32
 // coalesced ones for the warp, and a warp that holds one op lane no
@@ -66,16 +86,17 @@
 
 constexpr int kMaxLeaves = 48;
 
-// One node-state leaf of the boot reset table: its [B, N, row] tensor,
-// the element size (4: int32, 1: bool) and its first element in the
-// flattened (leaf, element) space, which is also the offset of its
-// default row in the defaults table.
+// One node-state leaf of the leaf table: its [B, N, row] tensor, the
+// element size (4: int32, 1: bool), its first element in the flattened
+// (leaf, element) space of the boot reset, which is also the offset of
+// its default row in the defaults table, and its action: the tear action,
+// kActZero or kActBump, of a [B, N, N, ...] conn/stream leaf, or 0.
 struct SuperLeaf {
   void* ptr;
   int32_t row;
   int32_t esize;
   int32_t start;
-  int32_t pad;
+  int32_t act;
 };
 
 // The launch parameters, field for field the ctypes structure of the
@@ -106,8 +127,12 @@ struct SuperParams {
   int32_t* target;
   uint8_t* reset_mask;
   uint8_t* effective;
+  const int32_t* fs_mem;      // [B, N, F, S] (null without fs leaves)
+  const int32_t* fs_mlen;     // [B, N, F]
+  int32_t* fs_disk;           // [B, N, F, S], in place
+  int32_t* fs_dlen;           // [B, N, F], in place
   SuperLeaf leaves[kMaxLeaves];
-  int B, C, N, P, n_leaves, reset_elems;
+  int B, C, N, P, n_leaves, reset_elems, F, S, n_tear;
 };
 
 namespace {
@@ -121,20 +146,27 @@ constexpr int32_t kTInf = 0x7FFFFFFF;
 constexpr int32_t kSkewCap = 512;
 constexpr int32_t kDiskLatCap = 10000000;
 constexpr int32_t kDupRateCap = 900000;
+constexpr int32_t kTearDrawMax = 1 << 30;
+
+// a leaf's action bits (SuperLeaf::act)
+enum : int32_t { kActZero = 1, kActBump = 2 };
 
 enum : int32_t {
   kOpInit = 1, kOpKill = 2, kOpRestart = 3, kOpPause = 4, kOpResume = 5,
   kOpClogNode = 6, kOpUnclogNode = 7, kOpClogLink = 8, kOpUnclogLink = 9,
   kOpSetLoss = 10, kOpSetLatency = 12, kOpHeal = 13, kOpPartition = 14,
   kOpPartitionOneway = 15, kOpSetSkew = 16, kOpSetDisk = 17,
-  kOpSetDup = 19
+  kOpResetPeer = 18, kOpSetDup = 19
 };
 
 // a heavy lane's work, as the flags phase 2 receives by shuffle
 enum : int {
   kDoKill = 1, kDoBoot = 2, kDoPartition = 4, kDoOneway = 8, kDoHeal = 16,
-  kReversed = 32
+  kReversed = 32, kDoFlush = 64, kDoTear = 128
 };
+constexpr int kHeavy =
+    kDoKill | kDoBoot | kDoPartition | kDoOneway | kDoHeal | kDoFlush
+    | kDoTear;
 
 __device__ __forceinline__ int32_t clip(int32_t v, int32_t lo, int32_t hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -171,6 +203,7 @@ apply_super_kernel(const SuperParams p) {
   int32_t target = 0;
   uint32_t in_a = 0;
   int flags = 0;
+  uint32_t kt0 = 0, kt1 = 0;      // a torn kill's key: split(key, 2)[1]
   if (b < p.B) {
     const int32_t op = __ldg(op_in + b);
     const int32_t nd = __ldg(node_in + b);
@@ -228,6 +261,15 @@ apply_super_kernel(const SuperParams p) {
     auto when = [&](bool c) { return c && eff; };
     const bool kill = when(op == kOpKill || op == kOpRestart);
     const bool boot = when(op == kOpInit || op == kOpRestart);
+    // only a LIVE torn-mode node's kill tears (read before the write)
+    const bool flush = p.F > 0 && kill && p.torn[at] && alive[at];
+    if (flush) {
+      const int32_t* kp = key + 2 * static_cast<int64_t>(b);
+      threefry::split_key(static_cast<uint32_t>(__ldg(kp)),
+                          static_cast<uint32_t>(__ldg(kp + 1)), 2, 1, kt0,
+                          kt1);
+    }
+    const bool tear = p.n_tear > 0 && when(op == kOpResetPeer);
 
     if (kill || boot) alive[at] = boot ? 1 : 0;
     if (kill || boot || when(op == kOpResume)) paused[at] = 0;
@@ -265,9 +307,9 @@ apply_super_kernel(const SuperParams p) {
         | (when(op == kOpPartition) ? kDoPartition : 0)
         | (when(op == kOpPartitionOneway) ? kDoOneway : 0)
         | (when(op == kOpHeal) ? kDoHeal : 0)
+        | (flush ? kDoFlush : 0) | (tear ? kDoTear : 0)
         | ((src & 1) == 1 ? kReversed : 0);
-    if (!(flags & (kDoKill | kDoBoot | kDoPartition | kDoOneway | kDoHeal)))
-      flags = 0;
+    if (!(flags & kHeavy)) flags = 0;
   }
 
   // ---- phase 2: the warp takes its heavy lanes one after another -----------
@@ -279,6 +321,8 @@ apply_super_kernel(const SuperParams p) {
     const int ht = __shfl_sync(kFull, target, from);
     const uint32_t ha = __shfl_sync(kFull, in_a, from);
     const int hf = __shfl_sync(kFull, flags, from);
+    const uint32_t hk0 = __shfl_sync(kFull, kt0, from);
+    const uint32_t hk1 = __shfl_sync(kFull, kt1, from);
 
     if (hf & kDoKill) {    // drop the target's queued messages and timers
       // kKillChunks chunks of 32 rows a pass, every load issued before
@@ -302,6 +346,33 @@ apply_super_kernel(const SuperParams p) {
         }
       }
     }
+    if (hf & kDoFlush) {   // the torn write, from the pre-kill fs rows
+      const int F = p.F, S = p.S;
+      const int64_t fr = (static_cast<int64_t>(hb) * N + ht) * F;
+      for (int f0 = 0; f0 < F; f0 += 32) {
+        const int f = f0 + lane;
+        int32_t d = 0, cut = 0;
+        if (f < F) {
+          d = p.fs_dlen[fr + f];
+          const int32_t m = __ldg(p.fs_mlen + fr + f);
+          const int32_t gap = m - d > 0 ? m - d : 0;
+          const int32_t draw =
+              threefry::randint_raw_at(hk0, hk1, F, f, 0, kTearDrawMax);
+          cut = d + draw % (gap + 1);
+        }
+        const int nf = F - f0 < 32 ? F - f0 : 32;
+        for (int j = 0; j < nf; ++j) {      // every thread, each file
+          const int32_t dj = __shfl_sync(kFull, d, j);
+          const int32_t cj = __shfl_sync(kFull, cut, j);
+          const int64_t row = (fr + f0 + j) * S;
+          const int32_t lo = dj > 0 ? dj : 0, hi = cj < S ? cj : S;
+          for (int w = lo + lane; w < hi; w += 32)
+            p.fs_disk[row + w] = __ldg(p.fs_mem + row + w);
+        }
+        if (f < F) p.fs_dlen[fr + f] = cut > d ? cut : d;
+      }
+      __syncwarp();        // the boot below overwrites what was read
+    }
     if (hf & kDoBoot) {    // volatile protocol state back to the default
       const int64_t at = static_cast<int64_t>(hb) * N + ht;
       int l = 0;
@@ -314,6 +385,34 @@ apply_super_kernel(const SuperParams p) {
           static_cast<int32_t*>(lf.ptr)[off] = v;
         else
           static_cast<uint8_t*>(lf.ptr)[off] = v != 0 ? 1 : 0;
+      }
+    }
+    if (hf & kDoTear) {    // reset-peer: every entry touching the target
+      for (int l = 0; l < p.n_leaves; ++l) {
+        const SuperLeaf& lf = p.leaves[l];
+        const int32_t act = lf.act;
+        if (!act) continue;
+        const int r = lf.row / N;           // elements per (node, peer)
+        const int64_t base = static_cast<int64_t>(hb) * N * lf.row;
+        const int total = lf.row + (N - 1) * r;
+        for (int q = lane; q < total; q += 32) {
+          int64_t off;
+          if (q < lf.row) {                 // the target's own row
+            off = static_cast<int64_t>(ht) * lf.row + q;
+          } else {                          // the target as a peer
+            const int q2 = q - lf.row;
+            int i = q2 / r;
+            if (i >= ht) ++i;
+            off = static_cast<int64_t>(i) * lf.row
+                + static_cast<int64_t>(ht) * r + (q2 - (q2 / r) * r);
+          }
+          if (act == kActBump)
+            static_cast<int32_t*>(lf.ptr)[base + off] += 1;
+          else if (lf.esize == 4)
+            static_cast<int32_t*>(lf.ptr)[base + off] = 0;
+          else
+            static_cast<uint8_t*>(lf.ptr)[base + off] = 0;
+        }
       }
     }
     if (hf & (kDoPartition | kDoOneway | kDoHeal)) {
@@ -345,17 +444,26 @@ extern "C" int apply_super_launch(const SuperParams* params, void* stream) {
   const SuperParams& p = *params;
   if (p.B <= 0) return 0;
   if (p.C < 1 || p.N < 1 || p.N > 32 || p.P < 2 || p.n_leaves < 0
-      || p.n_leaves > kMaxLeaves)
+      || p.n_leaves > kMaxLeaves || p.F < 0 || p.S < 0
+      || (p.F > 0 && (!p.fs_mem || !p.fs_mlen || !p.fs_disk || !p.fs_dlen)))
     return static_cast<int>(cudaErrorInvalidValue);
-  // the leaves tile [0, reset_elems) in order (the prefix table)
+  // the leaves tile [0, reset_elems) in order (the prefix table); a
+  // tear leaf holds N x r elements a node, a bumped one int32
   int32_t next = 0;
+  int n_tear = 0;
   for (int l = 0; l < p.n_leaves; ++l) {
     const SuperLeaf& lf = p.leaves[l];
-    if ((lf.esize != 4 && lf.esize != 1) || lf.row < 0 || lf.start != next)
+    const int32_t act = lf.act;
+    if ((lf.esize != 4 && lf.esize != 1) || lf.row < 0 || lf.start != next
+        || (act != 0 && act != kActZero && act != kActBump)
+        || (act && (lf.row % p.N != 0 || lf.row == 0))
+        || (act == kActBump && lf.esize != 4))
       return static_cast<int>(cudaErrorInvalidValue);
+    n_tear += act ? 1 : 0;
     next += lf.row;
   }
-  if (next != p.reset_elems) return static_cast<int>(cudaErrorInvalidValue);
+  if (next != p.reset_elems || n_tear != p.n_tear)
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>((p.B + kThreads - 1) / kThreads));
   apply_super_kernel<<<grid, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(p);

@@ -12,6 +12,8 @@
 //                  span / multiplier reduction, uint32 wrap throughout;
 //                  its halves randint_bits (the draws, from the key
 //                  alone) and randint_reduce (the span)
+//   bits_at        word f of `random_bits(key, (n,))`
+//   randint_raw_at element f of `randint(key, (n,), minval, maxval)`
 //   randint        the same over [lo, hi] INCLUSIVE (prng.randint)
 //   bernoulli      `uniform(key) < p` in float32
 //
@@ -110,6 +112,35 @@ __device__ __forceinline__ int32_t randint_raw(uint32_t k0, uint32_t k1,
   uint32_t hi, lo;
   randint_bits(k0, k1, hi, lo);
   return randint_reduce(hi, lo, minval, maxval);
+}
+
+// Word f of `random_bits(key, (n,))`: the counts iota(n), padded with one
+// zero word when n is odd, split in two halves of h words that pair up
+// as blocks (j, j + h); the blocks' first words come before their second
+// words, so word f is the first word of block f when f < h, else the
+// second word of block f - h.
+__device__ __forceinline__ uint32_t bits_at(uint32_t k0, uint32_t k1, int n,
+                                            int f) {
+  const int h = (n + 1) / 2;
+  const int j = f < h ? f : f - h;
+  uint32_t x0 = static_cast<uint32_t>(j);
+  uint32_t x1 = j + h < n ? static_cast<uint32_t>(j + h) : 0u;
+  block(k0, k1, x0, x1);
+  return f < h ? x0 : x1;
+}
+
+// Element f of `jax.random.randint(key, (n,), minval, maxval, int32)`:
+// both halves of split(key, 2) draw n words, and word f of each is
+// reduced as the scalar draw's.
+__device__ __forceinline__ int32_t randint_raw_at(uint32_t k0, uint32_t k1,
+                                                  int n, int f,
+                                                  int32_t minval,
+                                                  int32_t maxval) {
+  uint32_t a0, a1, b0, b1;
+  split_key(k0, k1, 2, 0, a0, a1);
+  split_key(k0, k1, 2, 1, b0, b1);
+  return randint_reduce(bits_at(a0, a1, n, f), bits_at(b0, b1, n, f),
+                        minval, maxval);
 }
 
 // prng.randint: uniform int32 in [lo, hi] INCLUSIVE (hi + 1 wraps in

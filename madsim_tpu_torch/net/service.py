@@ -16,10 +16,10 @@ reply. Every method body runs each event for every lane, gated by its
     client side: net.rpc.call(ctx, server, Counter.add.tag, [5], call_id,
                               retry_timer_tag=..., timeout=...)
 
-`@rpc_stream` methods (the tonic streaming shapes) need the reliable
-stream layer (`net/stream.py`, `net/streaming.py`), which is not ported
-yet: a runtime over a Service that has any raises NotImplementedError
-when it is built (ROADMAP P9), rather than dropping their frames.
+`@rpc_stream` methods (the tonic streaming shapes) run once per frame
+the reliable stream fabric (`net/streaming.py`) delivers, for every slot
+of the window, gated by the frame's mask and method tag; a service with
+any needs the `streaming_state(...)` leaves in its state spec.
 """
 
 from __future__ import annotations
@@ -50,9 +50,12 @@ def rpc(fn):
 
 def rpc_stream(fn):
     """Mark a Service method as a streaming handler (the tonic client,
-    server and bidi streaming shapes). Its tag is `Method.tag`, as in the
-    JAX package; a runtime over a Service with such a method is refused
-    until the stream layer is ported (ROADMAP P9)."""
+    server and bidi streaming shapes). It is called once per delivered
+    frame slot with (ctx, st, src, kind, call_id, body, when): kind,
+    call_id [B], body [B, body_words], when [B]; kind is streaming.K_CALL
+    / K_ITEM / K_END. Senders pass `method=Method.tag` on every frame so
+    dispatch works on items too. Its tag is `Method.tag`, as in the JAX
+    package."""
     fn._rpc_stream_tag = _hash33(fn.__qualname__) % (1 << 29)
     fn.tag = fn._rpc_stream_tag
     return fn
@@ -79,15 +82,6 @@ class Service(Program):
     def _stream_handlers(self):
         return _tagged(type(self), "_rpc_stream_tag", "@rpc_stream")
 
-    def validate(self, cfg) -> None:
-        shs = self._stream_handlers()
-        if shs:
-            raise NotImplementedError(
-                f"{type(self).__name__} has @rpc_stream methods "
-                f"({[m.__qualname__ for m in shs]}): the reliable stream "
-                "layer (net/stream.py, net/streaming.py) is not ported to "
-                "madsim_tpu_torch yet (ROADMAP P9)")
-
     def on_message(self, ctx: Ctx, src, tag, payload):
         st = dict(ctx.state)
         # handler tags are mutually exclusive, so all replies share one
@@ -109,4 +103,22 @@ class Service(Program):
                 merged_body[i] = torch.where(when, wd, merged_body[i])
         ctx.send(src, _rpc.reply_tag(merged_tag),
                  [payload[:, 0]] + merged_body, when=merged_when)
+
+        # streaming methods: dispatch each frame slot the reliable stream
+        # fabric delivers this event
+        shs = self._stream_handlers()
+        if shs:
+            assert "sx_val" in st, (
+                f"{type(self).__name__} has @rpc_stream methods but its "
+                "state spec lacks streaming_state(...) fields — frames "
+                "would be silently ignored")
+            from . import stream as _stream
+            from . import streaming
+            kinds, methods, cids, bodies_f, mask = streaming.on_stream(
+                ctx, st, src, tag, payload)
+            for i in _stream.delivered_slots(mask):
+                for m in shs:
+                    m(self, ctx, st, src, kinds[:, i], cids[:, i],
+                      bodies_f[:, i],
+                      mask[:, i] & (methods[:, i] == m._rpc_stream_tag))
         ctx.state = st

@@ -22,16 +22,18 @@ that state. The step owns its input: the runners step a private copy of
 the caller's state (runtime/runtime.py `run`, and `run_fused`'s static
 buffers).
 
-Two schema-specific edits stay in plain PyTorch on the kernel's path, in
-schemas that carry their leaves: the torn-write kill flush (fs_* leaves)
-and the OP_RESET_PEER tear of the conn/stream fabric (cn_*, sx_*, sr_*,
-st_epoch). Both read the state from before the op. The tear acts only in
-RESET_PEER lanes, where the kernel writes no node-state row, so it runs
-after the kernel unchanged. The flush reads the target's pre-kill
-`alive` and, in a RESTART lane, its `fs_mem` before the boot reset: so
-`alive & torn` is taken before the kernel, the four fs leaves are left
-out of the kernel's reset table, and after the flush their
-non-persistent ones are reset in plain PyTorch.
+The two schema-specific edits run inside the kernel too, in schemas that
+carry their leaves: the torn-write kill flush (fs_* leaves: a live,
+torn-mode node's kill copies a random prefix of each file's unsynced tail
+into the durable view, from the rows as they were before the op, then the
+boot resets the non-persistent fs leaves) and the OP_RESET_PEER tear of
+the conn/stream fabric (cn_*, sx_*, sr_*, st_epoch: every entry touching
+the target zeroed, both incarnation epochs bumped once). The wrapper
+hands the kernel one leaf table: every non-persistent leaf with its
+default row, each conn/stream leaf with its tear action (`TEAR_ZERO`,
+`TEAR_BUMP`), and the four fs leaves by name. A persistent conn/stream
+leaf is not in that table, and the kernel's path refuses such a schema
+(no model persists one; the plain version takes it).
 
 `apply_super` takes the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises (`apply_super.run`, the
@@ -51,7 +53,6 @@ from ..core import prng
 from ..core import types as T
 from ..core.state import tree_map
 from . import select as sel
-from . import threefry as tf
 from .kernels import CKernel, on_cpu
 
 _I32 = torch.int32
@@ -62,13 +63,25 @@ FS_LEAVES = ("fs_mem", "fs_mlen", "fs_disk", "fs_dlen")
 CONN_LEAVES = ("cn_state", "cn_epoch")
 STREAM_LEAVES = ("sx_seq", "sx_base", "sx_val", "sr_next", "sr_val",
                  "sr_have", "st_epoch")
+# a leaf's reset-peer tear action in the kernel's leaf table
+# (csrc/apply_super.cu SuperLeaf::act)
+TEAR_ZERO, TEAR_BUMP = 1, 2
 
 
-def _torn_flush(ns, target, tearing, k_tear, rng=prng):
+def tear_actions(top) -> dict:
+    """{leaf: TEAR_ZERO or TEAR_BUMP} of the reset-peer tear, for a state
+    schema with the top-level keys `top` (a leaf set counts only whole)."""
+    acts = {}
+    if set(CONN_LEAVES) <= set(top):
+        acts.update(cn_state=TEAR_ZERO, cn_epoch=TEAR_BUMP)
+    if set(STREAM_LEAVES) <= set(top):
+        acts.update({k: TEAR_ZERO for k in STREAM_LEAVES}, st_epoch=TEAR_BUMP)
+    return acts
+
+
+def _torn_flush(ns, target, tearing, k_tear):
     """A KILL of a live torn-mode node flushes a random prefix of each
-    file's unsynced tail into the durable view (`tearing` [B] lanes).
-    `rng` draws: core/prng.py for the plain version, ops/threefry.py (the
-    K1 kernels on CUDA) on the kernel's path."""
+    file's unsynced tail into the durable view (`tearing` [B] lanes)."""
     dev = target.device
     mem_t = sel.take_row(ns["fs_mem"], target)      # [B, F, S]
     mlen_t = sel.take_row(ns["fs_mlen"], target)    # [B, F]
@@ -76,7 +89,7 @@ def _torn_flush(ns, target, tearing, k_tear, rng=prng):
     dlen_t = sel.take_row(ns["fs_dlen"], target)
     F, S = mem_t.shape[1:]
     gap = torch.clamp(mlen_t - dlen_t, min=0)
-    draw = rng.randint_raw(k_tear, 0, 2 ** 30, (F,))
+    draw = prng.randint_raw(k_tear, 0, 2 ** 30, (F,))
     cut = dlen_t + torch.remainder(draw, gap + 1)
     ws = torch.arange(S, dtype=_I32, device=dev)
     flushed = ((ws >= dlen_t[..., None]) & (ws < cut[..., None]))
@@ -266,8 +279,11 @@ def _get(tree, path):
 class SuperPlan:
     """What the supervisor op needs of one runtime's node-state schema,
     built once: the spec defaults and persist mask (the plain version's
-    operands), which leaves the kernel resets on boot, and their default
-    rows as one int32 table per device."""
+    operands), the kernel's leaf table (the leaves the boot resets, with
+    their default rows as one int32 table per device), each leaf's tear
+    action, the persistent leaves the tear would write (which the
+    kernel's path refuses), and whether the schema has the fs leaves of
+    the torn-write flush."""
 
     def __init__(self, cfg, spec_default, persist_mask):
         self.cfg = cfg
@@ -275,30 +291,42 @@ class SuperPlan:
         self.persist_mask = persist_mask
         top = set(spec_default) if isinstance(spec_default, dict) else set()
         self.fs = set(FS_LEAVES) <= top
-        self.conn = (set(CONN_LEAVES) <= top) or (set(STREAM_LEAVES) <= top)
-        held = set(FS_LEAVES) if self.fs else set()
+        tears = tear_actions(top)
         keep = dict(_flat(persist_mask))
-        self.leaves = [(path, dflt) for path, dflt in _flat(spec_default)
-                       if not keep[path] and path[0] not in held]
-        # the fs leaves the flush reads are reset after it, on the
-        # kernel's path (see the module docstring)
-        self.fs_reset = [k for k in FS_LEAVES if self.fs and not keep[(k,)]]
+        flat = list(_flat(spec_default))
+        self.leaves = [(path, dflt) for path, dflt in flat if not keep[path]]
+        self.persistent_tears = [path[0] for path, _ in flat
+                                 if keep[path] and len(path) == 1
+                                 and path[0] in tears]
+        self.acts = [tears.get(path[0], 0) if len(path) == 1 else 0
+                     for path, _ in self.leaves]
+        self.n_tear = sum(1 for a in self.acts if a)
+        N = cfg.n_nodes
         for path, dflt in self.leaves:
+            name = ".".join(path)
             if dflt.dtype not in (torch.int32, torch.bool):
                 raise NotImplementedError(
-                    f"apply_super: node-state leaf {'.'.join(path)} is "
-                    f"{dflt.dtype}; the kernel resets int32 and bool leaves")
+                    f"apply_super: node-state leaf {name} is {dflt.dtype}; "
+                    "the kernel takes int32 and bool leaves")
+            if len(path) == 1 and path[0] in tears and (
+                    dflt.ndim < 1 or dflt.shape[0] != N
+                    or (tears[path[0]] == TEAR_BUMP
+                        and dflt.dtype != torch.int32)):
+                raise NotImplementedError(
+                    f"apply_super: conn/stream leaf {name} of shape "
+                    f"{tuple(dflt.shape)} {dflt.dtype}; the reset-peer "
+                    f"tear takes [N={N}, ...] leaves (int32 where bumped)")
         if len(self.leaves) > MAX_LEAVES:
             raise NotImplementedError(
-                f"apply_super: {len(self.leaves)} non-persistent node-state "
-                f"leaves; the kernel takes at most {MAX_LEAVES}")
+                f"apply_super: {len(self.leaves)} node-state leaves in the "
+                f"kernel's table; it takes at most {MAX_LEAVES}")
         # the prefix table of the reset rows: leaf i holds elements
         # [starts[i], starts[i] + its row length) of the flattened (leaf,
         # element) space the kernel's warp spreads a boot over, and the
         # defaults table is laid out the same way
         rows = [d.numel() for _, d in self.leaves]
-        self.starts = [sum(rows[:i]) for i in range(len(rows))]
         self.reset_elems = sum(rows)
+        self.starts = [sum(rows[:i]) for i in range(len(rows))]
         self._defaults: dict = {}
 
     def defaults(self, dev) -> torch.Tensor:
@@ -312,32 +340,11 @@ class SuperPlan:
         return self._defaults[dev]
 
 
-def _remainder(plan, s, op, key, init_node, target, reset_mask, effective,
-               pre_tear):
-    """The kernel path's plain edits: the torn-write flush from the
-    pre-op `alive & torn` (then the reset of the fs leaves the kernel left
-    alone), and the reset-peer tear. The flush draws through
-    ops/threefry.py, so on CUDA its draws are the K1 kernels."""
-    ns = dict(s.node_state)
-    if plan.fs:
-        kill = reset_mask & (op != T.OP_INIT)
-        tearing = kill & sel.take1(pre_tear, target)
-        ns = _torn_flush(ns, target, tearing, tf.split(key, 2)[:, 1], tf)
-        boot = init_node >= 0
-        for k in plan.fs_reset:
-            ns[k] = sel.put_row(ns[k], target,
-                                plan.spec_default[k].unsqueeze(0), boot)
-    if plan.conn:
-        ns = _reset_peer_tear(ns, sel.row_onehot(plan.cfg.n_nodes, target),
-                              effective & (op == T.OP_RESET_PEER))
-    return s.replace(node_state=ns)
-
-
 class _Leaf(ctypes.Structure):
     """csrc/apply_super.cu `SuperLeaf`, field for field."""
     _fields_ = [("ptr", ctypes.c_void_p), ("row", ctypes.c_int),
                 ("esize", ctypes.c_int), ("start", ctypes.c_int),
-                ("pad", ctypes.c_int)]
+                ("act", ctypes.c_int)]
 
 
 _LANE_IN = ("op", "node", "src", "payload", "key")
@@ -345,16 +352,17 @@ _STATE = ("t_kind", "t_node", "t_deadline", "alive", "paused", "clog_node",
           "clog_link", "loss", "lat_lo", "lat_hi", "skew", "disk_lat", "torn",
           "dup_rate")
 _OUT = ("init_node", "target", "reset_mask", "effective")
+_FS = ("fs_mem", "fs_mlen", "fs_disk", "fs_dlen")
 
 
 class _Params(ctypes.Structure):
     """csrc/apply_super.cu `SuperParams`, field for field."""
     _fields_ = (
         [(n, ctypes.c_void_p) for n in _LANE_IN + _STATE + ("defaults",)
-         + _OUT]
+         + _OUT + _FS]
         + [("leaves", _Leaf * MAX_LEAVES)]
         + [(n, ctypes.c_int) for n in ("B", "C", "N", "P", "n_leaves",
-                                       "reset_elems")])
+                                       "reset_elems", "F", "S", "n_tear")])
 
 
 def _check(name, t, dtype, shape, device):
@@ -373,7 +381,7 @@ def _check(name, t, dtype, shape, device):
 
 class _ApplySuper(CKernel):
     """Callable wrapper: CPU tensors -> `apply_super_plain`; CUDA tensors
-    -> `run`, the kernel (in place) and the plain remainder. `launches`
+    -> `run`, the kernel (in place, nothing after it). `launches`
     counts kernel launches (and nothing else); `captured` counts launches
     recorded into a CUDA graph."""
 
@@ -404,6 +412,11 @@ class _ApplySuper(CKernel):
             raise NotImplementedError(
                 f"apply_super: the CUDA kernel supports 1 <= N <= {MAX_N} "
                 f"and P >= 2; got N={N}, P={P}")
+        if plan.persistent_tears:
+            raise NotImplementedError(
+                "apply_super: the CUDA kernel tears only conn/stream leaves "
+                "that the boot resets; persistent: "
+                + ", ".join(plan.persistent_tears))
         i32, b8 = torch.int32, torch.bool
         lane = dict(op=op, node=node, src=src, payload=payload, key=key)
         state = {n: getattr(s, n) for n in _STATE}
@@ -423,10 +436,11 @@ class _ApplySuper(CKernel):
                   for path, dflt in plan.leaves]
         checks += [("node_state." + n, t, d.dtype, (B, N) + tuple(d.shape))
                    for n, t, d in leaves]
+        fs = {k: s.node_state[k] for k in _FS} if plan.fs else {}
+        checks += [("node_state." + k, t, i32, (B, N) + tuple(
+            plan.spec_default[k].shape)) for k, t in fs.items()]
         for name, t, dt, shape in checks:
             _check(name, t, dt, shape, dev)
-        # the flush reads the target's pre-kill alive (see the docstring)
-        pre_tear = s.torn & s.alive if plan.fs else None
         out = dict(init_node=torch.empty((B,), dtype=i32, device=dev),
                    target=torch.empty((B,), dtype=i32, device=dev),
                    reset_mask=torch.empty((B,), dtype=b8, device=dev),
@@ -437,18 +451,22 @@ class _ApplySuper(CKernel):
                 + list(out.items()):
             setattr(p, n, t.data_ptr())
         p.defaults = table.data_ptr()
-        for i, ((_, t, d), start) in enumerate(zip(leaves, plan.starts)):
+        for n, t in fs.items():
+            setattr(p, n, t.data_ptr())
+        for i, ((_, t, d), start, act) in enumerate(
+                zip(leaves, plan.starts, plan.acts)):
             p.leaves[i].ptr = t.data_ptr()
             p.leaves[i].row = d.numel()
             p.leaves[i].esize = t.element_size()
             p.leaves[i].start = start
+            p.leaves[i].act = act
         p.B, p.C, p.N, p.P = B, C, N, P
         p.n_leaves, p.reset_elems = len(leaves), plan.reset_elems
+        if plan.fs:
+            p.F, p.S = plan.spec_default["fs_mem"].shape
+        p.n_tear = plan.n_tear
         if B:
             self._launch(p, dev)
-        if plan.fs or plan.conn:
-            s = _remainder(plan, s, op, key, out["init_node"], out["target"],
-                           out["reset_mask"], out["effective"], pre_tear)
         return s, out["init_node"], out["target"], out["reset_mask"]
 
 

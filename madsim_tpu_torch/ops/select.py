@@ -112,3 +112,33 @@ def first_k_free(free_mask: torch.Tensor, k: int):
     ok = torch.arange(1, k + 1, dtype=torch.int32,
                       device=free_mask.device) <= pos[:, -1:]
     return slots[:, :k].contiguous(), ok
+
+
+def row_at(mat: torch.Tensor, idx) -> torch.Tensor:
+    """`mat[idx]` per lane for mat [B, R, ...]: `idx` a Python int (the
+    same row in every lane) or a [B] tensor (clamped, as `take_row`)."""
+    if isinstance(idx, torch.Tensor):
+        return take_row(mat, idx)
+    return mat[:, idx]
+
+
+def put_at(mat: torch.Tensor, idx, val, mask=True) -> torch.Tensor:
+    """`mat.at[idx].set(val)` per lane where `mask` holds, for `idx` a
+    Python int or a [B] tensor (`put_row`). A new tensor; `mat` is left
+    as it was."""
+    if isinstance(idx, torch.Tensor):
+        return put_row(mat, idx, val, mask)
+    if mask is False or not 0 <= idx < mat.shape[1]:
+        return mat
+    old = mat[:, idx]
+    # a host value stays a scalar operand: a tensor made from it would be
+    # a host-to-device copy, which a CUDA-graph capture refuses
+    new = val.to(mat.dtype) if isinstance(val, torch.Tensor) else val
+    if mask is not True:
+        new = torch.where(mask.reshape(mask.shape + (1,) * (old.ndim - 1)),
+                          new, old)
+    elif not isinstance(new, torch.Tensor):
+        new = torch.full_like(old, new)
+    out = mat.clone()
+    out[:, idx] = new
+    return out

@@ -204,19 +204,39 @@ class Corpus:
         self._seen.add(h)
         if entry.get("crash_code", 0):
             self.crash_codes.add(int(entry["crash_code"]))
-        self._insert(dict(entry))
+        self._insert(dict(entry), self._energy_mirror())
         return True
 
-    def _insert(self, entry: dict) -> None:
+    def _energy_mirror(self):
+        """(energies float64 [max_entries], {id: slot}): a copy of the
+        slots' energies (the same float64 values the entries hold), for
+        `_insert`'s eviction."""
+        energies = np.zeros(max(self.max_entries, len(self.entries)),
+                            np.float64)
+        energies[:len(self.entries)] = [e["energy"] for e in self.entries]
+        return energies, {e["id"]: j for j, e in enumerate(self.entries)}
+
+    def _insert(self, entry: dict, mirror) -> None:
+        """Add `entry`, replacing the coldest slot (the first of the
+        least energies) once the corpus is full. `mirror` is an
+        `_energy_mirror` that the caller keeps in step with the entries'
+        energies between inserts; it is kept in step here, so that one
+        mirror serves a whole round of admissions."""
+        energies, slot = mirror
         self._by_id[entry["id"]] = entry
         if len(self.entries) < self.max_entries:
+            j = len(self.entries)
             self.entries.append(entry)
         else:                        # replace the coldest slot
-            j = int(np.argmin([e["energy"] for e in self.entries]))
-            del self._by_id[self.entries[j]["id"]]
+            j = int(np.argmin(energies[:len(self.entries)]))
+            old = self.entries[j]["id"]
+            del self._by_id[old]
+            del slot[old]
             if self.track_evictions:
                 self.evicted_unsynced.append(self.entries[j])
             self.entries[j] = entry
+        energies[j] = entry["energy"]
+        slot[entry["id"]] = j
 
     # ------------------------------------------------------------------
     def energy_summary(self) -> dict:
@@ -307,6 +327,10 @@ class Corpus:
                 burst_rel = bp / burst_max
         for e in self.entries:
             e["energy"] = max(0.05, e["energy"] * self.decay)
+        # the slots' energies, kept in step by _insert and the parent
+        # reward below
+        mirror = self._energy_mirror()
+        energies = mirror[0]
         for i in range(len(seeds)):
             h = int(hashes_u64[i])
             hit_crash = bool(crashed[i])
@@ -350,13 +374,14 @@ class Corpus:
                 entry["origin"] = "targeted"
                 targeted_yield += 1
             self._next_id += 1
-            self._insert(entry)
+            self._insert(entry, mirror)
             if self.track_admissions:
                 self.admitted_unmerged.append(entry)
             parent = self._by_id.get(int(parent_ids[i]))
             if parent is not None:
                 parent["energy"] = min(
                     self.energy_cap, parent["energy"] * self.reward)
+                energies[mirror[1][parent["id"]]] = parent["energy"]
         out = dict(new=new, size=len(self.entries),
                    new_crash_codes=new_crash_codes)
         if op_yield is not None:

@@ -74,6 +74,20 @@
   shardkv_runtime    bench.py's sharded KV (bench.py:276-283): a 3-node
                      controller group, two 3-node kv groups, 2 clients of
                      64 ops, log 192, max_cfg 8, 160 event rows, 600 s
+  minipg_runtime     bench.py `--minipg` (bench.py:298-316): the minipg
+                     session protocol, 1 server and 2 clients of 64
+                     pipelined transactions over conn + stream, 96 event
+                     rows, 8 payload words, 1-8 ms latency, 600 s
+  connfault_runtime  bench.py `_make_connfault_runtime` (bench.py:805-855):
+                     minipg under the connection-fault recipes mix (a
+                     reset storm on the server plus dup storms; guards off
+                     by default), reset, dup and half (guards on)
+  grayfail_runtime   bench.py `_make_grayfail_runtime` (bench.py:750-803):
+                     Percolator-lite on 5 nodes under the gray-failure
+                     recipes mix, skew, asym, disk and torn
+  stream_echo_runtime  make_stream_echo_runtime(mode) at its defaults: one
+                     server and 2 clients of 6 items, for the bidi, sum
+                     and download method shapes
   build_pingpong     the frozen golden workloads of
   build_wal_kv       tests/_grayfail_golden.py, built with no JAX: pingpong
                      with the recorder (trace_cap=64), and the WAL-KV
@@ -412,6 +426,124 @@ def shardkv_runtime(device=None):
     return make_shard_runtime(n_groups=2, rg=3, rc=3, n_clients=2,
                               n_ops=64, max_cfg=8, log_capacity=192,
                               cfg=cfg, device=device)
+
+
+def minipg_runtime(device=None):
+    """bench.py:298-316 (`_minipg_mode`): make_minipg_runtime(n_clients=2,
+    n_txns=64) on 3 nodes, 96 event rows, 8 payload words, 1-8 ms
+    latency, a 600 s limit (bench.py runs it at B=2048)."""
+    from .models.minipg import make_minipg_runtime
+    cfg = SimConfig(n_nodes=3, event_capacity=96, payload_words=8,
+                    time_limit=sec(600),
+                    net=NetConfig(send_latency_min=ms(1),
+                                  send_latency_max=ms(8)))
+    return make_minipg_runtime(n_clients=2, n_txns=64, cfg=cfg,
+                               device=device)
+
+
+CONNFAULT_RECIPES = ("mix", "reset", "dup", "half")
+GRAYFAIL_RECIPES = ("mix", "skew", "asym", "disk", "torn")
+
+
+def connfault_runtime(recipe="mix", guard=None, trace_cap=128, n_txns=6,
+                      device=None):
+    """bench.py:805-855: minipg (2 clients of n_txns) on 3 nodes, 192
+    event rows, 8 payload words, 1-8 ms latency, 10 s, under
+
+      mix    set_dup(0.35) on every node at 8 ms, conn_reset_storm(5
+             rounds from 30 ms every 60 ms) on the server and a
+             retransmit_storm(0.5) on it from 400 to 900 ms; incarnation
+             guards OFF unless guard=True (the red control)
+      reset  conn_reset_storm alone (guards on)
+      dup    retransmit_storm(0.4) on every node from 5 to 800 ms
+      half   half_open_churn of the server (2 rounds from 60 ms every
+             400 ms, 100 ms down)"""
+    from .models.minipg import make_minipg_runtime
+    from .runtime import chaos
+    sc = Scenario()
+    if guard is None:
+        guard = recipe != "mix"
+    if recipe == "mix":
+        for n in range(3):
+            sc.at(ms(8)).set_dup(n, 0.35)
+        sc = chaos.conn_reset_storm(rounds=5, first=ms(30), period=ms(60),
+                                    node=0, sc=sc)
+        sc = chaos.retransmit_storm(ms(400), 0.5, ms(900), node=0, sc=sc)
+    elif recipe == "reset":
+        sc = chaos.conn_reset_storm(rounds=5, first=ms(30), period=ms(60),
+                                    node=0, sc=sc)
+    elif recipe == "dup":
+        for n in range(3):
+            sc = chaos.retransmit_storm(ms(5), 0.4, ms(800), node=n, sc=sc)
+    else:
+        assert recipe == "half", recipe
+        sc = chaos.half_open_churn(0, rounds=2, first=ms(60),
+                                   period=ms(400), down=ms(100), sc=sc)
+    cfg = SimConfig(n_nodes=3, event_capacity=192, payload_words=8,
+                    time_limit=sec(10), trace_cap=trace_cap,
+                    net=NetConfig(send_latency_min=ms(1),
+                                  send_latency_max=ms(8)))
+    return make_minipg_runtime(n_clients=2, n_txns=n_txns, scenario=sc,
+                               cfg=cfg, epoch_guard=guard, device=device)
+
+
+def grayfail_runtime(recipe="mix", trace_cap=128, n_ops=12, device=None):
+    """bench.py:750-803: Percolator-lite (3 clients of n_ops) on 5 nodes,
+    256 event rows, 8 payload words, 1-8 ms latency, 10 s, under
+
+      mix    latency 8-25 ms at 5 ms, clock drift +400 on node 0 and -350
+             on node 1, a one-way inbound cut to shard 1 (150-400 ms), a
+             slow disk on node 0 (350-600 ms) and a torn-write kill of
+             shard 1 at 650 ms; group commit (sync_commits=False)
+      skew   latency 15-35 ms, clock drift +480 on both shards
+      asym   the inbound one-way cut to shard 1 (150-450 ms)
+      disk   a 20 ms disk on shard 0 from 100 to 700 ms
+      torn   a torn-write kill of shard 1 at 150 ms (100 ms down), group
+             commit"""
+    from .models.percolator import make_percolator_runtime
+    from .runtime import chaos
+    sc = Scenario()
+    sync = True
+    if recipe == "mix":
+        sync = False
+        sc.at(ms(5)).set_latency(ms(8), ms(25))
+        sc = chaos.clock_drift(ms(20), 400, node=0, until=ms(900), sc=sc)
+        sc = chaos.clock_drift(ms(30), -350, node=1, until=ms(900), sc=sc)
+        sc = chaos.asymmetric_partition(ms(150), [1], ms(250),
+                                        direction=1, sc=sc)
+        sc = chaos.slow_disk(ms(350), ms(20), ms(600), node=0, sc=sc)
+        sc = chaos.torn_write_kill(ms(650), 1, down=ms(120), sc=sc)
+    elif recipe == "skew":
+        sc.at(ms(5)).set_latency(ms(15), ms(35))
+        sc = chaos.clock_drift(ms(10), 480, node=0, sc=sc)
+        sc = chaos.clock_drift(ms(10), 480, node=1, sc=sc)
+    elif recipe == "asym":
+        sc = chaos.asymmetric_partition(ms(150), [1], ms(300),
+                                        direction=1, sc=sc)
+    elif recipe == "disk":
+        sc = chaos.slow_disk(ms(100), ms(20), ms(700), node=0, sc=sc)
+    else:
+        assert recipe == "torn", recipe
+        sync = False
+        sc = chaos.torn_write_kill(ms(150), 1, down=ms(100), sc=sc)
+    cfg = SimConfig(n_nodes=5, event_capacity=256, payload_words=8,
+                    time_limit=sec(10), trace_cap=trace_cap,
+                    net=NetConfig(send_latency_min=ms(1),
+                                  send_latency_max=ms(8)))
+    return make_percolator_runtime(n_clients=3, n_ops=n_ops,
+                                   sync_commits=sync, scenario=sc, cfg=cfg,
+                                   device=device)
+
+
+STREAM_ECHO_MODES = ("bidi", "sum", "download")
+
+
+def stream_echo_runtime(mode="bidi", device=None):
+    """make_stream_echo_runtime(mode) at its defaults: 1 server and 2
+    clients of 6 items, 64 event rows, 8 payload words, 1-8 ms latency,
+    10 s."""
+    from .models.stream_echo import make_stream_echo_runtime
+    return make_stream_echo_runtime(mode, device=device)
 
 
 def build_pingpong(device=None):

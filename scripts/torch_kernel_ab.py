@@ -45,6 +45,19 @@ host falls on both sides. A measurement holds:
                   with no op lane (`no_op_lanes`), as they are
                   (`step_512`) and with every lane a RESTART
                   (`every_lane_restart`)
+  apply_super_conn_ms
+                  the same on the supervisor op's operands at step 512 of
+                  the connfault mix workload (minipg over conn + stream,
+                  B=16,384; `workloads.connfault_runtime("mix")`), as
+                  they are and with every lane a RESET_PEER of node
+                  lane % 3: the call with everything the tree runs for
+                  it (a kernel with the reset-peer tear inside it, or a
+                  kernel and the plain tear after it). The new tree
+                  saves the operands as numpy (state, op lanes, the
+                  schema's defaults and persist mask) and each tree
+                  builds its own plan from them; a tree without
+                  `workloads.connfault_runtime` is measured on them all
+                  the same
   dup_section_ms  the device ms a step of the eager step's dup section
                   (its `live_step.dup` profiler range, split as chip_smoke
                   `section_split` splits it) over 16 profiled steps from
@@ -257,10 +270,67 @@ class _Captured(Exception):
     """Ends the fuzzer once its first mutation's operands are taken."""
 
 
+CONN_B = 16_384
+
+
+def prepare_conn(path: str) -> None:
+    """Save the supervisor op's operands at step 512 of the connfault mix
+    workload (this checkout's) to `path`, as numpy: the state's leaves,
+    the op lanes, the schema's defaults and persist mask and the config's
+    sizes."""
+    import pickle
+    import numpy as np
+    import torch
+    from madsim_tpu_torch import interop, workloads
+    rt = workloads.connfault_runtime("mix", device=torch.device("cuda"))
+    s = rt.run_fused(rt.init_batch(np.arange(CONN_B, dtype=np.uint32)),
+                     512, chunk=256)
+    plan, st, op, node, src, payload, key = smoke().super_operands(rt, s)
+    with open(path, "wb") as f:
+        pickle.dump(dict(
+            leaves=interop.state_to_numpy(st),
+            lanes=[t.cpu().numpy() for t in (op, node, src, payload, key)],
+            spec={k: v.cpu().numpy() for k, v in plan.spec_default.items()},
+            persist=dict(plan.persist_mask),
+            sizes=(rt.cfg.n_nodes, rt.cfg.event_capacity,
+                   rt.cfg.payload_words)), f)
+
+
+def super_conn_ms(path: str) -> dict:
+    """{operands: ms} of this tree's supervisor op on the saved connfault
+    operands (prepare_conn), as they are and with every lane a
+    RESET_PEER, timed as `super_ms` times the flagship's."""
+    import pickle
+    import torch
+    from madsim_tpu_torch import SimConfig, interop
+    from madsim_tpu_torch.core.step import apply_super
+    from madsim_tpu_torch.ops.apply_super import SuperPlan
+    dev = torch.device("cuda")
+    with open(path, "rb") as f:
+        d = pickle.load(f)
+    n, c, p = d["sizes"]
+    cfg = SimConfig(n_nodes=n, event_capacity=c, payload_words=p)
+    plan = SuperPlan(cfg, {k: torch.as_tensor(v, device=dev)
+                           for k, v in d["spec"].items()}, d["persist"])
+    s = interop.state_from_numpy(d["leaves"], dev)
+    op, node, src, payload, key = (torch.as_tensor(x, device=dev)
+                                   for x in d["lanes"])
+    lanes = torch.arange(op.shape[0], device=dev, dtype=op.dtype)
+    cs = smoke()
+    out = {}
+    for name, o, nd in (
+            ("step_512", op, node),
+            ("every_lane_reset_peer", torch.full_like(op, 18), lanes % n)):
+        out[name] = cs.super_apply_ms(
+            apply_super, (plan, s, o, nd, src, payload, key))[0]
+    return out
+
+
 def prepare(tree: str, path: str) -> None:
     """Run the fuzzer of the checkout at `tree` on the flagship as
     chip_smoke's fuzz_flagship runs it, up to its first mutation, and save
-    that call's operands (on the CPU) to `path`."""
+    that call's operands (on the CPU) to `path`; and the connfault
+    operands (prepare_conn) to `path`.conn."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     from madsim_tpu_torch import workloads
@@ -284,6 +354,7 @@ def prepare(tree: str, path: str) -> None:
         mutate_mod.mutate_batch = real
     if not os.path.exists(path):
         raise RuntimeError("prepare: the fuzzer never mutated")
+    prepare_conn(path + ".conn")
 
 
 def to_device(x, dev):
@@ -388,12 +459,13 @@ def measure(tree: str, operands: str) -> dict:
     margs = to_device(torch.load(operands), dev)
     mut = min(graph_ms(lambda: mutate_mod.mutate_batch(*margs), 20)
               for _ in range(2))
+    asup_conn = super_conn_ms(operands + ".conn")
     return dict(sched_pick_ms=sp, emit_write_ms=ew,
                 emit_write_traced_ms=ew_tr, apply_knobs_ms=ak,
                 put_rows_ms=pr,
                 node_gather_ms=ng, k1_keys_ms=k1, k1_key_launches=k1_names,
                 k1_ms=k1_all, k1_launches=k1_all_names,
-                apply_super_ms=asup,
+                apply_super_ms=asup, apply_super_conn_ms=asup_conn,
                 dup_section_ms=sections["dup"] if sections else None,
                 sections_ms=sections,
                 raft_invariant_ms=ri, raft_invariant_pairwise_ms=rp,

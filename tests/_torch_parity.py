@@ -4,12 +4,24 @@ The PyTorch port (madsim_tpu_torch) is held bit-exact to the JAX package:
 both sides get the same numpy inputs, the JAX side runs on jax's
 NON-partitionable threefry stream (the stream the frozen golden digests
 were recorded under), and the results are compared with zero tolerance.
+
+A module whose reference runs cost more to compile than the port's runs
+take (a model's whole step, ~30 s of XLA for each configuration) keeps
+them as REFERENCES, {case: function returning {part: leaves}}, recorded
+in tests/data/<module>_golden.npz (`golden`): its tier-1 tests hold the
+port to the recording, and a `slow` test of the module recomputes each
+case on the JAX package and holds it to the recording
+(`assert_golden_is_reference`). Record them again with
+
+    JAX_PLATFORMS=cpu python tests/_torch_golden.py [module ...]
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
+import os
 
 import jax
 import jax.tree_util as jtu
@@ -152,6 +164,55 @@ def equal_results(a, b, where=""):
         np.testing.assert_array_equal(a, b, err_msg=where)
     else:
         assert type(a) is type(b) and a == b, (where, a, b)
+
+
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+
+
+def golden_path(module: str) -> str:
+    """The recorded reference leaves of a test module (`__name__`)."""
+    return os.path.join(DATA, f"{module}_golden.npz")
+
+
+def write_golden(path: str, cases: dict):
+    """Record {case: {part: {keystr path: numpy}}} (the reference functions'
+    results) in one compressed file, every dtype and shape as it is."""
+    names, arrays = [], {}
+    for case, parts in sorted(cases.items()):
+        for part, leaves in sorted(parts.items()):
+            for k, v in leaves.items():
+                arrays[f"a{len(names)}"] = np.asarray(v)
+                names.append(f"{case}\t{part}\t{k}")
+    np.savez_compressed(path, names=np.array(names), **arrays)
+
+
+@functools.lru_cache(maxsize=None)
+def _golden_file(path: str) -> dict:
+    out = {}
+    with np.load(path) as z:
+        for i, name in enumerate(z["names"].tolist()):
+            case, part, k = name.split("\t", 2)
+            out.setdefault(case, {}).setdefault(part, {})[k] = z[f"a{i}"]
+    return out
+
+
+def golden(module: str, case: str) -> dict:
+    """{part: {keystr path: numpy}} of one case as `write_golden` recorded
+    it (fresh copies: the port's runners may take them over)."""
+    rec = _golden_file(golden_path(module))[case]
+    return {part: {k: v.copy() for k, v in leaves.items()}
+            for part, leaves in rec.items()}
+
+
+def assert_golden_is_reference(module: str, case: str, fresh: dict):
+    """The JAX package's output `fresh` ({part: leaves}) equals what the
+    module's golden file holds for the case, part for part, leaf for
+    leaf, with no leaf missing on either side."""
+    rec = golden(module, case)
+    assert sorted(rec) == sorted(fresh), (case, sorted(rec), sorted(fresh))
+    for part in fresh:
+        assert sorted(rec[part]) == sorted(fresh[part]), (case, part)
+        assert_same(fresh[part], rec[part], what=f"{case} {part}")
 
 
 def jax_state_like(like, leaves: dict):

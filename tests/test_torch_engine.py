@@ -596,7 +596,12 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
     code = ("import sys, madsim_tpu_torch, madsim_tpu_torch.workloads, "
             "madsim_tpu_torch.interop, madsim_tpu_torch.harness.simtest, "
             "madsim_tpu_torch.search, madsim_tpu_torch.parallel.explore, "
-            "madsim_tpu_torch.parallel.stats, madsim_tpu_torch.ops.kernels"
+            "madsim_tpu_torch.parallel.stats, madsim_tpu_torch.ops.kernels, "
+            "madsim_tpu_torch.utils.maskutil, madsim_tpu_torch.utils.structs, "
+            "madsim_tpu_torch.net.stream, madsim_tpu_torch.net.conn, "
+            "madsim_tpu_torch.net.streaming, madsim_tpu_torch.net.codegen, "
+            "madsim_tpu_torch.models.minipg, "
+            "madsim_tpu_torch.models.stream_echo"
             "\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'jaxlib', 'madsim_tpu.')) or m == 'madsim_tpu']\n"

@@ -4,8 +4,8 @@ package (tolerance: zero), on the CPU.
 
 Covers the rpc helpers and the service's method tags (the same hash of
 the same `__qualname__`), a Service with two @rpc methods driven through
-a whole run, the refusal of @rpc_stream services (the stream layer is not
-ported), the three cases of the JAX package's tests/test_rpc_echo.py
+a whole run, the refusal of an @rpc_stream service whose state spec
+lacks the streaming leaves, the three cases of the JAX package's tests/test_rpc_echo.py
 (clean, 30% loss, a server kill and restart at 1 s, not 2 s), and config
 3 as `workloads.echo_config3_runtime` builds it. The two-phase commit
 and gossip models are in tests/test_torch_tpc_gossip.py. The JAX side
@@ -147,9 +147,13 @@ def test_a_streaming_service_is_refused():
 
     assert Streamer.upload.tag == jservice._hash33(
         Streamer.upload.__qualname__) % (1 << 29)
-    with pytest.raises(NotImplementedError, match="P9"):
-        P.Runtime(P.SimConfig(n_nodes=2), [Streamer()],
-                  dict(x=torch.tensor(0, dtype=torch.int32)), device="cpu")
+    # the stream dispatch needs streaming_state(...) in the spec: without
+    # it the service is refused when its handler first runs, as the JAX
+    # package refuses it when its step is traced
+    rt = P.Runtime(P.SimConfig(n_nodes=2), [Streamer()],
+                   dict(x=torch.tensor(0, dtype=torch.int32)), device="cpu")
+    with pytest.raises(AssertionError, match="streaming_state"):
+        rt.run(rt.init_batch(SEEDS[:2]), 4, 4)
 
 
 # --------------------------------------------------------------------------

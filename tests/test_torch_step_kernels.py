@@ -24,8 +24,10 @@ import chip_smoke
 from _torch_parity import assert_same, jax_leaves, reference_stream
 from madsim_tpu_torch import interop, workloads
 from madsim_tpu_torch.core import types as T
-from madsim_tpu_torch.ops.apply_super import (FS_LEAVES, _remainder,
-                                              apply_super, apply_super_plain)
+from madsim_tpu_torch.ops.apply_super import (FS_LEAVES, TEAR_BUMP,
+                                              TEAR_ZERO, SuperPlan,
+                                              apply_super,
+                                              apply_super_plain)
 from madsim_tpu_torch.ops.raft_invariant import (raft_invariant_check,
                                                  raft_invariant_plain)
 from madsim_tpu_torch.utils.hashing import fingerprint, fingerprint_plain
@@ -293,73 +295,119 @@ def test_apply_super_matches_reference_on_the_raft_schema():
 
 
 def test_the_kernel_paths_plain_remainder_reads_the_state_before_the_op():
-    """On the kernel's path the torn-write flush and the reset-peer tear
-    run in plain PyTorch after the kernel, from the pre-op `alive & torn`,
-    with the fs leaves out of the kernel's reset table. Composed so — the
-    kernel's edits stood in for by the plain op on the state without its
-    node-state leaves, then the boot reset of the kernel's table — the
-    result equals the reference order on the fs + conn/stream schema,
-    RESTARTs of torn, live nodes included; resetting first and flushing
-    from the post-op state does not."""
-    from madsim_tpu_torch.ops import select as sel
+    """The torn-write flush and the reset-peer tear run inside the kernel
+    now, and the flush must read the state from before the op: the
+    target's pre-kill `alive` and, in a RESTART lane, its `fs_mem` and
+    `fs_mlen` rows before the boot resets them. Through the stand-in
+    launcher on the fs + conn/stream schema (RESTARTs of torn, live nodes
+    included) the kernel path equals the reference order of
+    `apply_super_plain`, with nothing run after the launch; a stand-in
+    that resets the boot rows before it flushes does not."""
+    from madsim_tpu_torch.core.state import map_state
     rt, plan = chip_smoke.fs_conn_runtime("cpu")
     B, N = 1024, rt.cfg.n_nodes
     _, s, op, node, src, payload, key = chip_smoke.super_edge_operands(
         rt, B, seed=5, plan=plan)
-    # fixed targets: every op takes effect, as the stand-in assumes
-    node = torch.where(node == T.NODE_RANDOM,
-                       torch.arange(B, dtype=torch.int32) % N, node)
     want = apply_super_plain(plan.cfg, plan.spec_default, plan.persist_mask,
-                             s, op, node, src, payload, key)[0]
-    bare, init_node, target, reset = apply_super_plain(
-        plan.cfg, {}, {}, s.replace(node_state={}), op, node, src, payload,
-        key)
-    boot = init_node >= 0
+                             s, op, node, src, payload, key)
+    outs = {}
+    for order in ("flush_first", "boot_first"):
+        mine = map_state(torch.clone, s)
+        apply_super._fn = (lambda ref, st, o=order:
+                           _super_standin(ref, st, order=o))
+        try:
+            outs[order] = apply_super.run(plan, mine, op, node, src,
+                                          payload, key)
+        finally:
+            apply_super._fn = None
+    got = outs["flush_first"]
+    assert_same(interop.state_to_numpy(want[0]),
+                interop.state_to_numpy(got[0]), what="kernel path")
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
+    naive = interop.state_to_numpy(outs["boot_first"][0])
+    assert (naive[".node_state['fs_disk']"]
+            != interop.state_to_numpy(want[0])[".node_state['fs_disk']"]
+            ).any()
+    # the fs leaves are in the kernel's table (reset on boot) or handed
+    # to it by name (the durable pair), and every conn/stream leaf tears
+    table = {p[0]: a for (p, _), a in zip(plan.leaves, plan.acts)}
+    assert {"fs_mem", "fs_mlen"} <= set(table) and plan.fs
+    assert table["cn_epoch"] == table["st_epoch"] == TEAR_BUMP
+    assert all(table[k] == TEAR_ZERO for k in ("cn_state", "sx_seq",
+                                                "sx_val", "sr_have"))
+    assert plan.n_tear == 9 and not plan.persistent_tears
 
-    def kernel_reset(ns, names):
-        ns = dict(ns)
-        for k in names:
-            ns[k] = sel.put_row(ns[k], target,
-                                plan.spec_default[k].unsqueeze(0), boot)
-        return ns
 
-    ones = torch.ones(B, dtype=torch.bool)
-    got = _remainder(
-        plan, bare.replace(node_state=kernel_reset(
-            s.node_state, [p[0] for p, _ in plan.leaves])),
-        op, key, init_node, target, reset, ones, s.torn & s.alive)
-    assert_same(interop.state_to_numpy(want), interop.state_to_numpy(got),
-                what="kernel path")
-    naive = _remainder(
-        plan, bare.replace(node_state=kernel_reset(
-            s.node_state, [p[0] for p, _ in plan.leaves] + plan.fs_reset)),
-        op, key, init_node, target, reset, ones, bare.torn & bare.alive)
-    assert (interop.state_to_numpy(naive)[".node_state['fs_disk']"]
-            != interop.state_to_numpy(want)[".node_state['fs_disk']"]).any()
-    assert set(FS_LEAVES) - {p[0] for p, _ in plan.leaves} == set(FS_LEAVES)
+def _tear_draw(k0, k1, F, f):
+    """csrc/threefry.cuh `randint_raw_at(k, F, f, 0, 2^30)` on the host,
+    word by word as the kernel computes it: both halves of split(k, 2)
+    (`split_key`), word f of each half's `random_bits(., (F,))` (block
+    (j, j + h) of the padded counts, `bits_at`) and jax's reduction."""
+    from madsim_tpu_torch.core import prng
+
+    def block(a, b, x0, x1):
+        y = prng.threefry2x32(*(torch.tensor([v], dtype=torch.int32)
+                                for v in (prng.u32(a), prng.u32(b),
+                                          prng.u32(x0), prng.u32(x1))))
+        return [int(t) & 0xFFFFFFFF for t in y]
+
+    def split_key(a, b, n, i):
+        words = []
+        for w in (2 * i, 2 * i + 1):
+            j = w if w < n else w - n
+            y = block(a, b, j, j + n)
+            words.append(y[0] if w < n else y[1])
+        return words
+
+    def bits_at(a, b, n, f):
+        h = (n + 1) // 2
+        j = f if f < h else f - h
+        y = block(a, b, j, j + h if j + h < n else 0)
+        return y[0] if f < h else y[1]
+
+    hi = bits_at(*split_key(k0, k1, 2, 0), F, f)
+    lo = bits_at(*split_key(k0, k1, 2, 1), F, f)
+    span = 1 << 30
+    mult = (65536 % span) ** 2 % span
+    return ((hi % span) * mult + lo % span) % (1 << 32) % span
 
 
-def _super_standin(ref, stream, seen=None):
+def _super_standin(ref, stream, seen=None, order="flush_first"):
     """csrc/apply_super.cu on host memory, as its kernel maps the work:
     phase 1 a thread a lane (here vectorised over the lanes: the pool
     pick, the lane's scalar and node-vector writes, the four outputs and
-    the heavy flags); phase 2 each warp of 32 lanes (the last one partial
-    where B is not a multiple of 32) takes its heavy lanes in ballot order,
-    its 32 threads each scanning table rows c = t, t + 32, ..., writing
-    boot elements e = t, t + 32, ... of the flattened (leaf, element)
-    space (the leaf found by walking the prefix table forward) and link
-    cells q = t, t + 32, .... `seen` collects (kind, lane, thread, index)
-    of every phase-2 visit. Refuses what the launcher refuses."""
+    the heavy flags, the flush flag from the pre-kill `alive`); phase 2
+    each warp of 32 lanes (the last one partial where B is not a multiple
+    of 32) takes its heavy lanes in ballot order, its 32 threads each
+    scanning table rows c = t, t + 32, ...; a torn kill's flush a file f
+    a thread for the draw (`_tear_draw`, the device function's word
+    mapping) and the flushed words w = dlen + t, dlen + t + 32, ... of
+    each file; boot elements e = t, t + 32, ... of the flattened (leaf,
+    element) space (the leaf found by walking the prefix table forward);
+    a reset-peer's tear entries q = t, t + 32, ... of each tear leaf; and
+    link cells q = t, t + 32, .... `seen` collects (kind, lane, thread,
+    index) of every phase-2 visit. `order="boot_first"` resets the boot
+    rows before the flush (a mutation the tests tell apart). Refuses what
+    the launcher refuses."""
     from madsim_tpu_torch.core import prng
     from test_torch_node_rows import _host
     p = ref._obj
     B, C, N, P, L = p.B, p.C, p.N, p.P, p.n_leaves
-    nxt = 0
+    nxt, n_tear = 0, 0
     for lf in p.leaves[:L]:
-        if lf.esize not in (1, 4) or lf.row < 0 or lf.start != nxt:
+        act = lf.act
+        if (lf.esize not in (1, 4) or lf.row < 0 or lf.start != nxt
+                or act not in (0, TEAR_ZERO, TEAR_BUMP)
+                or (act and (lf.row % N or not lf.row))
+                or (act == TEAR_BUMP and lf.esize != 4)):
             return 1
+        n_tear += bool(act)
         nxt += lf.row
-    if nxt != p.reset_elems or not 1 <= N <= 32 or P < 2 or C < 1:
+    if (nxt != p.reset_elems or n_tear != p.n_tear or not 1 <= N <= 32
+            or P < 2 or C < 1 or p.F < 0 or p.S < 0
+            or (p.F and not (p.fs_mem and p.fs_mlen and p.fs_disk
+                             and p.fs_dlen))):
         return 1
 
     def i32(ptr, n):
@@ -374,6 +422,12 @@ def _super_standin(ref, stream, seen=None):
     clog_node, torn = _host(p.clog_node, B * N, 1), _host(p.torn, B * N, 1)
     link = _host(p.clog_link, B * N * N, 1)
     dflt = i32(p.defaults, max(p.reset_elems, 1))
+    F, S = p.F, p.S
+    if F:
+        fs_mem, fs_disk = i32(p.fs_mem, B * N * F * S), i32(
+            p.fs_disk, B * N * F * S)
+        fs_mlen, fs_dlen = i32(p.fs_mlen, B * N * F), i32(p.fs_dlen,
+                                                          B * N * F)
 
     # ---- phase 1 ----
     u = np.uint64
@@ -416,6 +470,9 @@ def _super_standin(ref, stream, seen=None):
 
     kill = when((op == T.OP_KILL) | (op == T.OP_RESTART))
     boot = when((op == T.OP_INIT) | (op == T.OP_RESTART))
+    flush = (kill & (torn[at] != 0) & (alive[at] != 0)) if F else \
+        np.zeros(B, dtype=bool)
+    tear = when(op == T.OP_RESET_PEER) & (p.n_tear > 0)
     alive[at[kill | boot]] = boot[kill | boot]
     paused[at[kill | boot | when(op == T.OP_RESUME)]] = 0
     paused[at[when(op == T.OP_PAUSE) & ~(kill | boot)]] = 1
@@ -448,14 +505,42 @@ def _super_standin(ref, stream, seen=None):
     part, oneway = when(op == T.OP_PARTITION), when(
         op == T.OP_PARTITION_ONEWAY)
     heal = when(op == T.OP_HEAL)
-    heavy = kill | boot | part | oneway | heal
+    heavy = kill | boot | part | oneway | heal | flush | tear
+    k_tear = prng.split(key, 2)[:, 1].numpy().view(np.uint32)
 
     # ---- phase 2 ----
     leaves = p.leaves[:L]
+
+    def do_flush(hb, ht):
+        fr = (hb * N + ht) * F
+        for f0 in range(0, F, 32):
+            d = [0] * 32
+            cut = [0] * 32
+            for t in range(32):            # a file a thread
+                f = f0 + t
+                if f < F:
+                    d[t] = int(fs_dlen[fr + f])
+                    gap = max(int(fs_mlen[fr + f]) - d[t], 0)
+                    cut[t] = d[t] + _tear_draw(int(k_tear[hb, 0]),
+                                               int(k_tear[hb, 1]), F,
+                                               f) % (gap + 1)
+            for j in range(min(32, F - f0)):   # every thread, each file
+                row = (fr + f0 + j) * S
+                for t in range(32):
+                    for w in range(max(d[j], 0) + t, min(cut[j], S), 32):
+                        if seen is not None:
+                            seen.append(("flush", hb, t, (f0 + j, w)))
+                        fs_disk[row + w] = fs_mem[row + w]
+            for t in range(32):
+                if f0 + t < F:
+                    fs_dlen[fr + f0 + t] = max(d[t], cut[t])
+
     for w0_ in range(0, B, 32):
         ballot = [b for b in range(w0_, w0_ + 32) if b < B and heavy[b]]
         for hb in ballot:           # ascending: __ffs order
             ht, ha = int(target[hb]), int(in_a[hb])
+            if flush[hb] and order == "flush_first":
+                do_flush(hb, ht)
             for t in range(32):
                 if kill[hb]:
                     for c in range(t, C, 32):
@@ -478,6 +563,29 @@ def _super_standin(ref, stream, seen=None):
                         dst = _host(lf.ptr + off * lf.esize, 1, lf.esize)
                         dst[0] = (int(dflt[e]) & 0xFFFFFFFF if lf.esize == 4
                                   else int(dflt[e] != 0))
+            if flush[hb] and order == "boot_first":
+                do_flush(hb, ht)
+            for t in range(32):
+                if tear[hb]:
+                    for li, lf in enumerate(leaves):
+                        act = lf.act
+                        if not act:
+                            continue
+                        rr = lf.row // N
+                        base = hb * N * lf.row
+                        for q in range(t, lf.row + (N - 1) * rr, 32):
+                            if q < lf.row:
+                                off = ht * lf.row + q
+                            else:
+                                i, e = divmod(q - lf.row, rr)
+                                i += i >= ht
+                                off = i * lf.row + ht * rr + e
+                            if seen is not None:
+                                seen.append(("tear", hb, t, (li, off)))
+                            dst = _host(lf.ptr + (base + off) * lf.esize, 1,
+                                        lf.esize)
+                            dst[0] = ((int(dst[0]) + 1) & 0xFFFFFFFF
+                                      if act == TEAR_BUMP else 0)
                 if part[hb] or oneway[hb] or heal[hb]:
                     for q in range(t, N * N, 32):
                         i, j = divmod(q, N)
@@ -512,7 +620,15 @@ SUPER_LAUNCHES = {
     "C100_mixed_leaves": (lambda: chip_smoke.mixed_leaf_runtime("cpu"), 333),
     "N32_C33_mixed_leaves": (lambda: chip_smoke.mixed_leaf_runtime(
         "cpu", N=32, C=33), 77),
+    # the conn/stream tear on minipg's own schema: 5-d rings ([B, N, N,
+    # W, V]), 32 leaves, two of them persistent
+    "minipg_5d_leaves": (lambda: (_minipg_rt(), None), 333),
 }
+
+
+def _minipg_rt():
+    from madsim_tpu_torch.models.minipg import make_minipg_runtime
+    return make_minipg_runtime(device="cpu")
 
 
 @pytest.mark.parametrize("case", sorted(SUPER_LAUNCHES))
@@ -520,10 +636,12 @@ def test_apply_super_warp_mapping_through_the_kernel_path(monkeypatch, case):
     """The supervisor op's kernel path on the CPU with a stand-in launcher
     that maps the work as the kernel's two phases do, on chip_smoke's edge
     operands: equal to `apply_super_plain` in every leaf and output, one
-    launch, in place. Each heavy lane's table rows, boot elements and link
-    cells are visited once each, by thread index mod 32 of a 32-wide
-    chunk; C not a multiple of 32 (16, 100), B not a multiple of 32 (a
-    partial last warp), N = 32, and int32, bool and zero-size leaves."""
+    launch, in place. Each heavy lane's table rows, boot elements, tear
+    entries and link cells are visited once each, by thread index mod 32
+    of a 32-wide chunk; a torn kill's flushed words once each; C not a
+    multiple of 32 (16, 100), B not a multiple of 32 (a partial last
+    warp), N = 32, int32, bool and zero-size leaves and minipg's 5-d
+    rings."""
     from madsim_tpu_torch.core.state import map_state
     build, B = SUPER_LAUNCHES[case]
     rt, plan = build()
@@ -557,6 +675,26 @@ def test_apply_super_warp_mapping_through_the_kernel_path(monkeypatch, case):
         torch.nonzero(boot).flatten().tolist())
     flat = [(li, e) for li, (_, d) in enumerate(plan.leaves)
             for e in range(d.numel())]
+    # each tear leaf's touched entries: the target's own row of N x r
+    # elements, then the target's r elements in every other node's row
+    table = plan.leaves
+    tear = (op == T.OP_RESET_PEER) & (plan.n_tear > 0)
+    torn_kill = kill & (s.torn & s.alive).gather(
+        1, want[2].long()[:, None])[:, 0] if plan.fs else kill & False
+
+    def touched(b):
+        t_ = int(want[2][b])
+        out = []
+        for li, ((_, d), act) in enumerate(zip(table, plan.acts)):
+            if not act:
+                continue
+            row, r = d.numel(), d.numel() // N
+            q = [t_ * row + e for e in range(row)]
+            q += [i * row + t_ * r + e for i in range(N) if i != t_
+                  for e in range(r)]
+            out += [(li, x) for x in q]
+        return out
+
     for (kind, b), visits in by.items():
         idx = [i for _, i in visits]
         if kind == "row":
@@ -565,14 +703,60 @@ def test_apply_super_warp_mapping_through_the_kernel_path(monkeypatch, case):
         elif kind == "reset":
             assert sorted(idx) == flat
             assert all(t == flat.index(i) % 32 for t, i in visits)
+        elif kind == "tear":
+            assert bool(tear[b])
+            want_q = touched(b)
+            assert sorted(idx) == sorted(want_q)
+            # entry q of a leaf's walk (own row first) is thread q % 32's
+            pos = {}
+            for li, off in want_q:
+                pos[li, off] = sum(1 for x, _ in pos if x == li)
+            assert all(t == pos[i] % 32 for t, i in visits)
+        elif kind == "flush":
+            assert bool(torn_kill[b])
+            assert len(set(idx)) == len(idx)
+            assert all(t == (w - idx[0][1]) % 32 for t, (f, w) in visits
+                       if f == idx[0][0])
         else:
             assert sorted(idx) == list(range(N * N))
             assert all(t == q % 32 for t, q in visits)
+    # every RESET_PEER lane tears but one whose NODE_RANDOM pool is empty
+    torn_lanes = {b for k, b in by if k == "tear"}
+    assert torn_lanes <= set(torch.nonzero(tear).flatten().tolist())
+    assert set(torch.nonzero(tear & (node != T.NODE_RANDOM)).flatten()
+               .tolist()) <= torn_lanes
     assert len(flat) == E
     if B > 1:           # the operands reach what the test names
         assert kill.any() and boot.any()
         assert any(k == "link" for k, _ in by)
         assert B % 32 == 0 or (kill | boot)[B - B % 32:].any()
+        if plan.n_tear:
+            assert any(k == "tear" for k, _ in by)
+        if plan.fs:
+            assert any(k == "flush" for k, _ in by)
+
+
+def test_kernel_path_refuses_a_persistent_tear_leaf():
+    """The kernel tears only conn/stream leaves that the boot resets: a
+    schema that persists one is refused on the kernel's path before any
+    launch, and the plain version (the CPU's) still tears it."""
+    from madsim_tpu_torch.core.state import map_state
+    rt, plan = chip_smoke.fs_conn_runtime("cpu")
+    kp = SuperPlan(plan.cfg, plan.spec_default,
+                   {**plan.persist_mask, "cn_epoch": True})
+    assert kp.persistent_tears == ["cn_epoch"] and kp.n_tear == 8
+    _, s, op, node, src, payload, key = chip_smoke.super_edge_operands(
+        rt, 64, seed=3, plan=kp)
+    op[:] = T.OP_RESET_PEER
+    node[:] = torch.arange(64, dtype=torch.int32) % plan.cfg.n_nodes
+    before = apply_super.launches
+    with pytest.raises(NotImplementedError, match="cn_epoch"):
+        apply_super.run(kp, s, op, node, src, payload, key)
+    assert apply_super.launches == before
+    got = apply_super(kp, map_state(torch.clone, s), op, node, src,
+                      payload, key)[0]
+    moved = got.node_state["cn_epoch"] != s.node_state["cn_epoch"]
+    assert moved.flatten(1).any(1).all()
 
 
 @pytest.mark.cuda
