@@ -227,6 +227,35 @@ the frozen golden digests. One JSON object per line, in phases:
                seed-events/s, and (chain) the eager step's sections
                (the other cells' eager sections: `chip_smoke.py
                --p9b-profile`, a run of its own)
+  campaign     the durable LDFI campaign: workloads.grayfail_runtime
+               ("mix") at B=4096, 20,000 steps at most, chunk 512, 3
+               rounds of `fuzz(corpus_dir=..., ldfi=LdfiConfig(frac=0.25,
+               lanes=8, max_cuts=2))` into a tempfile.mkdtemp store (its
+               filesystem from /proc/self/mounts): a bucket opened, the
+               targeted arm run and its admissions counted alike by the
+               result, the entries' origins and the worker state; each
+               round's host seconds split into device, harvest, ldfi,
+               buckets and store (entry files and state: two fsyncs a
+               file); mutate launched once a mutated round, masked
+               (`mutate_masked`) on the targeted rounds, and checked
+               against its plain version on the campaign's first masked
+               call; `replay_bucket(full_chain=True, window_trace=True)`
+               of a bucket reproducing its code and fingerprint and
+               leaving chain_truncated False; two triage snapshots
+               byte-identical with an empty diff, attribution summing to
+               its totals; `audit_buckets` (budget 2) passing;
+               `python -m madsim_tpu_torch.service.report <dir> --against
+               prev --html out.html` exiting 0; the JAX package's LDFI test
+               campaign (workloads.ldfi_echo_runtime, B=12, 3 rounds) on
+               the card and on the CPU (a process of its own,
+               `chip_smoke.py --campaign-cpu OUT`, started after the
+               build) with equal results and equal stores, file for file
+               (CAMP_WALL_CLOCK aside); and a worker process
+               (`spawn_worker`, the same runtime, 4 rounds, no ldfi)
+               SIGKILLed once it has synced two rounds and run again,
+               ending with the store of an uninterrupted in-process run
+               (it runs beside the grayfail cell; graph captures and
+               their seconds counted by a spy on FusedGraph)
   kernel       each kernel against its plain version, exactly equal
                (the kernel's time is device time: launches captured in a
                CUDA graph and replayed between events):
@@ -393,7 +422,7 @@ the frozen golden digests. One JSON object per line, in phases:
                to each other and to lanes 0..4095 of the B=100,000 eager
                run at the same step (each Runtime.fingerprints call
                launches the fingerprint kernel once)
-  profile      torch.profiler over 16 flagship steps at B=100,000, for
+  profile      torch.profiler over 8 flagship steps at B=100,000, for
                each runner: device kernels per step, device busy share,
                top kernels, each step kernel's ms a step; each kernel's
                device events in the trace must number its launches
@@ -435,6 +464,7 @@ It needs no network and imports no JAX.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -455,7 +485,7 @@ EDGE_B = 4096
 STEP_KERNELS = ("emit_write", "sched_pick", "raft_invariant", "apply_super")
 DET_B = 4096
 DET_EAGER_STEPS = FLAG_CHUNK   # the eager determinism passes (host-bound)
-PROF_STEPS = 16
+PROF_STEPS = 8
 PROF_PLAIN_STEPS = 4  # the flagship profiles of the plain K1/K4, K3/K11 paths
 PROF_WINDOWS = 3     # traced windows at most, when records go missing
 PROF_SETTLE_STEPS = 8  # traced steps before the window, left out of it
@@ -3388,7 +3418,7 @@ def clone_layout_state(state):
 # lanes of the plane flagship that a CPU run (a process of its own) repeats
 PLANE_CPU_LANES = (0, 1, 4099, 99_999)
 PLANE_CPU_STEPS = 1024      # the CPU lanes' step
-PLANE_EAGER_STEPS = 256     # where run = run_fused (the eager step is
+PLANE_EAGER_STEPS = 128     # where run = run_fused (the eager step is
                             # host-bound)
                             # is checked (the eager runner is host-bound)
 
@@ -3514,7 +3544,7 @@ def planes_phase(wrappers, dev, names, every, flag_fp, prof_off, cpu_job,
     prof = profile_steps(lambda st, n: rt.run_fused(st, n, chunk=n), s,
                          FLAG_B, expect)
     # the eager plane-on step split by section, from a fresh batch (the
-    # profile phase's plane-off window: steps 16-32)
+    # profile phase's plane-off window: steps 16-24)
     prof_e = profile_steps(lambda st, n: rt.run(st, n, chunk=n)[0],
                            rt.init_batch(np.arange(FLAG_B, dtype=np.uint32)),
                            FLAG_B, expect)
@@ -3842,12 +3872,13 @@ RECOVERY_STEPS = 256
 RECOVERY_EAGER_STEPS = 64    # where run = run_fused (host-bound)
 
 
-def recovery_phase(dev):
+def recovery_phase(dev, cpu_lanes):
     """`harness.recovery.recovery_invariant` as a Runtime invariant on the
     card, on the two pingpong recipes (`recovery_runtime`) at B=4096
     through run_fused (the check captured in the graph) and run: every
     leaf equal, CRASH_RECOVERY on every lane, some or none as the
-    recipe says, and lanes 0..7 equal to a CPU run."""
+    recipe says, and lanes 0..7 equal to a CPU run (`cpu_lanes`, the
+    misc child's)."""
     import numpy as np
     import torch
     from madsim_tpu_torch import interop
@@ -3863,11 +3894,8 @@ def recovery_phase(dev):
         e, _ = rt.run(rt.init_batch(seeds), RECOVERY_EAGER_STEPS, chunk=128)
         same = state_equal(rt.run_fused(rt.init_batch(seeds),
                                         RECOVERY_EAGER_STEPS, chunk=128), e)
-        cpu_rt = recovery_runtime(recipe, "cpu")
-        c, _ = cpu_rt.run(cpu_rt.init_batch(seeds[:8]), RECOVERY_STEPS,
-                          chunk=128)
         lanes = interop.state_to_numpy(state_lanes(f, list(range(8))))
-        cpu = interop.state_to_numpy(c)
+        cpu = cpu_lanes[recipe]
         differ = [k for k in cpu if not (cpu[k] == lanes[k]).all()]
         codes = f.crash_code.cpu().numpy()
         rec = codes == CRASH_RECOVERY
@@ -4429,9 +4457,11 @@ TT_KNOB_SHIFT = 20_000       # ticks the knob pair's lane B moves its rows
 TT_NUDGE = 12345
 ECHO_B, ECHO_STEPS, ECHO_CHUNK = 50_000, 20_000, 512
 ECHO_LANES = (0, 1, 25_000, 49_999)
+ECHO_EAGER_STEPS = 128       # run = run_fused there: every lane has halted
+                             # (at step 120)
 MODEL_B, MODEL_CHUNK = 16_384, 512
 MODEL_LANES = (0, 1, 8_191, 16_383)
-MODEL_EAGER_STEPS = 128      # run = run_fused over this prefix
+MODEL_EAGER_STEPS = 64       # run = run_fused over this prefix
 BUG_CPU_LANES = 512          # lanes of the 2PC bug variant the CPU runs
 
 
@@ -4863,7 +4893,7 @@ def handlers_bytes(rt, state) -> int:
 
 def model_phase(wrappers, dev, names, every, counts, name, build, max_steps,
                 batch, chunk, lanes, cpu_lanes, profile_eager=True,
-                eager_steps=None, prof_steps=PROF_STEPS, profile=True):
+                eager_steps=None, profile=True):
     """One model runtime at `batch` lanes through run_fused and run: every
     leaf equal, each step kernel launched its count a step, `lanes` equal
     to the CPU's (at the halt, or at `max_steps` where the run is capped
@@ -4909,7 +4939,7 @@ def model_phase(wrappers, dev, names, every, counts, name, build, max_steps,
           f"{diff[:4]}")
     expect = dict(per_step_of(names), **per)
     prof = (profile_steps(lambda st, n: rt.run_fused(st, n, chunk=n), s0,
-                          batch, expect, steps=prof_steps) if profile
+                          batch, expect) if profile
             else {})
     nums = dict(batch=batch, steps_run=steps_fused, wall_s=wall,
                 eager_steps_run=steps_eager, eager_wall_s=eager_wall,
@@ -4930,7 +4960,7 @@ def model_phase(wrappers, dev, names, every, counts, name, build, max_steps,
                 handlers_bound_ms=hb / HBM_BYTES_PER_S * 1e3)
     if profile_eager:
         pe = profile_steps(lambda st, n: rt.run(st, n, chunk=n)[0], s0,
-                           batch, expect, steps=prof_steps)
+                           batch, expect)
         sec = pe.get("section_ms_per_step") or {}
         nums.update(eager_device_ms_per_step=pe.get(
             "device_busy_ms_per_step"),
@@ -4951,7 +4981,7 @@ def echo_phase(wrappers, dev, names, every, counts, cpu):
     f, nums, on = model_phase(
         wrappers, dev, names, every, counts, "echo",
         workloads.echo_config3_runtime, ECHO_STEPS, ECHO_B, ECHO_CHUNK,
-        ECHO_LANES, cpu["models"]["echo"])
+        ECHO_LANES, cpu["models"]["echo"], eager_steps=ECHO_EAGER_STEPS)
     crashed = int(f.crashed.sum())
     acked = f.node_state["acked"][:, 1:].cpu().numpy()
     at_limit = bool((f.now == sec(6)).all())
@@ -5097,6 +5127,463 @@ def search_cpu_main(out_path) -> int:
                counts={k: w.launches for k, w in kernels.wrappers().items()})
     with open(out_path, "wb") as f:
         pickle.dump(out, f)
+    return 0
+
+
+# the campaign phase: a durable LDFI campaign on grayfail mix at a card's
+# batch (bench.py:1504-1505's regime), its buckets replayed and triaged;
+# the JAX package's LDFI test campaign on the card and on the CPU; a
+# worker process killed and resumed
+CAMP_B, CAMP_STEPS, CAMP_CHUNK, CAMP_ROUNDS = 4096, 20_000, 512, 3
+ECHO_CAMP = dict(max_steps=3000, batch=12, max_rounds=3, dry_rounds=4,
+                 chunk=256)            # tests/test_ldfi.py's own settings
+KILL_ROUNDS = 4
+# what two runs of one campaign may differ in: the store's wall-clock
+# fields and the result's host path and seconds
+CAMP_WALL_CLOCK = ("state wall_s", "metrics t", "metrics wall_s",
+                   "bucket created_at", "bucket upgraded_at",
+                   "result corpus_dir", "result phase_s")
+
+
+def store_files(corpus_dir, skip=(), dedup=False) -> dict:
+    """{path in the dir: bytes} of a campaign store with its wall-clock
+    fields (CAMP_WALL_CLOCK) set to 0; with `dedup`, a repeated line of
+    an append-only log (a killed round's timeline row or bucket line,
+    written again when the round runs again) kept once."""
+    out = {}
+    for root, _, files in os.walk(corpus_dir):
+        rel_root = os.path.relpath(root, corpus_dir)
+        if rel_root.split(os.sep)[0] in skip:
+            continue
+        for n in sorted(files):
+            p = os.path.join(root, n)
+            rel = os.path.relpath(p, corpus_dir)
+            with open(p, "rb") as f:
+                data = f.read()
+            top = rel.split(os.sep)[0]
+            if top == "state" and n.endswith(".json"):
+                obj = json.loads(data)
+                obj["wall_s"] = 0
+                data = json.dumps(obj, indent=1).encode()
+            elif top == "metrics":
+                rows = [json.loads(ln) for ln in data.splitlines()
+                        if ln.strip()]
+                for r in rows:
+                    r["t"] = r["wall_s"] = 0
+                data = "".join(json.dumps(r) + "\n" for r in rows).encode()
+            elif top == "buckets" and n.endswith(".json") \
+                    and not n.endswith("trace.json"):
+                obj = json.loads(data)
+                for k in ("created_at", "upgraded_at"):
+                    if k in obj:
+                        obj[k] = 0
+                data = json.dumps(obj, indent=1).encode()
+            if dedup and n.endswith(".jsonl"):
+                lines = data.splitlines(True)
+                data = b"".join(dict.fromkeys(lines))
+            out[rel] = data
+    return out
+
+
+def filesystem_of(path) -> dict:
+    """The mount that holds `path` (/proc/self/mounts): its mount point,
+    type and device."""
+    path = os.path.realpath(path)
+    best = dict(mount="/", type="unknown", device="unknown")
+    try:
+        with open("/proc/self/mounts") as f:
+            for line in f:
+                dev_, mnt, fstype = line.split()[:3]
+                mnt = mnt.replace("\\040", " ")
+                if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) \
+                        and len(mnt) >= len(best["mount"]):
+                    best = dict(mount=mnt, type=fstype, device=dev_)
+    except OSError:
+        pass
+    return best
+
+
+def echo_campaign(device, corpus_dir):
+    """The JAX package's durable LDFI test campaign (tests/test_ldfi.py
+    test_targeted_arm_accounting_and_entry_origin) on `device`: its
+    result less CAMP_WALL_CLOCK and its store files."""
+    from madsim_tpu_torch import workloads
+    from madsim_tpu_torch.search import LdfiConfig, fuzz
+    res = fuzz(workloads.ldfi_echo_runtime(device=device),
+               corpus_dir=corpus_dir, ldfi=LdfiConfig(lanes=4, frac=0.25),
+               **ECHO_CAMP)
+    return dict(result={k: v for k, v in res.items()
+                        if k not in ("corpus_dir", "phase_s")},
+                files=store_files(corpus_dir))
+
+
+def campaign_cpu_main(out_path) -> int:
+    """`chip_smoke.py --campaign-cpu OUT`: the CPU half of the campaign
+    phase's same-on-both check (echo_campaign on the CPU), run beside
+    the card's phases (it touches no card); pickled to OUT."""
+    import pickle
+    import tempfile
+    import torch
+    torch.set_num_threads(1)
+    d = tempfile.mkdtemp(prefix="campaign_cpu_")
+    try:
+        out = echo_campaign("cpu", d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def files_differ(a: dict, b: dict) -> list:
+    return sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+
+
+def kill_and_resume(dev, tmp, children) -> dict:
+    """One worker process (`spawn_worker`) on the echo campaign, on the
+    card: SIGKILLed once its state shows rounds_done >= 2 and launched
+    again with the same arguments; its store must equal an uninterrupted
+    in-process campaign's (CAMP_WALL_CLOCK aside, the worker's observer
+    log left out, a log line of the killed round kept once). A worker
+    that ends, or syncs its last round, before the kill lands is run
+    again in a fresh dir (at most three times). The workers run beside
+    the caller's work (the campaign phase runs this in a thread) and go
+    into `children`, which the script stops at its exit; the
+    uninterrupted campaign runs in the caller's process afterwards
+    (`kill_and_resume_check`)."""
+    import signal
+    from madsim_tpu_torch.service import spawn_worker
+    kw = dict(factory_kwargs={"device": str(dev)}, batch=ECHO_CAMP["batch"],
+              max_steps=ECHO_CAMP["max_steps"], chunk=ECHO_CAMP["chunk"],
+              max_rounds=KILL_ROUNDS, dry_rounds=KILL_ROUNDS + 1)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    factory = "madsim_tpu_torch.workloads:ldfi_echo_runtime"
+    tries = []
+    for attempt in range(3):
+        dk = os.path.join(tmp, f"kill_{attempt}")
+        t0 = time.perf_counter()
+        p = spawn_worker(dk, 0, factory, env=env, **kw)
+        children.append(p)
+        state = os.path.join(dk, "state", "w0000.json")
+        at_kill = None
+        while p.poll() is None:
+            try:
+                with open(state) as f:
+                    done = json.load(f)["rounds_done"]
+            except (OSError, ValueError, KeyError):
+                done = 0
+            if done >= 2:
+                p.send_signal(signal.SIGKILL)
+                p.wait()
+                with open(state) as f:      # what the kill left
+                    at_kill = json.load(f)["rounds_done"]
+                break
+            time.sleep(0.002)
+        first_s = time.perf_counter() - t0
+        if at_kill is None or at_kill >= KILL_ROUNDS:
+            out, _ = p.communicate()
+            tries.append(dict(returncode=p.returncode, killed=False))
+            check(p.returncode in (0, -signal.SIGKILL),
+                  f"kill_and_resume: the worker failed ({p.returncode})")
+            continue
+        t0 = time.perf_counter()
+        p = spawn_worker(dk, 0, factory, env=env, **kw)
+        children.append(p)
+        out, _ = p.communicate(timeout=600)
+        resume_s = time.perf_counter() - t0
+        check(p.returncode == 0, f"kill_and_resume: the resumed worker "
+              f"failed ({p.returncode})")
+        tries.append(dict(killed=True, rounds_done_at_kill=at_kill))
+        break
+    else:
+        check(False, f"kill_and_resume: the worker finished before the "
+              f"kill three times: {tries}")
+    result = json.loads(out.strip().splitlines()[-1])
+    return dict(tries=tries, killed_at=at_kill, first_run_s=first_s,
+                resumed_run_s=resume_s, resumed_result=result, dir=dk,
+                fuzz_kw={k: v for k, v in kw.items()
+                         if k != "factory_kwargs"})
+
+
+def kill_and_resume_check(dev, tmp, kr) -> dict:
+    """The uninterrupted campaign of `kill_and_resume`, in this process,
+    and the two stores compared."""
+    from madsim_tpu_torch import workloads
+    from madsim_tpu_torch.search import fuzz
+    dc = os.path.join(tmp, "uninterrupted")
+    t0 = time.perf_counter()
+    fuzz(workloads.ldfi_echo_runtime(device=dev), corpus_dir=dc,
+         **kr["fuzz_kw"])
+    ctrl_s = time.perf_counter() - t0
+    killed = store_files(kr["dir"], skip=("logs",), dedup=True)
+    ctrl = store_files(dc, dedup=True)
+    out = {k: v for k, v in kr.items() if k not in ("dir", "fuzz_kw")}
+    return dict(out, uninterrupted_s=ctrl_s, files=len(ctrl),
+                differ=files_differ(ctrl, killed))
+
+
+def campaign_phase(dev, counts, cpu_job, cpu_path, tmp, children, card):
+    """The durable campaign on the card (see the module doc); the worker
+    processes it starts go into `children`, and each of its lines names
+    the card (`card`: its name and power limit, as nvidia-smi reads
+    them). Returns the mutate_masked row of the kernels line."""
+    import tempfile
+    import threading
+    import torch
+    from madsim_tpu_torch import workloads
+    from madsim_tpu_torch.obs.causal import (causal_fingerprint,
+                                             fingerprints_match)
+    from madsim_tpu_torch.ops.mutate import mutate_batch_plain
+    from madsim_tpu_torch.runtime import runtime as runtime_mod
+    from madsim_tpu_torch.search import LdfiConfig, fuzz
+    from madsim_tpu_torch.search import mutate as mutate_mod
+    from madsim_tpu_torch.service import (CorpusStore, audit_buckets,
+                                          replay_bucket, triage_diff,
+                                          triage_snapshot)
+    reset_counts, read_counts = counts
+    t_phase = time.perf_counter()
+    # 4. (in the background) a worker killed and resumed
+    kr = {}
+
+    def kill_job():
+        try:
+            kr.update(kill_and_resume(dev, tmp, children))
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            kr["error"] = e
+
+    killer = threading.Thread(target=kill_job, daemon=True)
+    killer.start()
+    # 1. the slice's cell: grayfail mix at B=4096
+    rt = workloads.grayfail_runtime("mix", device=dev)
+    d = tempfile.mkdtemp(prefix="campaign_grayfail_")
+    fs = filesystem_of(d)
+    masked = dict(calls=0, unmasked=0, first=None)
+    real_mutate = mutate_mod.mutate_batch
+
+    def spy_mutate(kb, key, guards, havoc, mask=None):
+        if mask is not None:
+            masked["calls"] += 1
+            if masked["first"] is None:
+                masked["first"] = clone_tree((kb, key, guards, havoc, mask))
+        else:
+            masked["unmasked"] += 1
+        return real_mutate(kb, key, guards, havoc, mask)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    mutate_mod.mutate_batch = spy_mutate
+    t0 = time.perf_counter()
+    try:
+        with Spy(runtime_mod.FusedGraph, "__init__") as cap_spy:
+            res = fuzz(rt, max_steps=CAMP_STEPS, batch=CAMP_B,
+                       max_rounds=CAMP_ROUNDS, dry_rounds=CAMP_ROUNDS + 1,
+                       chunk=CAMP_CHUNK, corpus_dir=d,
+                       ldfi=LdfiConfig(frac=0.25, lanes=8, max_cuts=2))
+    finally:
+        mutate_mod.mutate_batch = real_mutate
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = read_counts()
+    store = CorpusStore(d, create=False)
+    t = res["targeted"]
+    ws = store.load_worker_state(0)
+    buckets = store.bucket_keys()
+    for r, split in enumerate(res["phase_s"]):
+        emit(card=card, phase="campaign_round", cell="grayfail_mix",
+             round=r,
+             device_s=split["device"], harvest_s=split["harvest"],
+             ldfi_s=split["ldfi"], buckets_s=split["buckets"],
+             store_s=split["store"], new_schedules=res["new_per_round"][r])
+    emit(card=card, phase="campaign_grayfail", batch=CAMP_B,
+         max_steps=CAMP_STEPS,
+         chunk=CAMP_CHUNK, rounds=res["rounds"], wall_s=wall,
+         store_s=sum(s["store"] for s in res["phase_s"]),
+         corpus_dir_fs=fs, entry_files=len(store.entry_names()),
+         distinct_schedules=res["distinct_schedules"],
+         crashes=res["crashes"], buckets=len(buckets),
+         buckets_opened=len(res["buckets_opened"]), targeted=t,
+
+         worker_targeted_yield=ws.get("targeted_yield"),
+         mutate_launches=c["mutate"], mutate_masked_calls=masked["calls"],
+         mutate_unmasked_calls=masked["unmasked"],
+         apply_knobs_launches=c["apply_knobs"],
+         graph_captures=len(cap_spy.seconds),
+         graph_capture_s=sum(cap_spy.seconds))
+    check(len(buckets) >= 1, "campaign: grayfail opened no bucket")
+    check(t["supports"] >= 1 and t["lanes_run"] >= 1,
+          f"campaign: the targeted arm did not run: {t}")
+    check(masked["calls"] >= 1 and c["mutate"] == masked["calls"]
+          + masked["unmasked"] == res["rounds"] - 1,
+          f"campaign: mutate launched {c['mutate']} times, "
+          f"{masked} calls, {res['rounds']} rounds")
+    check(c["apply_knobs"] == res["rounds"],
+          f"campaign: apply_knobs launched {c['apply_knobs']} times")
+    # 2. replay and triage on that store
+    key = buckets[0]
+    rec = store.load_bucket(key)
+    t0 = time.perf_counter()
+    with Spy(runtime_mod.FusedGraph, "__init__") as cap_spy:
+        crashed, code, exp = replay_bucket(rt, d, key, CAMP_STEPS,
+                                           chunk=CAMP_CHUNK, full_chain=True,
+                                           window_trace=True)
+    replay_s = time.perf_counter() - t0
+    replay_caps = len(cap_spy.seconds)
+    after = store.load_bucket(key)
+    wtrace = store.bucket_path(key, ".window.trace.json")
+    check(crashed and code == rec["crash_code"]
+          and fingerprints_match(causal_fingerprint(exp),
+                                 rec["fingerprint"]),
+          f"campaign: bucket {key} replayed to crashed={crashed} "
+          f"code={code}, recorded {rec['crash_code']}")
+    check(after.get("chain_truncated") is False,
+          f"campaign: bucket {key} chain_truncated "
+          f"{after.get('chain_truncated')}")
+    check(os.path.getsize(wtrace) > 0, "campaign: no window trace")
+    # two snapshots on one CorpusStore handle: the first reads every
+    # entry file (and counts the entries by origin), the second hits the
+    # handle's cache
+    t0 = time.perf_counter()
+    n1, s1 = triage_snapshot(store)
+    triage_first_s = time.perf_counter() - t0
+    n2, s2 = triage_snapshot(store)
+    targeted_entries = s1["attribution"]["origin_coverage"]["targeted"]
+    check(targeted_entries == t["admitted"] == ws.get("targeted_yield"),
+          f"campaign: {targeted_entries} targeted entries, "
+          f"{t['admitted']} admitted, worker state "
+          f"{ws.get('targeted_yield')}")
+    with open(os.path.join(d, "triage", f"{n1:04d}.json"), "rb") as f:
+        b1 = f.read()
+    with open(os.path.join(d, "triage", f"{n2:04d}.json"), "rb") as f:
+        b2 = f.read()
+    diff = triage_diff(s1, s2)
+    st, attr = s2["store"], s2["attribution"]
+    sums = dict(
+        recipe_coverage=sum(attr["recipe_coverage"].values()),
+        operator_coverage=sum(attr["operator_coverage"].values()),
+        recipe_buckets=sum(attr["recipe_buckets"].values()),
+        operator_buckets=sum(attr["operator_buckets"].values()))
+    triage_s = time.perf_counter() - t0
+    check(b1 == b2 and diff["empty"], "campaign: two snapshots differ")
+    check(sums["recipe_coverage"] == sums["operator_coverage"]
+          == st["coverage_total"] and sums["recipe_buckets"]
+          == sums["operator_buckets"] == st["buckets_total"],
+          f"campaign: attribution {sums} against {st}")
+    t0 = time.perf_counter()
+    with Spy(runtime_mod.FusedGraph, "__init__") as cap_spy:
+        audit = audit_buckets(rt, d, CAMP_STEPS, budget=2, chunk=CAMP_CHUNK)
+    audit_s = time.perf_counter() - t0
+    audit_caps = len(cap_spy.seconds)
+    check(audit["counts"]["pass"] >= 1 and not audit["counts"]["flaky"],
+          f"campaign: audit {audit['counts']}")
+    triage_snapshot(store)
+    # the report CLI runs beside the checks that follow
+    html = os.path.join(tmp, "campaign_dashboard.html")
+    t_report = time.perf_counter()
+    report = subprocess.Popen(
+        [sys.executable, "-m", "madsim_tpu_torch.service.report", d,
+         "--against", "prev", "--html", html], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    emit(card=card, phase="campaign_triage", bucket=key, crash_code=code,
+         replay_s=replay_s, replay_graph_captures=replay_caps,
+         chain_truncated=after.get("chain_truncated"),
+         window_trace_bytes=os.path.getsize(wtrace),
+         snapshots_identical=b1 == b2, diff_empty=diff["empty"],
+         snapshot_bytes=len(b1), attribution_sums=sums,
+         coverage_total=st["coverage_total"],
+         buckets_total=st["buckets_total"], triage_s=triage_s,
+         triage_first_snapshot_s=triage_first_s,
+         targeted_entries=targeted_entries,
+         audit=audit["counts"], audit_s=audit_s,
+         audit_graph_captures=audit_caps)
+    # the mutate kernel's masked form, on the campaign's first masked call
+    kb, key_m, guards, havoc, mask = masked["first"]
+    out_k = mutate_mod.mutate_batch(kb, key_m, guards, havoc, mask)
+    out_p = mutate_batch_plain(kb, key_m, guards, havoc, mask)
+    err = check_equal("mutate_masked on the grayfail campaign", out_k, out_p)
+    k_ms = min(graph_ms(lambda: mutate_mod.mutate_batch(
+        kb, key_m, guards, havoc, mask), 20) for _ in range(2))
+    p_ms = min(cuda_ms(lambda: mutate_batch_plain(
+        kb, key_m, guards, havoc, mask), 3) for _ in range(2))
+    nbytes, ops = mutate_bound(kb, key_m, guards, havoc, mask)
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    masked_row = dict(
+        launches=masked["calls"], max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+        bound_ms=max(b_ms, o_ms) * 1e3,
+        bound_by="bytes" if b_ms >= o_ms else "operations", library_ms=None)
+    emit(card=card, phase="kernel", name="mutate_masked",
+         batch=int(mask.shape[0]),
+         masked_lanes=int((~mask).sum()), bound_bytes=nbytes,
+         bound_operations=ops, **masked_row)
+    del rt, kb, masked
+    # 3. the JAX package's LDFI test campaign, on the card and on the CPU
+    t0 = time.perf_counter()
+    echo_gpu = echo_campaign(dev, os.path.join(tmp, "echo_card"))
+    echo_s = time.perf_counter() - t0
+    cpu = wait_child(cpu_job, cpu_path, "campaign")
+    same_result = same_tree(echo_gpu["result"], cpu["result"])
+    differ = files_differ(echo_gpu["files"], cpu["files"])
+    emit(card=card, phase="campaign_same_on_both", **ECHO_CAMP,
+         wall_s_cuda=echo_s, results_equal=same_result,
+         files=len(echo_gpu["files"]),
+         files_differ=differ, wall_clock_fields=list(CAMP_WALL_CLOCK),
+         targeted=echo_gpu["result"]["targeted"])
+    check(same_result, "campaign: the echo campaign's results differ "
+          "between the card and the CPU")
+    check(not differ, f"campaign: the echo stores differ in {differ[:8]}")
+    # 4. the killed and resumed worker against an uninterrupted campaign
+    killer.join(timeout=600)
+    check(not killer.is_alive(), "campaign: the killed worker's resume "
+          "did not end")
+    if "error" in kr:
+        raise kr["error"]
+    kr = kill_and_resume_check(dev, tmp, kr)
+    emit(card=card, phase="campaign_kill_resume", rounds=KILL_ROUNDS, **{
+        k: v for k, v in kr.items() if k != "differ"},
+        files_differ=kr["differ"])
+    check(not kr["differ"], f"campaign: the resumed store differs from "
+          f"the uninterrupted one in {kr['differ'][:8]}")
+    out, err = report.communicate(timeout=300)
+    report_s = time.perf_counter() - t_report
+    check(report.returncode == 0, f"campaign: report CLI "
+          f"{report.returncode}: {err[-2000:]}")
+    check(os.path.getsize(html) > 0, "campaign: the dashboard is empty")
+    emit(card=card, phase="campaign_report", report_s=report_s,
+         report_lines=len(out.splitlines()),
+         dashboard_bytes=os.path.getsize(html))
+    shutil.rmtree(d, ignore_errors=True)
+    emit(card=card, phase="campaign", wall_s=time.perf_counter() - t_phase)
+    return masked_row
+
+
+def misc_cpu_main(out_path) -> int:
+    """`chip_smoke.py --misc-cpu OUT`: the CPU halves of
+    flagship_same_on_both (the traced flagship at SAME_B lanes, SAME_STEPS
+    steps through `run`: its leaves and the kernel wrappers' counts, all
+    zero on the CPU) and of the recovery phase (lanes 0..7 of each recipe
+    to RECOVERY_STEPS), run beside the card's phases (it touches no
+    card); pickled to OUT."""
+    import pickle
+    import numpy as np
+    import torch
+    from madsim_tpu_torch import interop, workloads
+    from madsim_tpu_torch.ops import kernels
+    torch.set_num_threads(1)
+    rt = workloads.flagship_runtime(device="cpu", trace_cap=64)
+    s, _ = rt.run(rt.init_batch(np.arange(SAME_B, dtype=np.uint32)),
+                  SAME_STEPS, chunk=64)
+    flag = ({k: w.launches for k, w in kernels.wrappers().items()},
+            interop.state_leaves(s))
+    recovery = {}
+    for recipe in RECOVERY_RECIPES:
+        rt = recovery_runtime(recipe, "cpu")
+        c, _ = rt.run(rt.init_batch(np.arange(8, dtype=np.uint32)),
+                      RECOVERY_STEPS, chunk=128)
+        recovery[recipe] = interop.state_to_numpy(c)
+    with open(out_path, "wb") as f:
+        pickle.dump(dict(flagship=flag, recovery=recovery), f)
     return 0
 
 
@@ -5320,8 +5807,6 @@ SHARD_STEPS = 512            # sharded KV's step cap, where its CPU lanes
                              # ~11,000-12,300 steps, ~15 simulated s)
 SHARD_EAGER_STEPS = 32       # its run = run_fused prefix (~0.2 s an eager
                              # step: three Raft programs, 6,147 kernels)
-SHARD_PROF_STEPS = 8         # its profiled graph steps (6,147 kernels each;
-                             # one graph block: FUSED_BLOCK)
 P9B_OPERANDS_AT = 512        # chain's kernel operands: this step's
 K11_LEAVES = ("role", "term", "snap_len", "log_len", "commit",
               "snap_digest", "log_term", "log_op", "log_key", "log_val",
@@ -5443,8 +5928,7 @@ def p9b_profile_main(conn: bool = False) -> int:
                            at, chunk=at)
         per = step_launches(wrappers, rt, mid)
         pe = profile_steps(lambda st, n: rt.run(st, n, chunk=n)[0], mid,
-                           batch, dict(p9b_step_launches(groups), **per),
-                           steps=CONN_PROF_STEPS if conn else PROF_STEPS)
+                           batch, dict(p9b_step_launches(groups), **per))
         sec = pe.get("section_ms_per_step") or {}
         hb = handlers_bytes(rt, mid)
         emit(phase="conn_profile" if conn else "p9b_profile", case=name,
@@ -5493,8 +5977,7 @@ def models_p9b_phase(wrappers, dev, every, counts, cpu):
             lambda _: rt, cap, batch, P9B_CHUNK, lanes, cpu[name],
             profile_eager=sections,
             eager_steps=(SHARD_EAGER_STEPS if name == "shard_kv"
-                         else P9B_EAGER_STEPS),
-            prof_steps=SHARD_PROF_STEPS if name == "shard_kv" else PROF_STEPS)
+                         else P9B_EAGER_STEPS))
         model_s = time.perf_counter() - t_cell
         on |= on_case
         # the step-P9B_OPERANDS_AT state (K2/K5 operands, the plain-draw
@@ -5618,8 +6101,6 @@ CONN_B = 16_384              # the connfault, stream_echo and red cells
 CONN_CHUNK = 256
 CONN_CPU_STEPS = 256         # where a connfault / stream_echo cell's CPU
                              # lanes are held; the card then runs on
-CONN_PROF_STEPS = 8          # the cells' profiled steps (~7,000 kernels a
-                             # step)
 CONN_EAGER_STEPS = 16        # run = run_fused over this prefix (host-bound:
                              # 110-170 ms an eager step)
 CONN_LANES = (0, 1, 8_191, 16_383)
@@ -5829,7 +6310,7 @@ def models_conn_phase(wrappers, dev, every, counts, cpu, cpu_v):
             wrappers, dev, names, every, counts, name, lambda _: rt, cap,
             batch, min(CONN_CHUNK, cap), lanes, cpu[name],
             profile_eager=False, eager_steps=CONN_EAGER_STEPS,
-            prof_steps=CONN_PROF_STEPS, profile=name == "minipg")
+            profile=name == "minipg")
         model_s = time.perf_counter() - t_cell
         on |= on_case
         draws, onehot = plain_draws_in_step(rt, f)
@@ -5962,6 +6443,12 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--search-cpu":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return search_cpu_main(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--misc-cpu":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return misc_cpu_main(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--campaign-cpu":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return campaign_cpu_main(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -6061,9 +6548,22 @@ def main() -> int:
         [sys.executable, os.path.abspath(__file__), "--search-cpu",
          cpu_search_path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True)
+    # and the campaign phase's echo campaign
+    cpu_camp_path = os.path.join(tmp, "campaign_cpu.pkl")
+    cpu_camp = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--campaign-cpu",
+         cpu_camp_path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    # and flagship_same_on_both's and the recovery phase's
+    cpu_misc_path = os.path.join(tmp, "misc_cpu.pkl")
+    cpu_misc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--misc-cpu",
+         cpu_misc_path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
     # (the models_p9b phase's starts after the fuzz_flagship phase, whose
     # host half the six children together slowed)
-    children = [cpu_min, cpu_planes, cpu_tt, cpu_kv, cpu_search]
+    children = [cpu_min, cpu_planes, cpu_tt, cpu_kv, cpu_search, cpu_camp,
+                cpu_misc]
 
     def stop_children():
         for child in children:
@@ -6581,9 +7081,9 @@ def main() -> int:
     # one seed batch (a lane count no multiple of any kernel's lane tile)
     # through both runners on the card and the eager runner on the CPU:
     # every leaf equal, the card's eager run through every step kernel
-    runs = {}
-    for where, runner in (("cuda", "run"), ("cuda", "run_fused"),
-                          ("cpu", "run")):
+    cpu_misc_out = wait_child(cpu_misc, cpu_misc_path, "misc")
+    runs = {("cpu", "run"): cpu_misc_out["flagship"]}
+    for where, runner in (("cuda", "run"), ("cuda", "run_fused")):
         rt = workloads.flagship_runtime(device=where, trace_cap=64)
         s0 = rt.init_batch(np.arange(SAME_B, dtype=np.uint32))
         reset_counts()
@@ -6625,7 +7125,7 @@ def main() -> int:
     all_out = planes_all_phase(wrappers, dev, names, every, flag_fp,
                                prof_fused, planes_out.pop("cpu_all"),
                                (reset_counts, read_counts))
-    recovery_phase(dev)
+    recovery_phase(dev, cpu_misc_out["recovery"])
 
     # ---- time travel and the first net-layer models -----------------------
     tt_k = timetravel_flagship_phase(wrappers, dev, names, every, flag_fp,
@@ -6665,6 +7165,11 @@ def main() -> int:
         cpu_conn_v)
     on_path |= on_conn
     del cpu_conn_out, cpu_conn_v
+
+    # ---- the durable campaign: LDFI on grayfail, buckets, triage ----------
+    masked_row = campaign_phase(dev, (reset_counts, read_counts), cpu_camp,
+                                cpu_camp_path, tmp, children,
+                                smi.splitlines()[0])
 
     # ---- kernel: sched_pick against its plain version -----------------------
     B, C = captured[0][0].shape
@@ -7495,6 +8000,9 @@ def main() -> int:
              "madsim_tpu/search/mutate.py:499", fuzz_launch["apply_knobs"]),
             ("coverage_digest", "coverage.cu",
              "madsim_tpu/parallel/stats.py:23", explore_launches))] + [
+        dict(name="mutate_masked", route="cuda",
+             source="madsim_tpu_torch/csrc/mutate.cu",
+             replaces="madsim_tpu/search/mutate.py:482", **masked_row)] + [
         dict(name=k, route="cuda", source=f"madsim_tpu_torch/csrc/{k}.cu",
              replaces=where, launches=n, **numbers)
         for k, where, n, numbers in (

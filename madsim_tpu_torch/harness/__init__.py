@@ -1,0 +1,3 @@
+from .witness import success_witness
+
+__all__ = ["success_witness"]

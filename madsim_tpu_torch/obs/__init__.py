@@ -23,23 +23,31 @@ lineage and the profiler and latency reports (the counterpart of
                   microscope (`divergence_report`) and the exact-step
                   advance (`Runtime.state_at`).
 
-The support, dashboard, metrics and progress modules wait for their
-slices (ROADMAP P13, P14).
+  * support.py  — the WHY-IT-WORKED layer: the lineage walk pointed at a
+                  green lane's success witness, the support that
+                  search/ldfi.py synthesizes cuts against.
+  * metrics.py  — the SweepObserver protocol and its JSONL sink.
+  * progress.py — a live one-line progress renderer (an observer).
+  * dashboard.py — the static HTML triage dashboard (service/report.py).
 """
 
 from .causal import (causal_fingerprint, code_fingerprint, explain_crash,
                      fingerprints_match, happens_before, sketch_divergence,
                      walk_lineage)
+from .dashboard import render_html, sparkline_svg
+from .metrics import JsonlObserver, SweepObserver, TeeObserver
 from .profiler import (attribution_summary, counter_track_events,
                        curve_brief, export_profile_trace,
                        format_attribution, format_latency, format_profile,
                        latency_histogram_rows, latency_summary,
                        profile_summary)
+from .progress import ProgressObserver
 from .rings import ring_records, sampled_lanes
 from .series import (fault_names, format_series, lane_series,
                      series_counter_track_events, series_summary)
 from .spans import (explain_latency, format_span, request_span,
                     request_spans)
+from .support import extract_support, support_from_records
 from .timetravel import (CheckpointLog, ReplayDivergence, divergence_report,
                          full_chain_replay, replay_window)
 from .trace import export_chrome_trace, to_chrome_events
@@ -59,4 +67,7 @@ __all__ = [
     "request_span", "request_spans", "explain_latency", "format_span",
     "CheckpointLog", "replay_window", "full_chain_replay",
     "divergence_report", "ReplayDivergence",
+    "extract_support", "support_from_records",
+    "SweepObserver", "JsonlObserver", "TeeObserver", "ProgressObserver",
+    "render_html", "sparkline_svg",
 ]

@@ -161,8 +161,7 @@ def explain_crash(state, lane: int = 0, *, replay: bool = False,
         raise
 
     def _lane_scalar(leaf):
-        a = leaf.cpu().numpy()
-        return a[lane] if a.ndim else a
+        return (leaf[lane] if leaf.ndim else leaf).item()
 
     return dict(
         chain=walk["chain"],

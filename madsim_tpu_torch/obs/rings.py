@@ -47,15 +47,18 @@ def ring_records(state, lane: int = 0) -> dict:
     happened"."""
     if state.tr_now.shape[-1] == 0:
         raise ValueError("trace ring is compiled out (cfg.trace_cap == 0)")
-    cols = {k: _host(getattr(state, f"tr_{k}")) for k in _COLS
+    batched = state.tr_now.ndim == 2
+
+    def lane_host(t):
+        # a batched state: select the lane on the device before the
+        # copy, so a per-lane loop moves one lane's bytes, not the batch's
+        return _host(t[lane] if batched and t.ndim else t)
+
+    cols = {k: lane_host(getattr(state, f"tr_{k}")) for k in _COLS
             if getattr(state, f"tr_{k}").shape[-1] > 0}
-    pos = _host(state.trace_pos)
-    on = _host(state.trace_on)
-    cap_arr = _host(state.trace_cap)
-    if cols["now"].ndim == 2:          # batched state: select the lane
-        cols = {k: v[lane] for k, v in cols.items()}
-        pos, on = pos[lane], on[lane]
-        cap_arr = cap_arr[lane] if cap_arr.ndim else cap_arr
+    pos = lane_host(state.trace_pos)
+    on = lane_host(state.trace_on)
+    cap_arr = lane_host(state.trace_cap)
     cap = int(cap_arr)
     if not bool(on):
         raise ValueError(

@@ -172,10 +172,10 @@ def export_chrome_trace(path: str, events=None, b: int = 0,
         # lane's final per-node clock skew and disk latency, included
         # only when some node actually carries a fault — a clean run's
         # golden document is byte-identical to r16's
-        skew = state.skew.cpu().numpy()
-        dlat = state.disk_lat.cpu().numpy()
+        skew, dlat = state.skew, state.disk_lat
         if skew.ndim == 2:          # batched state: this lane's view
             skew, dlat = skew[lane], dlat[lane]
+        skew, dlat = skew.cpu().numpy(), dlat.cpu().numpy()
         if skew.any() or dlat.any():
             node_args = {n: dict(skew=int(skew[n]),
                                  disk_lat=int(dlat[n]))

@@ -220,20 +220,25 @@ class KnobPlan:
         """`mutate` where a per-lane bool `mask` selects which lanes keep
         the mutant: False lanes pass their parent through, count nothing
         in the histogram and get last-op -1. With mask None (or all
-        True) this is exactly `mutate`."""
+        True) this is exactly `mutate`. The knob batch comes back with
+        its keys sorted, as the JAX package's jitted mutator returns it
+        (a durable store writes an entry's arrays in that order)."""
         kb = self._on_device(knobs_batch)
         B = int(kb["row_time"].shape[0])
         if havoc <= 0:
-            return (kb, torch.zeros((N_MUT_OPS,), dtype=torch.int32,
-                                    device=self.device),
-                    torch.full((B,), -1, dtype=torch.int32,
-                               device=self.device))
-        guards, _ = self._device_tables(self.device)
-        if mask is not None:
-            mask = torch.as_tensor(mask, dtype=torch.bool,
-                                   device=self.device)
-        return mutate_batch(kb, _key_tensor(key, self.device), guards,
-                            int(havoc), mask)
+            out = kb
+            hist = torch.zeros((N_MUT_OPS,), dtype=torch.int32,
+                               device=self.device)
+            last_op = torch.full((B,), -1, dtype=torch.int32,
+                                 device=self.device)
+        else:
+            guards, _ = self._device_tables(self.device)
+            if mask is not None:
+                mask = torch.as_tensor(mask, dtype=torch.bool,
+                                       device=self.device)
+            out, hist, last_op = mutate_batch(
+                kb, _key_tensor(key, self.device), guards, int(havoc), mask)
+        return dict(sorted(out.items())), hist, last_op
 
     def apply(self, state, knobs_batch):
         """Write a knob batch into a batched init state: scenario slots

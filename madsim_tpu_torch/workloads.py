@@ -85,6 +85,14 @@
   grayfail_runtime   bench.py `_make_grayfail_runtime` (bench.py:750-803):
                      Percolator-lite on 5 nodes under the gray-failure
                      recipes mix, skew, asym, disk and torn
+  ldfi_echo_runtime  the JAX package's LDFI test runtime
+                     (tests/test_ldfi.py `_echo_ldfi_rt`): rpc_echo on 4
+                     nodes under a one-way cut, a reset storm, clock drift
+                     and a retransmit storm, so every fault op that
+                     synthesis aims has a mutable row
+  aimed_asym_runtime bench.py `_make_aimed_asym_runtime` (bench.py:1379-
+                     1399): Percolator-lite whose one-way cut rows are
+                     parked at 6 s, past quiesce: a green base scenario
   stream_echo_runtime  make_stream_echo_runtime(mode) at its defaults: one
                      server and 2 clients of 6 items, for the bidi, sum
                      and download method shapes
@@ -533,6 +541,45 @@ def grayfail_runtime(recipe="mix", trace_cap=128, n_ops=12, device=None):
     return make_percolator_runtime(n_clients=3, n_ops=n_ops,
                                    sync_commits=sync, scenario=sc, cfg=cfg,
                                    device=device)
+
+
+def ldfi_echo_runtime(trace_cap=64, target=3, device=None):
+    """tests/test_ldfi.py:147-163: rpc_echo (4 nodes, `target` echoes a
+    client), 256 event rows, 20 s, the recorder at `trace_cap`, under
+    asymmetric_partition(400 ms, [1], 300 ms), conn_reset_storm(2 rounds
+    from 300 ms every 450 ms, node 2), clock_drift(200 ms, 128, node 1,
+    until 900 ms) and retransmit_storm(250 ms, 0.3, 800 ms, node 1)."""
+    from .models.rpc_echo import make_echo_runtime
+    from .runtime import chaos
+    sc = Scenario()
+    sc = chaos.asymmetric_partition(ms(400), [1], ms(300), sc=sc)
+    sc = chaos.conn_reset_storm(rounds=2, first=ms(300), period=ms(450),
+                                node=2, sc=sc)
+    sc = chaos.clock_drift(ms(200), 128, node=1, until=ms(900), sc=sc)
+    sc = chaos.retransmit_storm(ms(250), 0.3, ms(800), node=1, sc=sc)
+    cfg = SimConfig(n_nodes=4, event_capacity=256, time_limit=sec(20),
+                    trace_cap=trace_cap)
+    return make_echo_runtime(n_nodes=4, target=target, cfg=cfg,
+                             scenario=sc, device=device)
+
+
+def aimed_asym_runtime(device=None):
+    """bench.py:1379-1399: Percolator-lite (3 clients of 12 ops, sync
+    commits) on 5 nodes, 256 event rows, 8 payload words, 1-8 ms
+    latency, 10 s, trace_cap=128, under asymmetric_partition(6 s, [1],
+    300 ms, direction=1): the cut and its heal are parked after the
+    workload quiesces, so the base scenario is green."""
+    from .models.percolator import make_percolator_runtime
+    from .runtime import chaos
+    sc = chaos.asymmetric_partition(ms(6000), [1], ms(300), direction=1,
+                                    sc=Scenario())
+    cfg = SimConfig(n_nodes=5, event_capacity=256, payload_words=8,
+                    time_limit=sec(10), trace_cap=128,
+                    net=NetConfig(send_latency_min=ms(1),
+                                  send_latency_max=ms(8)))
+    return make_percolator_runtime(n_clients=3, n_ops=12,
+                                   sync_commits=True, scenario=sc,
+                                   cfg=cfg, device=device)
 
 
 STREAM_ECHO_MODES = ("bidi", "sum", "download")

@@ -19,7 +19,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 MODULES = ("test_torch_minipg", "test_torch_stream",
-           "test_torch_stream_echo", "test_torch_codegen")
+           "test_torch_stream_echo", "test_torch_codegen",
+           "test_torch_ldfi", "test_torch_campaign", "test_torch_triage")
 
 
 def main(argv=None) -> int:

@@ -21,6 +21,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import gc
+import json
 import os
 
 import jax
@@ -221,3 +222,112 @@ def jax_state_like(like, leaves: dict):
     paths, treedef = jtu.tree_flatten_with_path(like)
     return jtu.tree_unflatten(treedef, [jax.numpy.asarray(
         leaves[jtu.keystr(p)]) for p, _ in paths])
+
+
+# --------------------------------------------------------------------------
+# durable campaign stores (service/store.py) as recordable parts
+# --------------------------------------------------------------------------
+# the wall-clock fields of a store: a state's `wall_s`, a metrics row's `t`
+# and `wall_s`, a bucket's `created_at` / `upgraded_at`. `freeze_clock`
+# rewrites them from the campaign's own counters, so two runs' stores can
+# be held to each other byte for byte, and a recording to a fresh run.
+WALL_CLOCK_FIELDS = ("state wall_s", "metrics t", "metrics wall_s",
+                     "bucket created_at", "bucket upgraded_at")
+
+
+def _rewrite_json(path, obj):
+    with open(path, "w") as f:
+        f.write(json.dumps(obj, indent=1) + "\n")
+
+
+def freeze_clock(corpus_dir: str) -> None:
+    """Replace the store's wall-clock fields (WALL_CLOCK_FIELDS) by values
+    made from its round counters, in the writer's own JSON layout."""
+    sdir = os.path.join(corpus_dir, "state")
+    for n in sorted(os.listdir(sdir)) if os.path.isdir(sdir) else ():
+        p = os.path.join(sdir, n)
+        with open(p) as f:
+            st = json.load(f)
+        st["wall_s"] = float(st.get("rounds_done", 0))
+        _rewrite_json(p, st)
+    mdir = os.path.join(corpus_dir, "metrics")
+    for n in sorted(os.listdir(mdir)) if os.path.isdir(mdir) else ():
+        p = os.path.join(mdir, n)
+        with open(p) as f:
+            rows = [json.loads(line) for line in f if line.strip()]
+        for r in rows:
+            r["t"] = 1e9 + 10.0 * r["rounds_done"]
+            r["wall_s"] = float(r["rounds_done"])
+        with open(p, "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in rows)
+    bdir = os.path.join(corpus_dir, "buckets")
+    for n in sorted(os.listdir(bdir)) if os.path.isdir(bdir) else ():
+        if not n.endswith(".json") or n.endswith(".trace.json"):
+            continue
+        p = os.path.join(bdir, n)
+        with open(p) as f:
+            rec = json.load(f)
+        t = 1e9 + 10.0 * rec["repro"]["round"]
+        for k in ("created_at", "upgraded_at"):
+            if k in rec:
+                rec[k] = t
+        _rewrite_json(p, rec)
+
+
+def store_tree(corpus_dir: str, skip=()) -> dict:
+    """{path relative to the dir: uint8 bytes} of every file under it
+    (a recordable part), less the top-level subdirs named in `skip`."""
+    out = {}
+    for root, dirs, files in os.walk(corpus_dir):
+        rel = os.path.relpath(root, corpus_dir)
+        if rel.split(os.sep)[0] in skip:
+            continue
+        for n in files:
+            p = os.path.join(root, n)
+            with open(p, "rb") as f:
+                out[os.path.relpath(p, corpus_dir)] = np.frombuffer(
+                    f.read(), np.uint8).copy()
+    return out
+
+
+def write_tree(corpus_dir: str, tree: dict) -> str:
+    """Materialize a `store_tree` part under `corpus_dir` (over what is
+    there)."""
+    for rel, data in tree.items():
+        p = os.path.join(corpus_dir, rel)
+        os.makedirs(os.path.dirname(p), exist_ok=True)
+        with open(p, "wb") as f:
+            f.write(np.asarray(data, np.uint8).tobytes())
+    return corpus_dir
+
+
+def assert_same_tree(ref: dict, got: dict, what: str = ""):
+    """Two `store_tree` parts hold the same files with the same bytes."""
+    assert sorted(ref) == sorted(got), (what, sorted(set(ref) ^ set(got)))
+    for rel in ref:
+        a, b = bytes(ref[rel]), bytes(got[rel])
+        assert a == b, f"{what} {rel}: {a[:400]!r} != {b[:400]!r}"
+
+
+def _plain(x):
+    """JSON-able form of a reader's result: numpy values as [dtype,
+    values], dict keys as strings."""
+    if isinstance(x, dict):
+        return {str(k): _plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_plain(v) for v in x]
+    if isinstance(x, np.ndarray):
+        return ["ndarray", str(x.dtype), x.tolist()]
+    if isinstance(x, np.generic):
+        return [type(x).__name__, x.item()]
+    return x
+
+
+def json_part(obj) -> dict:
+    """A recordable part holding one result as canonical JSON bytes."""
+    return {"json": np.frombuffer(json.dumps(_plain(obj), sort_keys=True)
+                                  .encode(), np.uint8).copy()}
+
+
+def part_json(part: dict):
+    return json.loads(bytes(part["json"]).decode())

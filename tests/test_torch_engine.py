@@ -601,7 +601,16 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
             "madsim_tpu_torch.net.stream, madsim_tpu_torch.net.conn, "
             "madsim_tpu_torch.net.streaming, madsim_tpu_torch.net.codegen, "
             "madsim_tpu_torch.models.minipg, "
-            "madsim_tpu_torch.models.stream_echo"
+            "madsim_tpu_torch.models.stream_echo, "
+            "madsim_tpu_torch.harness.witness, madsim_tpu_torch.obs.support, "
+            "madsim_tpu_torch.search.ldfi, madsim_tpu_torch.obs.metrics, "
+            "madsim_tpu_torch.obs.progress, madsim_tpu_torch.obs.dashboard, "
+            "madsim_tpu_torch.service, madsim_tpu_torch.service.store, "
+            "madsim_tpu_torch.service.buckets, "
+            "madsim_tpu_torch.service.campaign, "
+            "madsim_tpu_torch.service.worker, "
+            "madsim_tpu_torch.service.triage, "
+            "madsim_tpu_torch.service.report"
             "\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'jaxlib', 'madsim_tpu.')) or m == 'madsim_tpu']\n"

@@ -173,3 +173,24 @@ def test_the_serial_pass_gives_the_jax_packages_script():
                                  batched=False)
     assert got[0].describe() == want[0].describe()
     assert got[1] == want[1] and got[1]["mode"] == "serial"
+
+
+def test_durable_fuzz_minimize_writes_the_script_into_its_bucket(
+        jax_results, tmp_path):
+    """With a store, fuzz(minimize=True) also writes each shrunk script
+    into the bucket that the run opened for its crash code (the repro
+    handle stays): the JAX package's `minimized` entry less its knobs."""
+    import json
+    from madsim_tpu_torch.search import fuzz
+    from madsim_tpu_torch.service import CorpusStore
+    d = str(tmp_path / "camp")
+    got = fuzz(_port_runtime(), corpus_dir=d, **FUZZ)
+    store = CorpusStore(d, create=False)
+    recs = [store.load_bucket(k) for k in got["buckets_opened"]]
+    assert recs and {r["crash_code"] for r in recs} == {LOST_WRITE}
+    want = {k: v for k, v in jax_results["fuzz"]["minimized"][
+        LOST_WRITE].items() if k != "knobs"}
+    for rec in recs:
+        assert rec["minimized"] == json.loads(json.dumps(want))
+        seed, _ = store.load_bucket_repro(rec["key"])
+        assert seed == rec["repro"]["seed"]

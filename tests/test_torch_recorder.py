@@ -100,6 +100,51 @@ def test_ring_readers_match_reference(traced_flagship):
         ring_records(f["state"], 0)
 
 
+def _whole_batch_ring_records(state, lane):
+    """The reader as it was: every lane's columns copied to the host, the
+    lane selected there."""
+    from madsim_tpu_torch.obs.rings import _COLS
+    cols = {k: getattr(state, f"tr_{k}").cpu().numpy()[lane] for k in _COLS
+            if getattr(state, f"tr_{k}").shape[-1] > 0}
+    total = int(state.trace_pos.cpu().numpy()[lane])
+    cap = int(state.trace_cap.cpu().numpy().reshape(-1)[0])
+    n = min(total, cap)
+    order = ((total % cap if total > cap else 0) + np.arange(n)) % cap
+    out = {k: v[order] for k, v in cols.items()}
+    out.update(total=total, dropped=total - n)
+    return out
+
+
+def test_ring_records_copy_one_lane(traced_flagship, monkeypatch):
+    """A lane's records are those the whole-batch reader gave, and the
+    reader copies that lane's bytes alone to the host."""
+    from madsim_tpu_torch.obs import rings
+    state = traced_flagship["state"]
+    copied = []
+    host = rings._host
+
+    def counting_host(t):
+        copied.append(int(t.numel()) * t.element_size()
+                      if isinstance(t, torch.Tensor) else np.asarray(t).nbytes)
+        return host(t)
+
+    monkeypatch.setattr(rings, "_host", counting_host)
+    lane_bytes = sum(getattr(state, f).element_size()
+                     * getattr(state, f)[0].numel()
+                     for f in dir(state) if f.startswith("tr_")
+                     and getattr(state, f).ndim == 2)
+    for lane in TRACE_LANES:
+        copied.clear()
+        got = rings.ring_records(state, int(lane))
+        want = _whole_batch_ring_records(state, int(lane))
+        assert sorted(got) == sorted(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k],
+                                          err_msg=f"lane {lane} {k}")
+        # the ring columns of one lane plus its three scalars
+        assert sum(copied) <= lane_bytes + 64, (sum(copied), lane_bytes)
+
+
 def test_ring_readers_refuse_a_compiled_out_ring():
     from madsim_tpu_torch.obs.rings import ring_records
     rt = workloads.pingpong_runtime(device="cpu")

@@ -406,12 +406,24 @@ def test_observer_sees_every_round():
 # The port's boundary
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("kw,item", [
-    (dict(ldfi=object()), "P13"), (dict(corpus_dir="store"), "P14")])
-def test_unported_fuzz_branches_are_refused(kw, item):
-    from madsim_tpu_torch.search import fuzz
+    (dict(ldfi=True), "P13"), (dict(corpus_dir=True), "P14")])
+def test_unported_fuzz_branches_are_refused(kw, item, tmp_path):
+    """Both branches were refused until they were ported (ROADMAP P13,
+    P14); each now runs as the JAX package's does: `ldfi=` on a runtime
+    without the flight recorder raises the reference's ValueError, and
+    `corpus_dir=` runs a durable campaign (tests/test_torch_campaign.py
+    and tests/test_torch_ldfi.py hold both to the reference)."""
+    from madsim_tpu_torch.search import LdfiConfig, fuzz
     rt = workloads.saturating_runtime(device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        fuzz(rt, max_steps=10, batch=2, max_rounds=1, **kw)
+    if item == "P13":
+        with pytest.raises(ValueError, match="flight recorder"):
+            fuzz(rt, max_steps=10, batch=2, max_rounds=1,
+                 ldfi=LdfiConfig())
+    else:
+        res = fuzz(rt, max_steps=10, batch=2, max_rounds=1, chunk=16,
+                   corpus_dir=str(tmp_path / "store"))
+        assert res["rounds_done_total"] == 1
+        assert res["corpus_dir"] == str(tmp_path / "store")
 
 
 def test_a_knob_plan_runs_on_cuda_unless_a_device_is_named(monkeypatch):
